@@ -14,13 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(params, device="cpu", dtype=torch.float32):
+def params_from_jax(params, device=DEFAULT_DEVICE, dtype=torch.float32):
     """Map a JAX-side params tree (dicts, lists, tuples; numpy-convertible
     leaves) onto the port's: the same structure with ``dtype`` tensors
-    on ``device``, 4-D conv kernels transposed HWIO -> OIHW."""
+    on ``device`` (the card by default, raising on a host without one),
+    4-D conv kernels transposed HWIO -> OIHW."""
+    device = resolve_device(device)
     if isinstance(params, dict):
         return {k: params_from_jax(v, device, dtype)
                 for k, v in params.items()}

@@ -9,8 +9,8 @@ decomposition exactly:
 
 so a WxW product is sum_{i,j} a_i * w_j << 4(i+j) — *bit-exact* with the
 int32 product.  `plane_matmul` is the plain torch composition; the
-bitserial kernel of the precision slice performs the same per-plane
-matmuls with int8 operands.
+bitserial CUDA kernel (:mod:`repro_torch.kernels.bitserial_mm`) performs
+the same per-plane products on int8 digit planes.
 
 Also provides symmetric per-channel quantization used by the quantized
 serving path — the IoT-style 4/8/16-bit menu of the paper mapped onto
@@ -92,8 +92,8 @@ def plane_matmul(a: torch.Tensor, w: torch.Tensor,
     per-plane partial sum is exact (|4b x 4b| <= 225 per term) and is
     formed in int64 before the int32 accumulation.  Shift schedule is
     4*(i+j): 0/4/4/8 for 8x8, max 24 for 16x16 (Fig 2).  Integer matmul
-    is a CPU operator in PyTorch; the card runs this through the
-    bitserial kernel of the precision slice.
+    is a CPU operator in PyTorch; on the card the same product runs
+    through :func:`repro_torch.kernels.bitserial_matmul`.
     """
     a_planes = split_planes(a, a_width)
     w_planes = split_planes(w, w_width)

@@ -6,13 +6,20 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
 - shuffle_gemm : the programmable gather/pad fused with the GEMM (paper
                  §V: the shuffling fabric feeding the array) — both the
                  shared-operand and the grouped (FFT butterfly) forms.
+- bitserial_mm : variable-bitwidth integer GEMM over 4-bit digit planes
+                 with shift-add recombination (paper §IV / Fig 2).
+- fft_stage    : one radix-2 butterfly stage = composed shuffle plan +
+                 per-twiddle-class 4x4 products (paper Fig 3a).
+- fir_conv     : multi-phase FIR (window gather + tap-bank product,
+                 structural zeros = DPU pads; paper Fig 3b).
 
-The source lives in ``csrc/`` and is built from the checkout at first use,
-with ``nvcc`` into a plain-C shared library (loaded with ``ctypes``) under
-``build/repro_torch_kernels/<digest>/`` at the repo root; the digest covers
-the source and flags, so an edit rebuilds.  Every wrapper takes the plain
-PyTorch version for a tensor on the CPU and launches its kernel — or
-raises — for a tensor on the card; nothing falls back.
+The sources live in ``csrc/`` and are built from the checkout at first
+use: one ``nvcc`` per source, all started together, then one link into a
+plain-C shared library (loaded with ``ctypes``) under
+``build/repro_torch_kernels/<digest>/`` at the repo root; the digest
+covers every source and the flags, so an edit rebuilds.  Every wrapper
+takes the plain PyTorch version for a tensor on the CPU and launches its
+kernel — or raises — for a tensor on the card; nothing falls back.
 """
 
 from __future__ import annotations
@@ -27,12 +34,16 @@ from typing import Optional
 
 import torch
 
-__all__ = ["shuffle_gemm", "shuffle_gemm_grouped", "compiled_supported",
+__all__ = ["shuffle_gemm", "shuffle_gemm_grouped", "bitserial_matmul",
+           "fft_stage", "fft_hopper", "fir_conv", "compiled_supported",
            "library", "build", "NVCC_FLAGS"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "shuffle_gemm.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+LIB_NAME = "librepro_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 # ctypes signatures of the exported C functions.
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,6 +51,9 @@ _SIGNATURES = {
     "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 6 + (_P,),
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_copy_f32": (_P, _P, _I, _P),
+    "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
+    "repro_fft_stage": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -48,12 +62,15 @@ _LIB: Optional[ctypes.CDLL] = None
 def build_dir() -> Path:
     """``build/repro_torch_kernels`` at the root of the checkout
     (listed in ``.gitignore``)."""
-    return SOURCE.parents[4] / "build" / "repro_torch_kernels"
+    return CSRC.parents[3] / "build" / "repro_torch_kernels"
 
 
 def _digest() -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    """Digest of every source (name and bytes) and every flag."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -71,24 +88,52 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Build ``csrc/shuffle_gemm.cu`` unless its library exists, and return
-    the library's path; raises ``RuntimeError`` with the compiler's output
-    if the build fails.  ``nvcc -Xptxas -v`` output (registers, spills) is
-    kept in ``libshuffle_gemm.log`` beside the library."""
-    lib = build_dir() / _digest() / "libshuffle_gemm.so"
+    """Build every ``csrc/*.cu`` into one library unless it exists, and
+    return the library's path: one ``nvcc -c`` per source, all running
+    at once, then one ``nvcc -shared`` link.  Raises ``RuntimeError``
+    with the compiler's output if a step fails.  The ``nvcc -Xptxas -v``
+    output of every source (registers, spills per kernel) is kept in
+    ``librepro_kernels.log`` beside the library."""
+    lib = build_dir() / _digest() / LIB_NAME
     if lib.exists():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    lib.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)          # atomic: concurrent builders agree
+    work = lib.parent / f".build.{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        jobs = []
+        for src in SOURCES:
+            obj, log = work / f"{src.stem}.o", work / f"{src.stem}.log"
+            with open(log, "w") as out:
+                jobs.append((src, obj, log, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=out, stderr=subprocess.STDOUT)))
+        report, failed = [], []
+        for src, _, log, proc in jobs:
+            rc = proc.wait()
+            report.append(f"== {src.name} (nvcc exit {rc})\n"
+                          f"{log.read_text()}")
+            if rc:
+                failed.append(src.name)
+        if not failed:
+            tmp = work / LIB_NAME
+            link = subprocess.run(
+                [nvcc, *LINK_FLAGS, "-o", str(tmp),
+                 *(str(obj) for _, obj, _, _ in jobs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            report.append(f"== link (nvcc exit {link.returncode})\n"
+                          f"{link.stdout}")
+            if link.returncode:
+                failed.append("link")
+        text = "\n".join(report)
+        lib.with_suffix(".log").write_text(text)
+        if failed:
+            raise RuntimeError(f"building the repro_torch kernels failed "
+                               f"({', '.join(failed)}):\n{text}")
+        os.replace(tmp, lib)      # atomic: concurrent builders agree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -105,6 +150,51 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` (tensor
+    pointers and sizes as ints) and the current stream of ``device``.
+    Raises ``RuntimeError`` if the launch reports a CUDA error: a refused
+    launch never runs, and no later synchronisation would report it."""
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+
+def check_operands(kernel: str, operands) -> None:
+    """Check a kernel's operands before their pointers go to C.
+    ``operands`` maps each name to ``(tensor, dtype)``; the first tensor
+    must lie on a CUDA device and every other on the same one, each of
+    its dtype and contiguous.  Raises ``ValueError`` or ``TypeError``."""
+    (lead, (first, _)), *_ = operands.items()
+    dev = first.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors or (plain "
+                         f"version) CPU tensors; got {dev}")
+    for name, (t, dtype) in operands.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {lead} on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def forward_only(kernel: str, x: torch.Tensor, *others) -> None:
+    """Refuse a call on the card that autograd would have to see through:
+    the CUDA kernels have no backward pass yet, so their result would
+    silently drop the gradient.  CPU tensors take the plain versions,
+    which differentiate."""
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, *others)):
+        raise NotImplementedError(
+            f"gradients through the {kernel} CUDA kernels are the "
+            f"training slice of the port (ROADMAP Queue 1 item 1); run "
+            f"under torch.no_grad() or on the CPU")
+
+
 def compiled_supported() -> bool:
     """True once the kernel library builds and a copy kernel launches on
     the card and returns its input — the counterpart of the JAX
@@ -112,15 +202,14 @@ def compiled_supported() -> bool:
     build failure raises."""
     if not torch.cuda.is_available():
         return False
-    lib = library()
     x = torch.arange(8 * 128, dtype=torch.float32, device="cuda")
     y = torch.empty_like(x)
-    err = lib.repro_copy_f32(x.data_ptr(), y.data_ptr(), x.numel(),
-                             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"repro_copy_f32 launch failed: CUDA error {err}")
+    launch("repro_copy_f32", x.device, x.data_ptr(), y.data_ptr(), x.numel())
     torch.cuda.synchronize()
     return bool(torch.equal(x, y))
 
 
+from .bitserial_mm.ops import bitserial_matmul  # noqa: E402
+from .fft_stage.ops import fft_hopper, fft_stage  # noqa: E402
+from .fir_conv.ops import fir_conv  # noqa: E402
 from .shuffle_gemm.ops import shuffle_gemm, shuffle_gemm_grouped  # noqa: E402

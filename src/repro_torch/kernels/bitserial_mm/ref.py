@@ -1,0 +1,63 @@
+"""Plain PyTorch versions of the bitserial GEMM.
+
+The bitserial kernel must equal the direct integer GEMM bit-exactly in
+32-bit two's-complement arithmetic (wraparound above 2^31, like the
+array's fixed-width accumulator).  PyTorch has no integer matmul on
+CUDA, so on the card each product is formed in float64, which is exact
+while every partial sum stays below 2^53, and is then taken to int64;
+on the CPU the product is an int64 matmul.  The wrapper in ``kernel.py``
+runs :func:`ref_bitserial_matmul_planes` for tensors on the CPU; the
+card-side tests and ``chip_smoke.py`` hold the kernel against it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["ref_bitserial_matmul", "ref_bitserial_matmul_planes", "wrap32"]
+
+_EXACT_F64 = 2 ** 53
+_DIGIT_MAX = 15
+
+
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 mod 2^32, two's complement."""
+    return (torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def _int64_matmul(a: torch.Tensor, w: torch.Tensor,
+                  peak: Optional[int] = None) -> torch.Tensor:
+    """The exact int64 product of two integer tensors on their device.
+    On the card ``peak`` bounds every partial sum's magnitude; without
+    it the bound is read from the data (a host synchronisation)."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int64), w.to(torch.int64))
+    if peak is None:
+        peak = (int(a.abs().amax()) if a.numel() else 0) * \
+            (int(w.abs().amax()) if w.numel() else 0) * a.shape[-1]
+    if peak >= _EXACT_F64:
+        raise ValueError(f"an integer product of magnitude up to {peak} is "
+                         f"not exact in float64")
+    return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(
+        torch.int64)
+
+
+def ref_bitserial_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int64 product wrapped to int32 (mod 2^32, two's complement)."""
+    return wrap32(_int64_matmul(a, w))
+
+
+def ref_bitserial_matmul_planes(a_planes: torch.Tensor,
+                                w_planes: torch.Tensor) -> torch.Tensor:
+    """(pa, M, K) x (pw, K, N) int8 digit planes -> (M, N) int32:
+    ``sum_{i,j} (a_i @ w_j) << 4(i+j)`` mod 2^32, the kernel's function."""
+    peak = _DIGIT_MAX ** 2 * a_planes.shape[-1]     # digits lie in [-8, 16)
+    acc = None
+    for i in range(a_planes.shape[0]):
+        for j in range(w_planes.shape[0]):
+            part = _int64_matmul(a_planes[i], w_planes[j], peak) \
+                << (4 * (i + j))
+            acc = part if acc is None else acc + part
+    return wrap32(acc)

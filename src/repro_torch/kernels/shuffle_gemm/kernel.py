@@ -39,24 +39,15 @@ _MAX_GRID_Y = 65535
 
 
 def _check(x, idx, pad_vals, w, scale, w_rank):
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"shuffle_gemm kernels run on CUDA tensors or "
-                         f"(plain version) CPU tensors; got {dev}")
-    if x.dtype not in _DTYPE_CODES:
+    from .. import check_operands
+    if x.device.type == "cuda" and x.dtype not in _DTYPE_CODES:
         raise TypeError(f"shuffle_gemm kernels take float32 or bfloat16; "
                         f"got {x.dtype}")
-    tensors = {"x": x, "idx": idx, "pad_vals": pad_vals, "w": w}
+    operands = {"x": (x, x.dtype), "idx": (idx, torch.int32),
+                "pad_vals": (pad_vals, x.dtype), "w": (w, x.dtype)}
     if scale is not None:
-        tensors["scale"] = scale
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        want = torch.int32 if name == "idx" else x.dtype
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}; got {t.dtype}")
+        operands["scale"] = (scale, x.dtype)
+    check_operands("shuffle_gemm", operands)
     if x.ndim != 2 or idx.ndim != 2 or w.ndim != w_rank:
         raise ValueError(f"shapes: x {tuple(x.shape)} must be (B, n_in), "
                          f"idx {tuple(idx.shape)} (R, t), w "
@@ -71,14 +62,11 @@ def _check(x, idx, pad_vals, w, scale, w_rank):
         raise ValueError(f"batch {x.shape[0]} exceeds {_MAX_GRID_Y}")
 
 
-def _launch(fn, x, idx, pad_vals, w, scale, out, *ints):
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), idx.data_ptr(), pad_vals.data_ptr(),
-                 None if scale is None else scale.data_ptr(), w.data_ptr(),
-                 out.data_ptr(), *ints, _DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+def _launch(entry, x, idx, pad_vals, w, scale, out, *ints):
+    from .. import launch
+    launch(entry, x.device, x.data_ptr(), idx.data_ptr(),
+           pad_vals.data_ptr(), None if scale is None else scale.data_ptr(),
+           w.data_ptr(), out.data_ptr(), *ints, _DTYPE_CODES[x.dtype])
 
 
 def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
@@ -94,8 +82,7 @@ def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
     (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
     out = torch.empty((b, r, n_out), dtype=x.dtype, device=x.device)
     if out.numel():
-        from .. import library
-        _launch(library().repro_shuffle_gemm_blocks,
+        _launch("repro_shuffle_gemm_blocks",
                 x, idx, pad_vals, w, scale, out, b, n_in, r, t, n_out)
         shuffle_gemm_blocks.launches += 1
     return out
@@ -121,8 +108,7 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
                          f"groups (has {w.shape[0]})")
     out = torch.empty((b, r * n_out), dtype=x.dtype, device=x.device)
     if out.numel():
-        from .. import library
-        _launch(library().repro_shuffle_gemm_grouped_blocks,
+        _launch("repro_shuffle_gemm_grouped_blocks",
                 x, idx, pad_vals, w, scale, out, b, n_in, reps, groups, nb,
                 t, n_out)
         shuffle_gemm_grouped_blocks.launches += 1

@@ -52,13 +52,8 @@ def plan_blocks(plan: ShufflePlan, diag, rows: int, dtype, device):
 
 
 def _prepare(x: torch.Tensor, plan, diag, rows, w):
-    if x.device.type == "cuda" and torch.is_grad_enabled() and (
-            x.requires_grad or (isinstance(w, torch.Tensor)
-                                and w.requires_grad)):
-        raise NotImplementedError(
-            "gradients through the shuffle-GEMM CUDA kernels are the "
-            "training slice of the port (ROADMAP Queue 1 item 1); run "
-            "under torch.no_grad() or on the CPU")
+    from .. import forward_only
+    forward_only("shuffle-GEMM", x, w)
     t, idx, pads, scale, max_index = plan_blocks(plan, diag, rows, x.dtype,
                                                  x.device)
     n_in = x.shape[-1]

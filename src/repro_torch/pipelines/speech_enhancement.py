@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.fabric import device_constant
+from ..device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["FRAME", "HOP", "init_cnn", "cnn_mask", "build_graph"]
 
@@ -32,11 +33,13 @@ FRAME, HOP = 256, 128
 
 
 def init_cnn(generator: torch.Generator, ch: Sequence[int] = (2, 12, 12, 1),
-             device="cpu") -> List[torch.Tensor]:
+             device=DEFAULT_DEVICE) -> List[torch.Tensor]:
     """Mask-CNN weights, OIHW ``(co, ci, 3, 3)`` per layer, drawn from
-    ``generator`` with the JAX package's scale ``1 / sqrt(9 * ci)``.
+    ``generator`` with the JAX package's scale ``1 / sqrt(9 * ci)``, on
+    ``device`` (the card by default, raising on a host without one).
     The two frameworks draw different numbers from one seed: parity
     tests build the weights with numpy and convert them instead."""
+    device = resolve_device(device)
     return [torch.randn((co, ci, 3, 3), generator=generator)
             .mul_(1.0 / (9 * ci) ** 0.5).to(device)
             for ci, co in zip(ch[:-1], ch[1:])]

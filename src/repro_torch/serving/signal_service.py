@@ -21,12 +21,15 @@ Results carry the SigProgram multi-output contract: graphs declared with
 :meth:`serve`, each output trimmed back to the request's true length
 along its own frames/time axis.
 
+Calibrated programs are served with ``precision=`` (a SigQuant
+:class:`~repro_torch.signal.backends.PrecisionPolicy`): every bucket
+compile int-routes the policy's steps through the bitserial kernel.
+
 In this slice the service runs with ``scheduler=False`` (the FIFO pick:
 the oldest request's ``(graph, bucket)`` group in arrival order, up to
-``batch_size``), no mesh and no precision policy; streaming sessions,
-SigSched, SigMesh, calibrated precision and the LLM co-scheduler are
-later slices of the port.  With one graph and no deadlines SigSched's
-pick equals the FIFO pick.
+``batch_size``) and no mesh; streaming sessions, SigSched, SigMesh and
+the LLM co-scheduler are later slices of the port.  With one graph and
+no deadlines SigSched's pick equals the FIFO pick.
 """
 
 from __future__ import annotations
@@ -102,14 +105,18 @@ class SignalService:
     that for all graphs.
 
     ``backend`` selects the execution backend of every compiled program
-    (``"reference"`` plain torch, ``"hopper"`` the shuffle-GEMM CUDA
-    kernels); ``device`` where it runs (``"cuda"`` by default, raising on
-    a host without a card).
+    (``"reference"`` plain torch, ``"hopper"`` the CUDA kernels);
+    ``device`` where it runs (``"cuda"`` by default, raising on a host
+    without a card).  ``precision`` serves a calibrated program: the
+    hopper backend is rebuilt with the policy, which is part of the
+    backend's ``cache_key``, so bucket compiles key on it and served
+    results equal the offline compile under the same policy; any other
+    backend raises ``ValueError``.
 
     ``scheduler`` must be False in this slice (the FIFO pick, which is
-    SigSched's pick for one graph without deadlines), and ``mesh`` and
-    ``precision`` None; anything else raises ``NotImplementedError``
-    naming the ROADMAP item that brings it.
+    SigSched's pick for one graph without deadlines), and ``mesh`` None;
+    anything else raises ``NotImplementedError`` naming the ROADMAP item
+    that brings it.
     """
 
     def __init__(self, batch_size: int = 8,
@@ -121,16 +128,24 @@ class SignalService:
                  precision=None,
                  scheduler=False,
                  device=DEFAULT_DEVICE):
-        from ..signal.backends import get_backend
+        from ..signal.backends import HopperBackend, get_backend
         if scheduler is not False:
             _unported("scheduler=...", "3 (SigSched)")
         if mesh is not None:
-            _unported("mesh=...", "6 (SigMesh)")
-        if precision is not None:
-            _unported("precision=...", "4 (bitserial_mm precision route)")
+            _unported("mesh=...", "5 (SigMesh)")
         self.batch_size = batch_size
         self.fuse = FuseLevel.coerce(fuse)
         self.backend = get_backend(backend)
+        if precision is not None:
+            # serve a calibrated program: rebuild the array backend with
+            # the policy, part of its ``cache_key``.
+            if not isinstance(self.backend, HopperBackend):
+                raise ValueError(
+                    f"SignalService(precision=...) needs the 'hopper' "
+                    f"backend (got {self.backend.name!r}); only the "
+                    f"array backend int-routes calibrated widths")
+            self.backend = HopperBackend(precision=precision)
+        self.precision = precision
         self.device = resolve_device(device)
         self.buckets = sorted(int(b) for b in buckets) if buckets else None
         self.bucketing = bucketing

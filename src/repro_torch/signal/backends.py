@@ -24,16 +24,20 @@ Two backends ship:
         shuffle are absorbed into the kernel's gather;
       - grouped einsums (the FFT butterfly: per-twiddle-class matmuls)
         run through :func:`repro_torch.kernels.shuffle_gemm_grouped`;
+      - steps named by a :class:`PrecisionPolicy` are *int-routed*: the
+        gathered rows and the operand are symmetrically quantized
+        (:mod:`repro_torch.core.bitwidth`) and contracted exactly on the
+        variable-bitwidth array via
+        :func:`repro_torch.kernels.bitserial_matmul`, then dequantized —
+        the paper's 4/8/16-bit menu per array pass;
       - everything else (host lambdas, gathers feeding no array pass)
         is *emulated* on the reference path.
 
     For tensors on the CPU the kernel wrappers run their plain PyTorch
-    versions; for tensors on the card they launch the kernels.  A
-    :class:`PrecisionPolicy` that int-routes a step (through the
-    ``bitserial_mm`` kernel) is the precision slice of the port and
-    raises ``NotImplementedError`` at bind time.  The forward pass only:
-    ``differentiable`` is False until the training slice brings the
-    kernels' backward passes.
+    versions; for tensors on the card they launch the kernels.  The
+    forward pass only: ``differentiable`` is False until the training
+    slice brings the kernels' backward passes and the int route's
+    straight-through gradient.
 
 :meth:`ExecBackend.bind` returns a :class:`BoundProgram` whose
 ``report()`` attributes every lowered step to its route — how many
@@ -154,9 +158,7 @@ class PrecisionPolicy:
     (``aw + ww - 2 + ceil(log2 K) > 31``) are rejected at bind time
     rather than silently wrapping.  Grouped (butterfly) einsums are
     never int-routed: their twiddle dynamic range is what the paper
-    keeps in 16-bit.  In this slice of the port the policy validates and
-    keys caches; a step it int-routes raises ``NotImplementedError`` at
-    bind time until ``bitserial_mm`` is ported."""
+    keeps in 16-bit."""
     widths: Mapping[str, Tuple[int, int]] = \
         dataclasses.field(default_factory=dict)
     default: Optional[Tuple[int, int]] = None
@@ -321,7 +323,7 @@ def group_plan(e: EinsumStep, gather: Optional[GatherStep]
     length disagrees with the einsum's flat input.  This is the single
     source of truth for *which* step groups lower onto the array: the
     hopper backend's :meth:`HopperBackend._lower_group` routes through
-    it, as the SigQuant calibration observer will."""
+    it, as the SigQuant calibration observer does."""
     shape = classify_einsum(e)
     if shape is None:
         return None
@@ -470,14 +472,14 @@ class HopperBackend(ExecBackend):
     """Lower gather∘einsum(∘post) groups onto the fused shuffle-GEMM CUDA
     kernels — the counterpart of the JAX package's ``PallasBackend``.
 
-    Routes are named as there (``fused_gemm`` / ``fused_grouped``), so
-    ``lowering_report()`` compares field by field.  Bound units are
-    device-agnostic: the kernel wrappers launch for tensors on the card
-    and run their plain PyTorch versions for tensors on the CPU, and
-    plan blocks / canonical operands are cached per device.
-    ``precision`` is accepted for cache keying and validation; a policy
-    that int-routes a step raises ``NotImplementedError`` (the
-    ``bitserial_mm`` kernel is the precision slice of the port)."""
+    Routes are named as there (``fused_gemm`` / ``fused_grouped`` /
+    ``int_bitserial``), so ``lowering_report()`` compares field by
+    field.  Bound units are device-agnostic: the kernel wrappers launch
+    for tensors on the card and run their plain PyTorch versions for
+    tensors on the CPU, and plan blocks / canonical operands are cached
+    per device.  ``precision`` optionally int-routes named steps through
+    :func:`repro_torch.kernels.bitserial_matmul` (see
+    :class:`PrecisionPolicy` and :meth:`_int_unit`)."""
 
     name = "hopper"
     differentiable = False
@@ -503,8 +505,16 @@ class HopperBackend(ExecBackend):
                 if unit is not None:
                     fn, route = unit
                     units.append(fn)
-                    routes.append(dataclasses.replace(
-                        route, absorbed_gathers=1))
+                    if route.route == "int_bitserial":
+                        # the int route gathers via apply_plan (the
+                        # bitserial kernel has no fused gather): the
+                        # absorbed pass is emulated, not fused.
+                        routes.append(StepRoute(stage.name, s.name,
+                                                "gather", "jnp"))
+                        routes.append(route)
+                    else:
+                        routes.append(dataclasses.replace(
+                            route, absorbed_gathers=1))
                     i += 2
                     continue
             if isinstance(s, EinsumStep):
@@ -540,12 +550,11 @@ class HopperBackend(ExecBackend):
         widths = self.precision.widths_for(stage_name, e.name)
         if widths is not None and not shape.grouped:
             _check_int_headroom(e.name, widths, shape.t)
-            raise NotImplementedError(
-                f"PrecisionPolicy int-routes step {e.name!r} through "
-                f"bitserial_mm, which is the precision slice of the "
-                f"PyTorch port (ROADMAP Queue 1 item 4)")
 
         def build():
+            if widths is not None and not shape.grouped:
+                return self._int_unit(e, shape, plan, diag,
+                                      widths), "int_bitserial"
             if not shape.grouped:
                 return self._gemm_unit(e, shape, plan, diag), "fused_gemm"
             return self._grouped_unit(e, shape, plan, diag), "fused_grouped"
@@ -581,6 +590,41 @@ class HopperBackend(ExecBackend):
             y = shuffle_gemm_grouped(x, plan, w, reps=shape.reps,
                                      groups=shape.groups, nb=shape.nb,
                                      diag=diag)
+            return apply_plan(y, post) if post is not None else y
+        return unit
+
+    def _int_unit(self, e: EinsumStep, shape: _EinsumShape,
+                  plan: ShufflePlan, diag, widths: Tuple[int, int]):
+        """Int-routed GEMM, forward only: symmetric quantization of the
+        gathered rows (per row) and of the operand (per output column),
+        exact bitserial integer contraction, dequantization by the
+        product of scales — the JAX package's ``PallasBackend._int_unit``
+        step for step.  Its straight-through gradient is the training
+        slice; a call that would need a gradient raises."""
+        from ..kernels import bitserial_matmul
+        aw, ww = widths
+        post = e.post
+        canonical = _CanonicalOperand(shape)
+
+        def unit(x, sp):
+            op = resolve_operand(e, sp)
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or (isinstance(op, torch.Tensor)
+                                        and op.requires_grad)):
+                raise NotImplementedError(
+                    f"gradients through the int-routed step {e.name!r} "
+                    f"(straight-through estimator) are the training slice "
+                    f"of the port; run under torch.no_grad()")
+            g = apply_plan(x, plan)
+            if diag is not None:
+                g = g * device_constant(diag, g.device, g.dtype)
+            h = g.reshape(*g.shape[:-1], shape.rows_total, shape.t).float()
+            w = canonical(op, h)
+            xq, x_scale = bw.quantize(h, aw, axis=-1)
+            wq, w_scale = bw.quantize(w, ww, axis=0)
+            acc = bitserial_matmul(xq, wq, aw, ww)
+            y = (acc.to(torch.float32) * x_scale * w_scale).to(x.dtype)
+            y = y.reshape(*y.shape[:-2], -1)
             return apply_plan(y, post) if post is not None else y
         return unit
 

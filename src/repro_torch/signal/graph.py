@@ -72,7 +72,9 @@ single-``output()`` spelling still works (bare-array results) with a
 callable on tensors of its ``device`` (``"cuda"`` unless the caller asks
 for the CPU); :meth:`CompiledSignalGraph.jit` and ``masked_jit`` return
 plain callables.  ``backend="hopper"`` lowers gather∘einsum groups onto
-the hand-written shuffle-GEMM CUDA kernels.  Differentiation
+the hand-written shuffle-GEMM CUDA kernels, and the steps a SigQuant
+``PrecisionPolicy`` names onto the bitserial integer kernel.
+Differentiation
 (:meth:`CompiledSignalGraph.value_and_grad`) and the streaming runtime
 are later slices of the port.
 """
@@ -1401,7 +1403,7 @@ class CompiledSignalGraph:
         """Batch-sharded entry point — the scale-out slice of the port."""
         raise NotImplementedError(
             "sharded execution is the scale-out slice of the PyTorch port "
-            "(ROADMAP Queue 1 item 6: torch.distributed)")
+            "(ROADMAP Queue 1 item 5: torch.distributed)")
 
     # -- accounting (consumed by perf_model.signal_graph_report) ------------
     def gather_steps(self) -> List[GatherStep]:

@@ -118,13 +118,27 @@ def test_fig9_lowering_at_full_width():
 def test_jit_entry_points_are_plain_callables():
     cnn, x = _inputs()
     c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, device="cpu")
-    params = {"mask": params_from_jax(cnn)}
+    params = {"mask": params_from_jax(cnn, device="cpu")}
     a = c(torch.as_tensor(x), params)
     b = c.jit()(torch.as_tensor(x), params)
     m = c.masked_jit()(torch.as_tensor(x), torch.full((3,), 7), params)
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
         torch.testing.assert_close(a[k], m[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["params_from_jax", "init_cnn"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Weights go to the card unless the caller names the CPU; on a host
+    without a card the default raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cnn, _ = _inputs()
+    call = {"params_from_jax": lambda **kw: params_from_jax(cnn, **kw),
+            "init_cnn": lambda **kw: tse.init_cnn(
+                torch.Generator().manual_seed(0), ch=CH, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
+    assert all(w.device.type == "cpu" for w in call(device="cpu"))
 
 
 def test_value_and_grad_names_the_training_slice():
@@ -139,10 +153,12 @@ def test_cnn_mask_matches_reference():
     z = (rng.standard_normal((2, 7, 129))
          + 1j * rng.standard_normal((2, 7, 129))).astype(np.complex64)
     want = _JSE.cnn_mask([jnp.asarray(w) for w in cnn], jnp.asarray(z))
-    got = tse.cnn_mask(params_from_jax(cnn), torch.as_tensor(z))
+    got = tse.cnn_mask(params_from_jax(cnn, device="cpu"),
+                       torch.as_tensor(z))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
-    got1 = tse.cnn_mask(params_from_jax(cnn), torch.as_tensor(z[0]))
+    got1 = tse.cnn_mask(params_from_jax(cnn, device="cpu"),
+                        torch.as_tensor(z[0]))
     np.testing.assert_allclose(got1.numpy(), np.asarray(want)[0],
                                rtol=1e-5, atol=1e-6)
 
@@ -231,7 +247,7 @@ def test_masked_context_stage_equals_unpadded_run():
     the masked zero frames to the CNN instead)."""
     cnn, x = _inputs(batch=2)
     g = tse.build_graph(LENGTH, ch=CH)
-    params = {"mask": params_from_jax(cnn)}
+    params = {"mask": params_from_jax(cnn, device="cpu")}
     lens = [LENGTH - 300, LENGTH - 500]
     xb = np.zeros_like(x)
     for i, t in enumerate(lens):

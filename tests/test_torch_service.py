@@ -117,7 +117,7 @@ def test_fifo_waves_and_pending_groups():
     cnn, xs = _data()
     svc = SignalService(batch_size=2, device="cpu")
     svc.register("se", tse.build_graph(LENGTH, ch=CH),
-                 params={"mask": params_from_jax(cnn)})
+                 params={"mask": params_from_jax(cnn, device="cpu")})
     for i, x in enumerate(xs):
         svc.submit(SignalRequest(rid=i, graph="se", samples=x))
     (grp,) = svc.pending_groups()
@@ -140,9 +140,7 @@ def test_submit_validates_samples():
 
 
 @pytest.mark.parametrize("kw,item", [({"scheduler": True}, "SigSched"),
-                                     ({"mesh": object()}, "SigMesh"),
-                                     ({"precision": object()},
-                                      "bitserial_mm")])
+                                     ({"mesh": object()}, "SigMesh")])
 def test_later_slices_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SignalService(device="cpu", **kw)
