@@ -4,10 +4,11 @@
 Drives the port's paths — the paper's Fig-9 speech-enhancement
 SigProgram (learned FIR -> STFT -> mask CNN -> iSTFT, plus a mel tap) at
 its own width (length 4096, frame 256, hop 128, 9 FIR taps, 24 mels, mask
-CNN channels (2, 12, 12, 1)), its SigQuant form Fig-9q (the mask a
-block-circulant layer, calibrated and served int-routed), and the FFT and
-phased-FIR entry points, with random weights and inputs drawn by numpy
-from ``--seed`` — phase by phase:
+CNN channels (2, 12, 12, 1)), offline, served and trained, its SigQuant
+form Fig-9q (the mask a block-circulant layer, calibrated and served
+int-routed), and the FFT, phased-FIR and flash-attention entry points,
+with random weights and inputs drawn by numpy from ``--seed`` — phase by
+phase:
 
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
   1. build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` with one
@@ -44,7 +45,30 @@ from ``--seed`` — phase by phase:
      ``torch.fft.fft`` at 2e-3) and ``fir_conv`` on the (4, 4096) input
      with 9 taps and 8 phases (against the plain version and a causal
      ``F.conv1d`` at 1e-4); their launch counts are those of one call.
-  7. kernels: the kernel JSON of all five kernels.
+  7. train: one Fig-9 ``value_and_grad`` step (wrt the front taps and
+     the mask CNN, the example's edge-cut MSE against the clean target of
+     ``SignalStream(4096, 4, seed)``) on ``hopper`` against the port's
+     ``reference`` backend on the same card tensors (loss and every
+     gradient leaf at rtol 1e-4, atol 1e-5), launching the two kernels
+     exactly 2 + 16 times forward and 16 + 16 backward
+     (``TRAIN_LAUNCHES``); its wall time and ``torch.profiler``
+     breakdown; each backward kernel call held against its plain version
+     (rtol = atol = 1e-5) and timed; 6 AdamW steps through ``train``
+     lower the held-out loss; Fig-9q's straight-through gradient equals
+     that of ``y_float + (y_int - y_float).detach()`` on its mel step,
+     and the full policy's gradients are finite and nonzero.  The
+     backward launch counts are the shuffle-GEMM rows' ``backward``.
+  8. attention: ``flash_attention`` on a gemma2-2b local layer (S 8192,
+     8 heads over 4 kv heads, hd 256, window 4096, softcap 50) and a
+     starcoder2-3b layer (S 4096, 24 heads over 2, hd 128) in float32
+     and bfloat16, batch 1, causal — each held against the plain version
+     (rtol = atol = 1e-4; bfloat16 rtol 1e-2, atol 5e-3; relative L2
+     error under 1e-2) and timed beside its bound; the starcoder2 calls
+     also against ``F.scaled_dot_product_attention``, held to the same
+     limits.  The three calls are the flash kernel's ``launches``; the
+     row's ``per_call`` splits it by call, and ``library_kernel_ms`` is
+     the kernel's time on the calls ``library_ms`` covers.
+  9. kernels: the kernel JSON of all six kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -81,13 +105,48 @@ TPU_KERNELS = {
     "bitserial_matmul_planes": "src/repro/kernels/bitserial_mm/kernel.py:46",
     "fft_stage_hopper": "src/repro/kernels/fft_stage/kernel.py:39",
     "fir_conv_hopper": "src/repro/kernels/fir_conv/kernel.py:33",
+    "flash_attention_hopper": "src/repro/kernels/flash_attention/kernel.py:81",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "shuffle_gemm_grouped_blocks": CSRC + "shuffle_gemm.cu",
            "bitserial_matmul_planes": CSRC + "bitserial_mm.cu",
            "fft_stage_hopper": CSRC + "fft_stage.cu",
-           "fir_conv_hopper": CSRC + "fir_conv.cu"}
+           "fir_conv_hopper": CSRC + "fir_conv.cu",
+           "flash_attention_hopper": CSRC + "flash_attention.cu"}
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
+# Launches of one Fig-9 value_and_grad step on hopper (wrt the front taps
+# and the mask CNN): the forward's 2 + 16 (phase 3), then in the
+# backward each of the 16 butterflies needs d_x (its input depends on the
+# front taps): one transposed grouped GEMM and one adjoint reduction on
+# shuffle_gemm_blocks.  The front taps' GEMM needs only d_w (its input is
+# the signal: an einsum, no kernel) and the mel tap is not in the loss.
+FORWARD_LAUNCHES = {"shuffle_gemm_blocks": 2,
+                    "shuffle_gemm_grouped_blocks": 16}
+BACKWARD_LAUNCHES = {"shuffle_gemm_blocks": 16,
+                     "shuffle_gemm_grouped_blocks": 16}
+TRAIN_LAUNCHES = {n: FORWARD_LAUNCHES[n] + BACKWARD_LAUNCHES[n]
+                  for n in FORWARD_LAUNCHES}
+TRAIN_STEPS = 6
+# Attention layers at the widths of configs the repo ships, batch 1:
+# (label, source, S, H, KV, hd, window, softcap, dtype name, (rtol, atol));
+# all causal.  softcap has no library call; the starcoder2 calls are
+# also timed against F.scaled_dot_product_attention.  At S 4096 a causal
+# output row over n unit-normal keys has a spread of about sqrt(e / n),
+# so typical values are 0.03-0.04: the bfloat16 limits are set from the
+# measured error (1.95e-3, one bf16 step at 0.25-0.5) with room on both
+# sides, not from the small shapes of the unit tests (3e-2), where they
+# would be as large as the values.  ATTN_REL_L2 also holds the relative
+# L2 error of each whole output.
+ATTENTION = [
+    ("gemma2-2b local layer", "src/repro/configs/gemma2_2b.py", 8192, 8, 4,
+     256, 4096, 50.0, "float32", (1e-4, 1e-4)),
+    ("starcoder2-3b layer", "src/repro/configs/starcoder2_3b.py", 4096, 24,
+     2, 128, 0, 0.0, "float32", (1e-4, 1e-4)),
+    ("starcoder2-3b layer", "src/repro/configs/starcoder2_3b.py", 4096, 24,
+     2, 128, 0, 0.0, "bfloat16", (1e-2, 5e-3)),
+]
+ATTN_REL_L2 = 1e-2
 
 
 def phase(title: str) -> None:
@@ -161,12 +220,13 @@ def describe(name: str, args: dict) -> dict:
             is not None}
 
 
-def record_calls(torch, forward, module="repro_torch.kernels.shuffle_gemm.ops",
-                 names=("shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks")):
-    """Run ``forward()`` once with the kernel wrappers ``names``, as
-    ``module`` calls them, wrapped by a recorder: returns ``[(kernel
-    name, bound arguments)]`` in call order, with every tensor argument
-    cloned."""
+def record_calls(torch, forward, module="repro_torch.kernels.shuffle_gemm.vjp",
+                 names=("shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks"),
+                 grad: bool = False):
+    """Run ``forward()`` once (under ``torch.no_grad()`` unless ``grad``)
+    with the kernel wrappers ``names``, as ``module`` calls them, wrapped
+    by a recorder: returns ``[(kernel name, bound arguments)]`` in call
+    order, with every tensor argument cloned (and detached)."""
     ops = importlib.import_module(module)
     originals = {n: getattr(ops, n) for n in names}
     calls = []
@@ -177,15 +237,16 @@ def record_calls(torch, forward, module="repro_torch.kernels.shuffle_gemm.ops",
         def rec(*a, **kw):
             bound = sig.bind(*a, **kw)
             bound.apply_defaults()
-            calls.append((name, {k: v.clone() if isinstance(v, torch.Tensor)
-                                 else v for k, v in bound.arguments.items()}))
+            calls.append((name, {k: v.detach().clone()
+                                 if isinstance(v, torch.Tensor) else v
+                                 for k, v in bound.arguments.items()}))
             return fn(*a, **kw)
         return rec
 
     for n in names:
         setattr(ops, n, recorder(n, originals[n]))
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             forward()
         torch.cuda.synchronize()
     finally:
@@ -211,13 +272,15 @@ def check_fig9_calls(calls) -> None:
 
 
 def profile_forward(torch, forward, wall_ms_per_call: float,
-                    calls: int = 5) -> None:
+                    calls: int = 5, label: str = "hopper forward",
+                    grad: bool = False) -> None:
     """Where one forward's device time goes: ``torch.profiler`` over
-    ``calls`` forwards, device time summed by kernel name, and the busy
-    share against the unprofiled wall time of one forward."""
+    ``calls`` forwards (under ``torch.no_grad()`` unless ``grad``), device
+    time summed by kernel name, and the busy share against the
+    unprofiled wall time of one forward."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -237,7 +300,7 @@ def profile_forward(torch, forward, wall_ms_per_call: float,
         return
     by_name.sort(reverse=True)
     busy_us = sum(t for t, _, _ in by_name)
-    print(f"profile of one hopper forward: device busy {busy_us:.1f} us of "
+    print(f"profile of one {label}: device busy {busy_us:.1f} us of "
           f"{wall_ms_per_call * 1e3:.1f} us wall "
           f"({100 * busy_us / (wall_ms_per_call * 1e3):.1f}% busy), "
           f"{sum(c for _, c, _ in by_name):.0f} kernels and copies")
@@ -797,17 +860,254 @@ def main() -> int:
               f"{rows['fir_conv_hopper']['library_ms'] * 1e3:8.2f} us",
               flush=True)
 
-    # -- 7. kernel list -----------------------------------------------------
-    phase("7 kernels")
+    # -- 7. train: Fig 9 through value_and_grad, then AdamW -----------------
+    phase("7 train")
+    from repro_torch.data import SignalStream
+    from repro_torch.pipelines import speech_enhancement as tse
+    from repro_torch.signal import PrecisionPolicy
+    stream = SignalStream(LENGTH, BATCH, seed=args.seed)
+    b0 = stream.batch_at(0)
+    noisy = torch.as_tensor(b0["noisy"], device="cuda")
+    clean = torch.as_tensor(b0["clean"], device="cuda")
+    vag_h = hopper.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+    vag_r = reference.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+    reset_launch_counts()
+    loss_h, grads_h = vag_h(params, noisy, clean)
+    torch.cuda.synchronize()
+    train_counts = launch_counts()
+    print(f"launches in one value_and_grad step: {train_counts} (forward "
+          f"2 + 16, backward 16 + 16)")
+    if train_counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"one Fig-9 value_and_grad step launched "
+                             f"{train_counts}, not {TRAIN_LAUNCHES}")
+    loss_r, grads_r = vag_r(params, noisy, clean)
+    torch.cuda.synchronize()
+    leaves = [("loss", loss_h, loss_r),
+              ("front.taps", grads_h["front"]["taps"],
+               grads_r["front"]["taps"])] + [
+        (f"mask[{i}]", a, b)
+        for i, (a, b) in enumerate(zip(grads_h["mask"], grads_r["mask"]))]
+    for name, a, b in leaves:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite values")
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        print(f"{name}: {tuple(a.shape)} hopper vs reference max abs err "
+              f"{float((a - b).abs().max()):.3e} (rtol 1e-4, atol 1e-5)")
+    if not all(float(g.abs().max()) > 0 for _, g, _ in leaves[1:]):
+        raise AssertionError("a gradient leaf is all zeros")
+    step_h = wall_ms(torch, lambda: vag_h(params, noisy, clean), iters=10)
+    step_r = wall_ms(torch, lambda: vag_r(params, noisy, clean), iters=10)
+    print(f"value_and_grad step wall time, batch {BATCH}: hopper "
+          f"{step_h:.3f} ms, reference {step_r:.3f} ms", flush=True)
+    profile_forward(torch, lambda: vag_h(params, noisy, clean), step_h,
+                    label="hopper value_and_grad step", grad=True)
+    step_calls = record_calls(torch, lambda: vag_h(params, noisy, clean),
+                              grad=True)
+    fwd_n = sum(FORWARD_LAUNCHES.values())
+    check_fig9_calls(step_calls[:fwd_n])
+    backward = {n: new_row(0, "sum over the backward calls of one batch-"
+                           f"{BATCH} Fig-9 value_and_grad step")
+                for n in wrappers}
+    with torch.no_grad():
+        for name, a in step_calls[fwd_n:]:
+            kern, plain = wrappers[name]
+            got, want = kern(**a), plain(**a)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=TOL["float32"],
+                                  atol=TOL["float32"]):
+                raise AssertionError(f"backward {name} {describe(name, a)}: "
+                                     f"max abs err {err}")
+            k_ms = device_ms(torch, lambda: kern(**a))
+            p_ms = device_ms(torch, lambda: plain(**a))
+            nbytes, flops = call_cost(a)
+            add_call(backward[name], err, k_ms, p_ms,
+                     bound(nbytes, flops, FP32_FLOP_PER_S))
+            backward[name]["calls"] += 1
+            d = describe(name, a)
+            print(f"backward {name:28s} rows {d['rows']:5d} t {d['t']:3d} "
+                  f"n_out {d['n_out']:2d} G {d['groups']:3d} "
+                  f"pad {d['pad']:5d} scale {int(d['scale'])} | max_abs_err "
+                  f"{err:.3e} | kernel {k_ms * 1e3:8.2f} us  plain "
+                  f"{p_ms * 1e3:8.2f} us", flush=True)
+    bw_counts = {n: r["calls"] for n, r in backward.items()}
+    if bw_counts != BACKWARD_LAUNCHES:
+        raise AssertionError(f"backward calls {bw_counts}")
+    for n, r in backward.items():
+        print(f"backward {n}: {r['calls']} calls, kernel "
+              f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"bound {r['bound_ms'] * 1e3:.3f} us a step")
+
+    t0 = time.perf_counter()
+    res = tse.train(hopper, params, stream, steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    print(f"train {TRAIN_STEPS} AdamW steps on hopper in "
+          f"{time.perf_counter() - t0:.2f} s: losses "
+          f"{[round(v, 6) for v in res.losses]}; held-out loss "
+          f"{res.eval_before:.6f} -> {res.eval_after:.6f}")
+    if not all(np.isfinite(res.losses)) \
+            or not res.eval_after < res.eval_before:
+        raise AssertionError("training did not lower the held-out loss")
+
+    # Fig-9q: the int route's straight-through gradient.  With one
+    # int-routed step at the end of a path (the mel tap at the phase-5
+    # policy's widths) value_and_grad equals that of y_float + (y_int -
+    # y_float).detach() exactly, as the JAX package's test asserts; with
+    # several int-routed steps in series the later steps see quantized
+    # activations, so the full policy's gradient is checked finite and
+    # informative instead.
+    mel_key = next(k for k in policy.widths if k.startswith("mel_tap"))
+    c_mel = fq.with_backend(
+        HopperBackend(precision=PrecisionPolicy(
+            {mel_key: policy.widths[mel_key]})))
+    f_ref = fq.with_backend("reference")
+    q_params = fq.init_params()
+
+    def mel_loss(outs):
+        return torch.mean(outs["mel_tap"] ** 2)
+
+    bsm.reset_launch_counts()
+    l_q, g_q = c_mel.value_and_grad(mel_loss, wrt=("mel_tap",))(q_params, x)
+    torch.cuda.synchronize()
+    if bsm.launch_counts() != {"bitserial_matmul_planes": 1}:
+        raise AssertionError(f"Fig-9q mel step launched "
+                             f"{bsm.launch_counts()}")
+    w_mel = torch.as_tensor(q_params["mel_tap"]["weights"],
+                            device="cuda").requires_grad_()
+    p_mel = {**q_params, "mel_tap": {"weights": w_mel}}
+    y_float = f_ref(x, p_mel)["mel_tap"]
+    y_st = y_float + (c_mel(x, p_mel)["mel_tap"] - y_float).detach()
+    l_st = torch.mean(y_st ** 2)
+    (g_st,) = torch.autograd.grad(l_st, w_mel)
+    torch.testing.assert_close(l_q, l_st.detach(), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(g_q["mel_tap"]["weights"], g_st, rtol=1e-4,
+                               atol=1e-5)
+    if not float(g_st.abs().max()) > 0:
+        raise AssertionError("the straight-through gradient is all zeros")
+    print(f"Fig-9q {mel_key} {policy.widths[mel_key]} int-routed: "
+          f"value_and_grad == y_float + (y_int - y_float).detach(): loss "
+          f"err {float((l_q - l_st.detach()).abs()):.3e}, grad max abs err "
+          f"{float((g_q['mel_tap']['weights'] - g_st).abs().max()):.3e} "
+          f"(rtol 1e-4, atol 1e-5)")
+    bsm.reset_launch_counts()
+    l_all, g_all = cq.value_and_grad(
+        lambda outs: sum(torch.mean(v ** 2) for v in outs.values()))(
+        q_params, x)
+    torch.cuda.synchronize()
+    flat = [g for st in g_all.values() for g in st.values()]
+    if bsm.launch_counts() != {"bitserial_matmul_planes": n_int} \
+            or not all(bool(torch.isfinite(g).all()) for g in flat) \
+            or not all(float(g.abs().max()) > 0 for g in flat):
+        raise AssertionError(f"Fig-9q value_and_grad under the full policy: "
+                             f"launches {bsm.launch_counts()}, grads finite "
+                             f"and nonzero?")
+    print(f"Fig-9q value_and_grad under the full policy ({n_int} int-routed "
+          f"steps): loss {float(l_all):.6f}, {len(flat)} gradient leaves "
+          f"finite and nonzero", flush=True)
+
+    # -- 8. attention: flash_attention at shipped configs' widths ----------
+    phase("8 attention")
+    from repro_torch.kernels import flash_attention, ref_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    attn_rng = np.random.default_rng(args.seed + 1)
+    attn_in = []
+    for label, src, s_, h_, kv_, hd_, win, cap, dt, tol in ATTENTION:
+        q, k, v = (torch.as_tensor(attn_rng.standard_normal(
+            (1, s_, n, hd_)).astype(np.float32), device="cuda").to(
+            getattr(torch, dt)) for n in (h_, kv_, kv_))
+        attn_in.append((q, k, v, dict(causal=True, window=win, softcap=cap)))
+    flash_kernel.reset_launch_counts()
+    with torch.no_grad():
+        attn_out = [flash_attention(q, k, v, **kw) for q, k, v, kw in attn_in]
+    torch.cuda.synchronize()
+    flash_counts = flash_kernel.launch_counts()
+    if flash_counts != {"flash_attention_hopper": len(ATTENTION)}:
+        raise AssertionError(f"the attention calls launched {flash_counts}")
+    rows["flash_attention_hopper"] = new_row(
+        len(ATTENTION), "sum over the three calls: a gemma2-2b local layer "
+        "(float32) and a starcoder2-3b layer in float32 and in bfloat16")
+    per_call, lib_ms, lib_k_ms = [], 0.0, 0.0
+    fa = flash_kernel.flash_attention_hopper
+
+    def check(what, got, want, tol):
+        """Elementwise at ``tol`` and the whole output's relative L2 error
+        under ATTN_REL_L2; returns (max abs error, relative L2 error)."""
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1],
+                                   msg=lambda m: f"{what}: {m}")
+        rel = float((got - want).norm() / want.norm())
+        if not rel < ATTN_REL_L2:
+            raise AssertionError(f"{what}: relative L2 error {rel:.3e}")
+        return float((got - want).abs().max()), rel
+
+    for (label, src, s_, h_, kv_, hd_, win, cap, dt, tol), (q, k, v, kw), \
+            got in zip(ATTENTION, attn_in, attn_out):
+        with torch.no_grad():
+            if not (tuple(got.shape) == tuple(q.shape) and got.dtype == q.dtype
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{label} {dt}: shape, type or values")
+            err, rel = check(f"{label} {dt} vs plain", got,
+                             ref_attention(q, k, v, **kw), tol)
+            k_ms = device_ms(torch, lambda: fa(q, k, v, **kw), reps=3,
+                             iters=3)
+            p_ms = device_ms(torch, lambda: ref_attention(q, k, v, **kw),
+                             reps=1, iters=3)
+        pairs = sum(min(i + 1, win) if win else i + 1 for i in range(s_))
+        flops = 4 * h_ * hd_ * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b = bound(nbytes, flops, FP32_FLOP_PER_S if dt == "float32"
+                  else BF16_FLOP_PER_S)
+        add_call(rows["flash_attention_hopper"], err, k_ms, p_ms, b)
+        l_ms, l_txt = None, "none (softcap)"
+        if not cap and not win:
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            with torch.no_grad():
+                l_err, l_rel = check(f"{label} {dt} vs SDPA", got,
+                                     sdpa().transpose(1, 2), tol)
+                l_ms = device_ms(torch, sdpa, reps=3, iters=3)
+            lib_ms, lib_k_ms = lib_ms + l_ms, lib_k_ms + k_ms
+            l_txt = (f"{l_ms * 1e3:10.1f} us (F.scaled_dot_product_attention"
+                     f"; vs kernel max_abs_err {l_err:.3e}, rel L2 "
+                     f"{l_rel:.3e})")
+        per_call.append({"call": f"{label} {dt}", "max_abs_err": err,
+                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+                         "library_ms": l_ms})
+        print(f"flash_attention_hopper {label} ({src}) {dt}: S {s_} H {h_} "
+              f"KV {kv_} hd {hd_} window {win} softcap {cap} | max_abs_err "
+              f"{err:.3e} rel L2 {rel:.3e} (rtol {tol[0]}, atol {tol[1]}, "
+              f"rel L2 {ATTN_REL_L2}) | kernel {k_ms * 1e3:10.1f} us "
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain {p_ms * 1e3:10.1f} "
+              f"us  bound {b[0] * 1e3:9.1f} us ({flops} flop, {nbytes} B) "
+              f"| library {l_txt}", flush=True)
+    rows["flash_attention_hopper"].update(
+        library_ms=lib_ms, library_kernel_ms=lib_k_ms, per_call=per_call,
+        library="F.scaled_dot_product_attention(is_causal=True, "
+        "enable_gqa=True) on the two starcoder2-3b calls; "
+        "library_kernel_ms is the kernel's time on the same two calls; "
+        "softcap (the gemma2-2b call) has no library call; per_call "
+        "splits the row by call")
+    del attn_in, attn_out
+    torch.cuda.empty_cache()
+
+    # -- 9. kernel list -----------------------------------------------------
+    phase("9 kernels")
     launches = {**serve_counts, "bitserial_matmul_planes":
                 q_counts["bitserial_matmul_planes"], **fft_counts,
-                **fir_counts}
+                **fir_counts, **flash_counts}
     for name, pk in per_kernel.items():
+        bw_row = backward[name]
         rows[name] = {**pk, "library_ms": None,
                       "per": f"sum over the {pk['calls']} calls of one "
                              f"batch-{BATCH} Fig-9 forward",
                       "library": "no single PyTorch call computes "
-                                 "gather\u2218GEMM"}
+                                 "gather\u2218GEMM",
+                      "backward": {k: bw_row[k] for k in (
+                          "calls", "max_abs_err", "ms", "plain_ms",
+                          "bound_ms", "per")}}
     kernels = []
     for name in TPU_KERNELS:
         r = rows[name]
@@ -820,6 +1120,8 @@ def main() -> int:
             >= r["bound_ops_ms"] else "operations",
             "library_ms": r["library_ms"], "per": r["per"],
             "library": r.get("library", "none"),
+            **{k: r[k] for k in ("library_kernel_ms", "per_call",
+                                 "backward") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -249,8 +249,9 @@ def adjoint_plan(plan: ShufflePlan, n_in: int, diag=None):
         ``(n_in, m)``-reshaped gathered cotangent yields ``d_in``.
 
     Forward pad lanes are constants with zero cotangent flow; they
-    simply do not appear in ``adj``.  The training slice of the port
-    runs this adjoint on the same shuffle-GEMM kernels as the forward.
+    simply do not appear in ``adj``.  The shuffle-GEMM kernels' backward
+    (``kernels/shuffle_gemm/vjp.py``) runs this adjoint on the same
+    kernels as the forward.
     """
     gi = np.asarray(plan.gather_idx)
     valid = gi != PAD

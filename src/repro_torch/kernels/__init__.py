@@ -12,6 +12,8 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
                  per-twiddle-class 4x4 products (paper Fig 3a).
 - fir_conv     : multi-phase FIR (window gather + tap-bank product,
                  structural zeros = DPU pads; paper Fig 3b).
+- flash_attention : online-softmax attention forward (GQA, causal,
+                 sliding window, logit softcap) for the DL side.
 
 The sources live in ``csrc/`` and are built from the checkout at first
 use: one ``nvcc`` per source, all started together, then one link into a
@@ -35,8 +37,9 @@ from typing import Optional
 import torch
 
 __all__ = ["shuffle_gemm", "shuffle_gemm_grouped", "bitserial_matmul",
-           "fft_stage", "fft_hopper", "fir_conv", "compiled_supported",
-           "library", "build", "NVCC_FLAGS"]
+           "fft_stage", "fft_hopper", "fir_conv", "flash_attention",
+           "ref_attention", "compiled_supported", "library", "build",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
@@ -54,6 +57,8 @@ _SIGNATURES = {
     "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
     "repro_fft_stage": (_P,) * 4 + (_I,) * 3 + (_P,),
     "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "repro_flash_attention": (_P,) * 4 + (_I,) * 8
+    + (ctypes.c_float, _I, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -182,17 +187,18 @@ def check_operands(kernel: str, operands) -> None:
 
 
 def forward_only(kernel: str, x: torch.Tensor, *others) -> None:
-    """Refuse a call on the card that autograd would have to see through:
-    the CUDA kernels have no backward pass yet, so their result would
-    silently drop the gradient.  CPU tensors take the plain versions,
-    which differentiate."""
+    """Refuse a call on the card that autograd would have to see through,
+    for the standalone entry points with no backward pass (``fft_stage``,
+    ``fir_conv`` and ``flash_attention``: the JAX package defines none
+    either), so their result never silently drops a gradient.  CPU
+    tensors take the plain versions, which differentiate.  The
+    shuffle-GEMM ops have their backward in ``shuffle_gemm/vjp.py``."""
     if x.device.type == "cuda" and torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (x, *others)):
         raise NotImplementedError(
-            f"gradients through the {kernel} CUDA kernels are the "
-            f"training slice of the port (ROADMAP Queue 1 item 1); run "
-            f"under torch.no_grad() or on the CPU")
+            f"the {kernel} CUDA kernel has no backward pass (nor has its "
+            f"JAX counterpart); run under torch.no_grad() or on the CPU")
 
 
 def compiled_supported() -> bool:
@@ -212,4 +218,6 @@ def compiled_supported() -> bool:
 from .bitserial_mm.ops import bitserial_matmul  # noqa: E402
 from .fft_stage.ops import fft_hopper, fft_stage  # noqa: E402
 from .fir_conv.ops import fir_conv  # noqa: E402
+from .flash_attention.ops import flash_attention  # noqa: E402
+from .flash_attention.ref import ref_attention  # noqa: E402
 from .shuffle_gemm.ops import shuffle_gemm, shuffle_gemm_grouped  # noqa: E402

@@ -5,9 +5,9 @@ TPU-only ``br`` block size and ``interpret`` switch have no counterpart:
 the CUDA kernel masks its ragged edge, and the tensor's device picks the
 kernel or the plain version).
 
-Forward only: differentiating through these ops on the card is the
-training slice of the port, so a CUDA call that would need a gradient
-raises rather than returning a result autograd cannot see through.
+Both ops are differentiable in ``x`` and ``w``: they run through the
+``torch.autograd.Function`` of ``vjp.py``, whose backward pass
+launches the same kernels on adjoint operands.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ...core.fabric import PAD, ShufflePlan, device_constant
-from .kernel import shuffle_gemm_blocks, shuffle_gemm_grouped_blocks
+from .vjp import ShuffleGemmFn
 
 __all__ = ["plan_blocks", "shuffle_gemm", "shuffle_gemm_grouped"]
 
@@ -52,8 +52,6 @@ def plan_blocks(plan: ShufflePlan, diag, rows: int, dtype, device):
 
 
 def _prepare(x: torch.Tensor, plan, diag, rows, w):
-    from .. import forward_only
-    forward_only("shuffle-GEMM", x, w)
     t, idx, pads, scale, max_index = plan_blocks(plan, diag, rows, x.dtype,
                                                  x.device)
     n_in = x.shape[-1]
@@ -62,7 +60,7 @@ def _prepare(x: torch.Tensor, plan, diag, rows, w):
                          f"input")
     xb = x.reshape(-1, n_in).contiguous()
     w = device_constant(w, x.device, x.dtype).contiguous()
-    return xb, idx, pads, scale, w
+    return xb, (t, idx, pads, scale), w
 
 
 def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
@@ -72,10 +70,11 @@ def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
 
     x: (..., n_in); plan.n_out == rows * t; w: (t, n_out); diag is an
     optional per-element scale of the gathered stream (a GatherStep /
-    EinsumStep ``diag``).  Returns (..., rows, n_out).
+    EinsumStep ``diag``).  Returns (..., rows, n_out).  Differentiable
+    in ``x`` and ``w``.
     """
-    xb, idx, pads, scale, w = _prepare(x, plan, diag, rows, w)
-    out = shuffle_gemm_blocks(xb, idx, pads, w, scale)
+    xb, blocks, w = _prepare(x, plan, diag, rows, w)
+    out = ShuffleGemmFn.apply(xb, w, blocks, plan, diag)
     return out.reshape(*x.shape[:-1], rows, w.shape[-1])
 
 
@@ -89,10 +88,10 @@ def shuffle_gemm_grouped(x: torch.Tensor, plan: ShufflePlan, w,
 
     x: (..., n_in); plan.n_out == reps * groups * nb * t;
     w: (groups, t, n_out).  Returns the flat (..., R * n_out) result in
-    row order (the consuming einsum's natural layout).
+    row order (the consuming einsum's natural layout).  Differentiable in
+    ``x`` and ``w``.
     """
     rows = reps * groups * nb
-    xb, idx, pads, scale, w = _prepare(x, plan, diag, rows, w)
-    out = shuffle_gemm_grouped_blocks(xb, idx, pads, w, reps, groups, nb,
-                                      scale)
+    xb, blocks, w = _prepare(x, plan, diag, rows, w)
+    out = ShuffleGemmFn.apply(xb, w, blocks, plan, diag, (reps, groups, nb))
     return out.reshape(*x.shape[:-1], rows * w.shape[-1])

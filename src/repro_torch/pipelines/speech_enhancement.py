@@ -4,8 +4,9 @@
                  -> CNN mask -> masked spectrum -> iSTFT -> enhanced
                                           `-> mel monitoring tap
 
-The counterpart of ``build_graph`` / ``init_cnn`` / ``cnn_mask`` in the
-JAX package's ``examples/speech_enhancement.py``.  The graph declares
+The counterpart of ``build_graph`` / ``init_cnn`` / ``cnn_mask`` and the
+training loop (:func:`train`) of the JAX package's
+``examples/speech_enhancement.py``.  The graph declares
 two named outputs — ``outputs("out", "mel_tap")`` — and compiles to one
 fused shuffle-plan + einsum program; with ``backend="hopper"`` its two
 array-pass families run on the shuffle-GEMM CUDA kernels.
@@ -18,7 +19,7 @@ convolutions; the GELU is the tanh form, JAX's default.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -26,8 +27,10 @@ import torch.nn.functional as F
 
 from ..core.fabric import device_constant
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..tree import tree_map
 
-__all__ = ["FRAME", "HOP", "init_cnn", "cnn_mask", "build_graph"]
+__all__ = ["FRAME", "HOP", "TRAINABLE", "init_cnn", "cnn_mask",
+           "build_graph", "loss_fn", "TrainResult", "train"]
 
 FRAME, HOP = 256, 128
 
@@ -93,3 +96,58 @@ def build_graph(length: int, ch: Sequence[int] = (2, 12, 12, 1),
     g.mel_filterbank("mel_tap", "mag", sr=16_000, n_mels=n_mels)
     g.outputs("out", "mel_tap")
     return g
+
+
+TRAINABLE = ("front", "mask")
+
+
+def loss_fn(outs, clean: torch.Tensor) -> torch.Tensor:
+    """Mean squared error of the enhanced stream against the clean
+    target, ``FRAME`` samples cut at each edge."""
+    edge = FRAME
+    return torch.mean((outs["out"][:, edge:-edge]
+                       - clean[:, edge:-edge]) ** 2)
+
+
+class TrainResult(NamedTuple):
+    params: dict             # trained params (trainable entries as tensors)
+    losses: List[float]      # the loss of every step, before its update
+    eval_before: float       # held-out loss on stream.batch_at(10_000)
+    eval_after: float
+
+
+def train(compiled, params, stream, steps: int,
+          lr: float = 1e-2) -> TrainResult:
+    """Train the front-end taps and the mask CNN end to end through
+    ``compiled.value_and_grad`` (on its bound backend) with AdamW
+    (``weight_decay=0``), one batch ``stream.batch_at(i)`` per step; the
+    other params entries (mel weights) ride along untouched.  The
+    held-out loss is taken on ``stream.batch_at(10_000)`` before and
+    after — the training loop of the JAX package's example."""
+    from ..optim import adamw_init, adamw_update
+    dev = compiled.device
+
+    def tensor(leaf):
+        return device_constant(leaf, dev, torch.float32).detach().clone()
+
+    def batch(step):
+        b = stream.batch_at(step)
+        return (torch.as_tensor(b["noisy"], device=dev),
+                torch.as_tensor(b["clean"], device=dev))
+
+    params = {**params, **{k: tree_map(tensor, params[k])
+                           for k in TRAINABLE}}
+    vag = compiled.value_and_grad(loss_fn, wrt=TRAINABLE)
+    opt = adamw_init({k: params[k] for k in TRAINABLE})
+    noisy0, clean0 = batch(10_000)
+    eval_before = float(vag(params, noisy0, clean0)[0])
+    losses = []
+    for i in range(steps):
+        loss, grads = vag(params, *batch(i))
+        sub, opt, _ = adamw_update(grads, opt,
+                                   {k: params[k] for k in TRAINABLE},
+                                   lr=lr, weight_decay=0.0)
+        params = {**params, **sub}
+        losses.append(float(loss))
+    eval_after = float(vag(params, noisy0, clean0)[0])
+    return TrainResult(params, losses, eval_before, eval_after)

@@ -34,10 +34,11 @@ Two backends ship:
         is *emulated* on the reference path.
 
     For tensors on the CPU the kernel wrappers run their plain PyTorch
-    versions; for tensors on the card they launch the kernels.  The
-    forward pass only: ``differentiable`` is False until the training
-    slice brings the kernels' backward passes and the int route's
-    straight-through gradient.
+    versions; for tensors on the card they launch the kernels.  Both
+    backends differentiate: the shuffle-GEMM ops' backward passes launch
+    the same kernels on adjoint operands (``kernels/shuffle_gemm/
+    vjp.py``), and an int-routed step takes the straight-through
+    gradient (:meth:`HopperBackend._int_unit`).
 
 :meth:`ExecBackend.bind` returns a :class:`BoundProgram` whose
 ``report()`` attributes every lowered step to its route — how many
@@ -448,8 +449,8 @@ def bind_cached(backend: ExecBackend,
 class ReferenceBackend(ExecBackend):
     """The plain torch interpreter: every gather is an ``index_select``
     plus a PAD ``where``, every array pass a ``torch.einsum``.  This is
-    the parity oracle (and, as plain autograd-visible torch, the future
-    differentiation path)."""
+    the parity oracle; autograd differentiates it as plain torch, which
+    makes it the reference for the ``hopper`` backend's gradients."""
 
     name = "reference"
     differentiable = True
@@ -482,7 +483,7 @@ class HopperBackend(ExecBackend):
     :class:`PrecisionPolicy` and :meth:`_int_unit`)."""
 
     name = "hopper"
-    differentiable = False
+    differentiable = True
 
     def __init__(self, precision: Optional[PrecisionPolicy] = None):
         self.precision = precision or PrecisionPolicy()
@@ -595,38 +596,59 @@ class HopperBackend(ExecBackend):
 
     def _int_unit(self, e: EinsumStep, shape: _EinsumShape,
                   plan: ShufflePlan, diag, widths: Tuple[int, int]):
-        """Int-routed GEMM, forward only: symmetric quantization of the
-        gathered rows (per row) and of the operand (per output column),
-        exact bitserial integer contraction, dequantization by the
-        product of scales — the JAX package's ``PallasBackend._int_unit``
-        step for step.  Its straight-through gradient is the training
-        slice; a call that would need a gradient raises."""
-        from ..kernels import bitserial_matmul
-        aw, ww = widths
+        """Int-routed GEMM with a straight-through / dequantized
+        gradient — the JAX package's ``PallasBackend._int_unit`` step
+        for step.
+
+        Forward: symmetric quantization of the gathered rows (per row)
+        and of the operand (per output column), exact bitserial integer
+        contraction, dequantization by the product of scales.
+        ``round`` is piecewise-constant — zero gradient almost
+        everywhere — so the backward pass is, by deliberate policy, the
+        float GEMM's VJP at the *unquantized* residuals with the
+        cotangent taken at the quantized output: ``y = y_float +
+        (y_int - y_float).detach()`` (:class:`_IntSTEFn`)."""
         post = e.post
         canonical = _CanonicalOperand(shape)
 
         def unit(x, sp):
-            op = resolve_operand(e, sp)
-            if torch.is_grad_enabled() and (
-                    x.requires_grad or (isinstance(op, torch.Tensor)
-                                        and op.requires_grad)):
-                raise NotImplementedError(
-                    f"gradients through the int-routed step {e.name!r} "
-                    f"(straight-through estimator) are the training slice "
-                    f"of the port; run under torch.no_grad()")
             g = apply_plan(x, plan)
             if diag is not None:
                 g = g * device_constant(diag, g.device, g.dtype)
             h = g.reshape(*g.shape[:-1], shape.rows_total, shape.t).float()
-            w = canonical(op, h)
-            xq, x_scale = bw.quantize(h, aw, axis=-1)
-            wq, w_scale = bw.quantize(w, ww, axis=0)
-            acc = bitserial_matmul(xq, wq, aw, ww)
-            y = (acc.to(torch.float32) * x_scale * w_scale).to(x.dtype)
+            w = canonical(resolve_operand(e, sp), h)
+            y = _IntSTEFn.apply(h, w, widths).to(x.dtype)
             y = y.reshape(*y.shape[:-2], -1)
             return apply_plan(y, post) if post is not None else y
         return unit
+
+
+class _IntSTEFn(torch.autograd.Function):
+    """``quantize -> bitserial_matmul -> dequantize`` of ``h`` (..., r, t)
+    against ``w`` (t, c) at ``widths = (aw, ww)``, with the
+    straight-through backward: ``dh = dy @ w^T``, ``dw = sum h^T dy``."""
+
+    @staticmethod
+    def forward(ctx, h, w, widths):
+        from ..kernels import bitserial_matmul
+        aw, ww = widths
+        ctx.save_for_backward(h, w)
+        xq, x_scale = bw.quantize(h, aw, axis=-1)
+        wq, w_scale = bw.quantize(w, ww, axis=0)
+        acc = bitserial_matmul(xq, wq, aw, ww)
+        return acc.to(torch.float32) * x_scale * w_scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.einsum("...rc,tc->...rt", dy, w).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            hb = h.reshape(-1, *h.shape[-2:])
+            dyb = dy.reshape(-1, *dy.shape[-2:]).to(h.dtype)
+            dw = torch.einsum("brt,brc->tc", hb, dyb).to(w.dtype)
+        return dh, dw, None
 
 
 def _check_int_headroom(step_name: str, widths: Tuple[int, int],

@@ -74,9 +74,10 @@ for the CPU); :meth:`CompiledSignalGraph.jit` and ``masked_jit`` return
 plain callables.  ``backend="hopper"`` lowers gather∘einsum groups onto
 the hand-written shuffle-GEMM CUDA kernels, and the steps a SigQuant
 ``PrecisionPolicy`` names onto the bitserial integer kernel.
-Differentiation
-(:meth:`CompiledSignalGraph.value_and_grad`) and the streaming runtime
-are later slices of the port.
+Differentiation (:meth:`CompiledSignalGraph.value_and_grad`) runs on
+``torch.autograd`` through the same kernels (their backward passes are
+``torch.autograd.Function`` s on adjoint operands); the streaming
+runtime is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ from ..core.fabric import (PAD, ShufflePlan, compose_into_einsum,
                            device_constant, is_identity, is_permutation,
                            tile_plan)
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..tree import tree_leaves, tree_map
 
 __all__ = ["SignalGraph", "CompiledSignalGraph", "SigType", "FuseLevel",
            "GatherStep", "EinsumStep", "LambdaStep",
@@ -1377,13 +1379,83 @@ class CompiledSignalGraph:
 
     def value_and_grad(self, loss_fn: Callable, wrt=None,
                        has_aux: bool = False) -> Callable:
-        """Autodiff surface of the SigProgram — not in this slice of the
-        port: gradients through the fabric lowering (custom backward
-        passes on the shuffle-GEMM kernels) are the training slice."""
-        raise NotImplementedError(
-            "CompiledSignalGraph.value_and_grad is the training slice of "
-            "the PyTorch port (ROADMAP Queue 1 item 1: autodiff on "
-            "torch.autograd with the shuffle-GEMM backward kernels)")
+        """Autodiff surface of the SigProgram: returns
+        ``fn(params, x, *args) -> (loss, grads)`` where ``loss_fn``
+        receives this graph's outputs (the ordered dict, or the bare
+        tensor for single-output graphs) plus ``*args`` and returns a
+        scalar tensor.  ``wrt`` restricts differentiation to the named
+        stages (default: every entry present in ``params``); gradients
+        come back in the structure of the selected params — field dicts,
+        lists (the mask CNN's weights), bare leaves — as tensors on the
+        graph's device.  Host (numpy) leaves are uploaded there first,
+        float64 narrowed to float32.  The gradient flows through the
+        whole fabric lowering — gather plans are ``index_select`` s and
+        folded ``diag`` scales carry their cotangents — so a learned FIR
+        front-end or mel matrix trains exactly like the dnn hook.
+        ``has_aux`` follows ``jax.value_and_grad``: ``loss_fn`` returns
+        ``(scalar, aux)`` and ``fn`` returns ``((loss, aux), grads)``.
+
+        Differentiation runs on the *bound* backend with
+        ``torch.autograd.grad``: both ``reference`` and ``hopper``
+        differentiate (the shuffle-GEMM kernels' backward passes launch
+        the same kernels on adjoint operands —
+        kernels/shuffle_gemm/vjp.py), so training and serving stay on
+        one backend.  A backend declaring ``differentiable = False`` is
+        a hard error here: training must never silently change which
+        kernels execute — re-bind explicitly with :meth:`with_backend`
+        if that is what you want."""
+        names = None if wrt is None else tuple(wrt)
+        if not self.backend.differentiable:
+            raise ValueError(
+                f"value_and_grad: backend {self.backend.name!r} declares "
+                f"differentiable=False (its kernels define no "
+                f"reverse-mode transpose); refusing to silently change "
+                f"backends for the gradient path. Re-bind explicitly — "
+                f"e.g. compiled.with_backend('reference') or "
+                f"with_backend('hopper') — to pick the training backend.")
+        run_graph = self
+
+        def split(params):
+            params = dict(params) if isinstance(params, dict) else \
+                ({} if params is None else params)
+            if not isinstance(params, dict):
+                raise ValueError(
+                    "value_and_grad needs a params dict keyed by stage "
+                    f"name; got {type(params).__name__}")
+            if names is None:
+                return params, {}
+            missing = [n for n in names if n not in params]
+            if missing:
+                raise ValueError(
+                    f"wrt stages {missing!r} have no entry in params; "
+                    f"available: {sorted(params)}")
+            diff = {k: params[k] for k in names}
+            rest = {k: v for k, v in params.items() if k not in names}
+            return diff, rest
+
+        def leaf(v):
+            if isinstance(v, torch.Tensor):
+                t = v.detach().to(self.device)
+            else:
+                arr = np.asarray(v)
+                if arr.dtype == np.float64:
+                    arr = arr.astype(np.float32)
+                t = torch.as_tensor(arr, device=self.device)
+            return t.requires_grad_(True)
+
+        def fn(params, x, *args):
+            diff, rest = split(params)
+            diff = tree_map(leaf, diff)
+            leaves = tree_leaves(diff)
+            res = loss_fn(run_graph(x, {**rest, **diff}), *args)
+            loss, aux = res if has_aux else (res, None)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            it = iter([torch.zeros_like(v) if g is None else g
+                       for v, g in zip(leaves, grads)])
+            grads = tree_map(lambda _: next(it), diff)
+            loss = loss.detach()
+            return ((loss, aux), grads) if has_aux else (loss, grads)
+        return fn
 
     def jit(self):
         """The graph as a plain callable ``(x, params) -> outputs``:

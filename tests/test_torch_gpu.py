@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels against their
 plain PyTorch versions on the same card tensors, the Fig-9 path on the
-``hopper`` backend against the ``reference`` backend on the card, and
-the int-routed (SigQuant) Fig-9q forward.
+``hopper`` backend against the ``reference`` backend on the card, the
+int-routed (SigQuant) Fig-9q forward, the shuffle-GEMM kernels' backward
+Function and ``value_and_grad`` on the card, and flash attention.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False; whether a card is present is
@@ -16,7 +17,13 @@ kernels rtol = atol = 1e-4 (the JAX package's tolerance for them), the
 full FFT 2e-3 against ``torch.fft.fft``; graph outputs rtol 1e-4, atol
 1e-5; served against offline ``out`` atol 1e-5 and ``mel_tap`` rtol =
 atol = 1e-4; the int-routed Fig-9q forward within the SigQuant budget
-(relative L2 1e-2) of the float32 reference.
+(relative L2 1e-2) of the float32 reference; gradients through the
+backward Function rtol = atol = 1e-5 against autograd through the plain
+versions (atol 1e-4 on ``dw``, a float32 sum of thousands of terms),
+and Fig-9 gradients on ``hopper`` against ``reference`` rtol 1e-4, atol
+1e-5 (the forward's card tolerance: sums run in another
+order); flash attention rtol = atol = 1e-4 (bfloat16 3e-2), as in the
+JAX package's tests.
 """
 
 import numpy as np
@@ -32,6 +39,7 @@ from repro_torch.kernels.fft_stage import ref as fft_ref
 from repro_torch.kernels.fir_conv import kernel as fir_kernel
 from repro_torch.kernels.fir_conv import ops as fir_ops
 from repro_torch.kernels.fir_conv import ref as fir_ref
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.shuffle_gemm import (
     launch_counts, ref_shuffle_gemm_blocks, ref_shuffle_gemm_grouped_blocks,
     reset_launch_counts, shuffle_gemm_blocks, shuffle_gemm_grouped_blocks)
@@ -305,3 +313,174 @@ def test_int_routed_fig9q_forward(cuda):
         err = float(torch.linalg.vector_norm(got[k] - want[k])
                     / torch.linalg.vector_norm(want[k]))
         assert torch.isfinite(got[k]).all() and err <= 1e-2, (k, err)
+
+
+# -- the training slice: backward Function, value_and_grad -----------------
+
+def _plan(rng, n_in, n_out):
+    from repro_torch.core.fabric import PAD, ShufflePlan
+    idx = rng.integers(0, n_in, n_out).astype(np.int32)
+    idx[rng.random(n_out) < 0.2] = PAD
+    return ShufflePlan(idx, rng.standard_normal(n_out).astype(np.float32)
+                       * (idx == PAD))
+
+
+def _grads(fn, x0, w0, dy):
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = fn(x, w)
+    y.backward(dy)
+    return y.detach(), x.grad, w.grad
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_backward_functions_match_autograd(cuda, grouped):
+    """Gradients through the backward Function (identity-gather GEMM,
+    adjoint scatter-as-gather, dw einsum) on the card against autograd
+    through the plain versions on the same card tensors."""
+    rng = np.random.default_rng(int(grouped))
+    if grouped:                          # a Fig-9 butterfly, groups 8
+        reps, groups, nb, t, n_out, n_in = 31, 8, 16, 4, 4, 8192
+    else:                                # the Fig-9 front-end taps
+        reps, groups, nb, t, n_out, n_in = 1, 1, 4096, 9, 1, 4096
+    rows = reps * groups * nb
+    plan = _plan(rng, n_in, rows * t)
+    diag = rng.standard_normal(rows * t).astype(np.float32)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    x0 = f32(rng.standard_normal((4, n_in)))
+    w0 = f32(rng.standard_normal((groups, t, n_out) if grouped
+                                 else (t, n_out)))
+    dy = f32(rng.standard_normal((4, rows * n_out) if grouped
+                                 else (4, rows, n_out)))
+    idx = torch.as_tensor(plan.gather_idx.reshape(rows, t), device=cuda)
+    pads = f32(plan.pad_values.reshape(rows, t))
+    scale = f32(diag.reshape(rows, t))
+    if grouped:
+        def kern(x, w):
+            return tk.shuffle_gemm_grouped(x, plan, w, reps, groups, nb,
+                                           diag=diag)
+
+        def plain(x, w):
+            return ref_shuffle_gemm_grouped_blocks(x, idx, pads, w, reps,
+                                                   groups, nb, scale)
+    else:
+        def kern(x, w):
+            return tk.shuffle_gemm(x, plan, w, rows, diag=diag)
+
+        def plain(x, w):
+            return ref_shuffle_gemm_blocks(x, idx, pads, w, scale)
+    reset_launch_counts()
+    got = _grads(kern, x0, w0, dy)
+    torch.cuda.synchronize()
+    # forward 1; backward: the transposed GEMM and the adjoint reduce
+    assert launch_counts() == ({"shuffle_gemm_blocks": 1,
+                                "shuffle_gemm_grouped_blocks": 2}
+                               if grouped else
+                               {"shuffle_gemm_blocks": 3,
+                                "shuffle_gemm_grouped_blocks": 0})
+    want = _grads(plain, x0, w0, dy)
+    # y and dx at 1e-5; dw is a float32 sum over batch x rows (1,984
+    # products of unit-variance terms for the butterfly, 16,384 for the
+    # taps) that the einsum and autograd's matmul take in other orders:
+    # atol 1e-4, about 2^-24 x sqrt(terms) x |terms| summed
+    for a, b, atol in zip(got, want, (1e-5, 1e-5, 1e-4)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)
+
+
+def test_value_and_grad_on_hopper_launches_backward_kernels(cuda):
+    """Fig 9 at full width: value_and_grad on ``hopper`` launches both
+    kernels in the backward pass (16 butterflies' transposed GEMMs and 16
+    adjoint reductions; the front taps and mask CNN need no dx kernel)
+    and equals the ``reference`` backend's gradients."""
+    rng = np.random.default_rng(0)
+    cnn = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=cuda)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    clean = torch.as_tensor(rng.standard_normal((4, LENGTH))
+                            .astype(np.float32), device=cuda)
+    got = {}
+    for backend in ("hopper", "reference"):
+        c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend=backend,
+                                                   device=cuda)
+        params = dict(c.init_params())
+        params["mask"] = cnn
+        vag = c.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+        reset_launch_counts()
+        got[backend] = vag(params, x, clean)
+        torch.cuda.synchronize()
+        if backend == "hopper":
+            assert launch_counts() == {"shuffle_gemm_blocks": 2 + 16,
+                                       "shuffle_gemm_grouped_blocks": 16 + 16}
+    (lh, gh), (lr, gr) = got["hopper"], got["reference"]
+    torch.testing.assert_close(lh, lr, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gh["front"]["taps"], gr["front"]["taps"],
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(gh["mask"], gr["mask"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# -- flash attention ---------------------------------------------------------
+
+FLASH_CASES = [
+    # B, S, H, KV, hd, causal, window, softcap (tests/test_flash_attention.py)
+    (2, 64, 4, 4, 16, True, 0, 0.0),
+    (2, 64, 8, 2, 16, True, 0, 0.0),
+    (1, 100, 4, 2, 32, True, 24, 0.0),
+    (2, 64, 4, 4, 16, True, 0, 30.0),
+    (2, 48, 6, 3, 16, False, 0, 0.0),
+    (1, 130, 2, 1, 64, True, 0, 0.0),
+    (1, 300, 4, 2, 256, True, 100, 50.0),   # gemma2-2b's head dim
+]
+
+
+def _qkv(rng, dev, dt, b, s, h, kv, hd):
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=dev).to(dt)
+            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case):
+    b, s, h, kv, hd, causal, window, cap = case
+    q, k, v = _qkv(np.random.default_rng(s + h), cuda, torch.float32, b, s,
+                   h, kv, hd)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = flash_kernel.flash_attention_hopper.launches
+    got = tk.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_hopper.launches == before + 1
+    want = tk.ref_attention(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernel_bf16(cuda):
+    q, k, v = _qkv(np.random.default_rng(7), cuda, torch.bfloat16, 2, 200,
+                   8, 2, 128)
+    got = tk.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    want = tk.ref_attention(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_wrapper_refuses_bad_inputs(cuda):
+    q, k, v = _qkv(np.random.default_rng(0), cuda, torch.float32, 1, 16, 4,
+                   2, 16)
+    fa = flash_kernel.flash_attention_hopper
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="float32"):
+        fa(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="cpu"):
+        fa(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="H % KV"):
+        fa(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 4, 1, 260), device=cuda)
+        fa(big, big, big)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tk.flash_attention(q.requires_grad_(), k, v)

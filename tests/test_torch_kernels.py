@@ -183,7 +183,7 @@ def test_one_library_holds_every_source():
     source."""
     names = {p.name for p in tk.SOURCES}
     assert names == {"bitserial_mm.cu", "fft_stage.cu", "fir_conv.cu",
-                     "shuffle_gemm.cu"}
+                     "flash_attention.cu", "shuffle_gemm.cu"}
     exported = {m for p in tk.SOURCES for m in re.findall(
         r"^int (repro_\w+)\(", p.read_text(), re.M)}
     assert exported == set(tk._SIGNATURES)
