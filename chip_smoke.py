@@ -13,7 +13,8 @@ phase:
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
   1. build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` with one
      ``nvcc`` each, all at once, links them into one library, prints
-     registers and spills per kernel, and probes the library;
+     registers and spills per kernel, and probes the library
+     (``compiled_supported``, one launch of the copy probe);
   2. kernels: records the 18 shuffle-GEMM calls one Fig-9 forward makes
      (2 ``shuffle_gemm_blocks``, 16 ``shuffle_gemm_grouped_blocks``) and
      holds each kernel against its plain PyTorch version on the same card
@@ -40,11 +41,14 @@ phase:
      answers 8 + 32 mixed-length requests, each equal to the int-routed
      offline compile at its true length (atol 1e-5).  The launch counts
      of the timed serve window are the bitserial ``launches``.
-  6. entry points: ``fft_hopper`` on the 124 Fig-9 STFT frames (each of
-     its 8 stages against the plain version at 1e-4, the result against
-     ``torch.fft.fft`` at 2e-3) and ``fir_conv`` on the (4, 4096) input
-     with 9 taps and 8 phases (against the plain version and a causal
-     ``F.conv1d`` at 1e-4); their launch counts are those of one call.
+  6. entry points: ``fft_hopper`` on the 124 Fig-9 STFT frames, all 8
+     stages and the final scatter in one launch (against its plain
+     version at 1e-4 and ``torch.fft.fft`` at 2e-3), then each of the 8
+     stages alone through ``fft_stage_hopper`` (against the plain stage
+     at 1e-4, timed beside its per-stage bound), and ``fir_conv`` on
+     the (4, 4096) input with 9 taps and 8 phases (against the plain
+     version and a causal ``F.conv1d`` at 1e-4); their launch counts are
+     those of one call.
   7. train: one Fig-9 ``value_and_grad`` step (wrt the front taps and
      the mask CNN, the example's edge-cut MSE against the clean target of
      ``SignalStream(4096, 4, seed)``) on ``hopper`` against the port's
@@ -60,15 +64,16 @@ phase:
      backward launch counts are the shuffle-GEMM rows' ``backward``.
   8. attention: ``flash_attention`` on a gemma2-2b local layer (S 8192,
      8 heads over 4 kv heads, hd 256, window 4096, softcap 50) and a
-     starcoder2-3b layer (S 4096, 24 heads over 2, hd 128) in float32
-     and bfloat16, batch 1, causal — each held against the plain version
-     (rtol = atol = 1e-4; bfloat16 rtol 1e-2, atol 5e-3; relative L2
-     error under 1e-2) and timed beside its bound; the starcoder2 calls
-     also against ``F.scaled_dot_product_attention``, held to the same
-     limits.  The three calls are the flash kernel's ``launches``; the
-     row's ``per_call`` splits it by call, and ``library_kernel_ms`` is
-     the kernel's time on the calls ``library_ms`` covers.
-  9. kernels: the kernel JSON of all six kernels.
+     starcoder2-3b layer (S 4096, 24 heads over 2, hd 128), each in
+     float32 (FMA body) and bfloat16 (tensor-core body), batch 1, causal
+     — each held against the plain version (rtol = atol = 1e-4; bfloat16
+     rtol 1e-2, atol 5e-3; relative L2 error under 1e-2) and timed beside
+     its bound; the starcoder2 calls also against
+     ``F.scaled_dot_product_attention``, held to the same limits.  The
+     four calls are the flash kernel's ``launches``; the row's
+     ``per_call`` splits it by call, and ``library_kernel_ms`` is the
+     kernel's time on the calls ``library_ms`` covers.
+  9. kernels: the kernel JSON of all seven kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -103,17 +108,19 @@ TPU_KERNELS = {
     "shuffle_gemm_grouped_blocks":
         "src/repro/kernels/shuffle_gemm/kernel.py:125",
     "bitserial_matmul_planes": "src/repro/kernels/bitserial_mm/kernel.py:46",
-    "fft_stage_hopper": "src/repro/kernels/fft_stage/kernel.py:39",
+    "fft_stages_hopper": "src/repro/kernels/fft_stage/kernel.py:39",
     "fir_conv_hopper": "src/repro/kernels/fir_conv/kernel.py:33",
     "flash_attention_hopper": "src/repro/kernels/flash_attention/kernel.py:81",
+    "compiled_supported": "src/repro/kernels/__init__.py:66",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "shuffle_gemm_grouped_blocks": CSRC + "shuffle_gemm.cu",
            "bitserial_matmul_planes": CSRC + "bitserial_mm.cu",
-           "fft_stage_hopper": CSRC + "fft_stage.cu",
+           "fft_stages_hopper": CSRC + "fft_stage.cu",
            "fir_conv_hopper": CSRC + "fir_conv.cu",
-           "flash_attention_hopper": CSRC + "flash_attention.cu"}
+           "flash_attention_hopper": CSRC + "flash_attention.cu",
+           "compiled_supported": CSRC + "shuffle_gemm.cu"}
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 # Launches of one Fig-9 value_and_grad step on hopper (wrt the front taps
 # and the mask CNN): the forward's 2 + 16 (phase 3), then in the
@@ -130,8 +137,9 @@ TRAIN_LAUNCHES = {n: FORWARD_LAUNCHES[n] + BACKWARD_LAUNCHES[n]
 TRAIN_STEPS = 6
 # Attention layers at the widths of configs the repo ships, batch 1:
 # (label, source, S, H, KV, hd, window, softcap, dtype name, (rtol, atol));
-# all causal.  softcap has no library call; the starcoder2 calls are
-# also timed against F.scaled_dot_product_attention.  At S 4096 a causal
+# all causal.  float32 runs the FMA body, bfloat16 the tensor-core body.
+# softcap has no library call; the starcoder2 calls are also timed
+# against F.scaled_dot_product_attention.  At S 4096 a causal
 # output row over n unit-normal keys has a spread of about sqrt(e / n),
 # so typical values are 0.03-0.04: the bfloat16 limits are set from the
 # measured error (1.95e-3, one bf16 step at 0.25-0.5) with room on both
@@ -145,6 +153,8 @@ ATTENTION = [
      2, 128, 0, 0.0, "float32", (1e-4, 1e-4)),
     ("starcoder2-3b layer", "src/repro/configs/starcoder2_3b.py", 4096, 24,
      2, 128, 0, 0.0, "bfloat16", (1e-2, 5e-3)),
+    ("gemma2-2b local layer", "src/repro/configs/gemma2_2b.py", 8192, 8, 4,
+     256, 4096, 50.0, "bfloat16", (1e-2, 5e-3)),
 ]
 ATTN_REL_L2 = 1e-2
 
@@ -417,9 +427,13 @@ def main() -> int:
         if ("registers" in line or "spill" in line
                 or "entry function" in line or line.startswith("== ")):
             print(f"  {line.strip()}")
+    K.compiled_supported.launches = 0
     if not K.compiled_supported():
         raise AssertionError("compiled_supported() is False on the card")
-    print("compiled_supported() True", flush=True)
+    probe_counts = {"compiled_supported": K.compiled_supported.launches}
+    if probe_counts != {"compiled_supported": 1}:
+        raise AssertionError(f"the probe launched {probe_counts}")
+    print(f"compiled_supported() True; launches {probe_counts}", flush=True)
     probe_x = torch.arange(8 * 128, dtype=torch.float32, device="cuda")
     probe_y = torch.empty_like(probe_x)
 
@@ -429,12 +443,17 @@ def main() -> int:
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"repro_copy_f32 launch failed: {err}")
+    probe_ms = device_ms(torch, probe)
+    copy_ms = device_ms(torch, lambda: probe_y.copy_(probe_x))
+    probe_bound = bound(2 * probe_x.nbytes, 0, FP32_FLOP_PER_S)
     print(f"probe repro_copy_f32 (8x128 float32): kernel "
-          f"{device_ms(torch, probe) * 1e3:.2f} us, Tensor.copy_ (the plain "
-          f"version and the library call) "
-          f"{device_ms(torch, lambda: probe_y.copy_(probe_x)) * 1e3:.2f} "
-          f"us, bound {2 * probe_x.nbytes / HBM_BYTES_PER_S * 1e6:.4f} us",
-          flush=True)
+          f"{probe_ms * 1e3:.2f} us, Tensor.copy_ (the plain version and the "
+          f"library call) {copy_ms * 1e3:.2f} us, bound "
+          f"{probe_bound[0] * 1e3:.4f} us", flush=True)
+    rows = {"compiled_supported": new_row(1, "one 8x128 float32 copy")}
+    add_call(rows["compiled_supported"], 0.0, probe_ms, copy_ms, probe_bound)
+    rows["compiled_supported"].update(
+        library_ms=copy_ms, library="Tensor.copy_ of the same tensor")
 
     # -- model and inputs (numpy, from the seed) ----------------------------
     from repro_torch.convert import params_from_jax
@@ -651,9 +670,9 @@ def main() -> int:
                             ("bitserial_matmul_planes",))
     if len(bs_calls) != n_int:
         raise AssertionError(f"{len(bs_calls)} bitserial calls recorded")
-    rows = {"bitserial_matmul_planes": new_row(
+    rows["bitserial_matmul_planes"] = new_row(
         n_int, f"sum over the {n_int} int-routed calls of one batch-"
-               f"{BATCH} Fig-9q forward")}
+               f"{BATCH} Fig-9q forward")
     lib_ms, lib_k_ms, lib_calls = 0.0, 0.0, 0
     with torch.no_grad():
         for _, a in bs_calls:
@@ -765,9 +784,11 @@ def main() -> int:
     # -- 6. entry points: fft_hopper and fir_conv ---------------------------
     phase("6 entry points")
     import torch.nn.functional as F
-    from repro_torch.kernels.fft_stage import (fft_hopper, fft_stage_hopper,
-                                               ref_fft_stage_hopper)
+    from repro_torch.kernels.fft_stage import (
+        fft_hopper, fft_stage_hopper, fft_stages_hopper, ref_fft_stage_hopper,
+        ref_fft_stages_hopper)
     from repro_torch.kernels.fft_stage import kernel as fft_kernel
+    from repro_torch.kernels.fft_stage import ops as fft_ops
     from repro_torch.kernels.fir_conv import (fir_conv, fir_conv_hopper,
                                               ref_fir_conv_hopper)
     from repro_torch.kernels.fir_conv import kernel as fir_kernel
@@ -782,38 +803,83 @@ def main() -> int:
         y_fft = fft_hopper(z)
         torch.cuda.synchronize()
         fft_counts = fft_kernel.launch_counts()
-    if fft_counts != {"fft_stage_hopper": 8}:
+    if fft_counts != {"fft_stages_hopper": 1}:
         raise AssertionError(f"fft_hopper over 256 points launched "
                              f"{fft_counts}")
     torch.testing.assert_close(y_fft, torch.fft.fft(z), rtol=2e-3, atol=2e-3)
     print(f"fft_hopper {tuple(z.shape)} complex64 vs torch.fft.fft: max abs "
           f"err {float((y_fft - torch.fft.fft(z)).abs().max()):.3e} "
-          f"(rtol = atol = 2e-3)")
-    fft_calls = record_calls(torch, lambda: fft_hopper(z),
-                             "repro_torch.kernels.fft_stage.ops",
-                             ("fft_stage_hopper",))
-    rows["fft_stage_hopper"] = new_row(
-        len(fft_calls), f"sum over the {len(fft_calls)} stages of one "
-        f"fft_hopper call on the {z.shape[0]} Fig-9 STFT frames of 256")
+          f"(rtol = atol = 2e-3); launches {fft_counts}")
+    (_, a), = record_calls(torch, lambda: fft_hopper(z),
+                           "repro_torch.kernels.fft_stage.ops",
+                           ("fft_stages_hopper",))
+    n_st = len(a["nb"])
+    rows["fft_stages_hopper"] = new_row(
+        1, f"one fft_hopper call on the {z.shape[0]} Fig-9 STFT frames of "
+           f"256: its {n_st} stages and the final scatter in one launch")
     with torch.no_grad():
-        for _, a in fft_calls:
-            got, want = fft_stage_hopper(**a), ref_fft_stage_hopper(**a)
+        got, want = fft_stages_hopper(**a), ref_fft_stages_hopper(**a)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        k_ms = device_ms(torch, lambda: fft_stages_hopper(**a))
+        p_ms = device_ms(torch, lambda: ref_fft_stages_hopper(**a))
+    b_, n2 = a["x"].shape
+    # one read and one write of the frames, the indices, the scatter and
+    # the twiddles; 8 flops an element a stage
+    b = bound(2 * 4 * b_ * n2 + 4 * (a["idx"].numel() + a["scatter"].numel()
+                                     + a["tw"].numel()),
+              8 * b_ * n2 * n_st, FP32_FLOP_PER_S)
+    add_call(rows["fft_stages_hopper"], err, k_ms, p_ms, b)
+    print(f"fft_stages_hopper {n_st} stages + scatter, one launch | "
+          f"max_abs_err {err:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.2f} us  "
+          f"plain {p_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us",
+          flush=True)
+    # where the launch's time goes: the same launch over the first s stages
+    prefix = []
+    with torch.no_grad():
+        for s_ in range(1, n_st + 1):
+            pa = dict(a, idx=a["idx"][:s_].contiguous(), nb=a["nb"][:s_],
+                      tw=a["tw"][:sum(n2 // 4 // nb for nb in a["nb"][:s_])]
+                      .contiguous())
+            prefix.append(device_ms(torch, lambda: fft_stages_hopper(**pa)))
+    print("fft_stages_hopper over the first s stages (+ scatter), us: "
+          + ", ".join(f"s={i + 1} {t * 1e3:.2f}"
+                      for i, t in enumerate(prefix)), flush=True)
+    single = new_row(0, f"sum over the {n_st} stages run one launch each "
+                        f"through fft_stage_hopper")
+    xr = a["x"]
+    with torch.no_grad():
+        for st in fft_ops._plan(256).stages:
+            sa = dict(x=xr, idx=fft_ops._stage_index(st, "cuda"),
+                      tw=torch.as_tensor(st.twiddle, device="cuda"),
+                      half=st.half, nb=st.nb)
+            got, want = fft_stage_hopper(**sa), ref_fft_stage_hopper(**sa)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-            k_ms = device_ms(torch, lambda: fft_stage_hopper(**a))
-            p_ms = device_ms(torch, lambda: ref_fft_stage_hopper(**a))
-            b_, n2 = a["x"].shape
-            b = bound(2 * 4 * b_ * n2 + 4 * n2 + 4 * a["tw"].numel(),
+            k_ms = device_ms(torch, lambda: fft_stage_hopper(**sa))
+            p_ms = device_ms(torch, lambda: ref_fft_stage_hopper(**sa))
+            b = bound(2 * 4 * b_ * n2 + 4 * n2 + 4 * sa["tw"].numel(),
                       8 * b_ * n2, FP32_FLOP_PER_S)
-            add_call(rows["fft_stage_hopper"], err, k_ms, p_ms, b)
-            print(f"fft_stage_hopper half {a['half']:4d} nb {a['nb']:4d} | "
+            add_call(single, err, k_ms, p_ms, b)
+            single["calls"] += 1
+            print(f"fft_stage_hopper half {st.half:4d} nb {st.nb:4d} | "
                   f"max_abs_err {err:.3e} (tol 1e-4) | kernel "
                   f"{k_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  bound "
                   f"{b[0] * 1e3:6.3f} us", flush=True)
-    rows["fft_stage_hopper"].update(
+            xr = got
+    print(f"the {single['calls']} stages one launch each: kernel "
+          f"{single['ms'] * 1e3:.2f} us, plain {single['plain_ms'] * 1e3:.2f} "
+          f"us, summed per-stage bound {single['bound_ms'] * 1e3:.3f} us")
+    rows["fft_stages_hopper"].update(
         library_ms=device_ms(torch, lambda: torch.fft.fft(z)),
-        library="torch.fft.fft over the same frames (the whole FFT)")
+        library="torch.fft.fft over the same frames (the whole FFT)",
+        single_stage={k: single[k] for k in (
+            "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "per")})
+    print(f"torch.fft.fft on the same frames: "
+          f"{rows['fft_stages_hopper']['library_ms'] * 1e3:.2f} us",
+          flush=True)
 
     h = torch.as_tensor((np.hanning(9) / np.hanning(9).sum())
                         .astype(np.float32), device="cuda")
@@ -1024,8 +1090,8 @@ def main() -> int:
     if flash_counts != {"flash_attention_hopper": len(ATTENTION)}:
         raise AssertionError(f"the attention calls launched {flash_counts}")
     rows["flash_attention_hopper"] = new_row(
-        len(ATTENTION), "sum over the three calls: a gemma2-2b local layer "
-        "(float32) and a starcoder2-3b layer in float32 and in bfloat16")
+        len(ATTENTION), "sum over the four calls: a gemma2-2b local layer "
+        "and a starcoder2-3b layer, each in float32 and in bfloat16")
     per_call, lib_ms, lib_k_ms = [], 0.0, 0.0
     fa = flash_kernel.flash_attention_hopper
 
@@ -1088,7 +1154,7 @@ def main() -> int:
         library="F.scaled_dot_product_attention(is_causal=True, "
         "enable_gqa=True) on the two starcoder2-3b calls; "
         "library_kernel_ms is the kernel's time on the same two calls; "
-        "softcap (the gemma2-2b call) has no library call; per_call "
+        "softcap (the gemma2-2b calls) has no library call; per_call "
         "splits the row by call")
     del attn_in, attn_out
     torch.cuda.empty_cache()
@@ -1097,7 +1163,7 @@ def main() -> int:
     phase("9 kernels")
     launches = {**serve_counts, "bitserial_matmul_planes":
                 q_counts["bitserial_matmul_planes"], **fft_counts,
-                **fir_counts, **flash_counts}
+                **fir_counts, **flash_counts, **probe_counts}
     for name, pk in per_kernel.items():
         bw_row = backward[name]
         rows[name] = {**pk, "library_ms": None,
@@ -1121,7 +1187,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "per": r["per"],
             "library": r.get("library", "none"),
             **{k: r[k] for k in ("library_kernel_ms", "per_call",
-                                 "backward") if k in r},
+                                 "backward", "single_stage") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,14 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
                  shared-operand and the grouped (FFT butterfly) forms.
 - bitserial_mm : variable-bitwidth integer GEMM over 4-bit digit planes
                  with shift-add recombination (paper §IV / Fig 2).
-- fft_stage    : one radix-2 butterfly stage = composed shuffle plan +
-                 per-twiddle-class 4x4 products (paper Fig 3a).
+- fft_stage    : radix-2 butterfly stages = composed shuffle plan +
+                 per-twiddle-class 4x4 products (paper Fig 3a), a whole
+                 FFT's stages in one launch.
 - fir_conv     : multi-phase FIR (window gather + tap-bank product,
                  structural zeros = DPU pads; paper Fig 3b).
 - flash_attention : online-softmax attention forward (GQA, causal,
-                 sliding window, logit softcap) for the DL side.
+                 sliding window, logit softcap) for the DL side; bfloat16
+                 on the tensor cores (wgmma fed by TMA).
 
 The sources live in ``csrc/`` and are built from the checkout at first
 use: one ``nvcc`` per source, all started together, then one link into a
@@ -55,7 +57,7 @@ _SIGNATURES = {
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_copy_f32": (_P, _P, _I, _P),
     "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
-    "repro_fft_stage": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "repro_fft_stages": (_P,) * 5 + (_I,) * 3 + (_P, _P),
     "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
     "repro_flash_attention": (_P,) * 4 + (_I,) * 8
     + (ctypes.c_float, _I, _P),
@@ -205,14 +207,19 @@ def compiled_supported() -> bool:
     """True once the kernel library builds and a copy kernel launches on
     the card and returns its input — the counterpart of the JAX
     package's compiled-Pallas probe.  False on a host with no card; a
-    build failure raises."""
+    build failure raises.  Its launches are counted in its
+    ``launches`` attribute."""
     if not torch.cuda.is_available():
         return False
     x = torch.arange(8 * 128, dtype=torch.float32, device="cuda")
     y = torch.empty_like(x)
     launch("repro_copy_f32", x.device, x.data_ptr(), y.data_ptr(), x.numel())
+    compiled_supported.launches += 1
     torch.cuda.synchronize()
     return bool(torch.equal(x, y))
+
+
+compiled_supported.launches = 0
 
 
 from .bitserial_mm.ops import bitserial_matmul  # noqa: E402

@@ -6,6 +6,9 @@ attention with GQA (query head ``h`` reads kv head ``h // (H / KV)``),
 causal and sliding-window masks, a tanh logit softcap and ragged tails,
 float32 running state, output in the query's type.  It reads the entry
 point's ``(B, S, H, hd)`` layout directly, so nothing is transposed.
+float32 runs on the FMA pipes; bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA, P rounded to bfloat16 before P V), at every head
+dim the wrapper takes.
 
 The wrapper runs the plain PyTorch version (``ref.py``) for a tensor on
 the CPU, and for a tensor on the card checks device, type, shape and
@@ -26,7 +29,8 @@ __all__ = ["flash_attention_hopper", "launch_counts", "reset_launch_counts",
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
-MAX_HEAD_DIM = 256      # gemma2-2b's head_dim; 141 KB of shared memory
+MAX_HEAD_DIM = 256      # gemma2-2b's head_dim; 141 KB of shared memory in
+                        # float32, 193 KB in bfloat16
 
 
 def _check(q, k, v):

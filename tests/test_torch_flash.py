@@ -9,7 +9,10 @@ bidirectional, MQA and ragged lengths), in bfloat16, and at two of the
 TPU kernel's block sizes (the port has no block size: its result cannot
 depend on one).  Tolerances are that file's: rtol = atol = 1e-4 in
 float32, 3e-2 in bfloat16.  The CUDA kernel is held against the plain
-version on the card in ``test_torch_gpu.py``.
+version on the card in ``test_torch_gpu.py``.  A numpy emulation of the
+bfloat16 kernel's tensor-core arithmetic (P rounded to bfloat16 before
+P V) shows here that this rounding fits the limits the card tests and
+``chip_smoke.py`` hold it to.
 """
 
 import jax.numpy as jnp
@@ -80,3 +83,52 @@ def test_flash_block_size_invariance():
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
     for want in (a, b):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _bf16(a):
+    """Round float32 values to bfloat16 (nearest even), kept as float32."""
+    return torch.as_tensor(a).to(torch.bfloat16).float().numpy()
+
+
+def _tensor_core_attention(q, k, v, bk=128):
+    """The bfloat16 CUDA kernel's arithmetic, causal, in numpy: S = Q K^T
+    from bfloat16 operands accumulated in float32, scaled by 1/sqrt(hd)
+    in float32, masked to -1e30; an online softmax over tiles of ``bk``
+    keys with float32 m, l and accumulator; P rounded to bfloat16 before
+    P V (l sums the float32 P); the output rounded to bfloat16.
+    q (S, H, hd), k/v (S, KV, hd) float32 holding bfloat16 values."""
+    s, h, hd = q.shape
+    g = h // k.shape[1]
+    qh = q.transpose(1, 0, 2)                          # (H, S, hd)
+    kh = np.repeat(k.transpose(1, 0, 2), g, axis=0)
+    vh = np.repeat(v.transpose(1, 0, 2), g, axis=0)
+    scale = np.float32(1.0 / np.sqrt(hd))
+    m = np.full((h, s, 1), -1e30, np.float32)
+    l = np.zeros((h, s, 1), np.float32)
+    acc = np.zeros((h, s, hd), np.float32)
+    rows = np.arange(s)[:, None]
+    for k0 in range(0, s, bk):
+        keys = np.arange(k0, min(k0 + bk, s))[None, :]
+        x = (qh @ kh[:, k0:k0 + bk].transpose(0, 2, 1)) * scale
+        x = np.where(keys <= rows, x, np.float32(-1e30))
+        m_new = np.maximum(m, x.max(axis=-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(x - m_new)
+        l = l * alpha + p.sum(axis=-1, keepdims=True)
+        acc = acc * alpha + _bf16(p) @ vh[:, k0:k0 + bk]
+        m = m_new
+    return _bf16(acc / np.maximum(l, np.float32(1e-30))).transpose(1, 0, 2)
+
+
+def test_tensor_core_rounding_fits_the_bf16_limits():
+    """At S 1024, 4 heads over 2, hd 128, causal: the emulated kernel
+    against the JAX package's plain ``ref_attention`` in float32 on the
+    same bfloat16-rounded inputs stays within rtol 1e-2, atol 5e-3 and a
+    relative L2 error of 1e-2."""
+    q, k, v = (_bf16(a[0]) for a in _qkv(14, 1, 1024, 4, 2, 128))
+    got = _tensor_core_attention(q, k, v)
+    want = np.asarray(j_ref(*(jnp.asarray(a[None]) for a in (q, k, v)),
+                            causal=True))[0]
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=5e-3)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-2, rel

@@ -22,8 +22,10 @@ backward Function rtol = atol = 1e-5 against autograd through the plain
 versions (atol 1e-4 on ``dw``, a float32 sum of thousands of terms),
 and Fig-9 gradients on ``hopper`` against ``reference`` rtol 1e-4, atol
 1e-5 (the forward's card tolerance: sums run in another
-order); flash attention rtol = atol = 1e-4 (bfloat16 3e-2), as in the
-JAX package's tests.
+order); flash attention rtol = atol = 1e-4 in float32, as in the JAX
+package's tests, and in bfloat16 (tensor cores, P rounded to bfloat16)
+rtol 1e-2, atol 5e-3 and a relative L2 error under 1e-2.  The one-launch
+``fft_hopper`` equals its plain version bit for bit.
 """
 
 import numpy as np
@@ -235,15 +237,52 @@ def test_fft_stage_kernel_matches_plain(cuda):
     for st in plan.stages:
         idx = fft_ops._stage_index(st, cuda)
         tw = torch.as_tensor(st.twiddle, device=cuda)
-        before = fft_kernel.fft_stage_hopper.launches
+        before = fft_kernel.fft_stages_hopper.launches
         got = fft_kernel.fft_stage_hopper(xr, idx, tw, st.half, st.nb)
         torch.cuda.synchronize()
-        assert fft_kernel.fft_stage_hopper.launches == before + 1
+        assert fft_kernel.fft_stages_hopper.launches == before + 1
         want = fft_ref.ref_fft_stage_hopper(xr, idx, tw, st.half, st.nb)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         xr = got
     torch.testing.assert_close(fft_ops.fft_hopper(z), torch.fft.fft(z),
                                rtol=2e-3, atol=2e-3)
+
+
+def _frames(n, batch=124, seed=5):
+    rng = np.random.default_rng(seed + n)
+    return ((rng.standard_normal((batch, n))
+             + 1j * rng.standard_normal((batch, n))).astype(np.complex64))
+
+
+@pytest.mark.parametrize("n", [2, 8, 256, 4096])
+def test_fft_hopper_one_launch_matches_plain(cuda, n):
+    """n <= 8192: every stage and the final scatter in one launch, bit
+    for bit the plain stages on the same card tensors."""
+    z = torch.as_tensor(_frames(n), device=cuda)
+    fft_kernel.reset_launch_counts()
+    got = fft_ops.fft_hopper(z)
+    torch.cuda.synchronize()
+    assert fft_kernel.launch_counts() == {"fft_stages_hopper": 1}
+    xb = torch.view_as_real(z).reshape(z.shape[0], -1)
+    idx, tw, nb, scatter = fft_ops._stage_list(fft_ops._plan(n), cuda,
+                                               torch.float32)
+    want = fft_ref.ref_fft_stages_hopper(xb, idx, tw, nb, scatter)
+    assert torch.equal(torch.view_as_real(got).reshape(xb.shape), want)
+    torch.testing.assert_close(got, torch.fft.fft(z), rtol=2e-3, atol=2e-3)
+
+
+def test_fft_hopper_per_stage_branch(cuda):
+    """n above the shared-memory limit: one launch a stage (log2 n) from
+    device memory, then the scatter through apply_plan."""
+    n = 2 * fft_ops.FUSED_MAX_N
+    z = torch.as_tensor(_frames(n, batch=3), device=cuda)
+    fft_kernel.reset_launch_counts()
+    got = fft_ops.fft_hopper(z)
+    torch.cuda.synchronize()
+    assert fft_kernel.launch_counts() == {"fft_stages_hopper": 14}
+    want = fft_ops.fft_hopper(z.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, torch.fft.fft(z), rtol=2e-3, atol=2e-3)
 
 
 def test_fir_conv_kernel_matches_plain(cuda):
@@ -424,45 +463,65 @@ def test_value_and_grad_on_hopper_launches_backward_kernels(cuda):
 # -- flash attention ---------------------------------------------------------
 
 FLASH_CASES = [
-    # B, S, H, KV, hd, causal, window, softcap (tests/test_flash_attention.py)
-    (2, 64, 4, 4, 16, True, 0, 0.0),
-    (2, 64, 8, 2, 16, True, 0, 0.0),
-    (1, 100, 4, 2, 32, True, 24, 0.0),
-    (2, 64, 4, 4, 16, True, 0, 30.0),
-    (2, 48, 6, 3, 16, False, 0, 0.0),
-    (1, 130, 2, 1, 64, True, 0, 0.0),
-    (1, 300, 4, 2, 256, True, 100, 50.0),   # gemma2-2b's head dim
+    # B, Sq, Skv, H, KV, hd, causal, window, softcap
+    # (tests/test_flash_attention.py, and gemma2-2b's head dim)
+    (2, 64, 64, 4, 4, 16, True, 0, 0.0),
+    (2, 64, 64, 8, 2, 16, True, 0, 0.0),
+    (1, 100, 100, 4, 2, 32, True, 24, 0.0),
+    (2, 64, 64, 4, 4, 16, True, 0, 30.0),
+    (2, 48, 48, 6, 3, 16, False, 0, 0.0),
+    (1, 130, 130, 2, 1, 64, True, 0, 0.0),
+    (1, 300, 300, 4, 2, 256, True, 100, 50.0),
+    # Sq != Skv; rows of hd 20 (40 bytes) are no multiple of 16 bytes, so
+    # bfloat16 loads them without TMA; hd 40 (80 bytes) takes TMA with the
+    # head dim padded by its out-of-bounds fill
+    (2, 77, 150, 4, 2, 20, True, 16, 0.0),
+    (1, 150, 77, 6, 3, 40, False, 0, 30.0),
 ]
+# float32: the JAX package's tests; bfloat16: rtol 1e-2, atol 5e-3 and a
+# relative L2 error under 1e-2, the limits chip_smoke.py holds at S 4096
+FLASH_TOL = {torch.float32: (1e-4, 1e-4, None),
+             torch.bfloat16: (1e-2, 5e-3, 1e-2)}
 
 
-def _qkv(rng, dev, dt, b, s, h, kv, hd):
+def _qkv(rng, dev, dt, b, s, h, kv, hd, skv=None):
+    skv = s if skv is None else skv
     return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device=dev).to(dt)
-            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+            for shape in ((b, s, h, hd), (b, skv, kv, hd), (b, skv, kv, hd))]
 
 
+def _assert_flash_close(got, want, dt):
+    rtol, atol, rel_l2 = FLASH_TOL[dt]
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if rel_l2 is not None:
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel < rel_l2, rel
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_kernel_matches_plain(cuda, case):
-    b, s, h, kv, hd, causal, window, cap = case
-    q, k, v = _qkv(np.random.default_rng(s + h), cuda, torch.float32, b, s,
-                   h, kv, hd)
+def test_flash_kernel_matches_plain(cuda, case, dt):
+    """One launch a call; bfloat16 runs on the tensor cores at every
+    head dim, window, softcap, GQA/MQA and ragged shape here."""
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    q, k, v = _qkv(np.random.default_rng(sq + h), cuda, dt, b, sq, h, kv, hd,
+                   skv)
     kw = dict(causal=causal, window=window, softcap=cap)
     before = flash_kernel.flash_attention_hopper.launches
     got = tk.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_kernel.flash_attention_hopper.launches == before + 1
-    want = tk.ref_attention(q, k, v, **kw)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    _assert_flash_close(got, tk.ref_attention(q, k, v, **kw), dt)
 
 
 def test_flash_kernel_bf16(cuda):
     q, k, v = _qkv(np.random.default_rng(7), cuda, torch.bfloat16, 2, 200,
                    8, 2, 128)
     got = tk.flash_attention(q, k, v)
-    assert got.dtype == torch.bfloat16
-    want = tk.ref_attention(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
-                               atol=3e-2)
+    _assert_flash_close(got, tk.ref_attention(q, k, v), torch.bfloat16)
 
 
 def test_flash_wrapper_refuses_bad_inputs(cuda):

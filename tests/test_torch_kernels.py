@@ -8,7 +8,9 @@ inputs and the same tolerances: the bitserial GEMM bit-exact (it is an
 integer product mod 2^32), one FFT stage and the phased FIR at
 rtol = atol = 1e-4, the full FFT at 2e-3 against ``np.fft``.  The CUDA
 kernels themselves are held against the plain versions on the card in
-``test_torch_gpu.py``.
+``test_torch_gpu.py``.  The one-launch FFT's plain version (every stage,
+then the final scatter) is held bit for bit against the stage-by-stage
+path.
 """
 
 import re
@@ -26,6 +28,7 @@ from repro.kernels.bitserial_mm.ref import ref_bitserial_matmul as j_ref_bs
 from repro.kernels.fft_stage.ops import fft_pallas
 from repro_torch import kernels as tk
 from repro_torch.core import signal_mapping as tsm
+from repro_torch.core.fabric import apply_plan
 from repro_torch.kernels import bitserial_mm
 from repro_torch.kernels.fft_stage import kernel as fft_kernel
 from repro_torch.kernels.fft_stage import ops as fft_ops
@@ -106,6 +109,39 @@ def test_fft_hopper_matches_reference(n):
     got = fft_ops.fft_hopper(torch.as_tensor(z)).numpy()
     np.testing.assert_allclose(got, np.fft.fft(z, axis=-1), rtol=2e-3,
                                atol=2e-3)
+    np.testing.assert_allclose(got, np.asarray(fft_pallas(
+        jnp.asarray(z), interpret=True)), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("n", [2, 16, 256, 1024])
+def test_fft_stage_list_plain_equals_stage_by_stage(n):
+    """The one-launch path's plain version (every stage, then the final
+    scatter) is bit for bit the stage-by-stage plain stages followed by
+    ``apply_plan``, the path the JAX package's ``fft_pallas`` takes."""
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.standard_normal((3, 2 * n)).astype(np.float32))
+    plan = fft_ops._plan(n)
+    idx, tw, nb, scatter = fft_ops._stage_list(plan, "cpu", torch.float32)
+    got = fft_ref.ref_fft_stages_hopper(x, idx, tw, nb, scatter)
+    want = x
+    for st in plan.stages:
+        want = fft_ops.fft_stage(want, st)
+        if st.scatter.n_out:
+            want = apply_plan(want, st.scatter)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [(3,), (2, 5)])
+@pytest.mark.parametrize("n", [2, 16, 256, 1024])
+def test_fft_hopper_matches_fft_pallas(n, batch):
+    """``fft_hopper`` (one launch on the card; its plain version here)
+    against the JAX package's ``fft_pallas`` in interpret mode, at its
+    full-FFT tolerance, over batch shapes of one and two axes."""
+    rng = np.random.default_rng(n + len(batch))
+    z = (rng.standard_normal(batch + (n,))
+         + 1j * rng.standard_normal(batch + (n,))).astype(np.complex64)
+    got = fft_ops.fft_hopper(torch.as_tensor(z)).numpy()
+    assert got.shape == z.shape and got.dtype == np.complex64
     np.testing.assert_allclose(got, np.asarray(fft_pallas(
         jnp.asarray(z), interpret=True)), rtol=2e-3, atol=2e-3)
 
