@@ -32,15 +32,22 @@ phase:
      counts of this window are the ``launches`` of the kernel line.
   5. precision (Fig-9q at length 4096, batch 4): ``auto_policy`` on 6
      seeded batches at a 1e-2 budget; the bound program int-routes every
-     policy step; one forward's wall time and ``torch.profiler`` device
-     breakdown; the bitserial calls of one forward are held bit-exact
-     against the plain version on the same card tensors and timed beside
-     their bound and, where both widths are at most 8, ``torch._int_mm``
-     on the same int8 operands; the held-out relative L2 error of ``out``
-     and ``mel_tap`` is within the budget; ``SignalService(precision=)``
-     answers 8 + 32 mixed-length requests, each equal to the int-routed
-     offline compile at its true length (atol 1e-5).  The launch counts
-     of the timed serve window are the bitserial ``launches``.
+     policy step, each one launch of the fused quantize -> integer GEMM ->
+     dequantize kernel (``bitserial_quant_matmul_hopper``); one forward's
+     wall time, device launches and ``torch.profiler`` breakdown; on each
+     int-routed call of one forward, the fused kernel and the planes
+     kernel (``bitserial_matmul_planes``, on the call's quantized digit
+     planes) are held bit-exact against their plain versions on the same
+     card tensors and timed beside their bounds and the float64
+     ``torch.matmul`` yardstick on the quantized integers (bit-exact too),
+     and ``torch._int_mm`` where both widths are at most 8; the
+     ``bitserial_matmul`` entry point then runs on the same quantized
+     operands (the planes kernel's ``launches``); the held-out relative L2
+     error of ``out`` and ``mel_tap`` is within the budget;
+     ``SignalService(precision=)`` answers 8 + 32 mixed-length requests,
+     each equal to the int-routed offline compile at its true length (atol
+     1e-5).  The launch counts of the timed serve window are the fused
+     kernel's ``launches``.
   6. entry points: ``fft_hopper`` on the 124 Fig-9 STFT frames, all 8
      stages and the final scatter in one launch (against its plain
      version at 1e-4 and ``torch.fft.fft`` at 2e-3), then each of the 8
@@ -73,7 +80,7 @@ phase:
      four calls are the flash kernel's ``launches``; the row's
      ``per_call`` splits it by call, and ``library_kernel_ms`` is the
      kernel's time on the calls ``library_ms`` covers.
-  9. kernels: the kernel JSON of all seven kernels.
+  9. kernels: the kernel JSON of all eight kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -108,6 +115,8 @@ TPU_KERNELS = {
     "shuffle_gemm_grouped_blocks":
         "src/repro/kernels/shuffle_gemm/kernel.py:125",
     "bitserial_matmul_planes": "src/repro/kernels/bitserial_mm/kernel.py:46",
+    "bitserial_quant_matmul_hopper":
+        "src/repro/kernels/bitserial_mm/kernel.py:46",
     "fft_stages_hopper": "src/repro/kernels/fft_stage/kernel.py:39",
     "fir_conv_hopper": "src/repro/kernels/fir_conv/kernel.py:33",
     "flash_attention_hopper": "src/repro/kernels/flash_attention/kernel.py:81",
@@ -117,6 +126,7 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "shuffle_gemm_grouped_blocks": CSRC + "shuffle_gemm.cu",
            "bitserial_matmul_planes": CSRC + "bitserial_mm.cu",
+           "bitserial_quant_matmul_hopper": CSRC + "bitserial_mm.cu",
            "fft_stages_hopper": CSRC + "fft_stage.cu",
            "fir_conv_hopper": CSRC + "fir_conv.cu",
            "flash_attention_hopper": CSRC + "flash_attention.cu",
@@ -283,11 +293,13 @@ def check_fig9_calls(calls) -> None:
 
 def profile_forward(torch, forward, wall_ms_per_call: float,
                     calls: int = 5, label: str = "hopper forward",
-                    grad: bool = False) -> None:
+                    grad: bool = False):
     """Where one forward's device time goes: ``torch.profiler`` over
     ``calls`` forwards (under ``torch.no_grad()`` unless ``grad``), device
     time summed by kernel name, and the busy share against the
-    unprofiled wall time of one forward."""
+    unprofiled wall time of one forward.  Returns the device launches
+    (kernels and copies) of one forward, or None when the profiler saw
+    no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.set_grad_enabled(grad):
@@ -307,7 +319,7 @@ def profile_forward(torch, forward, wall_ms_per_call: float,
     if not by_name:
         print("profile: the profiler recorded no device time; device busy "
               "share not measured")
-        return
+        return None
     by_name.sort(reverse=True)
     busy_us = sum(t for t, _, _ in by_name)
     print(f"profile of one {label}: device busy {busy_us:.1f} us of "
@@ -316,6 +328,7 @@ def profile_forward(torch, forward, wall_ms_per_call: float,
           f"{sum(c for _, c, _ in by_name):.0f} kernels and copies")
     for t, c, key in by_name[:10]:
         print(f"  {t:8.2f} us  {c:5.1f} calls  {key[:90]}")
+    return round(sum(c for _, c, _ in by_name))
 
 
 def fig9q_graph(length: int):
@@ -362,27 +375,45 @@ def add_call(row: dict, err: float, k_ms: float, p_ms: float,
     row["bound_ops_ms"] += b[2]
 
 
-def int_mm_operands(torch, a_planes, w_planes):
+def int_mm_operands(torch, xq, wq, aw, ww):
     """The int8 operands ``torch._int_mm`` takes for the same product:
-    the digit planes recombined (both widths at most 8 bits), zero-padded
-    to its shape rules (M > 16, K and N multiples of 8); None when an
+    the quantized integers (both widths at most 8 bits), zero-padded to
+    its shape rules (M > 16, K and N multiples of 8); None when an
     operand has 16 bits."""
-    if a_planes.shape[0] > 2 or w_planes.shape[0] > 2:
+    if aw > 8 or ww > 8:
         return None
-
-    def compose(planes):
-        acc = torch.zeros_like(planes[0], dtype=torch.int32)
-        for i in range(planes.shape[0]):
-            acc += planes[i].to(torch.int32) << (4 * i)
-        return acc.to(torch.int8)
-
-    a, w = compose(a_planes), compose(w_planes)
-    (m, k), n = a.shape, w.shape[1]
+    (m, k), n = xq.shape, wq.shape[1]
     mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
-    ap = torch.zeros((mp, kp), dtype=torch.int8, device=a.device)
-    wp = torch.zeros((kp, np_), dtype=torch.int8, device=a.device)
-    ap[:m, :k], wp[:k, :n] = a, w
+    ap = torch.zeros((mp, kp), dtype=torch.int8, device=xq.device)
+    wp = torch.zeros((kp, np_), dtype=torch.int8, device=xq.device)
+    ap[:m, :k], wp[:k, :n] = xq, wq
     return ap, wp
+
+
+F64_LIBRARY = (
+    "torch.matmul in float64 on the quantized integer operands (cast "
+    "outside the timed region), exact while every partial sum stays "
+    "below 2^53 (the bind-time guard keeps them below 2^31), wrapped to "
+    "int32 and held equal to the kernel's output; summed over the calls")
+
+
+def f64_yardstick(torch, xq, wq, want) -> tuple:
+    """The one PyTorch call that computes a bitserial call's integer
+    product at every width: ``torch.matmul`` in float64 on the quantized
+    integers.  Checks its result, wrapped to int32, equals ``want`` bit
+    for bit; returns (device ms, text)."""
+    from repro_torch.kernels.bitserial_mm.ref import wrap32
+
+    a64, w64 = xq.to(torch.float64), wq.to(torch.float64)
+    peak = float(a64.abs().amax()) * float(w64.abs().amax()) * a64.shape[1]
+    if peak >= 2 ** 53:
+        raise AssertionError(f"float64 yardstick not exact: peak {peak}")
+    got = wrap32(torch.matmul(a64, w64).to(torch.int64))
+    if not torch.equal(got, want):
+        raise AssertionError("the float64 torch.matmul yardstick disagrees "
+                             "with the bitserial kernel")
+    f_ms = device_ms(torch, lambda: torch.matmul(a64, w64))
+    return f_ms, f"torch.matmul float64 {f_ms * 1e3:8.2f} us (bit-exact)"
 
 
 def main() -> int:
@@ -625,6 +656,7 @@ def main() -> int:
     # -- 5. precision: Fig-9q calibrated, solved, served --------------------
     phase("5 precision")
     from repro_torch import precision as pz
+    from repro_torch.core import bitwidth as bw
     from repro_torch.kernels import bitserial_mm as bsm
     from repro_torch.signal import HopperBackend
     gq = fig9q_graph(LENGTH)
@@ -653,13 +685,18 @@ def main() -> int:
         out_q = cq(x)
         torch.cuda.synchronize()
         offline_q = bsm.launch_counts()
-    if offline_q != {"bitserial_matmul_planes": n_int}:
+    if offline_q != {"bitserial_matmul_planes": 0,
+                     "bitserial_quant_matmul_hopper": n_int}:
         raise AssertionError(f"one Fig-9q forward launched {offline_q}")
     with torch.no_grad():
         fwd_q = wall_ms(torch, lambda: cq(x), iters=10)
     print(f"Fig-9q forward wall time, batch {BATCH}, int-routed: "
-          f"{fwd_q:.3f} ms", flush=True)
-    profile_forward(torch, lambda: cq(x), fwd_q)
+          f"{fwd_q:.3f} ms; bitserial launches {offline_q}", flush=True)
+    q_launches = profile_forward(torch, lambda: cq(x), fwd_q)
+    print(f"Fig-9q forward: "
+          f"{'not measured' if q_launches is None else q_launches} device "
+          f"launches (kernels and copies, from the profile), {fwd_q:.3f} ms "
+          f"wall", flush=True)
     for k, shape in shapes.items():
         if tuple(out_q[k].shape) != shape \
                 or not bool(torch.isfinite(out_q[k]).all()):
@@ -667,16 +704,37 @@ def main() -> int:
                                  f"{tuple(out_q[k].shape)} or non-finite")
     bs_calls = record_calls(torch, lambda: cq(x),
                             "repro_torch.kernels.bitserial_mm.ops",
-                            ("bitserial_matmul_planes",))
+                            ("bitserial_quant_matmul_hopper",))
     if len(bs_calls) != n_int:
         raise AssertionError(f"{len(bs_calls)} bitserial calls recorded")
+    per = (f"sum over the {n_int} int-routed calls of one batch-{BATCH} "
+           f"Fig-9q forward")
+    rows["bitserial_quant_matmul_hopper"] = new_row(n_int, per)
     rows["bitserial_matmul_planes"] = new_row(
-        n_int, f"sum over the {n_int} int-routed calls of one batch-"
-               f"{BATCH} Fig-9q forward")
-    lib_ms, lib_k_ms, lib_calls = 0.0, 0.0, 0
+        n_int, per + ", on their quantized digit planes")
+    lib_ms, int_mm_ms, int_mm_k_ms, int_mm_calls = 0.0, 0.0, 0.0, 0
+    planes_in = []
     with torch.no_grad():
         for _, a in bs_calls:
-            ap, wp = a["a_planes"], a["w_planes"]
+            h, wf, aw, ww = a["h"], a["w"], a["aw"], a["ww"]
+            (m, kk), n = h.shape, wf.shape[1]
+            # the one-launch int route against its plain version
+            got_q = bsm.bitserial_quant_matmul_hopper(h, wf, aw, ww)
+            want_q = bsm.ref_bitserial_quant_matmul(h, wf, aw, ww)
+            torch.cuda.synchronize()
+            if not torch.equal(got_q, want_q):
+                bad = (got_q != want_q).nonzero()[0].tolist()
+                raise AssertionError(
+                    f"bitserial_quant_matmul_hopper ({m}, {kk}, {n}) "
+                    f"{(aw, ww)}: not bit-exact at {bad}: "
+                    f"{float(got_q[tuple(bad)])} vs "
+                    f"{float(want_q[tuple(bad)])}")
+            # the planes kernel on the same call's digit planes
+            xq, xs = bw.quantize(h, aw, axis=-1)
+            wq, ws = bw.quantize(wf, ww, axis=0)
+            ap = torch.stack(bw.split_planes(xq, aw)).contiguous()
+            wp = torch.stack(bw.split_planes(wq, ww)).contiguous()
+            planes_in.append((xq, wq, aw, ww))
             got = bsm.bitserial_matmul_planes(ap, wp)
             want = bsm.ref_bitserial_matmul_planes(ap, wp)
             torch.cuda.synchronize()
@@ -686,39 +744,76 @@ def main() -> int:
                     f"bitserial_matmul_planes {tuple(ap.shape)} x "
                     f"{tuple(wp.shape)}: not bit-exact at {bad}: "
                     f"{int(got[tuple(bad)])} vs {int(want[tuple(bad)])}")
+            if not torch.equal(got.to(torch.float32) * xs * ws, got_q):
+                raise AssertionError("the planes kernel, dequantized, is "
+                                     "not the one-launch kernel's output")
+            scalar_div = int((torch.clamp(torch.amax(h.abs(), -1,
+                                                     keepdim=True), min=1e-8)
+                              / float(2 ** (aw - 1) - 1) != xs).sum())
+            pa, pw = ap.shape[0], wp.shape[0]
+            ops = 2 * m * n * kk * pa * pw
+            bq = bound(4 * (m * kk + kk * n + m * n), ops, INT8_OPS_PER_S)
+            bp = bound(ap.numel() + wp.numel() + 4 * m * n, ops,
+                       INT8_OPS_PER_S)
+            kq_ms = device_ms(torch, lambda: bsm.bitserial_quant_matmul_hopper(
+                h, wf, aw, ww))
+            pq_ms = device_ms(torch, lambda: bsm.ref_bitserial_quant_matmul(
+                h, wf, aw, ww))
             k_ms = device_ms(torch,
                              lambda: bsm.bitserial_matmul_planes(ap, wp))
             p_ms = device_ms(torch,
                              lambda: bsm.ref_bitserial_matmul_planes(ap, wp))
-            (pa, m, kk), (pw, _, n) = ap.shape, wp.shape
-            b = bound(ap.numel() + wp.numel() + 4 * m * n,
-                      2 * m * n * kk * pa * pw, INT8_OPS_PER_S)
-            add_call(rows["bitserial_matmul_planes"], 0.0, k_ms, p_ms, b)
-            lib = int_mm_operands(torch, ap, wp)
-            l_txt = "none (a 16-bit operand)"
+            add_call(rows["bitserial_quant_matmul_hopper"], 0.0, kq_ms, pq_ms,
+                     bq)
+            add_call(rows["bitserial_matmul_planes"], 0.0, k_ms, p_ms, bp)
+            f_ms, f_txt = f64_yardstick(torch, xq, wq, got)
+            lib_ms += f_ms
+            lib = int_mm_operands(torch, xq, wq, aw, ww)
+            l_txt = "torch._int_mm none (a 16-bit operand)"
             if lib is not None:
                 li = torch._int_mm(*lib)[:m, :n]
                 if not torch.equal(li, got):
                     raise AssertionError("torch._int_mm disagrees with the "
                                          "bitserial kernel")
                 l_ms = device_ms(torch, lambda: torch._int_mm(*lib))
-                lib_ms, lib_k_ms, lib_calls = (lib_ms + l_ms,
-                                               lib_k_ms + k_ms, lib_calls + 1)
-                l_txt = f"{l_ms * 1e3:8.2f} us (torch._int_mm, padded)"
-            print(f"bitserial_matmul_planes planes {pa}x{pw} M {m:6d} K "
-                  f"{kk:4d} N {n:4d} | bit-exact | kernel {k_ms * 1e3:8.2f} "
-                  f"us  plain {p_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} "
-                  f"us | library {l_txt}", flush=True)
-    rows["bitserial_matmul_planes"]["library"] = (
-        "none: every call has a 16-bit operand, and torch._int_mm, the one "
-        "PyTorch integer GEMM, takes int8 operands only")
-    if lib_calls:
+                int_mm_ms, int_mm_k_ms, int_mm_calls = (
+                    int_mm_ms + l_ms, int_mm_k_ms + k_ms, int_mm_calls + 1)
+                l_txt = f"torch._int_mm {l_ms * 1e3:8.2f} us (padded)"
+            print(f"bitserial call widths {(aw, ww)} planes {pa}x{pw} M "
+                  f"{m:6d} K {kk:4d} N {n:4d} | both kernels bit-exact | "
+                  f"one-launch kernel {kq_ms * 1e3:7.2f} us  plain "
+                  f"{pq_ms * 1e3:8.2f} us  bound {bq[0] * 1e3:6.3f} us | "
+                  f"planes kernel {k_ms * 1e3:7.2f} us  plain "
+                  f"{p_ms * 1e3:8.2f} us  bound {bp[0] * 1e3:6.3f} us | "
+                  f"library {f_txt}; {l_txt} | quantize: a division by the "
+                  f"Python number qmax would miss the IEEE scale on "
+                  f"{scalar_div} of {m} rows", flush=True)
+    # the planes kernel's own path: the bitserial_matmul entry point on
+    # the quantized operands of the same calls
+    bsm.reset_launch_counts()
+    with torch.no_grad():
+        entry = [bsm.bitserial_matmul(xq, wq, aw, ww)
+                 for xq, wq, aw, ww in planes_in]
+        torch.cuda.synchronize()
+    planes_counts = bsm.launch_counts()
+    if planes_counts != {"bitserial_matmul_planes": n_int,
+                         "bitserial_quant_matmul_hopper": 0}:
+        raise AssertionError(f"bitserial_matmul launched {planes_counts}")
+    for (xq, wq, _, _), y in zip(planes_in, entry):
+        if not torch.equal(y, bsm.ref_bitserial_matmul(xq, wq)):
+            raise AssertionError("bitserial_matmul is not the exact "
+                                 "integer product")
+    print(f"bitserial_matmul entry point on the {n_int} calls' quantized "
+          f"operands: launches {planes_counts}, exact", flush=True)
+    for name in ("bitserial_quant_matmul_hopper", "bitserial_matmul_planes"):
+        rows[name].update(library_ms=lib_ms, library=F64_LIBRARY)
+    if int_mm_calls:
         rows["bitserial_matmul_planes"].update(
-            library_ms=lib_ms, library=f"torch._int_mm on the int8 operands "
-            f"(padded to its shape rules) of the {lib_calls} of {n_int} "
-            f"calls whose widths are both at most 8; the kernel takes "
-            f"{lib_k_ms} ms on the same calls; a 16-bit operand has no "
-            f"library call")
+            int_mm_ms=int_mm_ms, int_mm_kernel_ms=int_mm_k_ms,
+            int_mm=f"torch._int_mm on the int8 operands (padded to its "
+            f"shape rules) of the {int_mm_calls} of {n_int} calls whose "
+            f"widths are both at most 8; int_mm_kernel_ms is the kernel's "
+            f"time on the same calls")
     errs = pz.policy_errors(record, policy)
     print(f"held-out relative L2 error vs the float32 reference: {errs} "
           f"(budget {Q_BUDGET})")
@@ -755,8 +850,9 @@ def main() -> int:
           f"{float(np.median(q_step_ms)):.3f} ms (steps "
           f"{', '.join(f'{v:.3f}' for v in q_step_ms)} ms); stats "
           f"{svc_q.stats}; launches {q_counts}")
-    if sorted(q_results) != rids or q_counts["bitserial_matmul_planes"] \
-            != n_int * waves:
+    if sorted(q_results) != rids \
+            or q_counts["bitserial_quant_matmul_hopper"] != n_int * waves \
+            or q_counts["bitserial_matmul_planes"]:
         raise AssertionError(f"calibrated serving did not run {waves} "
                              f"waves of {n_int} bitserial launches")
     worst_q = {k: 0.0 for k in shapes}
@@ -1035,7 +1131,8 @@ def main() -> int:
     bsm.reset_launch_counts()
     l_q, g_q = c_mel.value_and_grad(mel_loss, wrt=("mel_tap",))(q_params, x)
     torch.cuda.synchronize()
-    if bsm.launch_counts() != {"bitserial_matmul_planes": 1}:
+    if bsm.launch_counts() != {"bitserial_matmul_planes": 0,
+                               "bitserial_quant_matmul_hopper": 1}:
         raise AssertionError(f"Fig-9q mel step launched "
                              f"{bsm.launch_counts()}")
     w_mel = torch.as_tensor(q_params["mel_tap"]["weights"],
@@ -1061,7 +1158,8 @@ def main() -> int:
         q_params, x)
     torch.cuda.synchronize()
     flat = [g for st in g_all.values() for g in st.values()]
-    if bsm.launch_counts() != {"bitserial_matmul_planes": n_int} \
+    if bsm.launch_counts() != {"bitserial_matmul_planes": 0,
+                               "bitserial_quant_matmul_hopper": n_int} \
             or not all(bool(torch.isfinite(g).all()) for g in flat) \
             or not all(float(g.abs().max()) > 0 for g in flat):
         raise AssertionError(f"Fig-9q value_and_grad under the full policy: "
@@ -1161,8 +1259,10 @@ def main() -> int:
 
     # -- 9. kernel list -----------------------------------------------------
     phase("9 kernels")
-    launches = {**serve_counts, "bitserial_matmul_planes":
-                q_counts["bitserial_matmul_planes"], **fft_counts,
+    launches = {**serve_counts, "bitserial_quant_matmul_hopper":
+                q_counts["bitserial_quant_matmul_hopper"],
+                "bitserial_matmul_planes":
+                planes_counts["bitserial_matmul_planes"], **fft_counts,
                 **fir_counts, **flash_counts, **probe_counts}
     for name, pk in per_kernel.items():
         bw_row = backward[name]
@@ -1187,7 +1287,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "per": r["per"],
             "library": r.get("library", "none"),
             **{k: r[k] for k in ("library_kernel_ms", "per_call",
-                                 "backward", "single_stage") if k in r},
+                                 "backward", "single_stage", "int_mm_ms",
+                                 "int_mm_kernel_ms", "int_mm") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

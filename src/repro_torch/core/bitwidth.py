@@ -124,7 +124,12 @@ def quantize(x: torch.Tensor, width: int, axis: int = -1
     """
     qmax = float(2 ** (width - 1) - 1)
     amax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / qmax
+    # qmax divides as a tensor on x's device: PyTorch's CUDA kernel divides
+    # by a Python number as a multiply by its float32 reciprocal, which
+    # misses the true quotient in the last bit for many rows.  So the scale
+    # is the IEEE quotient on every device, as in the JAX package's int
+    # route and in the one-launch bitserial kernel.
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, qmax)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
     return q, scale
 

@@ -7,7 +7,9 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
                  §V: the shuffling fabric feeding the array) — both the
                  shared-operand and the grouped (FFT butterfly) forms.
 - bitserial_mm : variable-bitwidth integer GEMM over 4-bit digit planes
-                 with shift-add recombination (paper §IV / Fig 2).
+                 with shift-add recombination (paper §IV / Fig 2) on the
+                 int8 tensor cores; and the int route's quantize -> GEMM
+                 -> dequantize step in one launch.
 - fft_stage    : radix-2 butterfly stages = composed shuffle plan +
                  per-twiddle-class 4x4 products (paper Fig 3a), a whole
                  FFT's stages in one launch.
@@ -39,6 +41,7 @@ from typing import Optional
 import torch
 
 __all__ = ["shuffle_gemm", "shuffle_gemm_grouped", "bitserial_matmul",
+           "bitserial_quant_matmul",
            "fft_stage", "fft_hopper", "fir_conv", "flash_attention",
            "ref_attention", "compiled_supported", "library", "build",
            "NVCC_FLAGS"]
@@ -57,6 +60,7 @@ _SIGNATURES = {
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_copy_f32": (_P, _P, _I, _P),
     "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
+    "repro_bitserial_quant_matmul": (_P,) * 3 + (_I,) * 5 + (_P,),
     "repro_fft_stages": (_P,) * 5 + (_I,) * 3 + (_P, _P),
     "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
     "repro_flash_attention": (_P,) * 4 + (_I,) * 8
@@ -222,7 +226,8 @@ def compiled_supported() -> bool:
 compiled_supported.launches = 0
 
 
-from .bitserial_mm.ops import bitserial_matmul  # noqa: E402
+from .bitserial_mm.ops import (bitserial_matmul,  # noqa: E402
+                               bitserial_quant_matmul)
 from .fft_stage.ops import fft_hopper, fft_stage  # noqa: E402
 from .fir_conv.ops import fir_conv  # noqa: E402
 from .flash_attention.ops import flash_attention  # noqa: E402

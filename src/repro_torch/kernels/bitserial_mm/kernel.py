@@ -1,28 +1,36 @@
-"""Wrapper of the bitserial GEMM CUDA kernel.
+"""Wrappers of the bitserial CUDA kernels.
 
-The kernel (``kernels/csrc/bitserial_mm.cu``) takes the place of the JAX
-package's Pallas TPU kernel of the same name:
+The kernels (``kernels/csrc/bitserial_mm.cu``, int8 tensor-core MMA) take
+the place of the JAX package's Pallas TPU kernel ``bitserial_matmul_planes``
+and of the quantize / plane-split / dequantize glue of its int route:
 
-    out = sum_{i < pa, j < pw} (a_i @ w_j) << 4 (i + j)     (int32, mod 2^32)
+    bitserial_matmul_planes:        out = sum_{i,j} (a_i @ w_j) << 4 (i + j)
+                                    int32 (M, N), mod 2^32, over int8 digit
+                                    planes a (pa, M, K), w (pw, K, N)
+    bitserial_quant_matmul_hopper:  y = dequantize(quantize(h) @ quantize(w))
+                                    float32 (R, N) from h (R, K), w (K, N)
 
-over int8 digit planes ``a`` (pa, M, K) and ``w`` (pw, K, N).  The
-wrapper runs the plain PyTorch version (``ref.py``) for a tensor on the
-CPU, and for a tensor on the card checks device, type, shape and
-contiguity, allocates the output with ``torch.empty``, launches on the
-current stream and raises if the launch reports an error.  It counts its
-launches in its ``launches`` attribute, a plain integer incremented once
-per kernel launch and nowhere else.
+Each wrapper runs its plain PyTorch version (``ref.py``) for a tensor on
+the CPU, and for a tensor on the card checks device, type, shape,
+contiguity and widths, allocates the output with ``torch.empty``, launches
+on the current stream and raises if the launch reports an error.  It
+counts its launches in its ``launches`` attribute, a plain integer
+incremented once per kernel launch and nowhere else.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ref import ref_bitserial_matmul_planes
+from ...core import bitwidth as bw
+from .ref import ref_bitserial_matmul_planes, ref_bitserial_quant_matmul
 
-__all__ = ["bitserial_matmul_planes", "launch_counts", "reset_launch_counts"]
+__all__ = ["bitserial_matmul_planes", "bitserial_quant_matmul_hopper",
+           "launch_counts", "reset_launch_counts"]
 
-_MAX_PLANES = 4
+# the plane counts of the widths the kernels take; the TPU kernel takes
+# any plane count, this port only those a width gives
+_PLANES = tuple(w // 4 for w in bw.VALID_WIDTHS)
 
 
 def _check(a_planes: torch.Tensor, w_planes: torch.Tensor) -> None:
@@ -31,9 +39,9 @@ def _check(a_planes: torch.Tensor, w_planes: torch.Tensor) -> None:
                    {"a_planes": (a_planes, torch.int8),
                     "w_planes": (w_planes, torch.int8)})
     for name, t in (("a_planes", a_planes), ("w_planes", w_planes)):
-        if t.ndim != 3 or not 1 <= t.shape[0] <= _MAX_PLANES:
+        if t.ndim != 3 or t.shape[0] not in _PLANES:
             raise ValueError(f"{name} {tuple(t.shape)} must be (planes, "
-                             f"rows, cols) with 1..{_MAX_PLANES} planes")
+                             f"rows, cols) with {_PLANES} planes")
     if a_planes.shape[2] != w_planes.shape[1]:
         raise ValueError(f"a_planes contracts over {a_planes.shape[2]}, "
                          f"w_planes over {w_planes.shape[1]}")
@@ -61,10 +69,48 @@ def bitserial_matmul_planes(a_planes: torch.Tensor,
 bitserial_matmul_planes.launches = 0
 
 
+def _check_widths(aw: int, ww: int) -> None:
+    if aw not in bw.VALID_WIDTHS or ww not in bw.VALID_WIDTHS:
+        raise ValueError(f"widths ({aw}, {ww}) must each be one of "
+                         f"{bw.VALID_WIDTHS}")
+
+
+def bitserial_quant_matmul_hopper(h: torch.Tensor, w: torch.Tensor,
+                                  aw: int, ww: int) -> torch.Tensor:
+    """h (R, K) and w (K, N) float32 -> y (R, N) float32: ``h`` quantized
+    per row to ``aw`` bits and ``w`` per column to ``ww`` bits, their
+    exact integer product (mod 2^32), dequantized by the two scales — in
+    one launch, bit for bit :func:`ref.ref_bitserial_quant_matmul`."""
+    _check_widths(aw, ww)
+    if h.device.type == "cpu":
+        return ref_bitserial_quant_matmul(h, w, aw, ww)
+    from .. import check_operands
+    check_operands("bitserial_quant_matmul_hopper",
+                   {"h": (h, torch.float32), "w": (w, torch.float32)})
+    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[0] \
+            or h.shape[1] == 0:
+        raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
+                         f"be (R, K) and (K, N) with K > 0")
+    (r, k), n = h.shape, w.shape[1]
+    y = torch.empty((r, n), dtype=torch.float32, device=h.device)
+    if y.numel():
+        from .. import launch
+        launch("repro_bitserial_quant_matmul", h.device, h.data_ptr(),
+               w.data_ptr(), y.data_ptr(), r, k, n, aw, ww)
+        bitserial_quant_matmul_hopper.launches += 1
+    return y
+
+
+bitserial_quant_matmul_hopper.launches = 0
+
+
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` of the wrapper in this module."""
-    return {"bitserial_matmul_planes": bitserial_matmul_planes.launches}
+    """``{kernel name: launches}`` of the wrappers in this module."""
+    return {"bitserial_matmul_planes": bitserial_matmul_planes.launches,
+            "bitserial_quant_matmul_hopper":
+                bitserial_quant_matmul_hopper.launches}
 
 
 def reset_launch_counts() -> None:
     bitserial_matmul_planes.launches = 0
+    bitserial_quant_matmul_hopper.launches = 0

@@ -1,18 +1,21 @@
-"""Public wrapper of the bitserial GEMM: splits the integer operands into
-4-bit digit planes on their device, flattens the batch, runs the kernel
-(or, for CPU tensors, its plain version).  The JAX package's TPU block
-sizes ``bm``/``bn``/``bk`` and its ``interpret`` switch have no
-counterpart: the CUDA kernel masks its ragged edge, so nothing is
-padded, and the tensor's device picks the kernel or the plain version."""
+"""Public wrappers of the bitserial GEMM.  :func:`bitserial_matmul` splits
+the integer operands into 4-bit digit planes on their device, flattens
+the batch and runs the planes kernel (or, for CPU tensors, its plain
+version); :func:`bitserial_quant_matmul` hands float operands to the
+one-launch quantize -> GEMM -> dequantize kernel, the int route's step.
+The JAX package's TPU block sizes ``bm``/``bn``/``bk`` and its
+``interpret`` switch have no counterpart: the CUDA kernels mask their
+ragged edge, so nothing is padded, and the tensor's device picks the
+kernel or the plain version."""
 
 from __future__ import annotations
 
 import torch
 
 from ...core import bitwidth as bw
-from .kernel import bitserial_matmul_planes
+from .kernel import bitserial_matmul_planes, bitserial_quant_matmul_hopper
 
-__all__ = ["bitserial_matmul"]
+__all__ = ["bitserial_matmul", "bitserial_quant_matmul"]
 
 
 def bitserial_matmul(a: torch.Tensor, w: torch.Tensor,
@@ -30,3 +33,18 @@ def bitserial_matmul(a: torch.Tensor, w: torch.Tensor,
     w_planes = torch.stack(bw.split_planes(w, w_width)).contiguous()
     out = bitserial_matmul_planes(a_planes, w_planes)
     return out.reshape(*batch, m, n)
+
+
+def bitserial_quant_matmul(h: torch.Tensor, w: torch.Tensor,
+                           aw: int, ww: int) -> torch.Tensor:
+    """``dequantize(quantize(h) @ quantize(w))`` of h (..., R, K) float32
+    against w (K, N) float32: h per row at ``aw`` bits, w per column at
+    ``ww`` bits, the integer product exact mod 2^32 — the JAX package's
+    int-route forward (``quantize`` x2, ``bitserial_matmul``, two
+    multiplies) in one kernel launch.  Returns float32 (..., R, N)."""
+    k, n = h.shape[-1], w.shape[-1]
+    if w.ndim != 2 or w.shape[0] != k:
+        raise ValueError(f"w {tuple(w.shape)} must be (K={k}, N)")
+    y = bitserial_quant_matmul_hopper(h.reshape(-1, k).contiguous(),
+                                      w.contiguous(), aw, ww)
+    return y.reshape(*h.shape[:-1], n)

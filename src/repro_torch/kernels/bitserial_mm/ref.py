@@ -8,6 +8,9 @@ while every partial sum stays below 2^53, and is then taken to int64;
 on the CPU the product is an int64 matmul.  The wrapper in ``kernel.py``
 runs :func:`ref_bitserial_matmul_planes` for tensors on the CPU; the
 card-side tests and ``chip_smoke.py`` hold the kernel against it.
+:func:`ref_bitserial_quant_matmul` is the int route's composition
+(quantize both operands, the exact integer product, dequantize), the
+plain version of the one-launch kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ref_bitserial_matmul", "ref_bitserial_matmul_planes", "wrap32"]
+from ...core import bitwidth as bw
+
+__all__ = ["ref_bitserial_matmul", "ref_bitserial_matmul_planes",
+           "ref_bitserial_quant_matmul", "wrap32"]
 
 _EXACT_F64 = 2 ** 53
 _DIGIT_MAX = 15
@@ -61,3 +67,17 @@ def ref_bitserial_matmul_planes(a_planes: torch.Tensor,
                 << (4 * (i + j))
             acc = part if acc is None else acc + part
     return wrap32(acc)
+
+
+def ref_bitserial_quant_matmul(h: torch.Tensor, w: torch.Tensor,
+                               aw: int, ww: int) -> torch.Tensor:
+    """h (..., K) float32 quantized per row to ``aw`` bits, w (K, N) per
+    column to ``ww`` bits (:func:`core.bitwidth.quantize`), the integer
+    product wrapped to int32, dequantized as ``(acc * h_scale) *
+    w_scale`` — the JAX package's int route, step for step."""
+    xq, x_scale = bw.quantize(h, aw, axis=-1)
+    wq, w_scale = bw.quantize(w, ww, axis=0)
+    # |q| <= qmax: a static bound on the card, so no host synchronisation
+    peak = (2 ** (aw - 1) - 1) * (2 ** (ww - 1) - 1) * h.shape[-1]
+    acc = wrap32(_int64_matmul(xq, wq, peak))
+    return acc.to(torch.float32) * x_scale * w_scale

@@ -26,9 +26,9 @@ Two backends ship:
         run through :func:`repro_torch.kernels.shuffle_gemm_grouped`;
       - steps named by a :class:`PrecisionPolicy` are *int-routed*: the
         gathered rows and the operand are symmetrically quantized
-        (:mod:`repro_torch.core.bitwidth`) and contracted exactly on the
-        variable-bitwidth array via
-        :func:`repro_torch.kernels.bitserial_matmul`, then dequantized —
+        (:mod:`repro_torch.core.bitwidth`), contracted exactly on the
+        variable-bitwidth array and dequantized, in one launch of
+        :func:`repro_torch.kernels.bitserial_quant_matmul` —
         the paper's 4/8/16-bit menu per array pass;
       - everything else (host lambdas, gathers feeding no array pass)
         is *emulated* on the reference path.
@@ -479,7 +479,7 @@ class HopperBackend(ExecBackend):
     for tensors on the card and run their plain PyTorch versions for
     tensors on the CPU, and plan blocks / canonical operands are cached
     per device.  ``precision`` optionally int-routes named steps through
-    :func:`repro_torch.kernels.bitserial_matmul` (see
+    :func:`repro_torch.kernels.bitserial_quant_matmul` (see
     :class:`PrecisionPolicy` and :meth:`_int_unit`)."""
 
     name = "hopper"
@@ -508,8 +508,8 @@ class HopperBackend(ExecBackend):
                     units.append(fn)
                     if route.route == "int_bitserial":
                         # the int route gathers via apply_plan (the
-                        # bitserial kernel has no fused gather): the
-                        # absorbed pass is emulated, not fused.
+                        # bitserial kernel has no fused gather, as in the
+                        # JAX package): the absorbed pass is emulated.
                         routes.append(StepRoute(stage.name, s.name,
                                                 "gather", "jnp"))
                         routes.append(route)
@@ -625,18 +625,16 @@ class HopperBackend(ExecBackend):
 
 class _IntSTEFn(torch.autograd.Function):
     """``quantize -> bitserial_matmul -> dequantize`` of ``h`` (..., r, t)
-    against ``w`` (t, c) at ``widths = (aw, ww)``, with the
+    against ``w`` (t, c) at ``widths = (aw, ww)`` — on the card one launch
+    of the fused bitserial kernel (:func:`repro_torch.kernels.
+    bitserial_quant_matmul`), bit for bit the composition — with the
     straight-through backward: ``dh = dy @ w^T``, ``dw = sum h^T dy``."""
 
     @staticmethod
     def forward(ctx, h, w, widths):
-        from ..kernels import bitserial_matmul
-        aw, ww = widths
+        from ..kernels import bitserial_quant_matmul
         ctx.save_for_backward(h, w)
-        xq, x_scale = bw.quantize(h, aw, axis=-1)
-        wq, w_scale = bw.quantize(w, ww, axis=0)
-        acc = bitserial_matmul(xq, wq, aw, ww)
-        return acc.to(torch.float32) * x_scale * w_scale
+        return bitserial_quant_matmul(h, w, *widths)
 
     @staticmethod
     def backward(ctx, dy):

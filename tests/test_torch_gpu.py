@@ -12,20 +12,21 @@ no JAX, so it runs on a machine with PyTorch for CUDA alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: shuffle-GEMM kernels rtol = atol = 1e-5 in float32 and 2e-2
-in bfloat16; the bitserial kernel bit-exact; the FFT stage and phased FIR
-kernels rtol = atol = 1e-4 (the JAX package's tolerance for them), the
-full FFT 2e-3 against ``torch.fft.fft``; graph outputs rtol 1e-4, atol
-1e-5; served against offline ``out`` atol 1e-5 and ``mel_tap`` rtol =
-atol = 1e-4; the int-routed Fig-9q forward within the SigQuant budget
-(relative L2 1e-2) of the float32 reference; gradients through the
-backward Function rtol = atol = 1e-5 against autograd through the plain
-versions (atol 1e-4 on ``dw``, a float32 sum of thousands of terms),
-and Fig-9 gradients on ``hopper`` against ``reference`` rtol 1e-4, atol
-1e-5 (the forward's card tolerance: sums run in another
-order); flash attention rtol = atol = 1e-4 in float32, as in the JAX
-package's tests, and in bfloat16 (tensor cores, P rounded to bfloat16)
-rtol 1e-2, atol 5e-3 and a relative L2 error under 1e-2.  The one-launch
-``fft_hopper`` equals its plain version bit for bit.
+in bfloat16; both bitserial kernels (planes, and the int route's
+quantize -> GEMM -> dequantize in one launch) bit-exact; the FFT stage
+and phased FIR kernels rtol = atol = 1e-4 (the JAX package's tolerance
+for them), the full FFT 2e-3 against ``torch.fft.fft``; graph outputs
+rtol 1e-4, atol 1e-5; served against offline ``out`` atol 1e-5 and
+``mel_tap`` rtol = atol = 1e-4; the int-routed Fig-9q forward within the
+SigQuant budget (relative L2 1e-2) of the float32 reference; gradients
+through the backward Function rtol = atol = 1e-5 against autograd
+through the plain versions (atol 1e-4 on ``dw``, a float32 sum of
+thousands of terms), and Fig-9 gradients on ``hopper`` against
+``reference`` rtol 1e-4, atol 1e-5 (the forward's card tolerance: sums
+run in another order); flash attention rtol = atol = 1e-4 in float32, as
+in the JAX package's tests, and in bfloat16 (tensor cores, P rounded to
+bfloat16) rtol 1e-2, atol 5e-3 and a relative L2 error under 1e-2. The
+one-launch ``fft_hopper`` equals its plain version bit for bit.
 """
 
 import numpy as np
@@ -226,6 +227,123 @@ def test_bitserial_kernel_wraps_like_int32(cuda):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _digit_planes(rng, planes, rows, cols, dev):
+    """int8 planes of non-canonical digits in [-8, 16) on every plane."""
+    return torch.as_tensor(rng.integers(-8, 16, (planes, rows, cols)),
+                           dtype=torch.int8, device=dev)
+
+
+@pytest.mark.parametrize("k", [9, 32, 129, 256, 300])
+@pytest.mark.parametrize("pa,pw", [(pa, pw) for pa in (1, 2, 4)
+                                   for pw in (1, 2, 4)])
+def test_bitserial_planes_kernel_is_exact(cuda, pa, pw, k):
+    """The MMA planes kernel against the plain version on the same card
+    tensors, bit for bit, over N 1, 24, 64, 200 (both tile shapes, ragged
+    in M, N and K; K 32 and 256 take cp.async, the rest plain loads;
+    K 300 takes two chunks)."""
+    rng = np.random.default_rng(100 * pa + 10 * pw + k)
+    for n in (1, 24, 64, 200):
+        a = _digit_planes(rng, pa, 130, k, cuda)
+        w = _digit_planes(rng, pw, k, n, cuda)
+        before = bitserial_mm.bitserial_matmul_planes.launches
+        got = bitserial_mm.bitserial_matmul_planes(a, w)
+        torch.cuda.synchronize()
+        assert bitserial_mm.bitserial_matmul_planes.launches == before + 1
+        want = bitserial_mm.ref_bitserial_matmul_planes(a, w)
+        assert torch.equal(got, want), (n, (got != want).nonzero()[:4])
+        assert torch.equal(
+            got.cpu(), bitserial_mm.ref_bitserial_matmul_planes(a.cpu(),
+                                                                w.cpu()))
+
+
+def test_bitserial_planes_kernel_unaligned_rows(cuda):
+    """K a multiple of 16 but planes at an odd address: plain loads."""
+    rng = np.random.default_rng(1)
+    buf = torch.as_tensor(rng.integers(-8, 16, 2 * 70 * 32 + 1),
+                          dtype=torch.int8, device=cuda)
+    a = buf[1:].view(2, 70, 32)
+    assert a.is_contiguous() and a.data_ptr() % 16
+    w = _digit_planes(rng, 4, 32, 24, cuda)
+    got = bitserial_mm.bitserial_matmul_planes(a, w)
+    assert torch.equal(got, bitserial_mm.ref_bitserial_matmul_planes(a, w))
+
+
+QUANT_SHAPES = [(16384, 9, 1),        # Fig-9q front.taps
+                (496, 256, 64),       # Fig-9q mask.gemm
+                (124, 129, 24),       # Fig-9q mel_tap.mel
+                (37, 300, 200),       # two K chunks, wide N
+                (300, 300, 3)]        # three K chunks, narrow N
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("aw,ww", [(4, 4), (8, 4), (8, 8), (16, 8),
+                                   (16, 16)])
+def test_bitserial_quant_kernel_is_exact(cuda, aw, ww, shape):
+    """The one-launch quantize -> GEMM -> dequantize kernel against its
+    plain version on the same card tensors and on the CPU, bit for bit,
+    with a zero row and a NaN row (all NaN out, no other row touched)."""
+    r, k, n = shape
+    rng = np.random.default_rng(aw * 1000 + ww * 10 + k)
+    h = (rng.standard_normal((r, k))
+         * np.exp(rng.uniform(-4, 4, (r, 1)))).astype(np.float32)
+    h[1] = 0.0
+    h[2, k // 2] = np.nan
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    ht, wt = (torch.as_tensor(v, device=cuda) for v in (h, w))
+    before = bitserial_mm.bitserial_quant_matmul_hopper.launches
+    got = bitserial_mm.bitserial_quant_matmul_hopper(ht, wt, aw, ww)
+    torch.cuda.synchronize()
+    assert bitserial_mm.bitserial_quant_matmul_hopper.launches == before + 1
+    want = bitserial_mm.ref_bitserial_quant_matmul(ht, wt, aw, ww)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    on_cpu = bitserial_mm.ref_bitserial_quant_matmul(ht.cpu(), wt.cpu(), aw,
+                                                     ww)
+    torch.testing.assert_close(got.cpu(), on_cpu, rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.isnan(got[2]).all() and not got[1].any()
+    assert torch.isfinite(got[3:]).all()
+
+
+@pytest.mark.parametrize("shape", [(37, 300, 200), (300, 300, 3),
+                                   (1000, 700, 64), (4096, 520, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bitserial_quant_kernel_repeats_over_k_chunks(cuda, shape):
+    """K over more than one staged chunk (256 digits for N > 8, 128 for
+    N <= 8), with every row's and column's largest magnitude in the last
+    chunk: the kernel stages chunk 0 again for its second pass while the
+    maxima of the last are being taken, so a missing barrier there shows
+    as a too-small scale.  20 launches, each bit for bit the plain
+    version."""
+    r, k, n = shape
+    rng = np.random.default_rng(k + n)
+    h = rng.standard_normal((r, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    h[:, -4:] *= 1000.0
+    w[-4:] *= 1000.0
+    ht, wt = (torch.as_tensor(v, device=cuda) for v in (h, w))
+    for aw, ww in ((8, 8), (16, 16)):
+        want = bitserial_mm.ref_bitserial_quant_matmul(ht, wt, aw, ww)
+        for _ in range(20):
+            got = bitserial_mm.bitserial_quant_matmul_hopper(ht, wt, aw, ww)
+            assert torch.equal(got, want), (aw, ww)
+
+
+def test_quantize_is_the_same_on_the_card(cuda):
+    """``quantize`` divides by ``qmax`` as a tensor, so its scale and
+    integers on the card are the CPU's bit for bit (a division by the
+    Python number would multiply by its reciprocal there)."""
+    from repro_torch.core import bitwidth as bw
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2000, 16))
+         * np.exp(rng.uniform(-5, 5, (2000, 1)))).astype(np.float32)
+    for width in (4, 8, 16):
+        q_gpu, s_gpu = bw.quantize(torch.as_tensor(x, device=cuda), width)
+        q_cpu, s_cpu = bw.quantize(torch.as_tensor(x), width)
+        assert torch.equal(s_gpu.cpu(), s_cpu) and torch.equal(q_gpu.cpu(),
+                                                               q_cpu)
+
+
 def test_fft_stage_kernel_matches_plain(cuda):
     """Every stage of a 256-point FFT over the 124 Fig-9 STFT frames."""
     rng = np.random.default_rng(3)
@@ -303,6 +421,23 @@ def test_new_wrappers_refuse_bad_inputs(cuda):
     a = torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(TypeError, match="int8"):
         bitserial_mm.bitserial_matmul_planes(a.int(), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="planes"):
+        bitserial_mm.bitserial_matmul_planes(a.expand(3, 4, 8).contiguous(),
+                                             a.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="contracts"):
+        bitserial_mm.bitserial_matmul_planes(a, a)
+    qa = bitserial_mm.bitserial_quant_matmul_hopper
+    h, wq = torch.zeros((4, 8), device=cuda), torch.zeros((8, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        qa(h.double(), wq, 8, 8)
+    with pytest.raises(ValueError, match="cpu"):
+        qa(h, wq.cpu(), 8, 8)
+    with pytest.raises(ValueError, match="K > 0"):
+        qa(h, wq.T.contiguous(), 8, 8)
+    with pytest.raises(ValueError, match="K > 0"):
+        qa(h[None], wq, 8, 8)
+    with pytest.raises(ValueError, match="widths"):
+        qa(h, wq, 12, 8)
     x = torch.zeros((2, 16), device=cuda)
     idx = torch.zeros(16, dtype=torch.int32, device=cuda)
     tw = torch.zeros((2, 4, 4), device=cuda)
@@ -332,8 +467,8 @@ def _fig9q(length, frame=64, hop=32, n_mels=12):
 
 def test_int_routed_fig9q_forward(cuda):
     """Fig-9q at length 512 under its SigQuant policy: every routed step
-    launches the bitserial kernel once and the outputs stay within the
-    budget of the float32 reference."""
+    is one launch of the fused quantize -> GEMM -> dequantize kernel, and
+    the outputs stay within the budget of the float32 reference."""
     policy = PrecisionPolicy(widths={"front.taps": (8, 8),
                                      "mask.gemm": (16, 8),
                                      "mel.mel": (16, 8)})
@@ -346,7 +481,8 @@ def test_int_routed_fig9q_forward(cuda):
     with torch.no_grad():
         got = c(x)
         torch.cuda.synchronize()
-        assert bitserial_mm.launch_counts() == {"bitserial_matmul_planes": 3}
+        assert bitserial_mm.launch_counts() == {
+            "bitserial_matmul_planes": 0, "bitserial_quant_matmul_hopper": 3}
         want = c.with_backend("reference")(x)
     for k in ("out", "mel"):
         err = float(torch.linalg.vector_norm(got[k] - want[k])

@@ -10,7 +10,11 @@ rtol = atol = 1e-4, the full FFT at 2e-3 against ``np.fft``.  The CUDA
 kernels themselves are held against the plain versions on the card in
 ``test_torch_gpu.py``.  The one-launch FFT's plain version (every stage,
 then the final scatter) is held bit for bit against the stage-by-stage
-path.
+path.  The int route's one-launch kernel (``bitserial_quant_matmul``) has
+its plain version held bit for bit against the JAX package's composition
+(``quantize`` x2, interpret-mode ``bitserial_matmul``, two multiplies),
+and against a numpy emulation of the CUDA kernel's arithmetic, the CPU
+spec the kernel follows.
 """
 
 import re
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitwidth as jbw
 from repro.core import signal_mapping as jsm
 from repro.kernels import bitserial_matmul as j_bitserial
 from repro.kernels import fft_stage as j_fft_stage
@@ -84,6 +89,111 @@ def test_bitserial_matches_reference(case):
     np.testing.assert_array_equal(
         bitserial_mm.ref_bitserial_matmul(torch.as_tensor(a),
                                           torch.as_tensor(w)).numpy(), want)
+
+
+# -- the int route in one launch: quantize -> GEMM -> dequantize ---------------
+
+QUANT_WIDTHS = [(4, 4), (8, 4), (8, 8), (16, 8), (16, 16)]
+# Fig-9q's int-routed calls (batch 4, length 4096): front.taps (16384, 9,
+# 1) cut to 384 rows, mask.gemm (496, 256, 64), mel_tap.mel (124, 129, 24)
+QUANT_SHAPES = [(384, 9, 1), (496, 256, 64), (124, 129, 24)]
+
+
+def _quant_case(aw, ww, shape, nan_row=False):
+    """float32 h (R, K), w (K, N) from a seed: rows of spread magnitudes,
+    row 1 all zeros (amax 0), optionally a NaN in row 2."""
+    r, k, n = shape
+    rng = np.random.default_rng(aw * 1000 + ww * 10 + k)
+    h = (rng.standard_normal((r, k))
+         * np.exp(rng.uniform(-4, 4, (r, 1)))).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    h[1] = 0.0
+    if nan_row:
+        h[2, k // 2] = np.nan
+    return h, w
+
+
+def _emulate_quant_matmul(h, w, aw, ww):
+    """numpy emulation of ``repro_bitserial_quant_matmul``'s arithmetic:
+    IEEE float32 division, round half to even, NaN-propagating max and
+    clamp, a NaN quantized to 0 (the card's float-to-int conversion),
+    the canonical digit split, int8 plane-pair products summed per shift
+    ``i + j`` in int32 (wrapping), the uint32 shift-add, and two
+    separately rounded float32 multiplies."""
+    def quant(x, width, axis):
+        qmax = np.float32(2 ** (width - 1) - 1)
+        amax = np.abs(x).max(axis=axis, keepdims=True)
+        scale = np.maximum(amax, np.float32(1e-8)) / qmax
+        with np.errstate(invalid="ignore"):
+            c = np.clip(np.rint(x / scale), -qmax, qmax)
+        return np.where(np.isnan(c), 0, c).astype(np.int32), scale
+
+    def planes(q, width):
+        p = width // 4
+        return [((q >> (4 * i)) & 0xF if i < p - 1 else q >> (4 * i))
+                .astype(np.int8).astype(np.int64) for i in range(p)]
+
+    (qh, sh), (qw, sw) = quant(h, aw, -1), quant(w, ww, 0)
+    ap, wp = planes(qh, aw), planes(qw, ww)
+    acc = np.zeros((h.shape[0], w.shape[1]), np.uint64)
+    for s in range(len(ap) + len(wp) - 1):
+        part = sum(ap[i] @ wp[s - i] for i in range(len(ap))
+                   if 0 <= s - i < len(wp))
+        acc = (acc + ((part.astype(np.uint64) & 0xFFFFFFFF) << (4 * s))) \
+            & 0xFFFFFFFF
+    acc = acc.astype(np.uint32).view(np.int32)
+    return (acc.astype(np.float32) * sh) * sw
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("aw,ww", QUANT_WIDTHS)
+def test_bitserial_quant_matmul_matches_reference(aw, ww, shape):
+    """The one-launch int route's plain version against the JAX package's
+    int-route composition (``src/repro/signal/backends.py``
+    ``_int_unit``: quantize x2, ``bitserial_matmul`` in interpret mode,
+    dequantize), bit for bit."""
+    h, w = _quant_case(aw, ww, shape)
+    xq, xs = jbw.quantize(jnp.asarray(h), aw, axis=-1)
+    wq, ws = jbw.quantize(jnp.asarray(w), ww, axis=0)
+    acc = j_bitserial(xq.astype(jnp.int32), wq.astype(jnp.int32), aw, ww,
+                      interpret=True)
+    want = np.asarray(acc.astype(jnp.float32) * xs * ws)
+    got = bitserial_mm.bitserial_quant_matmul(torch.as_tensor(h),
+                                              torch.as_tensor(w), aw, ww)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[1].any()                      # the zero row
+    batched = bitserial_mm.bitserial_quant_matmul(
+        torch.as_tensor(h).reshape(2, -1, shape[1]), torch.as_tensor(w),
+        aw, ww)
+    np.testing.assert_array_equal(batched.reshape(want.shape).numpy(), want)
+
+
+@pytest.mark.parametrize("nan_row", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("aw,ww", QUANT_WIDTHS)
+def test_quant_kernel_emulation_equals_plain(aw, ww, shape, nan_row):
+    """The numpy emulation of the CUDA kernel's arithmetic equals the
+    plain version bit for bit; a NaN row comes out all NaN and leaves
+    every other row as it was."""
+    h, w = _quant_case(aw, ww, shape, nan_row)
+    want = bitserial_mm.ref_bitserial_quant_matmul(
+        torch.as_tensor(h), torch.as_tensor(w), aw, ww).numpy()
+    got = _emulate_quant_matmul(h, w, aw, ww)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[2]).all() == nan_row
+    assert not np.isnan(np.delete(got, 2, axis=0)).any()
+
+
+def test_bitserial_quant_matmul_refuses_bad_widths():
+    h, w = torch.zeros((3, 4)), torch.zeros((4, 2))
+    for aw, ww in [(12, 8), (8, 2), (0, 4)]:
+        with pytest.raises(ValueError, match="widths"):
+            bitserial_mm.bitserial_quant_matmul(h, w, aw, ww)
+    with pytest.raises(ValueError, match="K=4"):
+        bitserial_mm.bitserial_quant_matmul(h, w.T, 8, 8)
 
 
 @pytest.mark.parametrize("n", [8, 64, 512])
@@ -187,10 +297,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     torch.testing.assert_close(fir_kernel.fir_conv_hopper(x, widx, wb),
                                fir_ref.ref_fir_conv_hopper(x, widx, wb),
                                rtol=0, atol=0)
+    h = torch.as_tensor(rng.standard_normal((5, 6)).astype(np.float32))
+    wf = torch.as_tensor(rng.standard_normal((6, 3)).astype(np.float32))
+    torch.testing.assert_close(
+        bitserial_mm.bitserial_quant_matmul_hopper(h, wf, 16, 8),
+        bitserial_mm.ref_bitserial_quant_matmul(h, wf, 16, 8), rtol=0,
+        atol=0)
     assert _counts() == before
 
 
-@pytest.mark.parametrize("kernel", ["bitserial", "fft_stage", "fir_conv"])
+@pytest.mark.parametrize("kernel", ["bitserial", "bitserial_quant",
+                                    "fft_stage", "fir_conv"])
 def test_non_cpu_tensor_never_falls_back(kernel):
     """A tensor off the CPU goes to the kernel or raises: a ``meta``
     tensor (no card needed) is refused, not computed by the plain
@@ -201,6 +318,10 @@ def test_non_cpu_tensor_never_falls_back(kernel):
             bitserial_mm.bitserial_matmul_planes(
                 torch.empty((1, 4, 8), dtype=torch.int8, **meta),
                 torch.empty((1, 8, 3), dtype=torch.int8, **meta))
+        elif kernel == "bitserial_quant":
+            bitserial_mm.bitserial_quant_matmul_hopper(
+                torch.empty((4, 8), **meta), torch.empty((8, 3), **meta),
+                8, 8)
         elif kernel == "fft_stage":
             fft_kernel.fft_stage_hopper(
                 torch.empty((2, 16), **meta),

@@ -33,12 +33,14 @@ import pytest
 import torch
 
 from repro import kernels as jkernels
+from repro.core import bitwidth as jbw
 from repro import precision as jpz
 from repro import signal as jsig
 from repro.signal import PallasBackend
 from repro_torch import kernels as tkernels
 from repro_torch import precision as tpz
 from repro_torch import signal as tsig
+from repro_torch.core import bitwidth as tbw
 from repro_torch.serving import SignalRequest, SignalService
 from repro_torch.signal import HopperBackend, PrecisionPolicy
 
@@ -171,13 +173,23 @@ def _recorder(fn, sink, to_np):
     return rec
 
 
+def _quant_recorder(fn, sink):
+    """Records the integer operands the port's one-launch int route
+    quantizes its float operands to (its plain version's quantize)."""
+    def rec(h, w, aw, ww):
+        sink.append((tbw.quantize(h, aw, axis=-1)[0].numpy(),
+                     tbw.quantize(w, ww, axis=0)[0].numpy()))
+        return fn(h, w, aw, ww)
+    return rec
+
+
 def test_int_routed_forward_matches_reference(cal, monkeypatch):
     x = _batches(1, LEN, seed=9)[0]
     ja, ta = [], []
     monkeypatch.setattr(jkernels, "bitserial_matmul", _recorder(
         jkernels.bitserial_matmul, ja, np.asarray))
-    monkeypatch.setattr(tkernels, "bitserial_matmul", _recorder(
-        tkernels.bitserial_matmul, ta, lambda t: t.numpy()))
+    monkeypatch.setattr(tkernels, "bitserial_quant_matmul", _quant_recorder(
+        tkernels.bitserial_quant_matmul, ta))
     try:
         # lowered units bind the kernel wrapper when built: rebuild them
         jsig.clear_plan_caches()
