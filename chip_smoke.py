@@ -15,15 +15,22 @@ phase:
      ``nvcc`` each, all at once, links them into one library, prints
      registers and spills per kernel, and probes the library
      (``compiled_supported``, one launch of the copy probe);
-  2. kernels: records the 18 shuffle-GEMM calls one Fig-9 forward makes
-     (2 ``shuffle_gemm_blocks``, 16 ``shuffle_gemm_grouped_blocks``) and
-     holds each kernel against its plain PyTorch version on the same card
-     tensors (rtol = atol = 1e-5 in float32, 2e-2 in bfloat16), with
-     device times from CUDA-graph replays;
+  2. kernels: records the 4 shuffle-GEMM calls one Fig-9 forward makes
+     (2 ``shuffle_gemm_blocks``: the FIR taps and the mel filterbank; 2
+     ``shuffle_gemm_chain``: the STFT's and the iSTFT's 8 butterflies,
+     each chain in one launch) and holds each against its plain PyTorch
+     version on the same card tensors (rtol = atol = 1e-5 in float32,
+     2e-2 in bfloat16), each chain also bit for bit against its 8
+     sub-steps launched one at a time on ``shuffle_gemm_grouped_blocks``
+     (each of those against its plain version too; their times summed
+     beside the chain's), and the STFT chain in bfloat16; device times
+     from CUDA-graph replays.  The ``shuffle_gemm_grouped`` entry point
+     then runs the 16 sub-steps one launch each (the grouped kernel's
+     ``launches``), equal to the chains' outputs;
   3. offline: one batch-4 forward on the ``hopper`` backend against the
      port's ``reference`` backend (rtol 1e-4, atol 1e-5), launching the
-     two kernels exactly 2 and 16 times; ``torch.profiler`` over 5
-     forwards gives the device time by kernel and the busy share;
+     kernels exactly ``FORWARD_LAUNCHES`` times; ``torch.profiler`` over
+     5 forwards gives the device time by kernel and the busy share;
   4. serve: ``SignalService`` answers 8 mixed-length requests in one
      length bucket (the masked path), then the same 8 sent 4 times over
      (32 requests, 8 waves) in the window that is timed and counted;
@@ -60,11 +67,12 @@ phase:
      the mask CNN, the example's edge-cut MSE against the clean target of
      ``SignalStream(4096, 4, seed)``) on ``hopper`` against the port's
      ``reference`` backend on the same card tensors (loss and every
-     gradient leaf at rtol 1e-4, atol 1e-5), launching the two kernels
-     exactly 2 + 16 times forward and 16 + 16 backward
-     (``TRAIN_LAUNCHES``); its wall time and ``torch.profiler``
-     breakdown; each backward kernel call held against its plain version
-     (rtol = atol = 1e-5) and timed; 6 AdamW steps through ``train``
+     gradient leaf at rtol 1e-4, atol 1e-5), launching the kernels
+     exactly ``TRAIN_LAUNCHES`` times (forward 2 + 2, backward 1 + 2);
+     its wall time and ``torch.profiler`` breakdown; each backward
+     kernel call held against its plain version (rtol = atol = 1e-5),
+     each backward chain also bit for bit against its sub-steps launched
+     one at a time, and timed; 6 AdamW steps through ``train``
      lower the held-out loss; Fig-9q's straight-through gradient equals
      that of ``y_float + (y_int - y_float).detach()`` on its mel step,
      and the full policy's gradients are finite and nonzero.  The
@@ -80,7 +88,7 @@ phase:
      four calls are the flash kernel's ``launches``; the row's
      ``per_call`` splits it by call, and ``library_kernel_ms`` is the
      kernel's time on the calls ``library_ms`` covers.
-  9. kernels: the kernel JSON of all eight kernels.
+  9. kernels: the kernel JSON of all nine kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -114,6 +122,8 @@ TPU_KERNELS = {
     "shuffle_gemm_blocks": "src/repro/kernels/shuffle_gemm/kernel.py:64",
     "shuffle_gemm_grouped_blocks":
         "src/repro/kernels/shuffle_gemm/kernel.py:125",
+    "shuffle_gemm_chain_hopper":
+        "src/repro/kernels/shuffle_gemm/kernel.py:125",
     "bitserial_matmul_planes": "src/repro/kernels/bitserial_mm/kernel.py:46",
     "bitserial_quant_matmul_hopper":
         "src/repro/kernels/bitserial_mm/kernel.py:46",
@@ -125,6 +135,7 @@ TPU_KERNELS = {
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "shuffle_gemm_grouped_blocks": CSRC + "shuffle_gemm.cu",
+           "shuffle_gemm_chain_hopper": CSRC + "shuffle_gemm.cu",
            "bitserial_matmul_planes": CSRC + "bitserial_mm.cu",
            "bitserial_quant_matmul_hopper": CSRC + "bitserial_mm.cu",
            "fft_stages_hopper": CSRC + "fft_stage.cu",
@@ -132,16 +143,26 @@ SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "flash_attention_hopper": CSRC + "flash_attention.cu",
            "compiled_supported": CSRC + "shuffle_gemm.cu"}
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
-# Launches of one Fig-9 value_and_grad step on hopper (wrt the front taps
-# and the mask CNN): the forward's 2 + 16 (phase 3), then in the
-# backward each of the 16 butterflies needs d_x (its input depends on the
-# front taps): one transposed grouped GEMM and one adjoint reduction on
-# shuffle_gemm_blocks.  The front taps' GEMM needs only d_w (its input is
-# the signal: an einsum, no kernel) and the mel tap is not in the loss.
+# Launches of one Fig-9 forward on hopper: the FIR taps and the mel
+# filterbank on shuffle_gemm_blocks; the STFT's 8 butterflies and the
+# iSTFT's 8 are two runs of consecutive grouped steps, each one chain
+# launch (kernels/shuffle_gemm/chain.py finds one segment of 31 tiles of
+# 512 floats a batch row in each).  A value_and_grad step (wrt the front
+# taps and the mask CNN) adds the backward: each of the 16 butterflies
+# needs d_x (its input depends on the front taps), one transposed GEMM
+# and one adjoint reduction; a reduction of width 1 (a butterfly's
+# permutation) folds into the next transposed GEMM's gather, so each
+# stage's backward is one chain launch (the iSTFT's 9 sub-steps, the
+# STFT's 8), and the STFT framing's adjoint (width 2: frames overlap by
+# the hop, so it reads across tiles) runs alone on shuffle_gemm_blocks.  The front taps' GEMM needs only d_w (its
+# input is the signal: an einsum, no kernel) and the mel tap is not in
+# the loss.
 FORWARD_LAUNCHES = {"shuffle_gemm_blocks": 2,
-                    "shuffle_gemm_grouped_blocks": 16}
-BACKWARD_LAUNCHES = {"shuffle_gemm_blocks": 16,
-                     "shuffle_gemm_grouped_blocks": 16}
+                    "shuffle_gemm_grouped_blocks": 0,
+                    "shuffle_gemm_chain": 2}
+BACKWARD_LAUNCHES = {"shuffle_gemm_blocks": 1,
+                     "shuffle_gemm_grouped_blocks": 0,
+                     "shuffle_gemm_chain": 2}
 TRAIN_LAUNCHES = {n: FORWARD_LAUNCHES[n] + BACKWARD_LAUNCHES[n]
                   for n in FORWARD_LAUNCHES}
 TRAIN_STEPS = 6
@@ -231,7 +252,37 @@ def call_cost(args: dict) -> tuple:
     return nbytes, 2 * b * rows * t * n_out
 
 
+def chain_cost(args: dict) -> tuple:
+    """(bytes, flops) one chain launch must move and do, from this call's
+    data: the input gathered once (each element of ``x`` the first
+    sub-step reads, once per batch row, and its PAD values at the PAD
+    entries), sub-step 0's tables, every later sub-step's tables as the
+    kernel reads them (the two packed buffers: indices, PAD values where a
+    sub-step has PAD entries, scales; one tile's copy where the tiles'
+    tables agree), every operand, the output written once.  2 flops per
+    multiply-add."""
+    x, seg, ws = args["x"], args["segment"], args["ws"]
+    es, b = x.element_size(), x.shape[0]
+    kern, _ = seg.device_tables(x.device, x.dtype)
+    idx0, _, scale0 = kern["first"]
+    nbytes = (b * int(idx0[idx0 >= 0].unique().numel()) * es
+              + int((idx0 < 0).sum()) * es + idx0.numel() * 4
+              + (0 if scale0 is None else scale0.numel() * es)
+              + kern["shared"].numel() + kern["own"].numel()
+              + sum(w.numel() * es for w in ws)
+              + b * seg.steps[-1].n_elems * es)
+    flops = 2 * b * sum(s.rows * s.t * s.n_out for s in seg.steps)
+    return nbytes, flops
+
+
 def describe(name: str, args: dict) -> dict:
+    if name == "shuffle_gemm_chain":
+        seg = args["segment"]
+        return {"kernel": name, "steps": len(seg.steps),
+                "tiles": seg.tiles * args["x"].shape[0],
+                "tile_floats": seg.steps[-1].n_elems // seg.tiles,
+                "sub_steps": [(s.name, s.rows, s.t, s.n_out, s.groups)
+                              for s in seg.steps]}
     idx, w = args["idx"], args["w"]
     return {"kernel": name, "rows": idx.shape[0], "t": idx.shape[1],
             "n_out": w.shape[-1], "groups": args.get("groups", 1),
@@ -240,16 +291,31 @@ def describe(name: str, args: dict) -> dict:
             is not None}
 
 
-def record_calls(torch, forward, module="repro_torch.kernels.shuffle_gemm.vjp",
-                 names=("shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks"),
-                 grad: bool = False):
+SHUFFLE_MODULES = ("repro_torch.kernels.shuffle_gemm.vjp",
+                   "repro_torch.kernels.shuffle_gemm.ops")
+SHUFFLE_NAMES = ("shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
+                 "shuffle_gemm_chain")
+
+
+def record_calls(torch, forward, module=SHUFFLE_MODULES,
+                 names=SHUFFLE_NAMES, grad: bool = False):
     """Run ``forward()`` once (under ``torch.no_grad()`` unless ``grad``)
-    with the kernel wrappers ``names``, as ``module`` calls them, wrapped
-    by a recorder: returns ``[(kernel name, bound arguments)]`` in call
-    order, with every tensor argument cloned (and detached)."""
-    ops = importlib.import_module(module)
-    originals = {n: getattr(ops, n) for n in names}
+    with the kernel wrappers ``names``, as ``module`` (a module name or a
+    tuple of them) calls them, wrapped by a recorder: returns ``[(kernel
+    name, bound arguments)]`` in call order, with every tensor argument
+    (and every tensor of a list argument) cloned and detached."""
+    mods = [importlib.import_module(m) for m in
+            ((module,) if isinstance(module, str) else module)]
+    patched = [(m, n, getattr(m, n)) for m in mods for n in names
+               if hasattr(m, n)]
     calls = []
+
+    def keep(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone()
+        if isinstance(v, list):
+            return [keep(u) for u in v]
+        return v
 
     def recorder(name, fn):
         sig = inspect.signature(fn)
@@ -257,38 +323,44 @@ def record_calls(torch, forward, module="repro_torch.kernels.shuffle_gemm.vjp",
         def rec(*a, **kw):
             bound = sig.bind(*a, **kw)
             bound.apply_defaults()
-            calls.append((name, {k: v.detach().clone()
-                                 if isinstance(v, torch.Tensor) else v
+            calls.append((name, {k: keep(v)
                                  for k, v in bound.arguments.items()}))
             return fn(*a, **kw)
         return rec
 
-    for n in names:
-        setattr(ops, n, recorder(n, originals[n]))
+    for m, n, fn in patched:
+        setattr(m, n, recorder(n, fn))
     try:
         with torch.set_grad_enabled(grad):
             forward()
         torch.cuda.synchronize()
     finally:
-        for n in names:
-            setattr(ops, n, originals[n])
+        for m, n, fn in patched:
+            setattr(m, n, fn)
     return calls
 
 
 def check_fig9_calls(calls) -> None:
-    """The 18 calls match the Fig-9 lowering: two row-uniform GEMMs (FIR
-    taps, mel) and 16 butterflies (t 4, n_out 4, groups 1..128 twice)."""
+    """The 4 calls match the Fig-9 lowering: two row-uniform GEMMs (FIR
+    taps, mel) and two chains of 8 butterflies (t 4, n_out 4, groups
+    1..128), 124 tiles of 512 floats each at batch 4."""
     d = [describe(n, a) for n, a in calls]
     blocks = sorted((c["rows"], c["t"], c["n_out"]) for c in d
                     if c["kernel"] == "shuffle_gemm_blocks")
-    grouped = [c for c in d if c["kernel"] == "shuffle_gemm_grouped_blocks"]
-    want_groups = sorted([1 << k for k in range(8)] * 2)
-    if blocks != [(31, 129, 24), (4096, 9, 1)]:
-        raise AssertionError(f"shuffle_gemm_blocks shapes {blocks}")
-    if len(grouped) != 16 or sorted(c["groups"] for c in grouped) \
-            != want_groups or any((c["rows"], c["t"], c["n_out"])
-                                  != (3968, 4, 4) for c in grouped):
-        raise AssertionError(f"shuffle_gemm_grouped_blocks calls {grouped}")
+    chains = [c for c in d if c["kernel"] == "shuffle_gemm_chain"]
+    if blocks != [(31, 129, 24), (4096, 9, 1)] or len(d) != 4:
+        raise AssertionError(f"shuffle_gemm_blocks shapes {blocks}, "
+                             f"{len(d)} calls")
+    for c in chains:
+        shapes = [(rows, t, n_out) for _, rows, t, n_out, _ in
+                  c["sub_steps"]]
+        if c["steps"] != 8 or shapes != [(3968, 4, 4)] * 8 \
+                or [g for *_, g in c["sub_steps"]] \
+                != [1 << k for k in range(8)] \
+                or (c["tiles"], c["tile_floats"]) != (124, 512):
+            raise AssertionError(f"shuffle_gemm_chain call {c}")
+    if len(chains) != 2:
+        raise AssertionError(f"{len(chains)} chain calls")
 
 
 def profile_forward(torch, forward, wall_ms_per_call: float,
@@ -449,7 +521,9 @@ def main() -> int:
     from repro_torch.kernels.shuffle_gemm import (
         launch_counts, ref_shuffle_gemm_blocks,
         ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
-        shuffle_gemm_blocks, shuffle_gemm_grouped_blocks)
+        shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
+        shuffle_gemm_steps)
+    from repro_torch.kernels.shuffle_gemm.kernel import chain_steps, ref_chain
     t0 = time.perf_counter()
     lib = K.build()
     print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s under "
@@ -511,58 +585,132 @@ def main() -> int:
                                         ref_shuffle_gemm_blocks),
                 "shuffle_gemm_grouped_blocks": (
                     shuffle_gemm_grouped_blocks,
-                    ref_shuffle_gemm_grouped_blocks)}
+                    ref_shuffle_gemm_grouped_blocks),
+                "shuffle_gemm_chain": (shuffle_gemm_chain, ref_chain)}
     calls = record_calls(torch, lambda: hopper(x, params))
     check_fig9_calls(calls)
-    per_kernel = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_bytes_ms": 0.0, "bound_ops_ms": 0.0,
-                      "bound_ms": 0.0, "calls": 0} for n in wrappers}
-    cases = [(n, a, "float32") for n, a in calls]
-    # one bfloat16 case: the butterfly with PAD fill and diag scale
-    bf_name, bf_args = next(c for c in calls
-                            if c[0] == "shuffle_gemm_grouped_blocks"
-                            and c[1]["scale"] is not None)
-    cases.append((bf_name, {k: v.to(torch.bfloat16)
-                            if isinstance(v, torch.Tensor)
-                            and v.is_floating_point() else v
-                            for k, v in bf_args.items()}, "bfloat16"))
-    with torch.no_grad():
-        for name, a, dt in cases:
-            kern, plain = wrappers[name]
-            got = kern(**a)
-            want = plain(**a)
+    per = f"sum over the calls of one batch-{BATCH} Fig-9 forward"
+    per_kernel = {n: new_row(0, per) for n in wrappers}
+    per_kernel["shuffle_gemm_grouped_blocks"]["per"] = (
+        f"sum over the 16 sub-steps of the two chains of one batch-{BATCH} "
+        f"Fig-9 forward, one launch each")
+
+    def check_close(name, a, got, want, dt):
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=TOL[dt],
+                              atol=TOL[dt]):
+            raise AssertionError(f"{name} {describe(name, a)} {dt}: max "
+                                 f"abs err {err} beyond {TOL[dt]}")
+        return err
+
+    def time_call(name, a, row=None, label=""):
+        """Kernel, plain and wrapper times and the bound of one call,
+        printed and added to ``row``; returns the kernel's time."""
+        kern, plain = wrappers[name]
+        with torch.no_grad():
+            got, want = kern(**a), plain(**a)
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            tol = TOL[dt]
-            if not torch.allclose(got.float(), want.float(), rtol=tol,
-                                  atol=tol):
-                raise AssertionError(f"{name} {describe(name, a)} {dt}: "
-                                     f"max abs err {err} beyond {tol}")
+            err = check_close(name, a, got, want, "float32")
             k_ms = device_ms(torch, lambda: kern(**a))
             p_ms = device_ms(torch, lambda: plain(**a))
             w_ms = wall_ms(torch, lambda: kern(**a))
-            nbytes, flops = call_cost(a)
-            b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            b_ops = flops / FP32_FLOP_PER_S * 1e3
-            d = describe(name, a)
-            print(f"{name:28s} {dt:8s} rows {d['rows']:5d} t {d['t']:3d} "
-                  f"n_out {d['n_out']:2d} G {d['groups']:3d} "
-                  f"pad {d['pad']:5d} scale {int(d['scale'])} | "
-                  f"max_abs_err {err:.3e} (tol {tol}) | kernel "
-                  f"{k_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  "
-                  f"wrapper {w_ms * 1e3:8.2f} us  bound "
-                  f"{max(b_bytes, b_ops) * 1e3:6.3f} us "
-                  f"({nbytes} B, {flops} flop)", flush=True)
-            if dt != "float32":
-                continue
-            pk = per_kernel[name]
-            pk["max_abs_err"] = max(pk["max_abs_err"], err)
-            pk["ms"] += k_ms
-            pk["plain_ms"] += p_ms
-            pk["bound_bytes_ms"] += b_bytes
-            pk["bound_ops_ms"] += b_ops
-            pk["bound_ms"] += max(b_bytes, b_ops)
-            pk["calls"] += 1
+        nbytes, flops = (chain_cost if name == "shuffle_gemm_chain"
+                         else call_cost)(a)
+        b = bound(nbytes, flops, FP32_FLOP_PER_S)
+        if row is not None:
+            add_call(row, err, k_ms, p_ms, b)
+            row["calls"] += 1
+        d = describe(name, a)
+        shape = (f"{d['steps']} sub-steps, {d['tiles']} tiles of "
+                 f"{d['tile_floats']}" if name == "shuffle_gemm_chain" else
+                 f"rows {d['rows']:5d} t {d['t']:3d} n_out {d['n_out']:2d} "
+                 f"G {d['groups']:3d} pad {d['pad']:5d} scale "
+                 f"{int(d['scale'])}")
+        print(f"{label}{name:28s} {shape} | max_abs_err {err:.3e} | kernel "
+              f"{k_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  wrapper "
+              f"{w_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us "
+              f"({nbytes} B, {flops} flop)", flush=True)
+        return k_ms
+
+    def check_chain(a, row=None, grouped_row=None, label=""):
+        """A chain call: bit for bit its sub-steps launched one at a
+        time on the grouped kernel (each also against its plain version
+        and timed), within the tolerance of its plain version; times the
+        chain beside the sum of its sub-steps' launches."""
+        with torch.no_grad():
+            got = shuffle_gemm_chain(**a)
+            steps = shuffle_gemm_steps(**a)
+            torch.cuda.synchronize()
+            if not torch.equal(got, steps):
+                bad = (got != steps).nonzero()[0].tolist()
+                raise AssertionError(
+                    f"{label}chain {describe('shuffle_gemm_chain', a)} is "
+                    f"not its sub-steps launched one at a time: at {bad} "
+                    f"{float(got[tuple(bad)])} vs {float(steps[tuple(bad)])}")
+        k_ms = time_call("shuffle_gemm_chain", a, row, label)
+        s_ms, xi = 0.0, a["x"]
+        for idx, pads, w, reps, groups, nb, scale in chain_steps(
+                a["segment"], a["ws"], xi.device, xi.dtype):
+            ga = dict(x=xi, idx=idx, pad_vals=pads, w=w, reps=reps,
+                      groups=groups, nb=nb, scale=scale)
+            s_ms += time_call("shuffle_gemm_grouped_blocks", ga,
+                              grouped_row, label + "  sub-step ")
+            with torch.no_grad():
+                xi = shuffle_gemm_grouped_blocks(**ga)
+        print(f"{label}chain {k_ms * 1e3:.2f} us in one launch, bit-exact; "
+              f"its {len(a['ws'])} sub-steps one launch each "
+              f"{s_ms * 1e3:.2f} us", flush=True)
+        return k_ms, s_ms
+
+    chain_vs_steps = []
+    for name, a in calls:
+        if name == "shuffle_gemm_chain":
+            chain_vs_steps.append(check_chain(
+                a, per_kernel[name], per_kernel["shuffle_gemm_grouped_blocks"]))
+        else:
+            time_call(name, a, per_kernel[name])
+    per_kernel["shuffle_gemm_chain"]["steps_ms"] = sum(
+        v for _, v in chain_vs_steps)
+    # bfloat16: the STFT chain (PAD fill and a diag scale in its first
+    # sub-step) bit for bit its sub-steps, and against its plain version
+    _, a = next(c for c in calls if c[0] == "shuffle_gemm_chain")
+    a16 = dict(a, x=a["x"].to(torch.bfloat16),
+               ws=[w.to(torch.bfloat16) for w in a["ws"]])
+    with torch.no_grad():
+        got = shuffle_gemm_chain(**a16)
+        if not torch.equal(got, shuffle_gemm_steps(**a16)):
+            raise AssertionError("bfloat16 chain is not its sub-steps")
+        err = check_close("shuffle_gemm_chain", a16, got, ref_chain(**a16),
+                          "bfloat16")
+    print(f"shuffle_gemm_chain bfloat16 (STFT): bit for bit its sub-steps; "
+          f"max_abs_err {err:.3e} vs plain (tol {TOL['bfloat16']})",
+          flush=True)
+    # the grouped kernel's own path: the shuffle_gemm_grouped entry point
+    # on the chains' 16 sub-steps, one launch each
+    from repro_torch.kernels import shuffle_gemm_grouped
+    reset_launch_counts()
+    with torch.no_grad():
+        entry = []
+        for _, a in (c for c in calls if c[0] == "shuffle_gemm_chain"):
+            y = a["x"]
+            for st, w in zip(a["segment"].steps, a["ws"]):
+                y = shuffle_gemm_grouped(y, st.plan, w, st.reps, st.groups,
+                                         st.nb, diag=st.diag)
+            entry.append((a, y))
+        torch.cuda.synchronize()
+    grouped_counts = launch_counts()
+    if grouped_counts != {"shuffle_gemm_blocks": 0,
+                          "shuffle_gemm_grouped_blocks": 16,
+                          "shuffle_gemm_chain": 0}:
+        raise AssertionError(f"the grouped entry point launched "
+                             f"{grouped_counts}")
+    with torch.no_grad():
+        for a, y in entry:
+            if not torch.equal(y, shuffle_gemm_chain(**a)):
+                raise AssertionError("shuffle_gemm_grouped step by step is "
+                                     "not the chain")
+    print(f"shuffle_gemm_grouped entry point on the 16 sub-steps: launches "
+          f"{grouped_counts}, equal to the chains", flush=True)
 
     # -- 3. offline forward: hopper vs reference on the card ----------------
     phase("3 offline")
@@ -576,9 +724,9 @@ def main() -> int:
         out_r = reference(x, params)
         torch.cuda.synchronize()
     print(f"launches in one forward: {offline_counts}")
-    if offline_counts != {"shuffle_gemm_blocks": 2,
-                          "shuffle_gemm_grouped_blocks": 16}:
-        raise AssertionError(f"one Fig-9 forward launched {offline_counts}")
+    if offline_counts != FORWARD_LAUNCHES:
+        raise AssertionError(f"one Fig-9 forward launched {offline_counts}, "
+                             f"not {FORWARD_LAUNCHES}")
     shapes = {"out": (BATCH, LENGTH),
               "mel_tap": (BATCH, 1 + (LENGTH - 256) // 128, 24)}
     for k, shape in shapes.items():
@@ -629,10 +777,9 @@ def main() -> int:
           f"{', '.join(f'{s:.3f}' for s in step_ms)} ms); "
           f"stats {svc.stats}; launches {serve_counts}")
     if sorted(results) != rids or serve_counts != {
-            "shuffle_gemm_blocks": 2 * waves,
-            "shuffle_gemm_grouped_blocks": 16 * waves}:
+            n: c * waves for n, c in FORWARD_LAUNCHES.items()}:
         raise AssertionError(f"serving did not run {waves} bucketed waves "
-                             f"of 2 + 16 launches")
+                             f"of {FORWARD_LAUNCHES} launches")
     worst = {"out": 0.0, "mel_tap": 0.0}
     with torch.no_grad():
         for i, t in enumerate(SERVE_LENGTHS):
@@ -1038,7 +1185,7 @@ def main() -> int:
     torch.cuda.synchronize()
     train_counts = launch_counts()
     print(f"launches in one value_and_grad step: {train_counts} (forward "
-          f"2 + 16, backward 16 + 16)")
+          f"{FORWARD_LAUNCHES}, backward {BACKWARD_LAUNCHES})")
     if train_counts != TRAIN_LAUNCHES:
         raise AssertionError(f"one Fig-9 value_and_grad step launched "
                              f"{train_counts}, not {TRAIN_LAUNCHES}")
@@ -1070,28 +1217,11 @@ def main() -> int:
     backward = {n: new_row(0, "sum over the backward calls of one batch-"
                            f"{BATCH} Fig-9 value_and_grad step")
                 for n in wrappers}
-    with torch.no_grad():
-        for name, a in step_calls[fwd_n:]:
-            kern, plain = wrappers[name]
-            got, want = kern(**a), plain(**a)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not torch.allclose(got, want, rtol=TOL["float32"],
-                                  atol=TOL["float32"]):
-                raise AssertionError(f"backward {name} {describe(name, a)}: "
-                                     f"max abs err {err}")
-            k_ms = device_ms(torch, lambda: kern(**a))
-            p_ms = device_ms(torch, lambda: plain(**a))
-            nbytes, flops = call_cost(a)
-            add_call(backward[name], err, k_ms, p_ms,
-                     bound(nbytes, flops, FP32_FLOP_PER_S))
-            backward[name]["calls"] += 1
-            d = describe(name, a)
-            print(f"backward {name:28s} rows {d['rows']:5d} t {d['t']:3d} "
-                  f"n_out {d['n_out']:2d} G {d['groups']:3d} "
-                  f"pad {d['pad']:5d} scale {int(d['scale'])} | max_abs_err "
-                  f"{err:.3e} | kernel {k_ms * 1e3:8.2f} us  plain "
-                  f"{p_ms * 1e3:8.2f} us", flush=True)
+    for name, a in step_calls[fwd_n:]:
+        if name == "shuffle_gemm_chain":
+            check_chain(a, backward[name], label="backward ")
+        else:
+            time_call(name, a, backward[name], label="backward ")
     bw_counts = {n: r["calls"] for n, r in backward.items()}
     if bw_counts != BACKWARD_LAUNCHES:
         raise AssertionError(f"backward calls {bw_counts}")
@@ -1259,7 +1389,12 @@ def main() -> int:
 
     # -- 9. kernel list -----------------------------------------------------
     phase("9 kernels")
-    launches = {**serve_counts, "bitserial_quant_matmul_hopper":
+    launches = {**serve_counts, **{
+                    "shuffle_gemm_grouped_blocks":
+                    grouped_counts["shuffle_gemm_grouped_blocks"],
+                    "shuffle_gemm_chain_hopper":
+                    serve_counts["shuffle_gemm_chain"]},
+                "bitserial_quant_matmul_hopper":
                 q_counts["bitserial_quant_matmul_hopper"],
                 "bitserial_matmul_planes":
                 planes_counts["bitserial_matmul_planes"], **fft_counts,
@@ -1267,13 +1402,15 @@ def main() -> int:
     for name, pk in per_kernel.items():
         bw_row = backward[name]
         rows[name] = {**pk, "library_ms": None,
-                      "per": f"sum over the {pk['calls']} calls of one "
-                             f"batch-{BATCH} Fig-9 forward",
                       "library": "no single PyTorch call computes "
-                                 "gather\u2218GEMM",
-                      "backward": {k: bw_row[k] for k in (
-                          "calls", "max_abs_err", "ms", "plain_ms",
-                          "bound_ms", "per")}}
+                                 "gather\u2218GEMM"}
+        if bw_row["calls"]:
+            rows[name]["backward"] = {k: bw_row[k] for k in (
+                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "per")}
+    rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
+    rows["shuffle_gemm_chain_hopper"]["per"] += (
+        " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
+        "one launch each on shuffle_gemm_grouped_blocks")
     kernels = []
     for name in TPU_KERNELS:
         r = rows[name]
@@ -1288,7 +1425,8 @@ def main() -> int:
             "library": r.get("library", "none"),
             **{k: r[k] for k in ("library_kernel_ms", "per_call",
                                  "backward", "single_stage", "int_mm_ms",
-                                 "int_mm_kernel_ms", "int_mm") if k in r},
+                                 "int_mm_kernel_ms", "int_mm", "steps_ms")
+               if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
 
 - shuffle_gemm : the programmable gather/pad fused with the GEMM (paper
                  §V: the shuffling fabric feeding the array) — both the
-                 shared-operand and the grouped (FFT butterfly) forms.
+                 shared-operand and the grouped (FFT butterfly) forms,
+                 and chains of such steps (a stage's butterflies) in one
+                 launch.
 - bitserial_mm : variable-bitwidth integer GEMM over 4-bit digit planes
                  with shift-add recombination (paper §IV / Fig 2) on the
                  int8 tensor cores; and the int route's quantize -> GEMM
@@ -58,6 +60,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 6 + (_P,),
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "repro_shuffle_gemm_chain": (_P, _P) + (_I,) * 3 + (_P, _P, _I, _P),
     "repro_copy_f32": (_P, _P, _I, _P),
     "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
     "repro_bitserial_quant_matmul": (_P,) * 3 + (_I,) * 5 + (_P,),

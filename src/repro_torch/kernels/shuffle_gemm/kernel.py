@@ -10,6 +10,10 @@ package's Pallas TPU kernels of the same names:
   * :func:`shuffle_gemm_grouped_blocks` — a *grouped* operand
     ``(G, t, n_out)``: row ``r`` (flat layout ``(reps, G, nb)``)
     contracts against group ``(r // nb) % G`` — the FFT butterfly shape.
+  * :func:`shuffle_gemm_chain` — a segment of grouped sub-steps
+    (:class:`~repro_torch.kernels.shuffle_gemm.chain.ChainSegment`),
+    each gathering from the one before, in one launch; bit for bit the
+    sub-steps launched one at a time (:func:`shuffle_gemm_steps`).
 
 Each wrapper runs the plain PyTorch version (``ref.py``) for a tensor on
 the CPU, and for a tensor on the card checks device, type, shape and
@@ -25,14 +29,17 @@ first launch.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence
 
 import torch
 
-from .ref import ref_shuffle_gemm_blocks, ref_shuffle_gemm_grouped_blocks
+from .ref import (ref_shuffle_gemm_blocks, ref_shuffle_gemm_chain,
+                  ref_shuffle_gemm_grouped_blocks)
 
 __all__ = ["shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
-           "launch_counts", "reset_launch_counts"]
+           "shuffle_gemm_chain", "shuffle_gemm_steps", "chain_steps",
+           "ref_chain", "launch_counts", "reset_launch_counts"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -115,9 +122,105 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def chain_steps(segment, ws: Sequence[torch.Tensor], device, dtype):
+    """The segment's sub-steps as the per-step kernels' arguments:
+    ``[(idx, pad_vals, w, reps, groups, nb, scale)]`` with the plain
+    ``(rows, t)`` tables on ``device`` in ``dtype`` and ``ws[s]`` the
+    ``(groups, t, n_out)`` operand of sub-step s."""
+    _, plain = segment.device_tables(device, dtype)
+    return [(idx, pads, w, s.reps, s.groups, s.nb, scale)
+            for s, (idx, pads, scale), w in zip(segment.steps, plain, ws)]
+
+
+def ref_chain(x: torch.Tensor, segment,
+              ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The plain version of :func:`shuffle_gemm_chain`, on its
+    arguments."""
+    return ref_shuffle_gemm_chain(x, chain_steps(segment, ws, x.device,
+                                                 x.dtype))
+
+
+def shuffle_gemm_steps(x: torch.Tensor, segment,
+                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The segment's sub-steps launched one at a time through
+    :func:`shuffle_gemm_grouped_blocks` (whose body the chain kernel's
+    arithmetic repeats at every ``t``)."""
+    for idx, pads, w, reps, groups, nb, scale in chain_steps(
+            segment, ws, x.device, x.dtype):
+        x = shuffle_gemm_grouped_blocks(x, idx, pads, w, reps, groups, nb,
+                                        scale)
+    return x
+
+
+def chain_launch_args(x: torch.Tensor, segment,
+                      ws: Sequence[torch.Tensor]) -> tuple:
+    """Check a chain call on the card and allocate its output: ``(out,
+    args)`` with ``args`` the arguments of the C entry
+    ``repro_shuffle_gemm_chain`` before the stream."""
+    from .. import check_operands
+    from .chain import MAX_SUBSTEPS
+    steps = segment.steps
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"shuffle_gemm kernels take float32 or bfloat16; "
+                        f"got {x.dtype}")
+    check_operands("shuffle_gemm_chain",
+                   {"x": (x, x.dtype), **{f"w{i}": (w, x.dtype)
+                                          for i, w in enumerate(ws)}})
+    if x.ndim != 2 or len(ws) != len(steps) \
+            or not 1 <= len(steps) <= MAX_SUBSTEPS:
+        raise ValueError(f"x {tuple(x.shape)} must be (B, n_in) and ws one "
+                         f"operand per sub-step ({len(ws)} for "
+                         f"{len(steps)}, at most {MAX_SUBSTEPS})")
+    for s, w in zip(steps, ws):
+        if tuple(w.shape) != (s.groups, s.t, s.n_out):
+            raise ValueError(f"{s.name}: w {tuple(w.shape)} must be "
+                             f"{(s.groups, s.t, s.n_out)}")
+    (b, n_in), first = x.shape, steps[0]
+    if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
+        raise ValueError(f"{first.name} reads past a length-{n_in} input")
+    if b * segment.tiles // segment.tiles_per_cta >= 2 ** 31:
+        raise ValueError(f"batch {b} x {segment.tiles} tiles is too many "
+                         f"blocks")
+    kern, _ = segment.device_tables(x.device, x.dtype)
+    lay = kern["layout"]
+    last = steps[-1]
+    out = torch.empty((b, last.rows * last.n_out), dtype=x.dtype,
+                      device=x.device)
+    ptrs = (ctypes.c_void_p * (len(steps) + 5))(*[
+        None if a is None or not a.numel() else a.data_ptr()
+        for a in (*kern["first"], *ws, kern["shared"], kern["own"])])
+    dims = (ctypes.c_int * (10 + 10 * len(steps)))(
+        segment.tiles, segment.tiles_per_cta, segment.threads, lay.off_buf,
+        lay.buf_floats, *lay.shared, *lay.own, lay.total,
+        *[v for s, per, offs in zip(steps, segment.periodic, lay.steps)
+          for v in (s.rows, s.t, s.n_out, s.groups, s.nb, int(per), *offs)])
+    return out, (x.data_ptr(), out.data_ptr(), b, n_in, len(steps), ptrs,
+                 dims, _DTYPE_CODES[x.dtype])
+
+
+def shuffle_gemm_chain(x: torch.Tensor, segment,
+                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """x: (B, n_in); ``segment`` a
+    :class:`~repro_torch.kernels.shuffle_gemm.chain.ChainSegment` of S
+    sub-steps; ``ws[s]``: sub-step s's ``(groups, t, n_out)`` operand ->
+    (B, rows * n_out of the last sub-step), flat, in one launch: every
+    sub-step after the first runs tile by tile in shared memory.  Bit for
+    bit :func:`shuffle_gemm_steps` on the same arguments."""
+    if x.device.type == "cpu":
+        return ref_chain(x, segment, ws)
+    out, args = chain_launch_args(x, segment, ws)
+    if out.numel():
+        from .. import launch
+        launch("repro_shuffle_gemm_chain", x.device, *args)
+        shuffle_gemm_chain.launches += 1
+    return out
+
+
 shuffle_gemm_blocks.launches = 0
 shuffle_gemm_grouped_blocks.launches = 0
-_WRAPPERS = (shuffle_gemm_blocks, shuffle_gemm_grouped_blocks)
+shuffle_gemm_chain.launches = 0
+_WRAPPERS = (shuffle_gemm_blocks, shuffle_gemm_grouped_blocks,
+             shuffle_gemm_chain)
 
 
 def launch_counts() -> dict:

@@ -8,6 +8,11 @@ kernel or the plain version).
 Both ops are differentiable in ``x`` and ``w``: they run through the
 ``torch.autograd.Function`` of ``vjp.py``, whose backward pass
 launches the same kernels on adjoint operands.
+
+:class:`ShuffleGemmChain` and :func:`run_chain` run a list of grouped
+steps, each gathering from the one before (a stage's butterflies), as
+the segments ``chain.py`` finds, one launch a segment; differentiable
+through ``vjp.ShuffleGemmChainFn``.
 """
 
 from __future__ import annotations
@@ -16,9 +21,13 @@ import numpy as np
 import torch
 
 from ...core.fabric import PAD, ShufflePlan, device_constant
-from .vjp import ShuffleGemmFn
+from .chain import segment_chain
+from .kernel import (shuffle_gemm_blocks, shuffle_gemm_chain,
+                     shuffle_gemm_grouped_blocks)
+from .vjp import ShuffleGemmChainFn, ShuffleGemmFn
 
-__all__ = ["plan_blocks", "shuffle_gemm", "shuffle_gemm_grouped"]
+__all__ = ["plan_blocks", "shuffle_gemm", "shuffle_gemm_grouped",
+           "ShuffleGemmChain", "run_chain", "run_segments"]
 
 
 def plan_blocks(plan: ShufflePlan, diag, rows: int, dtype, device):
@@ -95,3 +104,60 @@ def shuffle_gemm_grouped(x: torch.Tensor, plan: ShufflePlan, w,
     xb, blocks, w = _prepare(x, plan, diag, rows, w)
     out = ShuffleGemmFn.apply(xb, w, blocks, plan, diag, (reps, groups, nb))
     return out.reshape(*x.shape[:-1], rows * w.shape[-1])
+
+
+class ShuffleGemmChain:
+    """A list of grouped gather∘GEMM sub-steps (:class:`~repro_torch.
+    kernels.shuffle_gemm.chain.SubStep`), sub-step s + 1 gathering from
+    sub-step s's flat output, cut into segments once, here (at bind
+    time).  The backward list is built on first use and cached under
+    ``"hopper:vjp"`` (``vjp.backward_chain``)."""
+
+    def __init__(self, steps):
+        self.steps = tuple(steps)
+        self.segments = segment_chain(self.steps)
+
+    def report(self) -> dict:
+        """The sub-steps and, per segment, its launch and tiling."""
+        return {"steps": [s.name for s in self.steps],
+                "segments": [g.report() for g in self.segments]}
+
+
+def run_segments(xb: torch.Tensor, segments, ws) -> torch.Tensor:
+    """Run ``segments`` in order on ``xb`` (B, n_in) with the sub-steps'
+    ``(groups, t, n_out)`` operands ``ws``: one chain launch a segment of
+    several sub-steps, the per-step kernel for a segment of one (the
+    blocks form where it has one group).  -> (B, rows * n_out of the last
+    sub-step)."""
+    i = 0
+    for seg in segments:
+        w = ws[i:i + len(seg.steps)]
+        i += len(seg.steps)
+        if len(seg.steps) > 1:
+            xb = shuffle_gemm_chain(xb, seg, w)
+            continue
+        (s,), ((idx, pads, scale),) = seg.steps, seg.device_tables(
+            xb.device, xb.dtype)[1]
+        if s.groups == 1:
+            xb = shuffle_gemm_blocks(xb, idx, pads, w[0][0], scale)
+            xb = xb.reshape(xb.shape[0], -1)
+        else:
+            xb = shuffle_gemm_grouped_blocks(xb, idx, pads, w[0], s.reps,
+                                             s.groups, s.nb, scale)
+    return xb
+
+
+def run_chain(x: torch.Tensor, chain: ShuffleGemmChain, ws) -> torch.Tensor:
+    """x: (..., n_in); ``ws[s]``: sub-step s's operand, reshaped to
+    ``(groups, t, n_out)`` -> (..., rows * n_out of the last sub-step),
+    flat in its row order.  Differentiable in ``x`` and every ``w``."""
+    first = chain.steps[0]
+    n_in = x.shape[-1]
+    if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
+        raise ValueError(f"{first.name} reads past a length-{n_in} input")
+    xb = x.reshape(-1, n_in).contiguous()
+    ws = [device_constant(w, x.device, x.dtype).reshape(
+        s.groups, s.t, s.n_out).contiguous()
+        for s, w in zip(chain.steps, ws)]
+    out = ShuffleGemmChainFn.apply(xb, chain, *ws)
+    return out.reshape(*x.shape[:-1], out.shape[-1])

@@ -51,6 +51,18 @@ def ref_shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
     return y.reshape(b, -1).to(x.dtype)
 
 
+def ref_shuffle_gemm_chain(x: torch.Tensor, steps) -> torch.Tensor:
+    """A chain of grouped sub-steps, each gathering from the one before:
+    ``steps`` holds per sub-step ``(idx, pad_vals, w, reps, groups, nb,
+    scale)``, the arguments of :func:`ref_shuffle_gemm_grouped_blocks`
+    after ``x`` (the blocks form is ``groups = 1``).  x (B, n_in) ->
+    (B, rows * n_out of the last sub-step)."""
+    for idx, pad_vals, w, reps, groups, nb, scale in steps:
+        x = ref_shuffle_gemm_grouped_blocks(x, idx, pad_vals, w, reps,
+                                            groups, nb, scale)
+    return x
+
+
 def ref_shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w: torch.Tensor,
                      rows: int) -> torch.Tensor:
     """Unfused oracle: :func:`apply_plan` then a matmul."""

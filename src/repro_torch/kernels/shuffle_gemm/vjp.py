@@ -30,6 +30,13 @@ from the two-step program of
 :func:`repro_torch.core.exec_ir.adjoint_gather_steps` and cached per
 device through the signal package's plan cache under the
 ``"hopper:vjp"`` label, apart from the forward ``"hopper"`` lowerings.
+
+:class:`ShuffleGemmChainFn` is the same rule over a chain of grouped
+sub-steps (``ops.ShuffleGemmChain``): its backward is itself a chain —
+for s = S..1 the transposed GEMM on the identity gather, then the
+adjoint reduction (folded into the next transposed GEMM's gather where
+it is a permutation) — segmented and launched like the forward
+(:func:`backward_chain`).
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ from ...core.fabric import ShufflePlan
 from .kernel import shuffle_gemm_blocks, shuffle_gemm_grouped_blocks
 from .ref import gather_rows
 
-__all__ = ["ShuffleGemmFn", "VJP_CACHE_BACKEND", "adjoint_lowering"]
+__all__ = ["ShuffleGemmFn", "ShuffleGemmChainFn", "VJP_CACHE_BACKEND",
+           "adjoint_lowering", "backward_chain"]
 
 # plan-cache label for adjoint (VJP) lowerings — apart from the forward
 # backend name, so plan_cache_info()["by_backend"] accounts forward and
@@ -167,3 +175,112 @@ class ShuffleGemmFn(torch.autograd.Function):
                               dy.reshape(b, reps, groups, nb, n_out).float())
             dw = dw.to(w.dtype).reshape(w.shape)
         return dx, dw, None, None, None, None
+
+
+def backward_chain(chain, n_in: int):
+    """The backward list of a forward chain read from a length-``n_in``
+    input, as a chain: for each forward sub-step s, last first, the
+    transposed GEMM (identity gather over its ``(rows, n_out)``
+    cotangent, operand ``w[s]`` transposed to ``(groups, n_out, t)``)
+    and the adjoint reduction (the gather of :func:`repro_torch.core.
+    exec_ir.adjoint_gather_steps` over ``n_in_s`` rows of its ``m``
+    slots, against an ``(m, 1)`` ones operand) — the two launches of
+    :class:`ShuffleGemmFn`'s backward.  A reduction of width ``m = 1``
+    (every source read once: a butterfly's permutation) is a gather and
+    a multiply by 1, which the transposed GEMM after it absorbs: its
+    identity gather becomes the adjoint gather (PAD slots and scale
+    included).  fmaf(v, 1, 0) is v up to the sign of a zero, which no
+    later sum can tell, so the values are bit for bit those of the list
+    unfolded.  Segmented as any chain; cached under
+    :data:`VJP_CACHE_BACKEND`.  Returns ``(chain, operands)``: per
+    backward sub-step ``("w", s)`` (forward operand s, transposed) or
+    ``("ones", m)``."""
+    from ...core.exec_ir import adjoint_gather_steps
+    from ...core.fabric import identity_plan
+    from ...signal import plan_cache_get
+    from .chain import SubStep
+    from .ops import ShuffleGemmChain
+
+    n_ins = [n_in] + [s.n_elems for s in chain.steps[:-1]]
+
+    def build():
+        steps, operands, pending = [], [], None
+        for i in reversed(range(len(chain.steps))):
+            s = chain.steps[i]
+            plan, diag, name = identity_plan(s.rows * s.n_out), None, ""
+            if pending is not None:
+                plan, diag, name = pending.plan, pending.diag, \
+                    pending.name + "+"
+            steps.append(SubStep(f"{name}{s.name}.transpose", plan, diag,
+                                 s.rows, s.t, s.groups, s.nb))
+            operands.append(("w", i))
+            gather, reduce_ = adjoint_gather_steps(s.name, s.plan, n_ins[i],
+                                                   s.diag)
+            pending = gather if reduce_.cin == 1 and i > 0 else None
+            if pending is None:
+                steps.append(SubStep(gather.name, gather.plan, gather.diag,
+                                     n_ins[i], 1))
+                operands.append(("ones", reduce_.cin))
+        return ShuffleGemmChain(steps), tuple(operands)
+
+    key = tuple((*_digest(s.plan, s.diag, k), s.rows, s.n_out, s.groups,
+                 s.nb) for s, k in zip(chain.steps, n_ins))
+    return plan_cache_get("vjp_chain", key, build, backend=VJP_CACHE_BACKEND)
+
+
+@functools.lru_cache(maxsize=64)
+def _ones(m: int, dtype, device: str) -> torch.Tensor:
+    """The ``(1, m, 1)`` operand of an adjoint reduction."""
+    return torch.ones((1, m, 1), dtype=dtype, device=device)
+
+
+class ShuffleGemmChainFn(torch.autograd.Function):
+    """A chain of grouped sub-steps (``ops.ShuffleGemmChain``) with its
+    backward on the same kernels.  ``xb``: (B, n_in); ``ws[s]``: sub-step
+    s's ``(groups, t, n_out)`` operand -> (B, rows * n_out of the last
+    sub-step).
+
+    Backward, where only ``xb`` needs a gradient: the
+    :func:`backward_chain` list, run through the same segmentation and
+    kernels on the cotangent (one launch a segment).  Where a ``w``
+    needs one, its ``d_w`` is :class:`ShuffleGemmFn`'s einsum of the
+    sub-step's gathered input against its output cotangent, and the
+    chain kept neither: the backward recomputes them by replaying the
+    chain one sub-step at a time through :class:`ShuffleGemmFn` under
+    autograd (each sub-step's input from the one before, on the per-step
+    kernels) and differentiating that.  On the card a chain launch is
+    bit for bit its sub-steps launched one at a time, so both branches
+    give the per-step path's gradients."""
+
+    @staticmethod
+    def forward(ctx, xb, chain, *ws):
+        from .ops import run_segments
+        ctx.chain = chain
+        ctx.save_for_backward(xb, *ws)
+        return run_segments(xb, chain.segments, ws)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from .ops import plan_blocks, run_segments
+        xb, *ws = ctx.saved_tensors
+        chain, need = ctx.chain, ctx.needs_input_grad
+        if not any(need[2:]):
+            back, operands = backward_chain(chain, xb.shape[1])
+            bws = [ws[v].transpose(1, 2).contiguous() if kind == "w"
+                   else _ones(v, dy.dtype, str(dy.device))
+                   for kind, v in operands]
+            dx = run_segments(dy.contiguous(), back.segments, bws)
+            return (dx, None) + (None,) * len(ws)
+        with torch.enable_grad():
+            x = xb.detach().requires_grad_(need[0])
+            wl = [w.detach().requires_grad_(n) for w, n in zip(ws, need[2:])]
+            y = x
+            for s, w in zip(chain.steps, wl):
+                t, idx, pads, scale, _ = plan_blocks(s.plan, s.diag, s.rows,
+                                                     y.dtype, y.device)
+                y = ShuffleGemmFn.apply(y, w, (t, idx, pads, scale), s.plan,
+                                        s.diag, (s.reps, s.groups, s.nb))
+            leaves = [v for v in (x, *wl) if v.requires_grad]
+            grads = iter(torch.autograd.grad(y, leaves, dy))
+        return ((next(grads) if need[0] else None, None)
+                + tuple(next(grads) if n else None for n in need[2:]))

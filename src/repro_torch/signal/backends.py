@@ -23,7 +23,11 @@ Two backends ship:
         ahead of the einsum AND the v2-folded ``pre``/``pre_diag`` stream
         shuffle are absorbed into the kernel's gather;
       - grouped einsums (the FFT butterfly: per-twiddle-class matmuls)
-        run through :func:`repro_torch.kernels.shuffle_gemm_grouped`;
+        run through :func:`repro_torch.kernels.shuffle_gemm_grouped`,
+        and a run of two or more consecutive ones (a stage's
+        butterflies) through :func:`repro_torch.kernels.shuffle_gemm.
+        run_chain`: one launch a segment of the run
+        (``kernels/shuffle_gemm/chain.py``);
       - steps named by a :class:`PrecisionPolicy` are *int-routed*: the
         gathered rows and the operand are symmetrically quantized
         (:mod:`repro_torch.core.bitwidth`), contracted exactly on the
@@ -136,6 +140,14 @@ class BoundProgram:
 
     def report(self) -> dict:
         return _routes_report(self.backend.name, self.routes)
+
+    def chain_report(self) -> List[dict]:
+        """Every chain of grouped steps the backend bound, by stage: its
+        sub-steps and, per segment, the kernel that runs it and its
+        tiling (tiles a batch row, floats a tile, tiles a block)."""
+        return [{"stage": name, **chain.report()}
+                for name, fn in self.stage_fns.items()
+                for chain in getattr(fn, "chains", ())]
 
 
 # --------------------------------------------------------------------------
@@ -494,7 +506,12 @@ class HopperBackend(ExecBackend):
 
     # -- lowering -----------------------------------------------------------
     def lower_stage(self, stage):
-        units: List[Callable] = []
+        """One unit a group (:meth:`_lower_group`), then each maximal run
+        of two or more consecutive ``fused_grouped`` units whose members
+        but the last carry no ``post`` becomes one chain unit
+        (:meth:`_chain_unit`): the run's butterflies in one launch a
+        segment.  Routes stay one a step, as the JAX package's."""
+        units: List[Tuple[Callable, Optional[tuple]]] = []
         routes: List[StepRoute] = []
         steps = stage.steps
         i = 0
@@ -504,8 +521,8 @@ class HopperBackend(ExecBackend):
             if isinstance(s, GatherStep) and isinstance(nxt, EinsumStep):
                 unit = self._lower_group(stage.name, nxt, gather=s)
                 if unit is not None:
-                    fn, route = unit
-                    units.append(fn)
+                    fn, route, grouped = unit
+                    units.append((fn, grouped))
                     if route.route == "int_bitserial":
                         # the int route gathers via apply_plan (the
                         # bitserial kernel has no fused gather, as in the
@@ -521,8 +538,8 @@ class HopperBackend(ExecBackend):
             if isinstance(s, EinsumStep):
                 unit = self._lower_group(stage.name, s, gather=None)
                 if unit is not None:
-                    fn, route = unit
-                    units.append(fn)
+                    fn, route, grouped = unit
+                    units.append((fn, grouped))
                     routes.append(route)
                     i += 1
                     continue
@@ -530,20 +547,44 @@ class HopperBackend(ExecBackend):
                     "einsum" if isinstance(s, EinsumStep) else "lambda")
             routes.append(StepRoute(stage.name, s.name, kind,
                                     "host" if kind == "lambda" else "jnp"))
-            units.append(_reference_unit(s))
+            units.append((_reference_unit(s), None))
             i += 1
 
+        fns, chains, run_ = [], [], []
+
+        def flush():
+            if len(run_) == 1:
+                fns.append(run_[0][0])
+            elif run_:
+                fn, chain = self._chain_unit([g for _, g in run_])
+                fns.append(fn)
+                chains.append(chain)
+            run_.clear()
+
+        for fn, grouped in units:
+            if grouped is None:
+                flush()
+                fns.append(fn)
+                continue
+            if run_ and run_[-1][1][0].post is not None:
+                flush()
+            run_.append((fn, grouped))
+        flush()
+
         def run(x, sp):
-            for u in units:
+            for u in fns:
                 x = u(x, sp)
             return x
+        run.chains = chains
         return run, routes
 
     def _lower_group(self, stage_name: str, e: EinsumStep,
                      gather: Optional[GatherStep]):
-        """One fused kernel call for (gather?) ∘ einsum ∘ (post?), or
-        None when the einsum spec is outside the kernel family (the
-        caller then runs the reference path step by step)."""
+        """One fused kernel call for (gather?) ∘ einsum ∘ (post?) as
+        ``(unit, route, grouped)`` — ``grouped`` the ``(e, shape, plan,
+        diag)`` of a ``fused_grouped`` group, which a run may chain, else
+        None — or None when the einsum spec is outside the kernel family
+        (the caller then runs the reference path step by step)."""
         g = group_plan(e, gather)
         if g is None:
             return None
@@ -564,7 +605,10 @@ class HopperBackend(ExecBackend):
         from . import plan_cache_get
         fn, route_name = plan_cache_get("exec_group", key, build,
                                         backend=self.name)
-        return fn, StepRoute(stage_name, e.name, "einsum", route_name)
+        grouped = (e, shape, plan, diag) if route_name == "fused_grouped" \
+            else None
+        return fn, StepRoute(stage_name, e.name, "einsum", route_name), \
+            grouped
 
     # -- unit builders ------------------------------------------------------
     def _gemm_unit(self, e: EinsumStep, shape: _EinsumShape,
@@ -593,6 +637,37 @@ class HopperBackend(ExecBackend):
                                      diag=diag)
             return apply_plan(y, post) if post is not None else y
         return unit
+
+    def _chain_unit(self, groups: Sequence[tuple]):
+        """A run of consecutive grouped groups ``(e, shape, plan, diag)``
+        as one unit: :func:`repro_torch.kernels.shuffle_gemm.run_chain`
+        over the run's sub-steps (segments and tiles found here, at bind
+        time, and cached with the lowering), then the last group's
+        ``post``.  Returns ``(unit, chain)``."""
+        from ..kernels.shuffle_gemm import ShuffleGemmChain, run_chain
+        from ..kernels.shuffle_gemm.chain import SubStep
+
+        def build():
+            steps = [SubStep(e.name, plan, diag, shape.rows_total,
+                             int(np.asarray(e.operand).size)
+                             // (shape.groups * shape.t),
+                             shape.groups, shape.nb)
+                     for e, shape, plan, diag in groups]
+            return ShuffleGemmChain(steps)
+
+        from . import plan_cache_get
+        key = tuple(_group_digest(e, plan, diag, None)
+                    for e, _, plan, diag in groups)
+        chain = plan_cache_get("exec_chain", key, build, backend=self.name)
+        operands = [(e, _CanonicalOperand(shape)) for e, shape, _, _ in groups]
+        post = groups[-1][0].post
+
+        def unit(x, sp):
+            ws = [canonical(resolve_operand(e, sp), x)
+                  for e, canonical in operands]
+            y = run_chain(x, chain, ws)
+            return apply_plan(y, post) if post is not None else y
+        return unit, chain
 
     def _int_unit(self, e: EinsumStep, shape: _EinsumShape,
                   plan: ShufflePlan, diag, widths: Tuple[int, int]):

@@ -1318,6 +1318,12 @@ class CompiledSignalGraph:
         as the ``backend`` section)."""
         return self._exec.report()
 
+    def chain_report(self) -> List[Dict]:
+        """The chains of grouped steps the backend runs one launch a
+        segment (:meth:`~repro_torch.signal.backends.BoundProgram.
+        chain_report`); empty for a backend that chains nothing."""
+        return self._exec.chain_report()
+
     # -- execution ----------------------------------------------------------
     def _input(self, x) -> torch.Tensor:
         """``x`` as a tensor on the graph's device.  Host arrays are

@@ -2,7 +2,9 @@
 plain PyTorch versions on the same card tensors, the Fig-9 path on the
 ``hopper`` backend against the ``reference`` backend on the card, the
 int-routed (SigQuant) Fig-9q forward, the shuffle-GEMM kernels' backward
-Function and ``value_and_grad`` on the card, and flash attention.
+Function and ``value_and_grad`` on the card, the chain kernel (a list of
+grouped steps in one launch) bit for bit its steps launched one at a time,
+and flash attention.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False; whether a card is present is
@@ -155,8 +157,11 @@ def test_fig9_forward_launches_and_matches_reference(cuda):
     reset_launch_counts()
     got = _fig9("hopper", cuda)
     torch.cuda.synchronize()
+    # the FIR taps and mel GEMMs, then the STFT's and iSTFT's 8
+    # butterflies each in one chain launch
     assert launch_counts() == {"shuffle_gemm_blocks": 2,
-                               "shuffle_gemm_grouped_blocks": 16}
+                               "shuffle_gemm_grouped_blocks": 0,
+                               "shuffle_gemm_chain": 2}
     want = _fig9("reference", cuda)
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
@@ -177,7 +182,8 @@ def test_served_equals_offline(cuda):
     res = svc.serve([SignalRequest(rid=i, graph="se", samples=x)
                      for i, x in enumerate(xs)])
     assert launch_counts() == {"shuffle_gemm_blocks": 4,
-                               "shuffle_gemm_grouped_blocks": 32}
+                               "shuffle_gemm_grouped_blocks": 0,
+                               "shuffle_gemm_chain": 4}
     with torch.no_grad():
         for i, t in enumerate(lens):
             off = g.compile(t, backend="hopper", device=cuda)(
@@ -548,10 +554,12 @@ def test_backward_functions_match_autograd(cuda, grouped):
     torch.cuda.synchronize()
     # forward 1; backward: the transposed GEMM and the adjoint reduce
     assert launch_counts() == ({"shuffle_gemm_blocks": 1,
-                                "shuffle_gemm_grouped_blocks": 2}
+                                "shuffle_gemm_grouped_blocks": 2,
+                                "shuffle_gemm_chain": 0}
                                if grouped else
                                {"shuffle_gemm_blocks": 3,
-                                "shuffle_gemm_grouped_blocks": 0})
+                                "shuffle_gemm_grouped_blocks": 0,
+                                "shuffle_gemm_chain": 0})
     want = _grads(plain, x0, w0, dy)
     # y and dx at 1e-5; dw is a float32 sum over batch x rows (1,984
     # products of unit-variance terms for the butterfly, 16,384 for the
@@ -562,10 +570,12 @@ def test_backward_functions_match_autograd(cuda, grouped):
 
 
 def test_value_and_grad_on_hopper_launches_backward_kernels(cuda):
-    """Fig 9 at full width: value_and_grad on ``hopper`` launches both
-    kernels in the backward pass (16 butterflies' transposed GEMMs and 16
-    adjoint reductions; the front taps and mask CNN need no dx kernel)
-    and equals the ``reference`` backend's gradients."""
+    """Fig 9 at full width: value_and_grad on ``hopper`` launches the
+    shuffle-GEMM kernels in the backward pass (the 16 butterflies'
+    transposed GEMMs and adjoint reductions as two chain launches, one a
+    stage, and the STFT framing's adjoint on ``shuffle_gemm_blocks``; the
+    front taps and mask CNN need no dx kernel) and equals the
+    ``reference`` backend's gradients."""
     rng = np.random.default_rng(0)
     cnn = params_from_jax(
         [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
@@ -586,14 +596,185 @@ def test_value_and_grad_on_hopper_launches_backward_kernels(cuda):
         got[backend] = vag(params, x, clean)
         torch.cuda.synchronize()
         if backend == "hopper":
-            assert launch_counts() == {"shuffle_gemm_blocks": 2 + 16,
-                                       "shuffle_gemm_grouped_blocks": 16 + 16}
+            assert launch_counts() == {"shuffle_gemm_blocks": 2 + 1,
+                                       "shuffle_gemm_grouped_blocks": 0,
+                                       "shuffle_gemm_chain": 2 + 2}
     (lh, gh), (lr, gr) = got["hopper"], got["reference"]
     torch.testing.assert_close(lh, lr, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(gh["front"]["taps"], gr["front"]["taps"],
                                rtol=1e-4, atol=1e-5)
     for a, b in zip(gh["mask"], gr["mask"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+# -- the blocks form's wide-row body and the chain kernel ---------------------
+
+@pytest.mark.parametrize("n_out", [1, 24, 64])
+@pytest.mark.parametrize("t", [1, 2, 9, 33, 129, 300])
+def test_blocks_kernel_wide_and_narrow_rows(cuda, t, n_out):
+    """t < 32 takes the sequential body, t >= 32 the staged, split-K one
+    (the mel call is t 129, n_out 24); both against the plain version,
+    PAD entries and a scale included, rows 37 (a ragged last block)."""
+    a = _case(np.random.default_rng(t * 100 + n_out), cuda, "float32", 37,
+              t, n_out, 0, 500, True, True)
+    before = shuffle_gemm_blocks.launches
+    got = shuffle_gemm_blocks(**a)
+    torch.cuda.synchronize()
+    assert shuffle_gemm_blocks.launches == before + 1
+    torch.testing.assert_close(got, ref_shuffle_gemm_blocks(**a), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _record_chains(fn):
+    """Run ``fn()`` with the chain wrapper, as ``ops.run_segments`` calls
+    it, recorded: ``[(x, segment, ws)]`` with the tensors cloned."""
+    from repro_torch.kernels.shuffle_gemm import ops
+    orig, calls = ops.shuffle_gemm_chain, []
+
+    def rec(x, seg, ws):
+        calls.append((x.detach().clone(), seg,
+                      [w.detach().clone() for w in ws]))
+        return orig(x, seg, ws)
+    ops.shuffle_gemm_chain = rec
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.shuffle_gemm_chain = orig
+    return calls
+
+
+def _assert_chain_exact(x, seg, ws):
+    """One launch, ``torch.equal`` to the sub-steps launched one at a
+    time, and within the float tolerance of the plain version."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    before = sgk.shuffle_gemm_chain.launches
+    got = sgk.shuffle_gemm_chain(x, seg, ws)
+    torch.cuda.synchronize()
+    assert sgk.shuffle_gemm_chain.launches == before + 1
+    want = sgk.shuffle_gemm_steps(x, seg, ws)
+    torch.cuda.synchronize()
+    bad = (got != want).nonzero()
+    assert torch.equal(got, want), (seg.report(), bad[:4].tolist())
+    tol = TOL["float32" if x.dtype == torch.float32 else "bfloat16"]
+    torch.testing.assert_close(got.float(), sgk.ref_chain(x, seg, ws).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_chain_kernel_equals_its_steps_on_fig9(cuda):
+    """Fig 9's chains — the STFT and iSTFT butterflies of the forward,
+    the backward lists of a value_and_grad step — each bit for bit its
+    sub-steps launched one at a time."""
+    rng = np.random.default_rng(0)
+    cnn = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=cuda)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend="hopper",
+                                               device=cuda)
+    params = dict(c.init_params())
+    params["mask"] = cnn
+    vag = c.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+    calls = _record_chains(lambda: vag(params, x, x))
+    # forward: 8 butterflies a chain; backward: 8 transposed GEMMs, the
+    # width-1 adjoint reductions folded into them, + the iSTFT's last
+    # reduction (the STFT's, across frames, runs on shuffle_gemm_blocks)
+    assert [len(seg.steps) for _, seg, _ in calls] == [8, 8, 9, 8]
+    for x_, seg, ws in calls:
+        assert seg.tiles * x_.shape[0] == 124
+        _assert_chain_exact(x_, seg, ws)
+
+
+def test_chain_kernel_with_a_table_copy_a_tile(cuda):
+    """The Fig-9 STFT chain with every tile reading its own copy of its
+    tables (the tiles' tables agree, so the segment keeps one copy; here
+    each tile's rows are staged from their own place) — still bit for bit
+    its sub-steps."""
+    import dataclasses
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend="hopper",
+                                               device=cuda)
+    params = dict(c.init_params())
+    params["mask"] = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=cuda)
+    with torch.no_grad():
+        calls = _record_chains(lambda: c(x, params))
+    for x_, seg, ws in calls:
+        own = dataclasses.replace(seg, periodic=(False,) * len(seg.steps),
+                                  _device={})
+        _assert_chain_exact(x_, own, ws)
+
+
+def test_chain_wrapper_refuses_bad_inputs(cuda):
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    from repro_torch.kernels.shuffle_gemm.chain import segment_chain
+    steps, ws, x = _grouped_chain(np.random.default_rng(0), cuda, "float32",
+                                  2, 32, 100, False)
+    (seg,) = segment_chain(steps)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sgk.shuffle_gemm_chain(x.double(), seg, ws)
+    with pytest.raises(ValueError, match="one operand per sub-step"):
+        sgk.shuffle_gemm_chain(x, seg, ws[:-1])
+    with pytest.raises(ValueError, match="must be"):
+        sgk.shuffle_gemm_chain(x, seg, [ws[0], ws[2], ws[1]])
+    with pytest.raises(ValueError, match="reads past"):
+        sgk.shuffle_gemm_chain(x[:, :10].contiguous(), seg, ws)
+
+
+def _grouped_chain(rng, dev, dt, tiles, rpt, n_in, perm):
+    """Three grouped sub-steps (G 1, 2, 4; t 4, n_out 4): the first reads
+    anywhere in x (PAD entries, a scale), the later ones within their
+    tile by a random table (``perm`` False) or a random permutation of
+    the whole vector (``perm`` True, one tile a batch row)."""
+    from repro_torch.core.fabric import ShufflePlan
+    from repro_torch.kernels.shuffle_gemm.chain import SubStep
+    steps, prev = [], None
+    for i, g in enumerate((1, 2, 4)):
+        rows = tiles * rpt
+        if prev is None:
+            idx = rng.integers(0, n_in, (rows, 4))
+        elif perm:
+            idx = rng.permutation(rows * 4).reshape(rows, 4)
+        else:
+            ept = prev.n_elems // tiles
+            idx = (np.arange(rows) // rpt * ept)[:, None] \
+                + rng.integers(0, ept, (rows, 4))
+        idx = idx.astype(np.int32)
+        if not perm:
+            idx[rng.random(idx.shape) < 0.2] = -1
+        plan = ShufflePlan(idx.ravel(), rng.standard_normal(idx.size)
+                           .astype(np.float32))
+        diag = None if i == 1 else rng.standard_normal(idx.size).astype(
+            np.float32)
+        prev = SubStep(f"s{i}", plan, diag, rows, 4, g, rpt // g)
+        steps.append(prev)
+    ws = [torch.as_tensor(rng.standard_normal((s.groups, 4, 4))).to(
+        dev, TDT[dt]) for s in steps]
+    x = torch.as_tensor(rng.standard_normal((3, n_in))).to(dev, TDT[dt])
+    return steps, ws, x
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tiles,rpt,perm", [(5, 64, False), (1, 96, True),
+                                            (40, 4, False)])
+def test_chain_kernel_equals_its_steps(cuda, dt, tiles, rpt, perm):
+    """Tiles with tables that differ (5 x 64 rows), one tile a batch row
+    (no partition: a permutation of the whole vector), small tiles
+    several to a block (40 x 4 rows), in float32 and bfloat16."""
+    from repro_torch.kernels.shuffle_gemm.chain import segment_chain
+    steps, ws, x = _grouped_chain(np.random.default_rng(tiles), cuda, dt,
+                                  tiles, rpt, 300, perm)
+    (seg,) = segment_chain(steps)
+    assert seg.launch == "shuffle_gemm_chain" and seg.tiles == tiles
+    if tiles == 40:
+        assert seg.tiles_per_cta > 1
+    _assert_chain_exact(x, seg, ws)
 
 
 # -- flash attention ---------------------------------------------------------
