@@ -13,8 +13,11 @@ phase:
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
   1. build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` with one
      ``nvcc`` each, all at once, links them into one library, prints
-     registers and spills per kernel, and probes the library
-     (``compiled_supported``, one launch of the copy probe);
+     registers, spills and ptxas's wgmma notes (C75xx) per kernel, and
+     probes the library
+     (``compiled_supported``, one launch of the copy probe), then times
+     the probe against ``Tensor.copy_`` in turns (copy, probe, probe,
+     copy);
   2. kernels: records the 4 shuffle-GEMM calls one Fig-9 forward makes
      (2 ``shuffle_gemm_blocks``: the FIR taps and the mel filterbank; 2
      ``shuffle_gemm_chain``: the STFT's and the iSTFT's 8 butterflies,
@@ -61,8 +64,9 @@ phase:
      stages alone through ``fft_stage_hopper`` (against the plain stage
      at 1e-4, timed beside its per-stage bound), and ``fir_conv`` on
      the (4, 4096) input with 9 taps and 8 phases (against the plain
-     version and a causal ``F.conv1d`` at 1e-4); their launch counts are
-     those of one call.
+     version and a causal ``F.conv1d`` at 1e-4; timed in turns with the
+     copy probe, its launch floor); their launch counts are those of one
+     call.
   7. train: one Fig-9 ``value_and_grad`` step (wrt the front taps and
      the mask CNN, the example's edge-cut MSE against the clean target of
      ``SignalStream(4096, 4, seed)``) on ``hopper`` against the port's
@@ -80,15 +84,24 @@ phase:
   8. attention: ``flash_attention`` on a gemma2-2b local layer (S 8192,
      8 heads over 4 kv heads, hd 256, window 4096, softcap 50) and a
      starcoder2-3b layer (S 4096, 24 heads over 2, hd 128), each in
-     float32 (FMA body) and bfloat16 (tensor-core body), batch 1, causal
-     — each held against the plain version (rtol = atol = 1e-4; bfloat16
-     rtol 1e-2, atol 5e-3; relative L2 error under 1e-2) and timed beside
-     its bound; the starcoder2 calls also against
-     ``F.scaled_dot_product_attention``, held to the same limits.  The
-     four calls are the flash kernel's ``launches``; the row's
-     ``per_call`` splits it by call, and ``library_kernel_ms`` is the
-     kernel's time on the calls ``library_ms`` covers.
-  9. kernels: the kernel JSON of all nine kernels.
+     float32 (split-TF32 body: a pre-pass launch, then three TF32
+     ``wgmma`` products for each float32 one) and bfloat16 (bf16
+     ``wgmma`` body), batch 1, causal — each held against the plain
+     version (rtol = atol = 1e-4 and a max abs error of 1e-5 in float32;
+     bfloat16 rtol 1e-2, atol 5e-3; relative L2 error under 1e-2) and
+     timed beside its bound (float32: the split-TF32 bound, 3 x the
+     flops at 495 TFLOP/s, and the FMA bound at 67 TFLOP/s, each with the
+     kernel's share of it); each float32 call's pre-pass
+     (``flash_split_kv_hopper``) bit for bit its plain version, timed;
+     the starcoder2 calls also against ``F.scaled_dot_product_attention``,
+     held to the same limits.  The four calls' launches are the flash
+     kernels' ``launches``; ``launches_per_call`` holds each call's own,
+     read with the counts set to 0 just before it and read just after,
+     and each is held to the wrapper's ``LAUNCHES_PER_CALL`` for its
+     type; the row's ``per_call`` splits the times by call, and
+     ``library_kernel_ms`` is the kernel's time on the calls
+     ``library_ms`` covers.
+  9. kernels: the kernel JSON of all ten kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -130,6 +143,8 @@ TPU_KERNELS = {
     "fft_stages_hopper": "src/repro/kernels/fft_stage/kernel.py:39",
     "fir_conv_hopper": "src/repro/kernels/fir_conv/kernel.py:33",
     "flash_attention_hopper": "src/repro/kernels/flash_attention/kernel.py:81",
+    "flash_split_kv_hopper":
+        "src/repro/kernels/flash_attention/kernel.py:81",
     "compiled_supported": "src/repro/kernels/__init__.py:66",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -141,8 +156,10 @@ SOURCES = {"shuffle_gemm_blocks": CSRC + "shuffle_gemm.cu",
            "fft_stages_hopper": CSRC + "fft_stage.cu",
            "fir_conv_hopper": CSRC + "fir_conv.cu",
            "flash_attention_hopper": CSRC + "flash_attention.cu",
+           "flash_split_kv_hopper": CSRC + "flash_attention.cu",
            "compiled_supported": CSRC + "shuffle_gemm.cu"}
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 tensor cores, dense
 # Launches of one Fig-9 forward on hopper: the FIR taps and the mel
 # filterbank on shuffle_gemm_blocks; the STFT's 8 butterflies and the
 # iSTFT's 8 are two runs of consecutive grouped steps, each one chain
@@ -168,7 +185,7 @@ TRAIN_LAUNCHES = {n: FORWARD_LAUNCHES[n] + BACKWARD_LAUNCHES[n]
 TRAIN_STEPS = 6
 # Attention layers at the widths of configs the repo ships, batch 1:
 # (label, source, S, H, KV, hd, window, softcap, dtype name, (rtol, atol));
-# all causal.  float32 runs the FMA body, bfloat16 the tensor-core body.
+# all causal.  float32 runs the split-TF32 body, bfloat16 the bf16 one.
 # softcap has no library call; the starcoder2 calls are also timed
 # against F.scaled_dot_product_attention.  At S 4096 a causal
 # output row over n unit-normal keys has a spread of about sqrt(e / n),
@@ -188,6 +205,7 @@ ATTENTION = [
      256, 4096, 50.0, "bfloat16", (1e-2, 5e-3)),
 ]
 ATTN_REL_L2 = 1e-2
+F32_MAX_ABS = 1e-5                 # float32 calls: max abs error vs plain
 
 
 def phase(title: str) -> None:
@@ -529,7 +547,7 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.2f} s under "
           f"{lib.parent}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if ("registers" in line or "spill" in line
+        if ("registers" in line or "spill" in line or "C75" in line
                 or "entry function" in line or line.startswith("== ")):
             print(f"  {line.strip()}")
     K.compiled_supported.launches = 0
@@ -548,13 +566,19 @@ def main() -> int:
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"repro_copy_f32 launch failed: {err}")
-    probe_ms = device_ms(torch, probe)
-    copy_ms = device_ms(torch, lambda: probe_y.copy_(probe_x))
+    # in turns (copy, probe, probe, copy), so drift between the readings
+    # falls on both alike
+    turns = [device_ms(torch, f) for f in (
+        lambda: probe_y.copy_(probe_x), probe, probe,
+        lambda: probe_y.copy_(probe_x))]
+    copy_ms, probe_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     probe_bound = bound(2 * probe_x.nbytes, 0, FP32_FLOP_PER_S)
-    print(f"probe repro_copy_f32 (8x128 float32): kernel "
-          f"{probe_ms * 1e3:.2f} us, Tensor.copy_ (the plain version and the "
-          f"library call) {copy_ms * 1e3:.2f} us, bound "
-          f"{probe_bound[0] * 1e3:.4f} us", flush=True)
+    print(f"probe repro_copy_f32 (8x128 float32) vs Tensor.copy_ (the plain "
+          f"version and the library call), in turns copy/probe/probe/copy: "
+          + ", ".join(f"{t * 1e3:.3f}" for t in turns)
+          + f" us; kernel {probe_ms * 1e3:.3f} us, Tensor.copy_ "
+          f"{copy_ms * 1e3:.3f} us, bound {probe_bound[0] * 1e3:.4f} us",
+          flush=True)
     rows = {"compiled_supported": new_row(1, "one 8x128 float32 copy")}
     add_call(rows["compiled_supported"], 0.0, probe_ms, copy_ms, probe_bound)
     rows["compiled_supported"].update(
@@ -1150,13 +1174,19 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        k_ms = device_ms(torch, lambda: fir_conv_hopper(**a))
+        # in turns with the copy probe, the launch floor (probe, kernel,
+        # kernel, probe)
+        turns = [device_ms(torch, f) for f in (
+            probe, lambda: fir_conv_hopper(**a), lambda: fir_conv_hopper(**a),
+            probe)]
+        k_ms, floor_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         p_ms = device_ms(torch, lambda: ref_fir_conv_hopper(**a))
         (b_, n), (m, win), p_ = a["x"].shape, a["idx"].shape, \
             a["wbank"].shape[1]
         b = bound(4 * (b_ * n + m * win + win * p_ + b_ * m * p_),
                   2 * b_ * m * win * p_, FP32_FLOP_PER_S)
         add_call(rows["fir_conv_hopper"], err, k_ms, p_ms, b)
+        rows["fir_conv_hopper"]["launch_floor_ms"] = floor_ms
         xin = F.pad(x[:, None], (8, 0))
         w_conv = h.flip(0)[None, None]
         rows["fir_conv_hopper"].update(
@@ -1164,9 +1194,12 @@ def main() -> int:
             library="causal F.conv1d (flipped taps, left pad) on the same "
                     "input, without the pad")
         print(f"fir_conv_hopper M {m} L {win} P {p_} | max_abs_err "
-              f"{err:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.2f} us  plain "
+              f"{err:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.3f} us  plain "
               f"{p_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us  library "
-              f"{rows['fir_conv_hopper']['library_ms'] * 1e3:8.2f} us",
+              f"{rows['fir_conv_hopper']['library_ms'] * 1e3:8.3f} us | "
+              f"launch floor (the copy probe) {floor_ms * 1e3:.3f} us; in "
+              f"turns probe/kernel/kernel/probe: "
+              + ", ".join(f"{t * 1e3:.3f}" for t in turns) + " us",
               flush=True)
 
     # -- 7. train: Fig 9 through value_and_grad, then AdamW -----------------
@@ -1303,6 +1336,7 @@ def main() -> int:
     phase("8 attention")
     from repro_torch.kernels import flash_attention, ref_attention
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import ref_split_kv
     attn_rng = np.random.default_rng(args.seed + 1)
     attn_in = []
     for label, src, s_, h_, kv_, hd_, win, cap, dt, tol in ATTENTION:
@@ -1310,18 +1344,36 @@ def main() -> int:
             (1, s_, n, hd_)).astype(np.float32), device="cuda").to(
             getattr(torch, dt)) for n in (h_, kv_, kv_))
         attn_in.append((q, k, v, dict(causal=True, window=win, softcap=cap)))
-    flash_kernel.reset_launch_counts()
-    with torch.no_grad():
-        attn_out = [flash_attention(q, k, v, **kw) for q, k, v, kw in attn_in]
-    torch.cuda.synchronize()
-    flash_counts = flash_kernel.launch_counts()
-    if flash_counts != {"flash_attention_hopper": len(ATTENTION)}:
-        raise AssertionError(f"the attention calls launched {flash_counts}")
+    # each call is driven with the counts at 0 just before it and read
+    # just after, so the launches a call makes are measured by type
+    attn_out, call_launches, flash_counts = [], {}, {}
+    for (label, *_, dt, _), (q, k, v, kw) in zip(ATTENTION, attn_in):
+        flash_kernel.reset_launch_counts()
+        with torch.no_grad():
+            attn_out.append(flash_attention(q, k, v, **kw))
+        torch.cuda.synchronize()
+        made = flash_kernel.launch_counts()
+        want = {name: flash_kernel.LAUNCHES_PER_CALL[getattr(torch, dt)].get(
+            name, 0) for name in made}
+        if made != want:
+            raise AssertionError(f"the {label} {dt} call launched {made}, "
+                                 f"not {want}")
+        call_launches[f"{label} {dt}"] = made
+        for name, n in made.items():
+            flash_counts[name] = flash_counts.get(name, 0) + n
+    print(f"flash launches {flash_counts}; by call: {call_launches}",
+          flush=True)
     rows["flash_attention_hopper"] = new_row(
         len(ATTENTION), "sum over the four calls: a gemma2-2b local layer "
         "and a starcoder2-3b layer, each in float32 and in bfloat16")
+    rows["flash_attention_hopper"]["launches_per_call"] = call_launches
+    rows["flash_split_kv_hopper"] = new_row(
+        2, "sum over the two float32 calls' pre-pass (K and V split into "
+        "TF32 big and small, V transposed, as the attention body's tile "
+        "images), one launch a float32 call")
     per_call, lib_ms, lib_k_ms = [], 0.0, 0.0
     fa = flash_kernel.flash_attention_hopper
+    split = flash_kernel.flash_split_kv_hopper
 
     def check(what, got, want, tol):
         """Elementwise at ``tol`` and the whole output's relative L2 error
@@ -1342,6 +1394,9 @@ def main() -> int:
                 raise AssertionError(f"{label} {dt}: shape, type or values")
             err, rel = check(f"{label} {dt} vs plain", got,
                              ref_attention(q, k, v, **kw), tol)
+            if dt == "float32" and not err <= F32_MAX_ABS:
+                raise AssertionError(f"{label} float32: max abs error "
+                                     f"{err:.3e} over {F32_MAX_ABS}")
             k_ms = device_ms(torch, lambda: fa(q, k, v, **kw), reps=3,
                              iters=3)
             p_ms = device_ms(torch, lambda: ref_attention(q, k, v, **kw),
@@ -1349,8 +1404,35 @@ def main() -> int:
         pairs = sum(min(i + 1, win) if win else i + 1 for i in range(s_))
         flops = 4 * h_ * hd_ * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b = bound(nbytes, flops, FP32_FLOP_PER_S if dt == "float32"
-                  else BF16_FLOP_PER_S)
+        if dt == "float32":
+            # the split-TF32 bound (three TF32 products a float32 one) is
+            # the row's; the FMA bound is what no FMA kernel can beat
+            b = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+            b_fma = bound(nbytes, flops, FP32_FLOP_PER_S)
+            bound_txt = (f"bound split-TF32 {b[0] * 1e3:9.1f} us "
+                         f"({100 * b[0] / k_ms:.1f}% of it), FMA "
+                         f"{b_fma[0] * 1e3:9.1f} us "
+                         f"({100 * b_fma[0] / k_ms:.1f}%)")
+            with torch.no_grad():
+                blob, want_blob = split(k, v), ref_split_kv(k, v)
+                torch.cuda.synchronize()
+                if not torch.equal(blob, want_blob):
+                    raise AssertionError(f"{label}: flash_split_kv_hopper "
+                                         f"differs from its plain version")
+                s_ms = device_ms(torch, lambda: split(k, v), reps=5, iters=5)
+                sp_ms = device_ms(torch, lambda: ref_split_kv(k, v), reps=1,
+                                  iters=3)
+            s_b = bound((k.numel() + v.numel()) * 4 + blob.numel() * 4, 0,
+                        FP32_FLOP_PER_S)
+            add_call(rows["flash_split_kv_hopper"], 0.0, s_ms, sp_ms, s_b)
+            bound_txt += (f" | pre-pass {s_ms * 1e3:.1f} us (bit for bit its "
+                          f"plain version; plain {sp_ms * 1e3:.1f} us, bound "
+                          f"{s_b[0] * 1e3:.2f} us, {blob.numel() * 4} B "
+                          f"scratch)")
+        else:
+            b = bound(nbytes, flops, BF16_FLOP_PER_S)
+            bound_txt = (f"bound {b[0] * 1e3:9.1f} us "
+                         f"({100 * b[0] / k_ms:.1f}% of it)")
         add_call(rows["flash_attention_hopper"], err, k_ms, p_ms, b)
         l_ms, l_txt = None, "none (softcap)"
         if not cap and not win:
@@ -1369,14 +1451,15 @@ def main() -> int:
                      f"{l_rel:.3e})")
         per_call.append({"call": f"{label} {dt}", "max_abs_err": err,
                          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
-                         "library_ms": l_ms})
+                         "library_ms": l_ms, **({"fma_bound_ms": b_fma[0]}
+                                                if dt == "float32" else {})})
         print(f"flash_attention_hopper {label} ({src}) {dt}: S {s_} H {h_} "
               f"KV {kv_} hd {hd_} window {win} softcap {cap} | max_abs_err "
               f"{err:.3e} rel L2 {rel:.3e} (rtol {tol[0]}, atol {tol[1]}, "
               f"rel L2 {ATTN_REL_L2}) | kernel {k_ms * 1e3:10.1f} us "
-              f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain {p_ms * 1e3:10.1f} "
-              f"us  bound {b[0] * 1e3:9.1f} us ({flops} flop, {nbytes} B) "
-              f"| library {l_txt}", flush=True)
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s, {flops} flop, {nbytes} B)"
+              f"  plain {p_ms * 1e3:10.1f} us  {bound_txt} | library {l_txt}",
+              flush=True)
     rows["flash_attention_hopper"].update(
         library_ms=lib_ms, library_kernel_ms=lib_k_ms, per_call=per_call,
         library="F.scaled_dot_product_attention(is_causal=True, "
@@ -1425,7 +1508,8 @@ def main() -> int:
             "library": r.get("library", "none"),
             **{k: r[k] for k in ("library_kernel_ms", "per_call",
                                  "backward", "single_stage", "int_mm_ms",
-                                 "int_mm_kernel_ms", "int_mm", "steps_ms")
+                                 "int_mm_kernel_ms", "int_mm", "steps_ms",
+                                 "launches_per_call", "launch_floor_ms")
                if k in r},
         })
     print(smi)

@@ -18,8 +18,9 @@ written for the H100 in place of the JAX package's Pallas TPU kernels:
 - fir_conv     : multi-phase FIR (window gather + tap-bank product,
                  structural zeros = DPU pads; paper Fig 3b).
 - flash_attention : online-softmax attention forward (GQA, causal,
-                 sliding window, logit softcap) for the DL side; bfloat16
-                 on the tensor cores (wgmma fed by TMA).
+                 sliding window, logit softcap) for the DL side, on the
+                 tensor cores (wgmma): bfloat16 fed by TMA, float32 as
+                 three TF32 products on split operands.
 
 The sources live in ``csrc/`` and are built from the checkout at first
 use: one ``nvcc`` per source, all started together, then one link into a
@@ -66,8 +67,11 @@ _SIGNATURES = {
     "repro_bitserial_quant_matmul": (_P,) * 3 + (_I,) * 5 + (_P,),
     "repro_fft_stages": (_P,) * 5 + (_I,) * 3 + (_P, _P),
     "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
-    "repro_flash_attention": (_P,) * 4 + (_I,) * 8
-    + (ctypes.c_float, _I, _P),
+    "repro_flash_attention": (_P,) * 4 + (_I,) * 8 + (ctypes.c_float, _P),
+    "repro_flash_split_kv": (_P,) * 3 + (_I,) * 7 + (_P,),
+    "repro_flash_attention_f32": (_P,) * 3 + (_I,) * 11
+    + (ctypes.c_float, _P),
+    "repro_flash_f32_tiling": (_I, _P, _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -26,9 +26,12 @@ through the plain versions (atol 1e-4 on ``dw``, a float32 sum of
 thousands of terms), and Fig-9 gradients on ``hopper`` against
 ``reference`` rtol 1e-4, atol 1e-5 (the forward's card tolerance: sums
 run in another order); flash attention rtol = atol = 1e-4 in float32, as
-in the JAX package's tests, and in bfloat16 (tensor cores, P rounded to
-bfloat16) rtol 1e-2, atol 5e-3 and a relative L2 error under 1e-2. The
-one-launch ``fft_hopper`` equals its plain version bit for bit.
+in the JAX package's tests, and a max abs error of 1e-5 (the split-TF32
+body: three TF32 products for each float32 one), and in bfloat16 (tensor
+cores, P rounded to bfloat16) rtol 1e-2, atol 5e-3 and a relative L2
+error under 1e-2; the float32 pre-pass bit for bit its plain version.
+The one-launch ``fft_hopper`` equals its plain version bit for bit; the
+phased FIR kernel, unrolled or generic, its plain version at 1e-5.
 """
 
 import numpy as np
@@ -423,6 +426,34 @@ def test_fir_conv_kernel_matches_plain(cuda):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("batch", [1, 4, 65])
+@pytest.mark.parametrize("phases", [1, 4, 8])
+@pytest.mark.parametrize("win", [1, 9, 16, 23])
+def test_fir_conv_kernel_matches_plain_on_any_table(cuda, win, phases,
+                                                    batch):
+    """The kernel on its own arguments, against its plain version at 1e-5:
+    (16, 8), Fig 9's window and phases, takes the unrolled body, every
+    other shape the generic one; M = 37 windows fills no block evenly,
+    and a fifth of the indices are PAD (-1, read as 0)."""
+    rng = np.random.default_rng(win * 100 + phases * 10 + batch)
+    n, m = 200, 37
+    x = torch.as_tensor(rng.standard_normal((batch, n)),
+                        dtype=torch.float32, device=cuda)
+    idx = rng.integers(0, n, (m, win))
+    idx[rng.random((m, win)) < 0.2] = -1
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda)
+    wbank = torch.as_tensor(rng.standard_normal((win, phases)) / np.sqrt(win),
+                            dtype=torch.float32, device=cuda)
+    before = fir_kernel.fir_conv_hopper.launches
+    got = fir_kernel.fir_conv_hopper(x, idx, wbank)
+    torch.cuda.synchronize()
+    assert fir_kernel.fir_conv_hopper.launches == before + 1
+    assert got.shape == (batch, m * phases)
+    torch.testing.assert_close(
+        got, fir_ref.ref_fir_conv_hopper(x, idx, wbank), rtol=1e-5,
+        atol=1e-5)
+
+
 def test_new_wrappers_refuse_bad_inputs(cuda):
     a = torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(TypeError, match="int8"):
@@ -795,10 +826,12 @@ FLASH_CASES = [
     (2, 77, 150, 4, 2, 20, True, 16, 0.0),
     (1, 150, 77, 6, 3, 40, False, 0, 30.0),
 ]
-# float32: the JAX package's tests; bfloat16: rtol 1e-2, atol 5e-3 and a
-# relative L2 error under 1e-2, the limits chip_smoke.py holds at S 4096
+# float32: the JAX package's tests, and a max abs error of 1e-5;
+# bfloat16: rtol 1e-2, atol 5e-3 and a relative L2 error under 1e-2, the
+# limits chip_smoke.py holds at S 4096
 FLASH_TOL = {torch.float32: (1e-4, 1e-4, None),
              torch.bfloat16: (1e-2, 5e-3, 1e-2)}
+F32_MAX_ABS = 1e-5
 
 
 def _qkv(rng, dev, dt, b, s, h, kv, hd, skv=None):
@@ -813,25 +846,120 @@ def _assert_flash_close(got, want, dt):
     assert got.dtype == dt
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+    if dt == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= F32_MAX_ABS, err
     if rel_l2 is not None:
         rel = float((got.float() - want.float()).norm() / want.float().norm())
         assert rel < rel_l2, rel
 
 
+def _launches_of(dt, fn):
+    """Run ``fn`` and check the flash kernels' launches it made: one
+    attention launch a call, plus the pre-pass in float32."""
+    before = flash_kernel.launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    after = flash_kernel.launch_counts()
+    made = {n: after[n] - before[n] for n in after if after[n] > before[n]}
+    assert made == flash_kernel.LAUNCHES_PER_CALL[dt] == (
+        {"flash_attention_hopper": 1} if dt == torch.bfloat16 else
+        {"flash_attention_hopper": 1, "flash_split_kv_hopper": 1})
+    return got
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case, dt):
-    """One launch a call; bfloat16 runs on the tensor cores at every
-    head dim, window, softcap, GQA/MQA and ragged shape here."""
+    """Both types run on the tensor cores at every head dim, window,
+    softcap, GQA/MQA and ragged shape here: bfloat16 in one launch,
+    float32 in two (the pre-pass, then the split-TF32 body)."""
     b, sq, skv, h, kv, hd, causal, window, cap = case
     q, k, v = _qkv(np.random.default_rng(sq + h), cuda, dt, b, sq, h, kv, hd,
                    skv)
     kw = dict(causal=causal, window=window, softcap=cap)
-    before = flash_kernel.flash_attention_hopper.launches
-    got = tk.flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert flash_kernel.flash_attention_hopper.launches == before + 1
+    got = _launches_of(dt, lambda: tk.flash_attention(q, k, v, **kw))
     _assert_flash_close(got, tk.ref_attention(q, k, v, **kw), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_flash_kernel_unaligned_base(cuda, dt, hd):
+    """q, k and v start 4 bytes past a 16-byte boundary: bfloat16 takes
+    its plain loads instead of TMA, float32's pre-pass and Q staging read
+    any alignment (the bulk copies read only the aligned scratch)."""
+    rng = np.random.default_rng(hd)
+    shapes = ((1, 90, 4, hd), (1, 90, 2, hd), (1, 90, 2, hd))
+    q, k, v = (torch.as_tensor(rng.standard_normal(int(np.prod(sh)) + 2),
+                               dtype=torch.float32, device=cuda).to(dt)
+               [2:].view(sh) for sh in shapes)
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    kw = dict(causal=True, window=40, softcap=20.0)
+    got = _launches_of(dt, lambda: tk.flash_attention(q, k, v, **kw))
+    _assert_flash_close(got, tk.ref_attention(q, k, v, **kw), dt)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_flash_kernel_f32_long_rows(cuda, hd):
+    """Every query row sees 16384 keys (no causal mask, no window): the
+    tensor cores truncate in their sums, so the float32 body's error
+    grows with the keys a row sees; held at the JAX package's rtol = atol
+    = 1e-4 against the plain version."""
+    q, k, v = _qkv(np.random.default_rng(hd), cuda, torch.float32, 1, 256,
+                   8, 2, hd, skv=16384)
+    got = _launches_of(torch.float32,
+                       lambda: tk.flash_attention(q, k, v, causal=False))
+    torch.testing.assert_close(got, tk.ref_attention(q, k, v, causal=False),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_f32_tiling_agrees_with_the_kernel(cuda):
+    """The float32 tiling the wrapper and the plain pre-pass use
+    (``ref.f32_tiling``) is the kernel's own (``Shape<D>``, read through
+    ``repro_flash_f32_tiling``) at every head dim; 0 and 257 refused."""
+    import ctypes
+    lib = tk.library()
+    d, bk = ctypes.c_int(), ctypes.c_int()
+    for hd in range(1, flash_kernel.MAX_HEAD_DIM + 1):
+        assert lib.repro_flash_f32_tiling(hd, ctypes.byref(d),
+                                          ctypes.byref(bk)) == 0
+        assert (d.value, bk.value) == flash_kernel.f32_tiling(hd), hd
+    for hd in (0, flash_kernel.MAX_HEAD_DIM + 1):
+        assert lib.repro_flash_f32_tiling(hd, ctypes.byref(d),
+                                          ctypes.byref(bk)) != 0
+
+
+@pytest.mark.parametrize("skv,kv,hd", [(150, 2, 20), (77, 3, 40),
+                                       (300, 2, 256), (4096, 2, 128),
+                                       (129, 1, 64)])
+def test_flash_split_kv_kernel_is_exact(cuda, skv, kv, hd):
+    """The float32 pre-pass bit for bit its plain version: K and V split
+    into TF32 big and small, V transposed and key-permuted, laid out as
+    the attention body's tile images, zero past hd and past Skv."""
+    rng = np.random.default_rng(skv + hd)
+    k, v = (torch.as_tensor(rng.standard_normal((2, skv, kv, hd)),
+                            dtype=torch.float32, device=cuda)
+            for _ in range(2))
+    split = flash_kernel.flash_split_kv_hopper
+    before = split.launches
+    got = split(k, v)
+    torch.cuda.synchronize()
+    assert split.launches == before + 1
+    assert torch.equal(got, flash_kernel.ref_split_kv(k, v))
+
+
+def test_flash_split_kv_refuses_bad_inputs(cuda):
+    split = flash_kernel.flash_split_kv_hopper
+    k = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        split(k.to(torch.bfloat16), k.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="cpu"):
+        split(k, k.cpu())
+    with pytest.raises(ValueError, match="shapes"):
+        split(k, k[:, :8].contiguous())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 4, 1, 260), device=cuda)
+        split(big, big)
 
 
 def test_flash_kernel_bf16(cuda):
