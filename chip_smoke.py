@@ -4,9 +4,10 @@
 Drives the port's paths — the paper's Fig-9 speech-enhancement
 SigProgram (learned FIR -> STFT -> mask CNN -> iSTFT, plus a mel tap) at
 its own width (length 4096, frame 256, hop 128, 9 FIR taps, 24 mels, mask
-CNN channels (2, 12, 12, 1)), offline, served and trained, its SigQuant
-form Fig-9q (the mask a block-circulant layer, calibrated and served
-int-routed), and the FFT, phased-FIR and flash-attention entry points,
+CNN channels (2, 12, 12, 1)), offline, served, trained and streamed,
+its SigQuant form Fig-9q (the mask a block-circulant layer, calibrated,
+served and streamed int-routed), and the FFT, phased-FIR and
+flash-attention entry points,
 with random weights and inputs drawn by numpy from ``--seed`` — phase by
 phase:
 
@@ -101,7 +102,31 @@ phase:
      type; the row's ``per_call`` splits the times by call, and
      ``library_kernel_ms`` is the kernel's time on the calls
      ``library_ms`` covers.
-  9. kernels: the kernel JSON of all ten kernels.
+  9. stream: Fig 9 streamed on ``hopper`` in blocks of at most 8 new
+     frames.  A ``StreamingRunner`` takes a batch of 4 in chunks of 256,
+     100, 700, 37 and the rest, against the offline compile (``out`` atol
+     1e-5, ``mel_tap`` rtol 1e-5, atol 1e-4).  4 lock-stepped
+     ``SignalService`` sessions fed 256 samples a tick make at most one
+     core call a tick, each exactly ``STREAM_TICK_LAUNCHES`` (the mel
+     GEMM, the STFT and iSTFT chains); every session equals the offline
+     compile and its private runner at those limits, and one session
+     alone equals its private runner bit for bit.  The first compile of
+     each block size is timed; a steady tick's calls are held against
+     their plain versions (each chain bit for bit its sub-steps) and
+     timed, and the first blocks' calls (fewer frames) are held too; the
+     tick's p50 wall time, samples/s and ``torch.profiler`` breakdown.
+     Gradients of phase 7's loss through the runner (front taps, mask
+     CNN) equal the offline ``value_and_grad`` (rtol 1e-4, atol 1e-5),
+     the backward launching the shuffle-GEMM kernels.  Fig-9q streams
+     under the phase-5 policy: one ``bitserial_quant_matmul_hopper``
+     launch per int-routed core step, ``out`` within the 1e-2 budget of
+     the float32 reference.  ``save_checkpoint`` mid-stream,
+     ``restore_from_disk`` in a fresh service and the same feeds give
+     tails equal bit for bit, nothing delivered twice.  An ``iir_biquad
+     -> fir`` chain of 2048 samples streams equal to offline (atol
+     1e-5).  The session window's launches are the shuffle-GEMM rows'
+     ``stream``.
+ 10. kernels: the kernel JSON of all ten kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -183,6 +208,19 @@ BACKWARD_LAUNCHES = {"shuffle_gemm_blocks": 1,
 TRAIN_LAUNCHES = {n: FORWARD_LAUNCHES[n] + BACKWARD_LAUNCHES[n]
                   for n in FORWARD_LAUNCHES}
 TRAIN_STEPS = 6
+# Streaming (phase 9): Fig 9 in blocks of at most 8 new frames, 4
+# lock-stepped sessions fed 256 samples a tick.  A tick's one core call
+# (the sessions' blocks stacked) runs the framewise core only — the FIR
+# front-end streams as a plain einsum outside it, as in the JAX package —
+# so it launches the mel filterbank on shuffle_gemm_blocks and the STFT's
+# and the iSTFT's butterflies one chain each.
+STREAM_BLOCK_FRAMES, STREAM_SESSIONS, STREAM_CHUNK = 8, 4, 256
+STREAM_SPLITS = [256, 356, 1056, 1093]    # chunks 256, 100, 700, 37, rest
+STREAM_TICK_LAUNCHES = {"shuffle_gemm_blocks": 1,
+                        "shuffle_gemm_grouped_blocks": 0,
+                        "shuffle_gemm_chain": 2}
+STREAM_STEADY_TICKS = 20
+IIR_LENGTH = 2048
 # Attention layers at the widths of configs the repo ships, batch 1:
 # (label, source, S, H, KV, hd, window, softcap, dtype name, (rtol, atol));
 # all causal.  float32 runs the split-TF32 body, bfloat16 the bf16 one.
@@ -1470,8 +1508,401 @@ def main() -> int:
     del attn_in, attn_out
     torch.cuda.empty_cache()
 
-    # -- 9. kernel list -----------------------------------------------------
-    phase("9 kernels")
+    # -- 9. stream: Fig 9 streamed, stacked, trained, calibrated, durable --
+    phase("9 stream")
+    import tempfile
+    from repro_torch.signal import SignalGraph, StreamingRunner
+    stream_rows = {n: new_row(0, f"sum over the calls of one steady tick "
+                                 f"of {STREAM_SESSIONS} lock-stepped "
+                                 f"sessions") for n in wrappers}
+    stream_rows["shuffle_gemm_grouped_blocks"]["per"] = (
+        "sum over the 16 sub-steps of one steady tick's two chains, one "
+        "launch each (the chains' comparison; the tick itself launches "
+        "none)")
+
+    def stream_runner(p):
+        return StreamingRunner(graph, params=p,
+                               block_frames=STREAM_BLOCK_FRAMES,
+                               backend="hopper", device="cuda")
+
+    def drive(runner, sig, splits):
+        """``sig`` through ``runner`` in the chunks ``splits`` cuts, then
+        the flush; the outputs concatenated (mel_tap along its frames)."""
+        acc = {}
+        pieces = [runner.process(c)
+                  for c in torch.tensor_split(sig, splits, dim=-1)]
+        for piece in pieces + [runner.flush()]:
+            for k, v in piece.items():
+                acc.setdefault(k, []).append(v)
+        return {k: torch.cat(v, dim=-1 if k == "out" else -2)
+                for k, v in acc.items()}
+
+    def hold(what, got, want, rtol, atol):
+        if tuple(got.shape) != tuple(want.shape) \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: shape {tuple(got.shape)} (want "
+                                 f"{tuple(want.shape)}) or non-finite")
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{what}: {m}")
+        return float((got - want).abs().max())
+
+    out_tol = {"out": (0.0, 1e-5), "mel_tap": (1e-5, 1e-4)}
+    # one runner, a batch of 4 in uneven chunks, against offline
+    with torch.no_grad():
+        reset_launch_counts()
+        streamed = drive(stream_runner(params), x, STREAM_SPLITS)
+        torch.cuda.synchronize()
+        runner_counts = launch_counts()
+        off = hopper(x, params)
+    errs = {k: hold(f"streamed {k}", streamed[k], off[k], *tol)
+            for k, tol in out_tol.items()}
+    print(f"StreamingRunner(block_frames {STREAM_BLOCK_FRAMES}, hopper), "
+          f"batch {BATCH} in chunks {np.diff([0, *STREAM_SPLITS, LENGTH])} "
+          f"vs offline compile: max abs err out {errs['out']:.3e} (atol "
+          f"1e-5), mel_tap {errs['mel_tap']:.3e} (rtol 1e-5, atol 1e-4); "
+          f"launches {runner_counts}", flush=True)
+
+    # N lock-stepped sessions: at most one core call a tick
+    def stream_service():
+        svc_ = SignalService(backend="hopper", device="cuda",
+                             block_frames=STREAM_BLOCK_FRAMES)
+        svc_.register("se", graph, params={"mask": cnn})
+        return svc_
+
+    def collect(acc, outs):
+        for k, v in outs.items():
+            acc.setdefault(k, []).append(v)
+
+    def joined(acc):
+        return {k: np.concatenate(v, axis=-1 if k == "out" else 0)
+                for k, v in acc.items()}
+
+    waves = [rng.standard_normal(LENGTH).astype(np.float32)
+             for _ in range(STREAM_SESSIONS)]
+    svc_s = stream_service()
+    struct = svc_s._graphs["se"].struct
+    compile_ms, first_tick_ms = {}, {}
+    untimed_core_graph = struct.core_graph
+
+    def timed_core_graph(n_frames, *a):
+        before = len(struct._core_cache)
+        t0 = time.perf_counter()
+        c = untimed_core_graph(n_frames, *a)
+        if len(struct._core_cache) > before:
+            compile_ms[n_frames] = (time.perf_counter() - t0) * 1e3
+        return c
+    struct.core_graph = timed_core_graph
+    sessions = [svc_s.open_stream("se") for _ in waves]
+    accs = [{} for _ in waves]
+    stream_counts = {n: 0 for n in STREAM_TICK_LAUNCHES}
+    tick_log = []
+    for lo in range(0, LENGTH, STREAM_CHUNK):
+        seen = set(compile_ms)
+        t1 = time.perf_counter()
+        for sess, w in zip(sessions, waves):
+            sess.feed(w[lo:lo + STREAM_CHUNK])
+        reset_launch_counts()
+        calls = svc_s.stream_step()
+        made = launch_counts()
+        for acc, sess in zip(accs, sessions):
+            collect(acc, sess.read())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        for n in set(compile_ms) - seen:
+            first_tick_ms[n] = ms
+        want = {n: c * calls for n, c in STREAM_TICK_LAUNCHES.items()}
+        if calls > 1 or made != want:
+            raise AssertionError(f"tick at {lo}: {calls} core calls, "
+                                 f"launches {made} (want {want})")
+        for n, c in made.items():
+            stream_counts[n] += c
+        tick_log.append((calls, round(ms, 3)))
+    for acc, sess in zip(accs, sessions):
+        collect(acc, sess.close())
+    torch.cuda.synchronize()
+    print(f"{STREAM_SESSIONS} sessions, chunks of {STREAM_CHUNK}: ticks "
+          f"(core calls, ms incl. compiles) {tick_log}; launches "
+          f"{stream_counts}; stats {svc_s.stats}", flush=True)
+    if not all(stream_counts[n] for n in ("shuffle_gemm_blocks",
+                                          "shuffle_gemm_chain")):
+        raise AssertionError(f"the session ticks launched {stream_counts}")
+    worst = {"offline": {"out": 0.0, "mel_tap": 0.0},
+             "runner": {"out": 0.0, "mel_tap": 0.0}}
+    with torch.no_grad():
+        for acc, w in zip(accs, waves):
+            got = {k: torch.as_tensor(v, device="cuda")
+                   for k, v in joined(acc).items()}
+            wt = torch.as_tensor(w, device="cuda")
+            off = {k: v[0] for k, v in hopper(wt[None], params).items()}
+            priv = drive(stream_runner(params), wt,
+                         list(range(STREAM_CHUNK, LENGTH, STREAM_CHUNK)))
+            for k, tol in out_tol.items():
+                worst["offline"][k] = max(worst["offline"][k], hold(
+                    f"session {k} vs offline", got[k], off[k], *tol))
+                worst["runner"][k] = max(worst["runner"][k], hold(
+                    f"session {k} vs private runner", got[k], priv[k],
+                    *tol))
+    # one session alone and a private runner: bit for bit
+    svc_1 = stream_service()
+    solo = svc_1.open_stream("se")
+    solo_acc = {}
+    for lo in range(0, LENGTH, STREAM_CHUNK):
+        solo.feed(waves[0][lo:lo + STREAM_CHUNK])
+        svc_1.stream_step()
+        collect(solo_acc, solo.read())
+    collect(solo_acc, solo.close())
+    with torch.no_grad():
+        priv = drive(stream_runner(params),
+                     torch.as_tensor(waves[0], device="cuda"),
+                     list(range(STREAM_CHUNK, LENGTH, STREAM_CHUNK)))
+    for k, v in joined(solo_acc).items():
+        if not torch.equal(torch.as_tensor(v, device="cuda"), priv[k]):
+            raise AssertionError(f"one session's {k} is not its private "
+                                 f"runner's bit for bit")
+    print(f"sessions vs offline compile and vs private runners (out atol "
+          f"1e-5, mel_tap rtol 1e-5, atol 1e-4): max abs err {worst}; one "
+          f"session == "
+          f"its private runner bit for bit", flush=True)
+    compiles = {n: round(compile_ms[n], 2) for n in sorted(compile_ms)}
+    first = {n: round(first_tick_ms[n], 2) for n in sorted(first_tick_ms)}
+    print(f"core compiles by n_frames (ms): {compiles}; the ticks that "
+          f"first ran each (ms): {first}", flush=True)
+
+    # where a steady tick goes: kernel calls vs their plain versions,
+    # the tick's wall time, the profile
+    steady = stream_service()
+    steady_sessions = [steady.open_stream("se")
+                       for _ in range(STREAM_SESSIONS)]
+    feed_rng = np.random.default_rng(args.seed + 2)
+    feed_pool = feed_rng.standard_normal(
+        (64, STREAM_SESSIONS, STREAM_CHUNK)).astype(np.float32)
+    feed_at = itertools.count()
+
+    def tick():
+        chunk = feed_pool[next(feed_at) % len(feed_pool)]
+        for sess, c in zip(steady_sessions, chunk):
+            sess.feed(c)
+        steady.stream_step()
+        for sess in steady_sessions:
+            sess.read()
+    for _ in range(6):                    # past the first blocks' compiles
+        tick()
+    steady_ms = []
+    for _ in range(STREAM_STEADY_TICKS):
+        t1 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        steady_ms.append((time.perf_counter() - t1) * 1e3)
+    tick_p50 = float(np.median(steady_ms))
+    reset_launch_counts()
+    tick()
+    torch.cuda.synchronize()
+    if launch_counts() != STREAM_TICK_LAUNCHES:
+        raise AssertionError(f"a steady tick launched {launch_counts()}")
+    tick_launches = profile_forward(torch, tick, tick_p50,
+                                  label=f"stream tick ({STREAM_SESSIONS} "
+                                        f"sessions)")
+    tick_calls = record_calls(torch, tick)
+    if sorted(n for n, _ in tick_calls) != sorted(
+            n for n, c in STREAM_TICK_LAUNCHES.items() for _ in range(c)):
+        raise AssertionError(f"a steady tick called "
+                             f"{[n for n, _ in tick_calls]}")
+    for name, a in tick_calls:
+        if name == "shuffle_gemm_chain":
+            check_chain(a, stream_rows[name],
+                        stream_rows["shuffle_gemm_grouped_blocks"],
+                        label="stream ")
+        else:
+            time_call(name, a, stream_rows[name], label="stream ")
+    # the first blocks (fewer frames: g0 = 0) against the plain versions too
+    first_calls = []
+    fresh = stream_service()
+    fresh_sessions = [fresh.open_stream("se")
+                      for _ in range(STREAM_SESSIONS)]
+
+    def fresh_tick(k):
+        for sess, w in zip(fresh_sessions, waves):
+            sess.feed(w[k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK])
+        fresh.stream_step()
+    for k in range(4):
+        first_calls += record_calls(torch, lambda: fresh_tick(k))
+    with torch.no_grad():
+        for name, a in first_calls:
+            kern, plain = wrappers[name]
+            got = kern(**a)
+            err = check_close(name, a, got, plain(**a), "float32")
+            if name == "shuffle_gemm_chain" and not torch.equal(
+                    got, shuffle_gemm_steps(**a)):
+                raise AssertionError("a first-block chain is not its "
+                                     "sub-steps launched one at a time")
+            d = describe(name, a)
+            print(f"stream first blocks {name:20s} "
+                  + (f"{d['steps']} sub-steps, {d['tiles']} tiles of "
+                     f"{d['tile_floats']}" if name == "shuffle_gemm_chain"
+                     else f"rows {d['rows']} t {d['t']} n_out {d['n_out']}")
+                  + f" | max_abs_err {err:.3e}")
+    print(f"steady tick ({STREAM_SESSIONS} sessions x {STREAM_CHUNK} samples, "
+          f"one core call of {STREAM_BLOCK_FRAMES} frames): p50 "
+          f"{tick_p50:.3f} ms over {STREAM_STEADY_TICKS} ticks (ticks "
+          f"{', '.join(f'{v:.3f}' for v in steady_ms)} ms); "
+          f"{STREAM_SESSIONS * STREAM_CHUNK / tick_p50 * 1e3:.0f} samples/s "
+          f"streamed; launches a tick {STREAM_TICK_LAUNCHES}; device "
+          f"launches a tick (kernels and copies, from the profile) "
+          f"{'not measured' if tick_launches is None else tick_launches}",
+          flush=True)
+
+    # gradients through the runner vs offline value_and_grad (phase 7)
+    leaves = {"front": {"taps": torch.tensor(
+        np.asarray(params["front"]["taps"], np.float32), device="cuda",
+        requires_grad=True)},
+              "mask": [w.detach().clone().requires_grad_() for w in cnn]}
+    flat = [leaves["front"]["taps"], *leaves["mask"]]
+    reset_launch_counts()
+    out_s = drive(stream_runner({**params, **leaves}), noisy,
+                  STREAM_SPLITS)["out"]
+    loss_s = tse.loss_fn({"out": out_s}, clean)
+    torch.cuda.synchronize()
+    fwd_counts = launch_counts()
+    reset_launch_counts()
+    grads_s = torch.autograd.grad(loss_s, flat)
+    torch.cuda.synchronize()
+    bwd_counts = launch_counts()
+    if not (bwd_counts["shuffle_gemm_blocks"] and
+            bwd_counts["shuffle_gemm_chain"]):
+        raise AssertionError(f"the streamed backward launched {bwd_counts}")
+    g_errs = {}
+    for name, a, b in [("loss", loss_s.detach(), loss_h),
+                       ("front.taps", grads_s[0], grads_h["front"]["taps"])] \
+            + [(f"mask[{i}]", a, b) for i, (a, b) in
+               enumerate(zip(grads_s[1:], grads_h["mask"]))]:
+        g_errs[name] = hold(f"streamed gradient {name}", a, b, 1e-4, 1e-5)
+    if not all(float(g.abs().max()) > 0 for g in grads_s):
+        raise AssertionError("a streamed gradient leaf is all zeros")
+    print(f"gradients through the runner vs offline value_and_grad (rtol "
+          f"1e-4, atol 1e-5): max abs err "
+          f"{ {k: float(f'{v:.3e}') for k, v in g_errs.items()} }; "
+          f"launches forward {fwd_counts}, backward {bwd_counts}",
+          flush=True)
+
+    # calibrated streaming: Fig-9q under the phase-5 policy
+    svc_cq = SignalService(backend="hopper", precision=policy,
+                           block_frames=STREAM_BLOCK_FRAMES, device="cuda")
+    svc_cq.register("fig9q", gq)
+    n_int_core = svc_cq._graphs["fig9q"].struct.core_graph(
+        STREAM_BLOCK_FRAMES, svc_cq.fuse, svc_cq.backend,
+        svc_cq.device).lowering_report()["array_passes"]["int_routed"]
+    if not n_int_core:
+        raise AssertionError("the Fig-9q core int-routes no step")
+    sess_q = svc_cq.open_stream("fig9q")
+    xq = rng.standard_normal(LENGTH).astype(np.float32)
+    q_acc, q_stream_counts, q_calls = {}, {}, 0
+    for lo in range(0, LENGTH, STREAM_CHUNK):
+        sess_q.feed(xq[lo:lo + STREAM_CHUNK])
+        bsm.reset_launch_counts()
+        calls = svc_cq.stream_step()
+        made = bsm.launch_counts()
+        if made != {"bitserial_matmul_planes": 0,
+                    "bitserial_quant_matmul_hopper": n_int_core * calls}:
+            raise AssertionError(f"calibrated tick: {calls} core calls "
+                                 f"launched {made}")
+        q_calls += calls
+        for n, c in made.items():
+            q_stream_counts[n] = q_stream_counts.get(n, 0) + c
+        collect(q_acc, sess_q.read())
+    collect(q_acc, sess_q.close())
+    if not q_stream_counts["bitserial_quant_matmul_hopper"]:
+        raise AssertionError("the calibrated stream launched no bitserial "
+                             "kernel")
+    q_out = joined(q_acc)
+    with torch.no_grad():
+        fref = fq.with_backend("reference")(torch.as_tensor(
+            xq, device="cuda"))
+    q_errs = {}
+    for k in ("out", "mel_tap"):
+        want = fref[k].cpu().numpy()
+        got = q_out[k]
+        if got.shape != want.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"calibrated stream {k}: shape "
+                                 f"{got.shape} vs {want.shape}")
+        q_errs[k] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    if q_errs["out"] > Q_BUDGET:
+        raise AssertionError(f"calibrated stream out: relative L2 error "
+                             f"{q_errs['out']} beyond {Q_BUDGET}")
+    print(f"calibrated Fig-9q stream: {n_int_core} int-routed steps a core "
+          f"call, {q_calls} core calls, launches {q_stream_counts}; held-out "
+          f"relative L2 error vs the float32 reference {q_errs} (out within "
+          f"{Q_BUDGET})", flush=True)
+
+    # durability: save mid-stream, restore in a fresh service, replay
+    half = LENGTH // 2
+    svc_a = stream_service()
+    sa = [svc_a.open_stream("se") for _ in range(2)]
+    heads = [{} for _ in sa]
+    for lo in range(0, half, STREAM_CHUNK):
+        for sess, w in zip(sa, waves):
+            sess.feed(w[lo:lo + STREAM_CHUNK])
+        svc_a.stream_step()
+        for acc, sess in zip(heads, sa):
+            collect(acc, sess.read())
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ck:
+        ck_step = svc_a.save_checkpoint(ck)
+        svc_b = stream_service()
+        if svc_b.restore_from_disk(ck) != ck_step:
+            raise AssertionError("restore_from_disk restored another step")
+    sb = [svc_b.session_by_sid(sess.sid) for sess in sa]
+    tails = []
+    for svc_, ss in ((svc_a, sa), (svc_b, sb)):
+        tl = [{} for _ in ss]
+        for lo in range(half, LENGTH, STREAM_CHUNK):
+            for sess, w in zip(ss, waves):
+                sess.feed(w[lo:lo + STREAM_CHUNK])
+            svc_.stream_step()
+            for acc, sess in zip(tl, ss):
+                collect(acc, sess.read())
+        for acc, sess in zip(tl, ss):
+            collect(acc, sess.close())
+        tails.append([joined(acc) for acc in tl])
+    for i, (ta, tb) in enumerate(zip(*tails)):
+        for k in ta:
+            if not np.array_equal(ta[k], tb[k]):
+                raise AssertionError(f"session {i} {k}: the restored "
+                                     f"stream's tail differs")
+        whole = joined({k: [*heads[i].get(k, []), tb[k]] for k in tb})
+        for k, tol in out_tol.items():
+            hold(f"session {i} {k}: head + restored tail vs the "
+                 f"uninterrupted stream",
+                 torch.as_tensor(whole[k]),
+                 torch.as_tensor(joined(accs[i])[k]), *tol)
+    print(f"durability: save_checkpoint at sample {half} (step {ck_step}), "
+          f"restore_from_disk in a fresh service, feeds replayed: tails "
+          f"equal bit for bit; head + tail == the uninterrupted stream, "
+          f"nothing delivered twice", flush=True)
+
+    # an IIR -> FIR sample chain (biquad_apply's carry on the card)
+    gi = SignalGraph("iir_fir")
+    gi.iir_biquad("q", "input", b=[0.2, 0.3, 0.2], a=[1.0, -0.5, 0.25])
+    gi.fir("f", "q", taps=np.hanning(9) / np.hanning(9).sum())
+    gi.outputs("f")
+    xi = torch.as_tensor(rng.standard_normal(IIR_LENGTH).astype(np.float32),
+                         device="cuda")
+    ri = StreamingRunner(gi, backend="hopper", device="cuda")
+    with torch.no_grad():
+        got = torch.cat([ri.process(c)["f"]
+                         for c in torch.tensor_split(xi, [300, 1100])])
+        want = gi.compile(IIR_LENGTH, backend="hopper", device="cuda")(xi)["f"]
+    iir_err = hold("streamed iir_biquad -> fir", got, want, 0.0, 1e-5)
+    print(f"iir_biquad -> fir sample chain, {IIR_LENGTH} samples in 3 "
+          f"chunks on the card vs offline: max abs err {iir_err:.3e} "
+          f"(atol 1e-5)", flush=True)
+    print(f"stream readings (smoke readings, not metrics) on {smi}: tick "
+          f"p50 {tick_p50:.3f} ms, "
+          f"{STREAM_SESSIONS * STREAM_CHUNK / tick_p50 * 1e3:.0f} samples/s "
+          f"over {STREAM_SESSIONS} sessions, launches a tick "
+          f"{sum(STREAM_TICK_LAUNCHES.values())}, core compiles (ms) "
+          f"{compiles}", flush=True)
+
+    # -- 10. kernel list ----------------------------------------------------
+    phase("10 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -1490,6 +1921,16 @@ def main() -> int:
         if bw_row["calls"]:
             rows[name]["backward"] = {k: bw_row[k] for k in (
                 "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "per")}
+        rows[name]["stream"] = {
+            "launches": stream_counts[name],
+            "launches_per_tick": STREAM_TICK_LAUNCHES[name],
+            **{k: stream_rows[name][k] for k in (
+                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "per")}}
+    rows["bitserial_quant_matmul_hopper"]["stream"] = {
+        "launches": q_stream_counts["bitserial_quant_matmul_hopper"],
+        "launches_per_core_call": n_int_core,
+        "per": "the calibrated Fig-9q stream's ticks"}
     rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
     rows["shuffle_gemm_chain_hopper"]["per"] += (
         " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
@@ -1509,7 +1950,8 @@ def main() -> int:
             **{k: r[k] for k in ("library_kernel_ms", "per_call",
                                  "backward", "single_stage", "int_mm_ms",
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
-                                 "launches_per_call", "launch_floor_ms")
+                                 "launches_per_call", "launch_floor_ms",
+                                 "stream")
                if k in r},
         })
     print(smi)

@@ -1,0 +1,151 @@
+"""Atomic, optionally asynchronous checkpoints of params trees.
+
+The port's copy of the JAX package's ``checkpoint/checkpointer.py``, over
+numpy and :mod:`repro_torch.tree` (nested dicts, lists and tuples whose
+leaves are tensors or host arrays), with the same on-disk layout:
+
+    <dir>/step_000123/
+      manifest.json       tree leaves' shapes and dtypes, plus an
+                          optional JSON ``meta`` sidecar
+      leaf_00000.npy ...  one file per leaf, in tree order
+      COMMIT              written last -> partial dirs are ignored
+
+Properties the service relies on:
+
+- atomic: a checkpoint exists iff COMMIT exists (tmp dir + rename);
+- async: ``save`` copies every leaf to host numpy first, then writes on
+  a background thread when asked to, off the caller's critical path;
+- bounded retention: keep the last N checkpoints.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..tree import tree_leaves, tree_map
+
+__all__ = ["Checkpointer", "latest_step"]
+
+
+def _host(leaf) -> np.ndarray:
+    """An owned host copy of one leaf."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and os.path.exists(
+                os.path.join(directory, name, "COMMIT")):
+            steps.append(int(name.split("_")[1]))
+    return max(steps) if steps else None
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    # -- save ---------------------------------------------------------------
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             meta: Any = None) -> None:
+        """``meta`` optionally attaches a JSON-serializable sidecar to
+        the manifest (e.g. the structure encoding of a snapshot whose
+        tree mixes arrays with scalars/strings) — read back via
+        ``restore(..., with_meta=True)``."""
+        self.wait()                       # one in-flight save at a time
+        host = [_host(x) for x in tree_leaves(tree)]
+        user_meta = meta
+        meta = {
+            "step": step,
+            "n_leaves": len(host),
+            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+                       for a in host],
+        }
+        if user_meta is not None:
+            meta["meta"] = user_meta
+
+        def write():
+            final = os.path.join(self.directory, f"step_{step:06d}")
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp, exist_ok=True)
+            for i, a in enumerate(host):
+                np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), a)
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(meta, f)
+            with open(os.path.join(tmp, "COMMIT"), "w") as f:
+                f.write("ok")
+            shutil.rmtree(final, ignore_errors=True)
+            os.rename(tmp, final)
+            self._gc()
+
+        if blocking:
+            write()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self) -> None:
+        steps = sorted(
+            int(n.split("_")[1]) for n in os.listdir(self.directory)
+            if n.startswith("step_") and not n.endswith(".tmp"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:06d}"),
+                          ignore_errors=True)
+
+    # -- restore ------------------------------------------------------------
+    def restore(self, like: Any = None, step: Optional[int] = None,
+                with_meta: bool = False) -> Any:
+        """Load ``step`` (default: the latest committed one) into the
+        structure of ``like`` (a template tree; its leaf count is checked
+        against the manifest), as host numpy leaves.
+
+        ``like=None`` restores template-free: leaves come back as a flat
+        list in manifest order — the process-death path, where no live
+        object survives to serve as a template (the saver's ``meta``
+        sidecar typically carries the structure).  Returns ``(step,
+        tree)``, or ``(step, tree, meta)`` with ``with_meta=True``."""
+        step = step if step is not None else latest_step(self.directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:06d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            meta = json.load(f)
+        n_like = meta["n_leaves"] if like is None else \
+            len(tree_leaves(like))
+        if n_like != meta["n_leaves"]:
+            raise ValueError(
+                f"checkpoint has {meta['n_leaves']} leaves, template "
+                f"{n_like}")
+        leaves = [np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
+                  for i in range(meta["n_leaves"])]
+        for a, info in zip(leaves, meta["leaves"]):
+            if list(a.shape) != info["shape"]:
+                raise ValueError("manifest/leaf shape mismatch")
+        if like is None:
+            tree = leaves
+        else:
+            it = iter(leaves)
+            tree = tree_map(lambda _: next(it), like)
+        if with_meta:
+            return step, tree, meta.get("meta")
+        return step, tree

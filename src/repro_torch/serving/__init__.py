@@ -1,3 +1,4 @@
-from .signal_service import GroupInfo, SignalRequest, SignalService
+from .signal_service import (GroupInfo, SignalRequest, SignalService,
+                             StreamSession)
 
-__all__ = ["SignalService", "SignalRequest", "GroupInfo"]
+__all__ = ["SignalService", "SignalRequest", "StreamSession", "GroupInfo"]

@@ -1,7 +1,7 @@
-"""Signal-graph serving: continuous-batched one-shot DSP requests.
+"""Signal-graph serving: continuous-batched DSP requests and streaming
+sessions.
 
-The port's counterpart of the one-shot path of the JAX package's
-``serving/signal_service.py``:
+The port's counterpart of the JAX package's ``serving/signal_service.py``:
 
   * :class:`SignalService` — registry of named :class:`SignalGraph`
     pipelines with a continuous-batching request loop.  Mixed-length
@@ -15,19 +15,33 @@ The port's counterpart of the one-shot path of the JAX package's
     CNN's convolution may pick another algorithm per shape and agrees to
     float32 rounding.  New requests join the next step's wave: the wave
     is re-formed from the live queue every step.
+  * :class:`StreamSession` — a per-connection streaming handle
+    (:meth:`SignalService.open_stream`): chunked submissions accumulate
+    in per-connection :class:`~repro_torch.signal.streaming.StreamState`
+    s, and every :meth:`SignalService.stream_step` stacks the ready
+    blocks of same-graph sessions into ONE core call.  ``read()`` returns
+    host numpy, one device-to-host copy a session a tick.
+  * Durability: :meth:`SignalService.checkpoint` / :meth:`restore` take
+    and load a host snapshot of every open session, and
+    :meth:`save_checkpoint` / :meth:`restore_from_disk` persist it
+    through :class:`repro_torch.checkpoint.Checkpointer`, so a stream
+    survives the death of its process with exactly-once delivery.
 
-Results carry the SigProgram multi-output contract: graphs declared with
-``outputs()``/``tap()`` return per-output dicts from :meth:`step` /
-:meth:`serve`, each output trimmed back to the request's true length
-along its own frames/time axis.
+Both paths carry the SigProgram multi-output contract: graphs declared
+with ``outputs()``/``tap()`` return per-output dicts from :meth:`step` /
+:meth:`serve` (each output trimmed back to the request's true length
+along its own frames/time axis) and from :meth:`StreamSession.read` /
+``close`` (frame taps emitted per block).
 
 Calibrated programs are served with ``precision=`` (a SigQuant
 :class:`~repro_torch.signal.backends.PrecisionPolicy`): every bucket
-compile int-routes the policy's steps through the bitserial kernel.
+compile and every streaming core int-routes the policy's steps through
+the bitserial kernel.
 
-In this slice the service runs with ``scheduler=False`` (the FIFO pick:
-the oldest request's ``(graph, bucket)`` group in arrival order, up to
-``batch_size``) and no mesh; streaming sessions, SigSched, SigMesh and
+The service runs with ``scheduler=False`` (the FIFO pick: the oldest
+request's ``(graph, bucket)`` group in arrival order, up to
+``batch_size``; streaming sessions stack per graph) and no mesh;
+SigSched (with its cross-graph stacking of streamed cores), SigMesh and
 the LLM co-scheduler are later slices of the port.  With one graph and
 no deadlines SigSched's pick equals the FIFO pick.
 """
@@ -45,17 +59,91 @@ import torch
 from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..signal.graph import CompiledSignalGraph, FuseLevel, SignalGraph
-from ..signal.streaming import StreamStructure
+from ..signal.streaming import (StreamState, StreamStructure,
+                                commit_frames, drain_state, finalize_piece,
+                                push_chunk, ready_spec, restore_state,
+                                snapshot_state, take_block, tap_rows)
 
-__all__ = ["SignalRequest", "SignalService", "GroupInfo"]
+__all__ = ["SignalRequest", "SignalService", "StreamSession", "GroupInfo"]
+
+
+def _host(a) -> np.ndarray:
+    """One tensor (or host array) as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _to_host(out):
     """Device results -> numpy, preserving the per-output dict of
     multi-output SigPrograms."""
     if isinstance(out, dict):
-        return {k: v.detach().cpu().numpy() for k, v in out.items()}
-    return out.detach().cpu().numpy()
+        return {k: _host(v) for k, v in out.items()}
+    return _host(out)
+
+
+def _ckpt_encode(obj, _leaves=None):
+    """Split a :meth:`SignalService.checkpoint` tree into a JSON-able
+    structure encoding plus a flat list of array leaves (what
+    :class:`~repro_torch.checkpoint.Checkpointer` stores as
+    ``leaf_*.npy``).  Handles the snapshot vocabulary: dicts
+    (string-or-None keys), lists, tuples, :class:`StreamState` s, numpy
+    arrays and JSON scalars.  Returns ``(encoding, leaves)``; inverse is
+    :func:`_ckpt_decode`."""
+    top = _leaves is None
+    leaves = [] if top else _leaves
+    if isinstance(obj, StreamState):
+        enc = {"__k__": "state",
+               "pre": _ckpt_encode(list(obj.pre), leaves),
+               "post": _ckpt_encode(list(obj.post), leaves),
+               "buf": _ckpt_encode(obj.buf, leaves),
+               "tail": _ckpt_encode(obj.tail, leaves),
+               "counters": [int(obj.buf_start), int(obj.total),
+                            int(obj.f_next), int(obj.emitted),
+                            [int(d) for d in obj.batch_shape]]}
+    elif isinstance(obj, np.ndarray):
+        leaves.append(obj)
+        enc = {"__k__": "leaf", "i": len(leaves) - 1}
+    elif isinstance(obj, dict):
+        enc = {"__k__": "dict",
+               "items": [[k, _ckpt_encode(v, leaves)]
+                         for k, v in obj.items()]}
+    elif isinstance(obj, (list, tuple)):
+        enc = {"__k__": "list" if isinstance(obj, list) else "tuple",
+               "items": [_ckpt_encode(v, leaves) for v in obj]}
+    elif isinstance(obj, np.integer):
+        enc = int(obj)
+    elif isinstance(obj, np.floating):
+        enc = float(obj)
+    else:
+        enc = obj                       # int / float / str / bool / None
+    return (enc, leaves) if top else enc
+
+
+def _ckpt_decode(enc, leaves):
+    """Inverse of :func:`_ckpt_encode` (array leaves stay numpy)."""
+    if isinstance(enc, dict) and "__k__" in enc:
+        k = enc["__k__"]
+        if k == "leaf":
+            return np.asarray(leaves[enc["i"]])
+        if k == "dict":
+            return {kk: _ckpt_decode(v, leaves)
+                    for kk, v in enc["items"]}
+        if k == "list":
+            return [_ckpt_decode(v, leaves) for v in enc["items"]]
+        if k == "tuple":
+            return tuple(_ckpt_decode(v, leaves) for v in enc["items"])
+        if k == "state":
+            c = enc["counters"]
+            return StreamState(
+                pre=tuple(_ckpt_decode(enc["pre"], leaves)),
+                post=tuple(_ckpt_decode(enc["post"], leaves)),
+                buf=_ckpt_decode(enc["buf"], leaves),
+                tail=_ckpt_decode(enc["tail"], leaves),
+                buf_start=c[0], total=c[1], f_next=c[2], emitted=c[3],
+                batch_shape=tuple(c[4]))
+        raise ValueError(f"unknown checkpoint node kind {k!r}")
+    return enc
 
 
 @dataclasses.dataclass
@@ -73,7 +161,7 @@ class SignalRequest:
 class _Registration:
     graph: SignalGraph
     params: object
-    struct: Optional[StreamStructure]   # None => not bucketable
+    struct: Optional[StreamStructure]   # None => not bucketable/streamable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,16 +201,22 @@ class SignalService:
     results equal the offline compile under the same policy; any other
     backend raises ``ValueError``.
 
-    ``scheduler`` must be False in this slice (the FIFO pick, which is
-    SigSched's pick for one graph without deadlines), and ``mesh`` None;
-    anything else raises ``NotImplementedError`` naming the ROADMAP item
-    that brings it.
+    The backend, the precision policy and the device serve streaming
+    sessions too: ``block_frames`` is the default number of new frames a
+    session's core call finalizes (:meth:`open_stream`), and every
+    session's carried state lives on the service's device.
+
+    ``scheduler`` must be False (the FIFO pick, which is SigSched's pick
+    for one graph without deadlines), and ``mesh`` None; anything else
+    raises ``NotImplementedError`` naming the ROADMAP item that brings
+    it.
     """
 
     def __init__(self, batch_size: int = 8,
                  fuse: "FuseLevel | int" = FuseLevel.STREAM,
                  buckets: Optional[List[int]] = None,
                  bucketing: bool = True,
+                 block_frames: int = 8,
                  backend="reference",
                  mesh=None,
                  precision=None,
@@ -149,23 +243,34 @@ class SignalService:
         self.device = resolve_device(device)
         self.buckets = sorted(int(b) for b in buckets) if buckets else None
         self.bucketing = bucketing
+        self.block_frames = int(block_frames)
         self._graphs: Dict[str, _Registration] = {}
         self._compiled: Dict[Tuple[str, int], CompiledSignalGraph] = {}
         self._cost_cache: Dict[Tuple[str, int], int] = {}
         self._queue: List[SignalRequest] = []
         self._seq = 0
+        self._sessions: Dict[str, List["StreamSession"]] = {}
+        self._sid = 0
+        self._ckpt_seq = 0            # next save_checkpoint step number
         # est_cycles accumulates the perf-model cost of every executed
-        # batch (the JAX package's co-scheduler reads deltas of it).
+        # batch, one-shot and streaming (the JAX package's co-scheduler
+        # reads deltas of it); wall_cycles is the latency clock, which
+        # equals it on one device.
         self.est_cycles = 0
+        self.wall_cycles = 0
         self.stats = {"compiles": 0, "batches": 0, "bucketed": 0,
-                      "exact": 0, "dropped": 0, "bucket_overflow": 0}
+                      "exact": 0, "dropped": 0, "detached_sessions": 0,
+                      "core_calls": 0, "flush_core_calls": 0,
+                      "stream_ticks": 0, "bucket_overflow": 0}
 
     # -- registry -----------------------------------------------------------
     def register(self, name: str, graph: SignalGraph, params=None) -> None:
         """Register (or replace) a named graph.  Replacement drops the
-        stale compile/cost caches and any queued requests referencing the
-        old graph — their ``error`` fields say why.  Nothing queued can
-        ever execute against a graph it was not submitted for."""
+        stale compile/cost caches, any queued requests referencing the
+        old graph, AND detaches its open streaming sessions (their
+        carried state was built under the old graph's frame/hop) — their
+        ``error`` fields say why.  Nothing queued or streaming can ever
+        execute against a graph it was not submitted for."""
         replacing = name in self._graphs
         try:
             struct = StreamStructure.analyze(graph)
@@ -173,7 +278,8 @@ class SignalService:
             struct = None                     # offline-only: exact lengths
         self._graphs[name] = _Registration(graph, params, struct)
         for cache in (self._compiled, self._cost_cache):
-            for key in [k for k in cache if k[0] == name]:
+            for key in [k for k in cache
+                        if k[0] in (name, f"{name}//core")]:
                 del cache[key]
         if replacing:
             stale = [r for r in self._queue if r.graph == name]
@@ -182,6 +288,12 @@ class SignalService:
                 r.error = (f"graph {name!r} was re-registered while the "
                            f"request was queued; resubmit")
             self.stats["dropped"] += len(stale)
+            for sess in self._sessions.pop(name, []):
+                sess.closed = True
+                sess.error = (f"graph {name!r} was re-registered; the "
+                              f"stream's carried state no longer applies "
+                              f"— open a new session")
+                self.stats["detached_sessions"] += 1
 
     def compiled_for(self, name: str, length: int) -> CompiledSignalGraph:
         key = (name, length)
@@ -396,7 +508,9 @@ class SignalService:
                 out = _to_host(compiled.jit()(batch, reg.params))
         self.stats["bucketed" if masked else "exact"] += 1
         self.stats["batches"] += 1
-        self.est_cycles += self.group_cost(key, batch=len(wave))
+        cost = self.group_cost(key, batch=len(wave))
+        self.est_cycles += cost
+        self.wall_cycles += cost
         results = {}
         for i, r in enumerate(wave):
             r.done = True
@@ -466,3 +580,453 @@ class SignalService:
         while self.pending():
             results.update(self.step())
         return results
+
+    # -- per-connection streaming sessions ----------------------------------
+    def open_stream(self, name: str,
+                    block_frames: Optional[int] = None) -> "StreamSession":
+        """Open a streaming connection over a registered graph.  The
+        graph must stream (sample chain, or stft -> core -> istft);
+        chunked submissions go through :meth:`StreamSession.feed` and
+        same-graph sessions' ready blocks execute as ONE core call per
+        :meth:`stream_step`."""
+        reg = self._graphs.get(name)
+        if reg is None:
+            raise KeyError(f"unknown graph {name!r}")
+        if reg.struct is None or (reg.struct.framer is not None
+                                  and reg.struct.deframer is None):
+            raise ValueError(f"graph {name!r} is not streamable")
+        sess = StreamSession(self, name, self._sid,
+                             block_frames or self.block_frames)
+        self._sid += 1
+        self._sessions.setdefault(name, []).append(sess)
+        return sess
+
+    def stream_sessions(self, name: Optional[str] = None) -> int:
+        if name is not None:
+            return len(self._sessions.get(name, []))
+        return sum(len(v) for v in self._sessions.values())
+
+    def stream_pending(self) -> bool:
+        """True if any open session has a full block ready to execute."""
+        for name, sessions in self._sessions.items():
+            struct = self._graphs[name].struct
+            for s in sessions:
+                if ready_spec(struct, s.state, s.block_frames,
+                              final=False) is not None:
+                    return True
+        return False
+
+    @torch.no_grad()
+    def stream_step(self) -> int:
+        """Advance all streaming sessions by at most one block each.
+        Ready blocks of same-graph sessions with matching shapes stack
+        into ONE core call (deciding which are ready reads only host
+        counters); each session then overlap-adds its own slice back
+        into its carried state and pushes what became final to its
+        pending output (a device-to-host copy).  Returns the number of
+        core calls issued (at most one a graph per tick for lock-stepped
+        sessions).  Serving never differentiates: the sessions' carried
+        state must hold no autograd history from tick to tick."""
+        calls = 0
+        _t0 = obs.now() if obs.ENABLED else 0
+        tick_cost = 0
+        groups: Dict[Tuple, List[Tuple["StreamSession", object,
+                                       torch.Tensor]]] = {}
+        for name, sessions in self._sessions.items():
+            struct = self._graphs[name].struct
+            for sess in sessions:
+                spec = ready_spec(struct, sess.state, sess.block_frames,
+                                  final=False)
+                if spec is None:
+                    continue
+                block = take_block(sess.state, spec)
+                gkey = (name, spec.n_frames, tuple(block.shape),
+                        block.dtype)
+                groups.setdefault(gkey, []).append((sess, spec, block))
+        for (name, n_frames, _, _), members in groups.items():
+            reg = self._graphs[name]
+            struct = reg.struct
+            _tc = obs.now() if obs.ENABLED else 0
+            stacked = torch.stack([b for *_, b in members])
+            res = struct.core_jit(n_frames, self.fuse, self.backend,
+                                  self.device)(stacked, reg.params)
+            calls += 1
+            if obs.ENABLED:
+                obs.complete(f"graph/{name}", "stream_core", _tc,
+                             n_frames=n_frames, width=len(members))
+                obs.metrics().histogram(
+                    "service.stream_stack_width").record(len(members))
+            cost = self._stream_cost(name, n_frames) * len(members)
+            self.est_cycles += cost
+            tick_cost += cost
+            for i, (sess, spec, block) in enumerate(members):
+                if isinstance(res, dict):
+                    frames = res[struct.deframer][i]
+                    taps = {t: tap_rows(res[t][i], spec, block.ndim - 1)
+                            for t in struct.frame_outputs}
+                else:
+                    frames, taps = res[i], {}
+                st, piece = commit_frames(struct, sess.state, spec, frames,
+                                          final=False)
+                st, out = finalize_piece(struct, st, piece, final=False,
+                                         params=reg.params)
+                sess.state = st
+                if struct.single:
+                    sess._push_out(out)
+                else:
+                    merged = dict(out) if isinstance(out, dict) else {}
+                    merged.update(taps)
+                    sess._push_outs(merged)
+        self.wall_cycles += tick_cost
+        self.stats["core_calls"] += calls
+        self.stats["stream_ticks"] += 1
+        if obs.ENABLED:
+            obs.complete("Streaming", "stream_tick", _t0,
+                         core_calls=calls,
+                         sessions=self.stream_sessions())
+        return calls
+
+    def _stream_cost(self, name: str, n_frames: int) -> int:
+        """Perf-model cycles for one session's core block (cached)."""
+        from ..core.perf_model import step_cost_estimate
+        key = (f"{name}//core", n_frames)
+        if key not in self._cost_cache:
+            struct = self._graphs[name].struct
+            self._cost_cache[key] = step_cost_estimate(
+                struct.core_graph(n_frames, self.fuse, self.backend,
+                                  self.device))
+        return self._cost_cache[key]
+
+    def _close_stream(self, sess: "StreamSession") -> None:
+        lst = self._sessions.get(sess.graph_name, [])
+        if sess in lst:
+            lst.remove(sess)
+
+    # -- checkpoint / restore (the fault-tolerance contract) ----------------
+    def session_by_sid(self, sid: int) -> Optional["StreamSession"]:
+        for sessions in self._sessions.values():
+            for s in sessions:
+                if s.sid == sid:
+                    return s
+        return None
+
+    def checkpoint(self) -> Dict:
+        """Host-side snapshot of every open streaming session (carried
+        state, pending unread output, delivery counters) plus the
+        service counters.  Plain numpy throughout — independent of the
+        device, cheap enough to take per tick.  One-shot queue entries
+        are NOT captured (they are client-owned request objects,
+        resubmittable by contract); streaming state is what only the
+        service can reconstruct.  Restoring rewinds the state; the
+        client replays its inputs from the checkpoint on, and the
+        resumed stream is bit-identical."""
+        sessions = [s.snapshot() for ss in self._sessions.values()
+                    for s in ss]
+        return {"format": 1,
+                "sid": self._sid,
+                "sessions": sessions,
+                "est_cycles": self.est_cycles,
+                "wall_cycles": self.wall_cycles}
+
+    def restore(self, ckpt: Dict) -> None:
+        """Restore the streaming side to a :meth:`checkpoint`.  Live
+        session handles are restored IN PLACE (client code keeps its
+        ``StreamSession`` objects); sessions opened after the
+        checkpoint are detached with an explanatory ``error``.  Delivery
+        counters are merged, not rewound — data a client already
+        ``read()`` is never emitted twice after the replay (exactly-once
+        delivery; see :meth:`StreamSession._dedup`)."""
+        live = {s.sid: s for ss in self._sessions.values() for s in ss}
+        self._sessions = {}
+        restored = set()
+        for snap in ckpt["sessions"]:
+            name = snap["graph"]
+            if name not in self._graphs:
+                raise KeyError(f"cannot restore session {snap['sid']}: "
+                               f"graph {name!r} is not registered")
+            sess = live.get(snap["sid"])
+            if sess is None:
+                sess = StreamSession(self, name, snap["sid"],
+                                     snap["block_frames"])
+            sess._load_snapshot(snap)
+            self._sessions.setdefault(name, []).append(sess)
+            restored.add(snap["sid"])
+        for sid, sess in live.items():
+            if sid not in restored and not sess.closed:
+                sess.closed = True
+                sess.error = ("service restored to a checkpoint taken "
+                              "before this session was opened")
+                self.stats["detached_sessions"] += 1
+        self._sid = max(self._sid, int(ckpt["sid"]))
+        self.est_cycles = ckpt.get("est_cycles", self.est_cycles)
+        self.wall_cycles = ckpt.get("wall_cycles", self.wall_cycles)
+
+    def save_checkpoint(self, directory: str, step: Optional[int] = None,
+                        keep: int = 3, blocking: bool = True) -> int:
+        """Persist :meth:`checkpoint` to disk through
+        :class:`repro_torch.checkpoint.Checkpointer` (atomic tmp+rename
+        dirs, COMMIT markers, keep-N retention) so streams survive
+        process death.  Snapshot dicts mix numpy arrays with strings /
+        ints / ``StreamState`` counters, so the arrays are stored as
+        manifest leaves and the surrounding structure rides the
+        manifest's JSON ``meta`` sidecar.  Returns the step number
+        written."""
+        from ..checkpoint import Checkpointer
+        snap = self.checkpoint()
+        if step is None:
+            step = self._ckpt_seq
+        self._ckpt_seq = step + 1
+        enc, leaves = _ckpt_encode(snap)
+        t0 = obs.now() if obs.ENABLED else 0
+        Checkpointer(directory, keep=keep).save(step, leaves,
+                                                blocking=blocking,
+                                                meta=enc)
+        if obs.ENABLED:
+            obs.complete("SignalService", "save_checkpoint", t0,
+                         step=step, leaves=len(leaves),
+                         sessions=len(snap["sessions"]))
+        return step
+
+    def restore_from_disk(self, directory: str,
+                          step: Optional[int] = None) -> int:
+        """Template-free restore of :meth:`save_checkpoint` (default:
+        the latest committed step) — the process-death path: a fresh
+        service with the same graphs registered rebuilds every session
+        from disk, with the same exactly-once delivery merge as
+        :meth:`restore`.  Returns the step restored."""
+        from ..checkpoint import Checkpointer
+        step, leaves, enc = Checkpointer(directory).restore(
+            like=None, step=step, with_meta=True)
+        if enc is None:
+            raise ValueError(
+                f"checkpoint step {step} in {directory!r} has no "
+                f"structure sidecar; was it written by save_checkpoint?")
+        self.restore(_ckpt_decode(enc, leaves))
+        self._ckpt_seq = max(self._ckpt_seq, step + 1)
+        return step
+
+
+class StreamSession:
+    """One streaming connection to a :class:`SignalService`.
+
+    ``feed(chunk)`` pushes samples (numpy or a tensor) through the
+    connection's sample-domain pre-chain into its ring buffer on the
+    service's device; the framed core runs when the service batches
+    ready blocks across sessions in :meth:`SignalService.stream_step`.
+    ``read()`` pops the samples that became final, as numpy; ``close()``
+    drains the remainder (including the overlap-add tail) and returns
+    everything unread.  The concatenated ``read()``/``close()`` stream
+    equals a private :class:`~repro_torch.signal.StreamingRunner`'s
+    (they share one drain implementation; bit for bit where the core's
+    arithmetic does not depend on the batch) and matches the graph's
+    offline execution to float32 rounding.
+    """
+
+    def __init__(self, service: SignalService, name: str, sid: int,
+                 block_frames: int):
+        self.service = service
+        self.graph_name = name
+        self.sid = sid
+        self.block_frames = int(block_frames)
+        self.state = StreamState()
+        self.closed = False
+        self.error: Optional[str] = None      # set when force-detached
+        self._out: List[np.ndarray] = []
+        self._outs: Dict[str, List[np.ndarray]] = {}
+        # exactly-once delivery counters, in absolute stream positions
+        # along each output's frames/time axis: ``_pushed`` = data ever
+        # produced into the pending lists, ``_delivered`` = data handed
+        # to the client by read()/close().  A checkpoint restore rewinds
+        # _pushed with the state; _delivered is connection memory and
+        # survives, so replayed ticks re-produce — and _dedup drops —
+        # exactly the already-delivered prefix.  Single-output sessions
+        # use the key None.
+        self._pushed: Dict[Optional[str], int] = {}
+        self._delivered: Dict[Optional[str], int] = {}
+
+    @property
+    def _reg(self) -> _Registration:
+        return self.service._graphs[self.graph_name]
+
+    @property
+    def single(self) -> bool:
+        """True when the graph uses the deprecated single-output
+        contract (``read``/``close`` return bare arrays)."""
+        return self._reg.struct.single
+
+    @torch.no_grad()
+    def feed(self, chunk) -> None:
+        """Push one chunk (last axis = time; chunk lengths may vary)."""
+        if self.closed:
+            raise ValueError(self.error or f"session {self.sid} is closed")
+        self.state, out = push_chunk(self._reg.struct, self.state, chunk,
+                                     self._reg.params, self.service.device)
+        if isinstance(out, dict):        # multi-output: chain taps emit now
+            self._push_outs(out)
+        elif out is not None:            # pure sample chain: no latency
+            self._push_out(out)
+
+    def _dedup(self, key: Optional[str], arr: np.ndarray,
+               axis: int) -> np.ndarray:
+        """Exactly-once delivery filter: advance the pushed counter and
+        drop the piece's already-delivered prefix.  A no-op on a live
+        stream (delivered never exceeds pushed); after a checkpoint
+        restore, replayed ticks re-produce data the client already
+        read, and this is where it disappears."""
+        n = int(arr.shape[axis])
+        start = self._pushed.get(key, 0)
+        self._pushed[key] = start + n
+        skip = min(n, max(0, self._delivered.get(key, 0) - start))
+        if skip:
+            sl = [slice(None)] * arr.ndim
+            sl[axis] = slice(skip, None)
+            arr = arr[tuple(sl)]
+        return arr
+
+    def _push_out(self, out) -> None:
+        arr = self._dedup(None, _host(out), -1)
+        if arr.shape[-1]:
+            self._out.append(arr)
+
+    def _push_outs(self, outs: Dict) -> None:
+        for name, piece in outs.items():
+            arr = _host(piece)
+            axis = self._frames_axis(name, arr)
+            arr = self._dedup(name, arr, axis)
+            if arr.shape[axis]:
+                self._outs.setdefault(name, []).append(arr)
+
+    def _frames_axis(self, name: str, arr: np.ndarray) -> int:
+        """Concatenation axis for an output's pieces: the frames axis
+        for frame taps (right after the connection's batch axes, whose
+        rank the ring buffer knows), the time axis otherwise."""
+        struct = self._reg.struct
+        if name in struct.frame_outputs and self.state.buf is not None:
+            return self.state.buf.ndim - 1
+        return arr.ndim - 1
+
+    def frames_ready(self) -> int:
+        """Frames currently executable without more input (lookahead
+        held back, as in non-final streaming)."""
+        struct = self._reg.struct
+        if struct.framer is None:
+            return 0
+        spec = ready_spec(struct, self.state, 10 ** 9, final=False)
+        return 0 if spec is None else spec.count
+
+    def read(self):
+        """Pop the output data that became final so far, as numpy.
+        Single-output sessions return the bare sample array; multi-output
+        sessions return a dict of the outputs with new data (per-output
+        pieces concatenated along their frames/time axis)."""
+        if self.single:
+            if not self._out:
+                shape = (*self.state.batch_shape, 0) \
+                    if self.state.buf is None \
+                    else (*self.state.buf.shape[:-1], 0)
+                return np.zeros(shape, np.float32)
+            out = self._out[0] if len(self._out) == 1 else np.concatenate(
+                self._out, axis=-1)
+            self._out = []
+            # everything pushed is now in the client's hands
+            self._delivered[None] = self._pushed.get(None, 0)
+            return out
+        outs = {}
+        for name, pieces in self._outs.items():
+            axis = self._frames_axis(name, pieces[0])
+            outs[name] = pieces[0] if len(pieces) == 1 \
+                else np.concatenate(pieces, axis=axis)
+            self._delivered[name] = self._pushed.get(name, 0)
+        self._outs = {}
+        return outs
+
+    @torch.no_grad()
+    def close(self):
+        """Flush: run the remaining frames (per-session, the block
+        batched to 1 — tails have irregular shapes), emit the
+        overlap-add tail, detach from the service, and return everything
+        unread."""
+        if self.closed:
+            return self.read()
+        self.closed = True
+        struct, reg = self._reg.struct, self._reg
+        if struct.framer is not None:
+            svc = self.service
+
+            def run_core(block, n_frames):
+                cost = svc._stream_cost(self.graph_name, n_frames)
+                svc.est_cycles += cost
+                svc.wall_cycles += cost
+                svc.stats["flush_core_calls"] += 1
+                res = struct.core_jit(n_frames, svc.fuse, svc.backend,
+                                      svc.device)(block[None], reg.params)
+                if isinstance(res, dict):
+                    return {k: v[0] for k, v in res.items()}
+                return res[0]
+
+            self.state, out = drain_state(struct, self.state,
+                                          self.block_frames, run_core,
+                                          final=True, params=reg.params)
+            if isinstance(out, dict):
+                self._push_outs(out)
+            elif out is not None:
+                self._push_out(out)
+        self.service._close_stream(self)
+        return self.read()
+
+    # -- checkpoint / restore ------------------------------------------------
+    def snapshot(self) -> Dict:
+        """Plain-data (host numpy) snapshot of this connection: carried
+        state, pending unread output and exactly-once delivery counters.
+        Deep copies throughout — the snapshot is valid after any amount
+        of further streaming."""
+        return {
+            "sid": self.sid,
+            "graph": self.graph_name,
+            "block_frames": self.block_frames,
+            "closed": self.closed,
+            "error": self.error,
+            "state": snapshot_state(self.state),
+            "pending": [np.array(a) for a in self._out],
+            "pendings": {k: [np.array(a) for a in v]
+                         for k, v in self._outs.items()},
+            "pushed": dict(self._pushed),
+            "delivered": dict(self._delivered),
+        }
+
+    def _load_snapshot(self, snap: Dict) -> None:
+        """Restore this connection in place from :meth:`snapshot`.  The
+        carried state lands on the service's device.  Pending output is
+        re-pushed through the exactly-once filter, and the delivery
+        counter keeps the live handle's progress — a client that read
+        past the checkpoint sees no duplicates when replay catches the
+        stream back up."""
+        self.block_frames = int(snap["block_frames"])
+        self.closed = bool(snap["closed"])
+        self.error = snap["error"]
+        self.state = restore_state(snap["state"], device=self.service.device)
+        # delivery memory merges forward: a fresh process takes the
+        # checkpoint's counters, a live handle keeps what its client
+        # already consumed (the larger of the two).
+        delivered = dict(snap["delivered"])
+        for k, v in self._delivered.items():
+            delivered[k] = max(delivered.get(k, 0), v)
+        self._delivered = delivered
+        # re-push the checkpoint's pending pieces through the filter:
+        # rewind the pushed counters by their extents, then push in
+        # order — already-delivered prefixes drop out in _dedup.
+        self._pushed = dict(snap["pushed"])
+        self._out, self._outs = [], {}
+        pend = [np.asarray(a) for a in snap["pending"]]
+        if pend:
+            self._pushed[None] = self._pushed.get(None, 0) \
+                - sum(a.shape[-1] for a in pend)
+            for a in pend:
+                self._push_out(a)
+        for name, pieces in snap["pendings"].items():
+            pieces = [np.asarray(a) for a in pieces]
+            axes = [self._frames_axis(name, a) for a in pieces]
+            self._pushed[name] = self._pushed.get(name, 0) \
+                - sum(a.shape[ax] for a, ax in zip(pieces, axes))
+            for a in pieces:
+                self._push_outs({name: a})

@@ -19,7 +19,7 @@ from ..core.signal_mapping import (complex_to_interleaved,
 from .spectrogram import stft, istft, magnitude_spectrogram
 from .graph import (SignalGraph, CompiledSignalGraph, SigType, FuseLevel,
                     biquad_apply, overlap_add, mel_filterbank_matrix)
-from .streaming import BlockSpec, StreamStructure
+from .streaming import BlockSpec, StreamingRunner, StreamStructure
 from .backends import (ExecBackend, ReferenceBackend, HopperBackend,
                        PrecisionPolicy, get_backend, register_backend,
                        available_backends)
@@ -29,7 +29,8 @@ __all__ = ["fft", "ifft", "fir", "fir_phased", "dct", "dct2", "dwt",
            "complex_to_interleaved", "interleaved_to_complex",
            "SignalGraph", "CompiledSignalGraph", "SigType", "FuseLevel",
            "biquad_apply", "overlap_add", "mel_filterbank_matrix",
-           "BlockSpec", "StreamStructure", "clear_plan_caches",
+           "BlockSpec", "StreamingRunner", "StreamStructure",
+           "clear_plan_caches",
            "plan_cache_info", "plan_cache_get", "reset_plan_cache_stats",
            "ExecBackend", "ReferenceBackend", "HopperBackend",
            "PrecisionPolicy", "get_backend", "register_backend",

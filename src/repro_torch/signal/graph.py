@@ -76,8 +76,9 @@ the hand-written shuffle-GEMM CUDA kernels, and the steps a SigQuant
 ``PrecisionPolicy`` names onto the bitserial integer kernel.
 Differentiation (:meth:`CompiledSignalGraph.value_and_grad`) runs on
 ``torch.autograd`` through the same kernels (their backward passes are
-``torch.autograd.Function`` s on adjoint operands); the streaming
-runtime is a later slice of the port.
+``torch.autograd.Function`` s on adjoint operands), and so does the
+streaming runtime (:mod:`repro_torch.signal.streaming`), whose per-block
+cores are compiled graphs too.
 """
 
 from __future__ import annotations
@@ -371,7 +372,7 @@ def _biquad_coeffs(sp, b_static, a_static):
     """Resolve a biquad stage's (b, a): per-call learnable coefficients
     from a params dict (keys ``b`` / ``a``) with the compile-time taps as
     the fallback.  Shared by the offline lowering and the streaming
-    IIR stage of the streaming slice."""
+    IIR stage."""
     if isinstance(sp, dict) and ("b" in sp or "a" in sp):
         return sp.get("b", b_static), sp.get("a", a_static)
     return b_static, a_static

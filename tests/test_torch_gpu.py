@@ -4,7 +4,9 @@ plain PyTorch versions on the same card tensors, the Fig-9 path on the
 int-routed (SigQuant) Fig-9q forward, the shuffle-GEMM kernels' backward
 Function and ``value_and_grad`` on the card, the chain kernel (a list of
 grouped steps in one launch) bit for bit its steps launched one at a time,
-and flash attention.
+flash attention, and streaming on ``hopper`` (a runner and lock-stepped
+sessions against the offline compile, their launches a tick, gradients
+through the runner, a session's checkpoint round trip).
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False; whether a card is present is
@@ -988,3 +990,159 @@ def test_flash_wrapper_refuses_bad_inputs(cuda):
         fa(big, big, big)
     with pytest.raises(NotImplementedError, match="no backward"):
         tk.flash_attention(q.requires_grad_(), k, v)
+
+
+# -- streaming on hopper: runner, lock-stepped sessions, gradients, ckpt -----
+
+STREAM_TICK = {"shuffle_gemm_blocks": 1, "shuffle_gemm_grouped_blocks": 0,
+               "shuffle_gemm_chain": 2}
+
+
+def _stream_setup(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    cnn = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=dev)
+    g = tse.build_graph(LENGTH, ch=CH)
+    c = g.compile(LENGTH, backend="hopper", device=dev)
+    params = dict(c.init_params())
+    params["mask"] = cnn
+    return rng, g, c, params, cnn
+
+
+def _stream_service(g, cnn, dev):
+    svc = SignalService(backend="hopper", block_frames=8, device=dev)
+    svc.register("se", g, params={"mask": cnn})
+    return svc
+
+
+def _drive(runner, x, splits):
+    acc = {}
+    for o in [runner.process(c) for c in torch.tensor_split(x, splits, -1)] \
+            + [runner.flush()]:
+        for k, v in o.items():
+            acc.setdefault(k, []).append(v)
+    return {k: torch.cat(v, dim=-1 if k == "out" else -2)
+            for k, v in acc.items()}
+
+
+def _hold(got, want):
+    torch.testing.assert_close(got["out"], want["out"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got["mel_tap"], want["mel_tap"], rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_streaming_runner_matches_offline_on_card(cuda):
+    """Fig 9 at full width, a batch of 4 in uneven chunks, blocks of 8
+    frames on hopper, against the offline compile."""
+    from repro_torch.signal import StreamingRunner
+    rng, g, c, params, _ = _stream_setup(cuda)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    with torch.no_grad():
+        got = _drive(StreamingRunner(g, params=params, block_frames=8,
+                                     backend="hopper", device=cuda),
+                     x, [256, 356, 1056, 1093])
+        _hold(got, c(x, params))
+
+
+def test_stream_sessions_one_core_call_and_its_launches_a_tick(cuda):
+    """4 lock-stepped sessions, chunks of 256: at most one core call a
+    tick, each the mel GEMM and the two butterfly chains; every session
+    equals the offline compile and its private runner's stream."""
+    from repro_torch.signal import StreamingRunner
+    rng, g, c, params, cnn = _stream_setup(cuda, seed=1)
+    svc = _stream_service(g, cnn, cuda)
+    waves = [rng.standard_normal(LENGTH).astype(np.float32)
+             for _ in range(4)]
+    sessions = [svc.open_stream("se") for _ in waves]
+    accs = [{} for _ in waves]
+    for lo in range(0, LENGTH, 256):
+        for s, w in zip(sessions, waves):
+            s.feed(w[lo:lo + 256])
+        reset_launch_counts()
+        calls = svc.stream_step()
+        torch.cuda.synchronize()
+        assert calls <= 1
+        assert launch_counts() == {n: k * calls for n, k in STREAM_TICK.items()}
+        for acc, s in zip(accs, sessions):
+            for k, v in s.read().items():
+                acc.setdefault(k, []).append(v)
+    for acc, s in zip(accs, sessions):
+        for k, v in s.close().items():
+            acc.setdefault(k, []).append(v)
+    with torch.no_grad():
+        for acc, w in zip(accs, waves):
+            got = {k: torch.as_tensor(np.concatenate(
+                v, axis=-1 if k == "out" else 0), device=cuda)
+                for k, v in acc.items()}
+            wt = torch.as_tensor(w, device=cuda)
+            _hold(got, {k: v[0] for k, v in c(wt[None], params).items()})
+            _hold(got, _drive(StreamingRunner(
+                g, params=params, block_frames=8, backend="hopper",
+                device=cuda), wt, list(range(256, LENGTH, 256))))
+
+
+def test_streaming_gradients_launch_the_backward_kernels(cuda):
+    """The loss of the streamed output differentiates through the carried
+    state and the shuffle-GEMM backward Functions, equal to the offline
+    value_and_grad."""
+    from repro_torch.signal import StreamingRunner
+    rng, g, c, params, cnn = _stream_setup(cuda, seed=2)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    clean = torch.as_tensor(rng.standard_normal((4, LENGTH))
+                            .astype(np.float32), device=cuda)
+    lo, go = c.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)(params, x,
+                                                              clean)
+    taps = torch.tensor(np.asarray(params["front"]["taps"], np.float32),
+                        device=cuda, requires_grad=True)
+    mask = [w.detach().clone().requires_grad_() for w in cnn]
+    r = StreamingRunner(g, params={**params, "front": {"taps": taps},
+                                   "mask": mask},
+                        block_frames=8, backend="hopper", device=cuda)
+    loss = tse.loss_fn(_drive(r, x, [256, 356, 1056, 1093]), clean)
+    reset_launch_counts()
+    grads = torch.autograd.grad(loss, [taps, *mask])
+    torch.cuda.synchronize()
+    made = launch_counts()
+    assert made["shuffle_gemm_blocks"] >= 1 and made["shuffle_gemm_chain"] >= 1
+    torch.testing.assert_close(loss.detach(), lo, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(grads[0], go["front"]["taps"], rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(grads[1:], go["mask"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_stream_session_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """save_checkpoint mid-stream, restore_from_disk in a fresh service,
+    the same feeds: the tails are equal bit for bit."""
+    rng, g, c, params, cnn = _stream_setup(cuda, seed=3)
+    w = rng.standard_normal(LENGTH).astype(np.float32)
+    svc = _stream_service(g, cnn, cuda)
+    s = svc.open_stream("se")
+    for lo in range(0, LENGTH // 2, 256):
+        s.feed(w[lo:lo + 256])
+        svc.stream_step()
+    s.read()
+    svc.save_checkpoint(str(tmp_path / "ckpt"))
+    svc2 = _stream_service(g, cnn, cuda)
+    svc2.restore_from_disk(str(tmp_path / "ckpt"))
+    s2 = svc2.session_by_sid(s.sid)
+    assert s2.state.buf.device.type == "cuda"
+    tails = []
+    for sess, sv in ((s, svc), (s2, svc2)):
+        acc = {}
+        for lo in range(LENGTH // 2, LENGTH, 256):
+            sess.feed(w[lo:lo + 256])
+            sv.stream_step()
+            for k, v in sess.read().items():
+                acc.setdefault(k, []).append(v)
+        for k, v in sess.close().items():
+            acc.setdefault(k, []).append(v)
+        tails.append(acc)
+    for k in tails[0]:
+        np.testing.assert_array_equal(
+            np.concatenate(tails[0][k], axis=-1 if k == "out" else 0),
+            np.concatenate(tails[1][k], axis=-1 if k == "out" else 0))
