@@ -126,7 +126,33 @@ phase:
      -> fir`` chain of 2048 samples streams equal to offline (atol
      1e-5).  The session window's launches are the shuffle-GEMM rows'
      ``stream``.
- 10. kernels: the kernel JSON of all ten kernels.
+ 10. sched: SigSched, the service's default dispatch, on Fig 9 at full
+     width: (a) phase 4's window through ``scheduler=False`` gives the
+     same ``batches``, ``bucketed``, ``exact`` and ``compiles``, the same
+     launches and the same results bit for bit; (b) two registrations
+     ``a``, ``b`` of Fig 9 with equal params, 8 requests alternating,
+     ``batch_size=8``: one cross-graph wave of exactly
+     ``FORWARD_LAUNCHES``, where ``scheduler=False`` takes 2; (c) the
+     same with ``b``'s FIR taps and mask CNN from seed 1: still one wave
+     of ``FORWARD_LAUNCHES``, ``param_splits`` 0, the FIR call one
+     ``shuffle_gemm_blocks`` launch on per-row operands ``w (8, 9, 1)``,
+     each row against its own graph's offline compile with its own
+     params (``out`` atol 1e-5, ``mel_tap`` rtol = atol = 1e-4); (d)
+     ``row_budget=2`` splits the 8-row wave into 4 chunks equal bit for
+     bit to the unsplit wave; (e) a deadline-1 newcomer runs before an
+     older bulk group, a slack-rich request defers one tick and runs in
+     a fuller wave, and at ``batch_size=1`` a deadline-less request runs
+     within ``6 x starvation_ticks`` ticks of finite-deadline load; (f)
+     sessions of ``a``, ``b``, ``a``, ``b`` fed 256 samples a tick make one
+     cross-graph core call a tick of ``STREAM_TICK_LAUNCHES``, equal to
+     the offline compile at phase 9's limits; (g) smoke readings: p50
+     ``step()`` and requests/s on 16 requests ``a`` / ``b`` with SigSched
+     and with ``scheduler=False``, and the per-row FIR call's device time
+     beside the shared-``w`` call, its bound and its plain version (each
+     row bit for bit the shared call on its operand; the plain version at
+     1e-5).  The per-row call is the kernel JSON's ``per_row`` entry of
+     ``shuffle_gemm_blocks``.
+ 11. kernels: the kernel JSON of all ten kernels.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -1901,8 +1927,378 @@ def main() -> int:
           f"{sum(STREAM_TICK_LAUNCHES.values())}, core compiles (ms) "
           f"{compiles}", flush=True)
 
-    # -- 10. kernel list ----------------------------------------------------
-    phase("10 kernels")
+    # -- 10. SigSched: cross-graph waves, per-row params, EDF, streaming ---
+    phase("10 sched")
+    from repro_torch.serving import SigSched
+    if not isinstance(svc.scheduler, SigSched):
+        raise AssertionError("SignalService() built no SigSched")
+    serve_tol = (("out", (0.0, 1e-5)), ("mel_tap", (1e-4, 1e-4)))
+    worst_sched = {"out": 0.0, "mel_tap": 0.0}
+    offline_cache = {}
+
+    def offline_row(i, p):
+        """Request i's offline compile at its true length with params
+        ``p``, as numpy."""
+        key = (i, id(p))
+        if key not in offline_cache:
+            with torch.no_grad():
+                out = graph.compile(SERVE_LENGTHS[i], fuse=2,
+                                    backend="hopper", device="cuda")(
+                    torch.as_tensor(xs_serve[i][None], device="cuda"), p)
+            offline_cache[key] = (p, {k: v[0].cpu().numpy()
+                                      for k, v in out.items()})
+        return offline_cache[key][1]
+
+    def hold_served(what, got, i, p):
+        want = offline_row(i, p)
+        for k, (rtol, atol) in serve_tol:
+            if got[k].shape != want[k].shape \
+                    or not np.all(np.isfinite(got[k])):
+                raise AssertionError(f"{what} {k}: shape {got[k].shape} vs "
+                                     f"{want[k].shape} or non-finite")
+            np.testing.assert_allclose(got[k], want[k], rtol=rtol,
+                                       atol=atol, err_msg=f"{what} {k}")
+            worst_sched[k] = max(worst_sched[k],
+                                 float(np.abs(got[k] - want[k]).max()))
+
+    # (a) phase 4's serve window through the FIFO pick
+    fifo = SignalService(batch_size=4, backend="hopper", device="cuda",
+                         scheduler=False)
+    fifo.register("speech_enhancement", graph, params={"mask": cnn})
+    fifo.serve(requests(0))
+    for k in range(SERVE_ROUNDS):
+        for r in requests(100 * (k + 1)):
+            fifo.submit(r)
+    fifo_results = {}
+    reset_launch_counts()
+    while fifo.pending():
+        fifo_results.update(fifo.step())
+    torch.cuda.synchronize()
+    fifo_counts = launch_counts()
+    same = ("batches", "bucketed", "exact", "compiles")
+    if {k: svc.stats[k] for k in same} != {k: fifo.stats[k] for k in same} \
+            or fifo_counts != serve_counts or sorted(fifo_results) != rids:
+        raise AssertionError(f"SigSched stats {svc.stats} / launches "
+                             f"{serve_counts} vs FIFO {fifo.stats} / "
+                             f"{fifo_counts}")
+    a_err = max(float(np.abs(results[r][k] - fifo_results[r][k]).max())
+                for r in rids for k in ("out", "mel_tap"))
+    if not all(np.array_equal(results[r][k], fifo_results[r][k])
+               for r in rids for k in ("out", "mel_tap")):
+        raise AssertionError(f"SigSched's phase-4 results are not the FIFO "
+                             f"pick's bit for bit (max abs err {a_err})")
+    print(f"(a) on {smi}: phase 4's window: SigSched (default) and "
+          f"scheduler=False "
+          f"{ {k: svc.stats[k] for k in same} }, launches {fifo_counts}; "
+          f"results equal bit for bit (max abs err {a_err:.1e}); both held "
+          f"to the offline compile in phase 4", flush=True)
+
+    # two registrations of Fig 9, serving 8 requests alternating a / b
+    SCHED_BATCH = 8
+
+    def sched_service(pa, pb, **kw):
+        s_ = SignalService(batch_size=SCHED_BATCH, backend="hopper",
+                           device="cuda", **kw)
+        s_.register("a", graph, params=pa)
+        s_.register("b", graph, params=pb)
+        for g_, x_ in (("a", xs_serve[0]), ("b", xs_serve[1])):
+            s_.serve([SignalRequest(rid=-1, graph=g_, samples=x_)])
+        return s_
+
+    def mixed(base, n=8):
+        return [SignalRequest(rid=base + i, graph="ab"[i % 2],
+                              samples=xs_serve[i % 8]) for i in range(n)]
+
+    def counted(s_, reqs, record=False):
+        """Serve ``reqs`` with the launch counts set to 0 just before and
+        read just after: (results, launches, waves, cross-graph waves,
+        recorded shuffle-GEMM calls or None)."""
+        b0 = s_.stats["batches"]
+        c0 = s_.scheduler.stats["cross_graph_batches"] \
+            if s_.scheduler is not None else 0
+        reset_launch_counts()
+        got, calls_ = {}, None
+        if record:
+            calls_ = record_calls(torch, lambda: got.update(s_.serve(reqs)))
+        else:
+            got = s_.serve(reqs)
+        torch.cuda.synchronize()
+        made = launch_counts()
+        c1 = s_.scheduler.stats["cross_graph_batches"] \
+            if s_.scheduler is not None else 0
+        return got, made, s_.stats["batches"] - b0, c1 - c0, calls_
+
+    # (b) equal params (a copy, not the same objects)
+    p_eq_a = {"mask": cnn}
+    p_eq_b = {"mask": [w.clone() for w in cnn]}
+    s_b = sched_service(p_eq_a, p_eq_b)
+    res_b, made_b, waves_b, cross_b, _ = counted(s_b, mixed(1000))
+    f_b = sched_service(p_eq_a, p_eq_b, scheduler=False)
+    _, made_fb, waves_fb, _, _ = counted(f_b, mixed(1000))
+    if waves_b != 1 or cross_b < 1 or made_b != FORWARD_LAUNCHES \
+            or waves_fb != 2 or made_fb != {
+                n: 2 * c for n, c in FORWARD_LAUNCHES.items()}:
+        raise AssertionError(f"(b) SigSched {waves_b} waves, {cross_b} "
+                             f"cross-graph, launches {made_b}; FIFO "
+                             f"{waves_fb} waves, launches {made_fb}")
+    for i in range(8):
+        hold_served(f"(b) row {i}", res_b[1000 + i], i, p_eq_a)
+    print(f"(b) on {smi}: two registrations, equal params, 8 requests "
+          f"alternating: "
+          f"SigSched {waves_b} wave ({cross_b} cross-graph), launches "
+          f"{made_b}; scheduler=False {waves_fb} waves, launches "
+          f"{made_fb}", flush=True)
+
+    # (c) b's FIR taps and mask weights from seed 1: per-row params
+    rng1 = np.random.default_rng(1)
+    taps_b = (0.3 * rng1.standard_normal(9)).astype(np.float32)
+    taps_b[0] += 1.0
+    cnn_b = params_from_jax(
+        [(rng1.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device="cuda")
+    p_a = {"front": {"taps": torch.as_tensor(
+        params["front"]["taps"], device="cuda")}, "mask": cnn}
+    p_b = {"front": {"taps": torch.as_tensor(taps_b, device="cuda")},
+           "mask": cnn_b}
+    s_c = sched_service(p_a, p_b)
+    res_c, made_c, waves_c, cross_c, calls_c = counted(s_c, mixed(2000),
+                                                       record=True)
+    blocks_w = sorted(tuple(a_["w"].shape) for n_, a_ in calls_c
+                      if n_ == "shuffle_gemm_blocks")
+    if waves_c != 1 or cross_c != 1 or s_c.stats["param_splits"] \
+            or made_c != FORWARD_LAUNCHES \
+            or blocks_w != [(8, 9, 1), (129, 24)]:
+        raise AssertionError(f"(c) {waves_c} waves, {cross_c} cross-graph, "
+                             f"param_splits {s_c.stats['param_splits']}, "
+                             f"launches {made_c}, blocks operands "
+                             f"{blocks_w}")
+    for i in range(8):
+        hold_served(f"(c) row {i}", res_c[2000 + i], i, (p_a, p_b)[i % 2])
+    print(f"(c) on {smi}: different params (b: FIR taps and mask CNN "
+          f"from seed 1): "
+          f"{waves_c} wave, param_splits {s_c.stats['param_splits']}, "
+          f"launches {made_c}, shuffle_gemm_blocks operands {blocks_w} "
+          f"(the FIR call one operand a row); each row vs its own graph's "
+          f"offline compile: max abs err out {worst_sched['out']:.3e} (atol "
+          f"1e-5), mel_tap {worst_sched['mel_tap']:.3e} (rtol 1e-4, atol "
+          f"1e-4)", flush=True)
+
+    # (d) a row budget of 2 against the unsplit wave
+    s_d = SignalService(batch_size=SCHED_BATCH, backend="hopper",
+                        device="cuda", scheduler={"row_budget": 2})
+    s_u = SignalService(batch_size=SCHED_BATCH, backend="hopper",
+                        device="cuda")
+    for s_ in (s_d, s_u):
+        s_.register("a", graph, params={"mask": cnn})
+    only_a = [SignalRequest(rid=3000 + i, graph="a", samples=x_)
+              for i, x_ in enumerate(xs_serve)]
+    res_d, made_d, waves_d, _, _ = counted(s_d, only_a)
+    res_u, _, waves_u, _, _ = counted(s_u, [
+        SignalRequest(rid=r.rid, graph="a", samples=r.samples)
+        for r in only_a])
+    d_err = max(float(np.abs(res_d[r][k] - res_u[r][k]).max())
+                for r in res_u for k in ("out", "mel_tap"))
+    if s_d.scheduler.stats["wave_splits"] < 1 or waves_u != 1 \
+            or waves_d != 4 or sorted(res_d) != sorted(res_u) \
+            or d_err != 0.0:
+        raise AssertionError(f"(d) row_budget 2: {waves_d} chunks, "
+                             f"{s_d.scheduler.stats}, max abs err {d_err} "
+                             f"against the unsplit wave")
+    print(f"(d) on {smi}: row_budget=2: {waves_d} chunks of the 8-row wave "
+          f"(wave_splits {s_d.scheduler.stats['wave_splits']}), launches "
+          f"{made_d}; equal bit for bit to the unsplit wave", flush=True)
+
+    # (e) EDF and aging
+    s_e = SignalService(batch_size=SCHED_BATCH, backend="hopper",
+                        device="cuda")
+    s_e.register("a", graph, params={"mask": cnn})
+    short = rng.standard_normal(2000).astype(np.float32)   # bucket 2048
+    s_e.serve([SignalRequest(rid=-1, graph="a", samples=xs_serve[0]),
+               SignalRequest(rid=-2, graph="a", samples=short)])
+    for i in range(4):
+        s_e.submit(SignalRequest(rid=4000 + i, graph="a",
+                                 samples=xs_serve[i]))
+    s_e.submit(SignalRequest(rid=4099, graph="a", samples=short,
+                             deadline=1.0))
+    first_pick = list(s_e.step())
+    bulk = sorted(s_e.step())
+    d0, b0 = s_e.scheduler.stats["deferrals"], s_e.stats["batches"]
+    s_e.submit(SignalRequest(rid=4100, graph="a", samples=xs_serve[0],
+                             deadline=1e15))
+    deferred = s_e.step()
+    s_e.submit(SignalRequest(rid=4101, graph="a", samples=xs_serve[1],
+                             deadline=1e15))
+    fuller = sorted(s_e.step())
+    if first_pick != [4099] or bulk != [4000, 4001, 4002, 4003] \
+            or deferred != {} or s_e.scheduler.stats["deferrals"] != d0 + 1 \
+            or fuller != [4100, 4101] or s_e.stats["batches"] != b0 + 1:
+        raise AssertionError(f"(e) EDF pick {first_pick}, then {bulk}; "
+                             f"slack-rich tick {deferred}, then {fuller}; "
+                             f"{s_e.scheduler.stats}")
+    s_g = SignalService(batch_size=1, backend="hopper", device="cuda")
+    s_g.register("a", graph, params={"mask": cnn})
+    s_g.serve([SignalRequest(rid=-1, graph="a", samples=xs_serve[0]),
+               SignalRequest(rid=-2, graph="a", samples=short)])
+    s_g.submit(SignalRequest(rid=5000, graph="a", samples=xs_serve[0]))
+    aged, got_g = None, {}
+    for tick_ in range(6 * s_g.scheduler.starvation_ticks + 1):
+        s_g.submit(SignalRequest(rid=tick_, graph="a", samples=short,
+                                 deadline=float(s_g.est_cycles)))
+        got_g.update(s_g.step())
+        if 5000 in got_g:
+            aged = tick_
+            break
+    if aged is None or s_g.scheduler.stats["starvation_picks"] < 1:
+        raise AssertionError(f"(e) the deadline-less request starved: "
+                             f"{s_g.scheduler.stats}")
+    print(f"(e) on {smi}: EDF: the deadline-1 newcomer ran first "
+          f"({first_pick}), the "
+          f"older bulk group next; a slack-rich request deferred one tick "
+          f"and ran in a wave of 2; at batch_size 1 under a finite-deadline "
+          f"request every tick the deadline-less one ran at tick {aged} "
+          f"(limit {6 * s_g.scheduler.starvation_ticks}), starvation_picks "
+          f"{s_g.scheduler.stats['starvation_picks']}", flush=True)
+
+    # (f) streaming: 2 sessions of a and 2 of b, one core call a tick
+    s_f = SignalService(backend="hopper", device="cuda",
+                        block_frames=STREAM_BLOCK_FRAMES)
+    s_f.register("a", graph, params=p_eq_a)
+    s_f.register("b", graph, params=p_eq_b)
+    f_sessions = [s_f.open_stream("ab"[i % 2]) for i in range(len(waves))]
+    f_accs = [{} for _ in waves]
+    f_counts = {n: 0 for n in STREAM_TICK_LAUNCHES}
+    f_calls = 0
+    for lo in range(0, LENGTH, STREAM_CHUNK):
+        for sess, w in zip(f_sessions, waves):
+            sess.feed(w[lo:lo + STREAM_CHUNK])
+        reset_launch_counts()
+        calls = s_f.stream_step()
+        made = launch_counts()
+        for acc, sess in zip(f_accs, f_sessions):
+            collect(acc, sess.read())
+        want = {n: c * calls for n, c in STREAM_TICK_LAUNCHES.items()}
+        if calls > 1 or made != want:
+            raise AssertionError(f"(f) tick at {lo}: {calls} core calls, "
+                                 f"launches {made}")
+        f_calls += calls
+        for n, c in made.items():
+            f_counts[n] += c
+    for acc, sess in zip(f_accs, f_sessions):
+        collect(acc, sess.close())
+    torch.cuda.synchronize()
+    f_cross = s_f.scheduler.stats["cross_graph_batches"]
+    if f_calls < 1 or f_cross != f_calls:
+        raise AssertionError(f"(f) {f_calls} core calls, {f_cross} "
+                             f"cross-graph")
+    f_worst = {"out": 0.0, "mel_tap": 0.0}
+    with torch.no_grad():
+        for acc, w in zip(f_accs, waves):
+            got = {k: torch.as_tensor(v, device="cuda")
+                   for k, v in joined(acc).items()}
+            off = {k: v[0] for k, v in hopper(
+                torch.as_tensor(w, device="cuda")[None], params).items()}
+            for k, tol in out_tol.items():
+                f_worst[k] = max(f_worst[k], hold(
+                    f"(f) session {k} vs offline", got[k], off[k], *tol))
+    print(f"(f) on {smi}: streaming, sessions a, b, a, b fed "
+          f"{STREAM_CHUNK} samples a "
+          f"tick: {f_calls} core calls, all cross-graph ({f_cross}), each "
+          f"{STREAM_TICK_LAUNCHES}; launches {f_counts}; vs offline max abs "
+          f"err {f_worst} (out atol 1e-5, mel_tap rtol 1e-5, atol 1e-4)",
+          flush=True)
+
+    # (g) smoke readings: a 16-request a / b window, the per-row FIR call.
+    # 16 lengths, all distinct, in the 4096 bucket: a masked wave runs the
+    # mask CNN once per distinct length, so windows whose waves held
+    # different length mixes would time that, not the dispatch.
+    xs_win = [rng.standard_normal(LENGTH - 100 * i).astype(np.float32)
+              for i in range(16)]
+
+    def window_reading(s_):
+        """Serve 16 requests a / b; (step wall times in ms, requests/s)."""
+        for i, x_ in enumerate(xs_win):
+            s_.submit(SignalRequest(rid=6000 + i, graph="ab"[i % 2],
+                                    samples=x_))
+        steps_, done_ = [], {}
+        t_w = time.perf_counter()
+        while s_.pending():
+            t1 = time.perf_counter()
+            done_.update(s_.step())
+            torch.cuda.synchronize()
+            steps_.append((time.perf_counter() - t1) * 1e3)
+        return steps_, len(done_) / (time.perf_counter() - t_w)
+    win_svc = {label: sched_service(*pair, **kw) for label, pair, kw in (
+        ("SigSched per-row params", (p_a, p_b), {}),
+        ("SigSched equal params", (p_eq_a, p_eq_b), {}),
+        ("scheduler=False", (p_a, p_b), {"scheduler": False}))}
+    for s_w in win_svc.values():
+        window_reading(s_w)                       # past first-call costs
+    win = {label: ([], []) for label in win_svc}
+    order = list(win_svc)
+    for rnd in range(4):                          # in turns: ABC CBA ABC CBA
+        for label in (order if rnd % 2 == 0 else order[::-1]):
+            steps_, rate = window_reading(win_svc[label])
+            win[label][0].extend(steps_)
+            win[label][1].append(rate)
+    print(f"(g) 16 requests a / b, batch {SCHED_BATCH}, each window 4 times "
+          f"in turns (smoke readings, not metrics) on {smi}: "
+          + "; ".join(f"{k} p50 step {float(np.median(v[0])):.3f} ms over "
+                      f"{len(v[0])} steps, median {float(np.median(v[1])):.1f}"
+                      f" requests/s" for k, v in win.items()), flush=True)
+    # where a per-row wave's time goes: the profile of one 8-row wave with
+    # per-row params and with equal params, and the mask CNN of one row
+    # under torch.func.vmap against the plain call
+    for label in ("SigSched per-row params", "SigSched equal params"):
+        s_w = win_svc[label]
+
+        def one_wave():
+            s_w.serve(mixed(7000))
+        profile_forward(torch, one_wave, wall_ms(torch, one_wave, iters=10),
+                        label=f"{label} wave (8 rows)")
+    from repro_torch.pipelines.speech_enhancement import cnn_mask
+    spec_row = torch.polar(
+        torch.as_tensor(rng.random((1, 27, 256)), dtype=torch.float32,
+                        device="cuda"),
+        torch.as_tensor(rng.random((1, 27, 256)), dtype=torch.float32,
+                        device="cuda"))
+    cnn_rows = [w[None] for w in cnn]
+    with torch.no_grad():
+        plain_cnn = wall_ms(torch, lambda: cnn_mask(cnn, spec_row))
+        vmap_cnn = wall_ms(torch, lambda: torch.func.vmap(
+            cnn_mask, in_dims=(0, 0))(cnn_rows, spec_row))
+        v_err = float((torch.func.vmap(cnn_mask, in_dims=(0, 0))(
+            cnn_rows, spec_row) - cnn_mask(cnn, spec_row)).abs().max())
+    print(f"(g) mask CNN on one row of 27 frames (host and device, CUDA "
+          f"events over 20 calls) on {smi}: plain {plain_cnn:.3f} ms, under "
+          f"torch.func.vmap {vmap_cnn:.3f} ms; max abs difference "
+          f"{v_err:.1e}", flush=True)
+    fir_row = next(a_ for n_, a_ in calls_c if n_ == "shuffle_gemm_blocks"
+                   and a_["w"].ndim == 3)
+    shared_fir = dict(fir_row, w=fir_row["w"][0].contiguous())
+    with torch.no_grad():
+        per = shuffle_gemm_blocks(**fir_row)
+        for i in range(fir_row["w"].shape[0]):
+            if not torch.equal(per[i], shuffle_gemm_blocks(
+                    **dict(fir_row, w=fir_row["w"][i].contiguous()))[i]):
+                raise AssertionError(f"per-row FIR row {i} is not the "
+                                     f"shared-w call on its operand")
+    per_row_row = new_row(0, "the per-row FIR call of one 8-row "
+                             "cross-graph wave (w (8, 9, 1)); shared_ms: "
+                             "the same call on one shared w")
+    print(f"(g) on {smi}:", flush=True)
+    time_call("shuffle_gemm_blocks", fir_row, per_row_row, "per-row w   ")
+    per_row_row["shared_ms"] = time_call("shuffle_gemm_blocks", shared_fir,
+                                         None, "shared w    ")
+    per_row_row["launches"] = made_c["shuffle_gemm_blocks"]
+    print(f"per-row FIR call {per_row_row['ms'] * 1e3:.2f} us, shared "
+          f"{per_row_row['shared_ms'] * 1e3:.2f} us, bound "
+          f"{per_row_row['bound_ms'] * 1e3:.3f} us, plain "
+          f"{per_row_row['plain_ms'] * 1e3:.2f} us; each row bit for bit "
+          f"the shared-w call on its operand", flush=True)
+
+    # -- 11. kernel list ----------------------------------------------------
+    phase("11 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -1921,6 +2317,10 @@ def main() -> int:
         if bw_row["calls"]:
             rows[name]["backward"] = {k: bw_row[k] for k in (
                 "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "per")}
+        if name == "shuffle_gemm_blocks":
+            rows[name]["per_row"] = {k: per_row_row[k] for k in (
+                "launches", "calls", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "shared_ms", "per")}
         rows[name]["stream"] = {
             "launches": stream_counts[name],
             "launches_per_tick": STREAM_TICK_LAUNCHES[name],
@@ -1951,7 +2351,7 @@ def main() -> int:
                                  "backward", "single_stage", "int_mm_ms",
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
                                  "launches_per_call", "launch_floor_ms",
-                                 "stream")
+                                 "stream", "per_row")
                if k in r},
         })
     print(smi)

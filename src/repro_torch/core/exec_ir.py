@@ -42,13 +42,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..tree import tree_map
 from . import fabric as _fabric
 from .fabric import ShufflePlan, apply_plan, device_constant
 
 __all__ = ["GatherStep", "EinsumStep", "LambdaStep", "Step",
-           "StageProgram", "ExecProgram", "run_steps_reference",
+           "StageProgram", "ExecProgram", "RowParams", "run_steps_reference",
            "execute_program", "mask_frames", "adjoint_gather_steps",
-           "callable_token", "INPUT"]
+           "callable_token", "row_operand", "INPUT"]
 
 INPUT = "input"     # the reserved graph-input name (SignalGraph.INPUT)
 
@@ -108,14 +109,42 @@ class LambdaStep:
     """Glue with no fabric traffic (repacking, OLA, DNN hook).
     ``param_init`` is the stage's default learnable-params entry, when
     the lambda consumes one (biquad ``b``/``a``, a dnn hook's declared
-    ``init``) — collected by ``CompiledSignalGraph.init_params``."""
+    ``init``) — collected by ``CompiledSignalGraph.init_params``.
+    ``row_params`` marks a params-taking ``fn`` that may run under
+    ``torch.func.vmap`` over row-stacked params (:class:`RowParams`):
+    the dnn hook, a user callable of one unbatched row, as the JAX
+    package ``vmap`` s the whole row program."""
     name: str
     fn: Callable
     takes_params: bool = False
     param_init: Optional[object] = None
+    row_params: bool = False
 
 
 Step = object  # GatherStep | EinsumStep | LambdaStep
+
+
+class RowParams:
+    """One stage's params entry with a leading row axis on every leaf:
+    batch row i computes with row i of each leaf (a served wave whose
+    rows come from graphs that registered different weights).  The
+    program walker wraps each stage's entry in one when a call is
+    per-row (:func:`execute_program` ``row_params``); the steps that
+    take it are an :class:`EinsumStep` of a row-uniform GEMM (a batched
+    einsum, or one ``shuffle_gemm_blocks`` launch with one operand a
+    row) and a :class:`LambdaStep` marked ``row_params`` (``vmap`` over
+    rows).  Every other consumer refuses it (:func:`resolve_operand`)."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    def take(self, index) -> "RowParams":
+        """The rows ``index`` (a 1-D index tensor) of every leaf."""
+        return RowParams(tree_map(lambda a: a[index], self.tree))
+
+    def row(self, i: int):
+        """Row ``i`` of every leaf: a plain params entry."""
+        return tree_map(lambda a: a[i], self.tree)
 
 
 # --------------------------------------------------------------------------
@@ -142,12 +171,24 @@ def run_steps_reference(steps: Sequence[Step], x: torch.Tensor,
                 # the two must agree on every expressible program.
                 x = x * device_constant(s.pre_diag, x.device, x.dtype)
             h = x.reshape(*x.shape[:-1], *s.reshape_in)
-            op = resolve_operand(s, params)
-            y = torch.einsum(s.spec, h,
-                             device_constant(op, h.device, h.dtype))
+            op = row_operand(s, params)
+            if op is not None:
+                # one operand a batch row: the einsum batched over rows
+                y = torch.func.vmap(functools.partial(torch.einsum,
+                                                      s.spec))(
+                    h, device_constant(op, h.device, h.dtype))
+            else:
+                op = resolve_operand(s, params)
+                y = torch.einsum(s.spec, h,
+                                 device_constant(op, h.device, h.dtype))
             x = y.reshape(*y.shape[:-s.out_rank], -1)
             if s.post is not None:
                 x = apply_plan(x, s.post)
+        elif isinstance(params, RowParams) and s.takes_params:
+            if not s.row_params:
+                raise ValueError(f"{s.name}: this step takes no "
+                                 f"row-stacked params")
+            x = torch.func.vmap(s.fn, in_dims=(0, 0))(params.tree, x)
         else:
             x = s.fn(params, x) if s.takes_params else s.fn(x)
     return x
@@ -184,11 +225,29 @@ def adjoint_gather_steps(name: str, plan: ShufflePlan, n_in: int,
 def resolve_operand(step: EinsumStep, params):
     """The einsum operand for one call: the stage's params entry when the
     step declares a ``param_key`` present there, else the static
-    default."""
+    default.  Raises ``ValueError`` for a row-stacked entry
+    (:class:`RowParams`), which a caller must take through
+    :func:`row_operand`."""
+    if isinstance(params, RowParams):
+        if row_operand(step, params) is not None:
+            raise ValueError(f"{step.name}: this unit takes no row-stacked "
+                             f"operand")
+        return step.operand
     if step.param_key is not None and isinstance(params, dict) \
             and step.param_key in params:
         return params[step.param_key]
     return step.operand
+
+
+def row_operand(step: EinsumStep, params):
+    """The step's row-stacked operand — ``(B, *operand.shape)``, one a
+    batch row — when ``params`` is a :class:`RowParams` holding the
+    step's ``param_key``, else None."""
+    if isinstance(params, RowParams) and step.param_key is not None \
+            and isinstance(params.tree, dict) \
+            and step.param_key in params.tree:
+        return params.tree[step.param_key]
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -495,16 +554,27 @@ def run_valid_prefix(fn: Callable, h: torch.Tensor, sp, valid_frames,
     frames as an unpadded run at the row's true length: a convolution's
     own zero padding, not features of the masked zero frames (``cos``
     of the angle of 0 is 1), meets the last valid frames.  Rows sharing
-    a count run as one call."""
+    a count run as one call; row-stacked params (:class:`RowParams`,
+    their row axis the leading batch axis) are cut to the same rows, and
+    a row alone with its count runs as a batch of one with its own
+    params entry (the per-row semantics without ``vmap``'s dispatch)."""
     axis = h.ndim - suffix_rank
     batch = h.shape[:axis]
     hb = h.reshape(-1, *h.shape[axis:])
     vf = torch.as_tensor(valid_frames).expand(batch).reshape(-1).tolist()
+    # flat row i of hb computes with row i // per of row-stacked params
+    per = hb.shape[0] // batch[0] if batch else 1
     out = None
     for v in sorted(set(vf)):
         rows = [i for i, c in enumerate(vf) if c == v]
         sel = torch.as_tensor(rows, device=h.device)
-        y = fn(hb[sel, :v], sp)
+        if not isinstance(sp, RowParams):
+            y = fn(hb[sel, :v], sp)
+        elif len(rows) == 1:
+            y = fn(hb[sel, :v], sp.row(rows[0] // per))
+        else:
+            y = fn(hb[sel, :v], sp.take(torch.as_tensor(
+                [i // per for i in rows], device=h.device)))
         if out is None:
             out = y.new_zeros((hb.shape[0], hb.shape[1], *y.shape[2:]))
         out[sel, :v] = y
@@ -512,7 +582,8 @@ def run_valid_prefix(fn: Callable, h: torch.Tensor, sp, valid_frames,
 
 
 def execute_program(program: ExecProgram, stage_fns: Dict[str, Callable],
-                    x: torch.Tensor, params=None, valid_frames=None):
+                    x: torch.Tensor, params=None, valid_frames=None,
+                    row_params: bool = False):
     """Run a program: thread the stage environment, combine multi-input
     stages, execute each stage's steps through ``stage_fns[name]``
     (``(x, stage_params) -> y``, supplied by the backend), mask
@@ -521,13 +592,20 @@ def execute_program(program: ExecProgram, stage_fns: Dict[str, Callable],
     ``single`` programs).  With ``valid_frames``, a stage with a
     ``frame_context`` runs on each row's valid frames
     (:func:`run_valid_prefix`), so masked results equal unpadded ones
-    there too; the JAX package runs it on the masked zero frames."""
+    there too; the JAX package runs it on the masked zero frames.
+
+    ``row_params``: every leaf of ``params`` carries a leading row axis
+    of ``x``'s batch (row i of the batch computes with row i of each
+    leaf); each stage's entry reaches its steps as a
+    :class:`RowParams`."""
     env = {INPUT: x}
     for st in program.stages:
         vals = [env[i] for i in st.inputs]
         h = st.combine(*vals) if st.combine is not None else vals[0]
         sp = (params or {}).get(st.name) if isinstance(params, dict) \
             else params
+        if row_params and sp is not None:
+            sp = RowParams(sp)
         if valid_frames is not None and st.frame_context > 0:
             y = run_valid_prefix(stage_fns[st.name], h, sp, valid_frames,
                                  len(st.out_type.suffix))

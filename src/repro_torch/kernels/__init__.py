@@ -59,7 +59,7 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 # ctypes signatures of the exported C functions.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 7 + (_P,),
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_shuffle_gemm_chain": (_P, _P) + (_I,) * 3 + (_P, _P, _I, _P),
     "repro_copy_f32": (_P, _P, _I, _P),
@@ -203,9 +203,11 @@ def forward_only(kernel: str, x: torch.Tensor, *others) -> None:
     """Refuse a call on the card that autograd would have to see through,
     for the standalone entry points with no backward pass (``fft_stage``,
     ``fir_conv`` and ``flash_attention``: the JAX package defines none
-    either), so their result never silently drops a gradient.  CPU
-    tensors take the plain versions, which differentiate.  The
-    shuffle-GEMM ops have their backward in ``shuffle_gemm/vjp.py``."""
+    either) and the per-row form of ``shuffle_gemm`` (one operand a batch
+    row: the serving path, a forward only there too), so their result
+    never silently drops a gradient.  CPU tensors take the plain
+    versions, which differentiate.  The shuffle-GEMM ops have their
+    backward in ``shuffle_gemm/vjp.py``."""
     if x.device.type == "cuda" and torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (x, *others)):

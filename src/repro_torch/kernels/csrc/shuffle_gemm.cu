@@ -14,6 +14,14 @@
 //                   * scale[r, :]) @ w[g(r)]
 // and the blocks form is the grouped form with G = 1, nb = R, reps = 1 (its
 // (B, R, n_out) output has the same memory as the flat (B, R * n_out) one).
+// The blocks form also takes one operand per batch row, w (B, t, n_out):
+// batch row b contracts against w[b] (a weight batch stride of t * n_out
+// elements; 0 is the shared operand).  A wave of requests whose graphs
+// registered different weights (the serving scheduler's cross-graph wave)
+// is then one launch, as the JAX package's vmap over the Pallas kernel
+// gives a batched grid.  Each body only offsets its operand pointer by
+// b * stride, so row b's arithmetic is the shared call's on w[b], bit for
+// bit.
 // A third entry, repro_shuffle_gemm_chain, runs a list of such steps, each
 // gathering from the one before, in one launch.
 //
@@ -171,7 +179,8 @@ __global__ void __launch_bounds__(kThreads)
 shuffle_gemm_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                     const T* __restrict__ pad, const T* __restrict__ scale,
                     const T* __restrict__ w, T* __restrict__ out, int n_in,
-                    int rows, int t, int n_out, int groups, int nb) {
+                    int rows, int t, int n_out, int groups, int nb,
+                    int64_t w_stride) {
   const int64_t per_batch = static_cast<int64_t>(rows) * n_out;
   const int64_t e =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -182,7 +191,7 @@ shuffle_gemm_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   const int g = (r / nb) % groups;
   const T* xb = x + b * n_in;
   const int64_t row = static_cast<int64_t>(r) * t;
-  const T* wg = w + static_cast<int64_t>(g) * t * n_out + o;
+  const T* wg = w + b * w_stride + static_cast<int64_t>(g) * t * n_out + o;
   float acc = 0.f;
   for (int k = 0; k < t; ++k) {
     const int32_t i = idx[row + k];
@@ -196,7 +205,8 @@ shuffle_gemm_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
 template <typename T>
 int launch(const void* x, const void* idx, const void* pad, const void* scale,
            const void* w, void* out, int batch, int n_in, int rows, int t,
-           int n_out, int groups, int nb, cudaStream_t stream) {
+           int n_out, int groups, int nb, int64_t w_stride,
+           cudaStream_t stream) {
   const int64_t per_batch = static_cast<int64_t>(rows) * n_out;
   const dim3 grid(static_cast<unsigned>((per_batch + kThreads - 1) / kThreads),
                   static_cast<unsigned>(batch));
@@ -204,7 +214,7 @@ int launch(const void* x, const void* idx, const void* pad, const void* scale,
       static_cast<const T*>(x), static_cast<const int32_t*>(idx),
       static_cast<const T*>(pad), static_cast<const T*>(scale),
       static_cast<const T*>(w), static_cast<T*>(out), n_in, rows, t, n_out,
-      groups, nb);
+      groups, nb, w_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -234,7 +244,7 @@ __global__ void __launch_bounds__(kWideThreads)
 wide_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
             const T* __restrict__ pad, const T* __restrict__ scale,
             const T* __restrict__ w, T* __restrict__ out, int n_in, int rows,
-            int t, int n_out, int rpc) {
+            int t, int n_out, int rpc, int64_t w_stride) {
   extern __shared__ int4 smem[];
   char* base = reinterpret_cast<char*>(smem);
   T* const ws = reinterpret_cast<T*>(base);                 // (t, n_out)
@@ -247,8 +257,9 @@ wide_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   const int nr = rows - r0 < rpc ? rows - r0 : rpc;
   const int64_t row0 = static_cast<int64_t>(r0) * t;
 
-  // every load in flight before any is used
-  copy_in(ws, w, static_cast<int>(sizeof(T)) * t * n_out);
+  // every load in flight before any is used; the staged operand is this
+  // batch row's (w_stride 0: the one shared by every row)
+  copy_in(ws, w + b * w_stride, static_cast<int>(sizeof(T)) * t * n_out);
   if (scale != nullptr)
     copy_in(ss, scale + row0, static_cast<int>(sizeof(T)) * nr * t);
   const T* xb = x + b * n_in;
@@ -289,12 +300,13 @@ wide_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
 template <typename T>
 int launch_blocks(const void* x, const void* idx, const void* pad,
                   const void* scale, const void* w, void* out, int batch,
-                  int n_in, int rows, int t, int n_out, cudaStream_t stream) {
+                  int n_in, int rows, int t, int n_out, int64_t w_stride,
+                  cudaStream_t stream) {
   const int rpc = wide_rows_per_cta(rows, n_out);
   const size_t smem = wide_shared_bytes<T>(t, n_out, rpc, scale != nullptr);
   if (t < kWideT || smem > static_cast<size_t>(kSharedBytes))
     return launch<T>(x, idx, pad, scale, w, out, batch, n_in, rows, t, n_out,
-                     1, rows, stream);
+                     1, rows, w_stride, stream);
   static bool configured = false;     // once, before any graph capture
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -311,7 +323,7 @@ int launch_blocks(const void* x, const void* idx, const void* pad,
       static_cast<const T*>(x), static_cast<const int32_t*>(idx),
       static_cast<const T*>(pad), static_cast<const T*>(scale),
       static_cast<const T*>(w), static_cast<T*>(out), n_in, rows, t, n_out,
-      rpc);
+      rpc, w_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,21 +663,26 @@ __global__ void copy_kernel(const float* __restrict__ x, float* __restrict__ y,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x (batch, n_in); idx/pad/scale
-// (rows, t), scale may be null; w (t, n_out); out (batch, rows, n_out).
-// t >= 32 takes the wide-row body where its staging fits shared memory.
-// Returns the cudaGetLastError() code of the launch (0 = success).
+// (rows, t), scale may be null; w (t, n_out) shared by every batch row
+// (w_stride 0) or (batch, t, n_out), one a batch row (w_stride t * n_out);
+// out (batch, rows, n_out).  t >= 32 takes the wide-row body where its
+// staging fits shared memory.  Returns the cudaGetLastError() code of the
+// launch (0 = success); cudaErrorInvalidValue for a w_stride that is
+// neither.
 int repro_shuffle_gemm_blocks(const void* x, const void* idx, const void* pad,
                               const void* scale, const void* w, void* out,
                               int batch, int n_in, int rows, int t, int n_out,
-                              int dtype, void* stream) {
+                              int w_stride, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_stride != 0 && w_stride != t * n_out)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
       return launch_blocks<float>(x, idx, pad, scale, w, out, batch, n_in,
-                                  rows, t, n_out, s);
+                                  rows, t, n_out, w_stride, s);
     case 1:
       return launch_blocks<__nv_bfloat16>(x, idx, pad, scale, w, out, batch,
-                                          n_in, rows, t, n_out, s);
+                                          n_in, rows, t, n_out, w_stride, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -685,10 +702,10 @@ int repro_shuffle_gemm_grouped_blocks(const void* x, const void* idx,
   switch (dtype) {
     case 0:
       return launch<float>(x, idx, pad, scale, w, out, batch, n_in, rows, t,
-                           n_out, groups, nb, s);
+                           n_out, groups, nb, 0, s);
     case 1:
       return launch<__nv_bfloat16>(x, idx, pad, scale, w, out, batch, n_in,
-                                   rows, t, n_out, groups, nb, s);
+                                   rows, t, n_out, groups, nb, 0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,7 +6,9 @@ package's Pallas TPU kernels of the same names:
     out[b, r, :] = (x[b, idx[r, :]] | pad) (* scale) @ w
 
   * :func:`shuffle_gemm_blocks` — one shared ``(t, n_out)`` operand for
-    every row (FIR taps, DCT matrix, mel filterbank).
+    every row (FIR taps, DCT matrix, mel filterbank), or one ``(t,
+    n_out)`` operand a batch row, ``w (B, t, n_out)``: each request of a
+    served wave with its own registered weights, in one launch.
   * :func:`shuffle_gemm_grouped_blocks` — a *grouped* operand
     ``(G, t, n_out)``: row ``r`` (flat layout ``(reps, G, nb)``)
     contracts against group ``(r // nb) % G`` — the FFT butterfly shape.
@@ -55,10 +57,11 @@ def _check(x, idx, pad_vals, w, scale, w_rank):
     if scale is not None:
         operands["scale"] = (scale, x.dtype)
     check_operands("shuffle_gemm", operands)
-    if x.ndim != 2 or idx.ndim != 2 or w.ndim != w_rank:
+    if x.ndim != 2 or idx.ndim != 2 or w.ndim not in w_rank:
         raise ValueError(f"shapes: x {tuple(x.shape)} must be (B, n_in), "
                          f"idx {tuple(idx.shape)} (R, t), w "
-                         f"{tuple(w.shape)} rank {w_rank}")
+                         f"{tuple(w.shape)} rank "
+                         f"{' or '.join(map(str, w_rank))}")
     if pad_vals.shape != idx.shape or (scale is not None
                                        and scale.shape != idx.shape):
         raise ValueError("pad_vals / scale must match idx's (R, t) shape")
@@ -80,17 +83,24 @@ def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
                         pad_vals: torch.Tensor, w: torch.Tensor,
                         scale: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """x: (B, n_in); idx/pad_vals[/scale]: (R, t); w: (t, n_out) ->
+    """x: (B, n_in); idx/pad_vals[/scale]: (R, t); w: (t, n_out), shared
+    by every batch row, or (B, t, n_out), batch row b against w[b] ->
     (B, R, n_out).  Replaces ``repro.kernels.shuffle_gemm.kernel.
-    shuffle_gemm_blocks``; rows need no padding to a block multiple."""
+    shuffle_gemm_blocks`` (its per-row form: the JAX package's ``vmap``
+    over that kernel); rows need no padding to a block multiple.  Row b
+    of a per-row call is bit for bit the shared call on w[b]."""
     if x.device.type == "cpu":
         return ref_shuffle_gemm_blocks(x, idx, pad_vals, w, scale)
-    _check(x, idx, pad_vals, w, scale, w_rank=2)
+    _check(x, idx, pad_vals, w, scale, w_rank=(2, 3))
     (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
+    if w.ndim == 3 and w.shape[0] != b:
+        raise ValueError(f"w {tuple(w.shape)} holds {w.shape[0]} operands "
+                         f"for a batch of {b}")
     out = torch.empty((b, r, n_out), dtype=x.dtype, device=x.device)
     if out.numel():
         _launch("repro_shuffle_gemm_blocks",
-                x, idx, pad_vals, w, scale, out, b, n_in, r, t, n_out)
+                x, idx, pad_vals, w, scale, out, b, n_in, r, t, n_out,
+                t * n_out if w.ndim == 3 else 0)
         shuffle_gemm_blocks.launches += 1
     return out
 
@@ -107,7 +117,7 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
     if x.device.type == "cpu":
         return ref_shuffle_gemm_grouped_blocks(x, idx, pad_vals, w, reps,
                                                groups, nb, scale)
-    _check(x, idx, pad_vals, w, scale, w_rank=3)
+    _check(x, idx, pad_vals, w, scale, w_rank=(3,))
     (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
     if r != reps * groups * nb or w.shape[0] != groups:
         raise ValueError(f"R={r} must equal reps*groups*nb="

@@ -81,7 +81,27 @@ def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
     optional per-element scale of the gathered stream (a GatherStep /
     EinsumStep ``diag``).  Returns (..., rows, n_out).  Differentiable
     in ``x`` and ``w``.
+
+    With ``w`` of shape (B, t, n_out) and ``x`` of shape (B, n_in), row b
+    contracts against ``w[b]`` (the serving path's per-row params): one
+    launch of :func:`shuffle_gemm_blocks`, a forward only.  On the card
+    it raises where autograd would have to see through it (as the JAX
+    package's per-row path is a jitted forward); on the CPU the plain
+    version differentiates.
     """
+    if np.ndim(w) == 3:
+        if x.ndim != 2 or x.shape[0] != w.shape[0]:
+            raise ValueError(f"per-row w {tuple(w.shape)} needs x (B, n_in) "
+                             f"with B = {w.shape[0]}; got {tuple(x.shape)}")
+        from .. import forward_only
+        forward_only("per-row shuffle_gemm_blocks", x, w)
+        t, idx, pads, scale, max_index = plan_blocks(plan, diag, rows,
+                                                     x.dtype, x.device)
+        if max_index >= x.shape[-1]:
+            raise ValueError(f"plan reads index {max_index} of a "
+                             f"length-{x.shape[-1]} input")
+        w = device_constant(w, x.device, x.dtype).contiguous()
+        return shuffle_gemm_blocks(x.contiguous(), idx, pads, w, scale)
     xb, blocks, w = _prepare(x, plan, diag, rows, w)
     out = ShuffleGemmFn.apply(xb, w, blocks, plan, diag)
     return out.reshape(*x.shape[:-1], rows, w.shape[-1])

@@ -31,9 +31,12 @@ def ref_shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
                             pad_vals: torch.Tensor, w: torch.Tensor,
                             scale: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """x (B, n_in); idx/pad_vals[/scale] (R, t); w (t, n_out) ->
+    """x (B, n_in); idx/pad_vals[/scale] (R, t); w (t, n_out), or
+    (B, t, n_out) with batch row b against w[b] (a batched einsum) ->
     (B, R, n_out)."""
     g = gather_rows(x, idx, pad_vals, scale)
+    if w.ndim == 3:
+        return torch.einsum("brt,bto->bro", g, w.float()).to(x.dtype)
     return torch.matmul(g, w.float()).to(x.dtype)
 
 

@@ -1,4 +1,6 @@
+from .scheduler import ExecGroup, SigSched, WaveState
 from .signal_service import (GroupInfo, SignalRequest, SignalService,
                              StreamSession)
 
-__all__ = ["SignalService", "SignalRequest", "StreamSession", "GroupInfo"]
+__all__ = ["SignalService", "SignalRequest", "StreamSession", "GroupInfo",
+           "SigSched", "WaveState", "ExecGroup"]

@@ -19,7 +19,9 @@ The port's counterpart of the JAX package's ``serving/signal_service.py``:
     (:meth:`SignalService.open_stream`): chunked submissions accumulate
     in per-connection :class:`~repro_torch.signal.streaming.StreamState`
     s, and every :meth:`SignalService.stream_step` stacks the ready
-    blocks of same-graph sessions into ONE core call.  ``read()`` returns
+    blocks of same-graph sessions — and, with the scheduler's cross-graph
+    batching, of graphs whose streamed cores fingerprint alike and whose
+    registered params are equal — into ONE core call.  ``read()`` returns
     host numpy, one device-to-host copy a session a tick.
   * Durability: :meth:`SignalService.checkpoint` / :meth:`restore` take
     and load a host snapshot of every open session, and
@@ -38,12 +40,17 @@ Calibrated programs are served with ``precision=`` (a SigQuant
 compile and every streaming core int-routes the policy's steps through
 the bitserial kernel.
 
-The service runs with ``scheduler=False`` (the FIFO pick: the oldest
-request's ``(graph, bucket)`` group in arrival order, up to
-``batch_size``; streaming sessions stack per graph) and no mesh;
-SigSched (with its cross-graph stacking of streamed cores), SigMesh and
-the LLM co-scheduler are later slices of the port.  With one graph and
-no deadlines SigSched's pick equals the FIFO pick.
+Every :meth:`SignalService.step` is dispatched by
+:class:`~repro_torch.serving.scheduler.SigSched`, the default as in the
+JAX package: cross-graph batching by program fingerprint (rows whose
+graphs registered different params run per-row in the same launches),
+EDF with slack deferral, bucket promotion and an anti-starvation
+override, and preemptible waves under a ``row_budget``.
+``scheduler=False`` keeps the FIFO pick (the oldest request's ``(graph,
+bucket)`` group in arrival order, up to ``batch_size``; streaming
+sessions stack per graph), which the default reduces to with one graph
+and no deadlines.  SigMesh and the LLM co-scheduler are later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -63,8 +70,11 @@ from ..signal.streaming import (StreamState, StreamStructure,
                                 commit_frames, drain_state, finalize_piece,
                                 push_chunk, ready_spec, restore_state,
                                 snapshot_state, take_block, tap_rows)
+from ..tree import tree_leaves, tree_map, tree_structure
+from .scheduler import SigSched
 
-__all__ = ["SignalRequest", "SignalService", "StreamSession", "GroupInfo"]
+__all__ = ["SignalRequest", "SignalService", "StreamSession", "GroupInfo",
+           "SigSched"]
 
 
 def _host(a) -> np.ndarray:
@@ -72,6 +82,67 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def _params_equal(a, b) -> bool:
+    """True when two params trees are interchangeable for execution:
+    same structure, equal leaves (exact equality of shape, type and
+    values — scheduling must never change results, so 'close enough' is
+    not equal).  The JAX package's ``_params_equal`` over
+    :mod:`repro_torch.tree`."""
+    if a is b:
+        return True
+    if tree_structure(a) != tree_structure(b):
+        return False
+    # leaf pairs on one device are compared there and read back once
+    on_device = []
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if _leaf_sig(x) != _leaf_sig(y):
+            return False
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) \
+                and x.device == y.device:
+            on_device.append((x == y).all())
+        elif not np.array_equal(_host(x), _host(y)):
+            return False
+    return not on_device or bool(torch.stack(on_device).all())
+
+
+def _split_by_params(items) -> List[Tuple[object, List]]:
+    """``[(params, item)]`` -> ``[(params, [items])]``: items grouped by
+    :func:`_params_equal` of their params, in first-seen order, each
+    distinct params object compared once."""
+    classes: List[Tuple[object, List]] = []
+    seen: Dict[int, List] = {}
+    for p, item in items:
+        members = seen.get(id(p))
+        if members is None:
+            members = next((m for cp, m in classes
+                            if _params_equal(cp, p)), None)
+            if members is None:
+                members = []
+                classes.append((p, members))
+            seen[id(p)] = members
+        members.append(item)
+    return classes
+
+
+def _leaf_sig(leaf) -> Tuple:
+    """A params leaf's (shape, type name), without a device read."""
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), str(leaf.dtype).replace("torch.", "")
+    arr = np.asarray(leaf)
+    return arr.shape, str(arr.dtype)
+
+
+def _device_leaf(leaf, device) -> torch.Tensor:
+    """One params leaf as a tensor on ``device`` (host float64 narrows to
+    float32, the JAX package's default precision)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
+    arr = np.asarray(leaf)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(arr, device=device)
 
 
 def _to_host(out):
@@ -151,7 +222,7 @@ class SignalRequest:
     rid: int
     graph: str
     samples: np.ndarray            # (T,) one channel of signal
-    deadline: float = math.inf     # scheduler hint (later slices)
+    deadline: float = math.inf     # scheduler hint (SigSched's EDF)
     done: bool = False
     error: Optional[str] = None    # set when the service drops the request
     seq: int = -1                  # arrival order (assigned by submit)
@@ -174,10 +245,6 @@ class GroupInfo:
     earliest_deadline: float
 
 
-def _unported(feature: str, item: str):
-    raise NotImplementedError(
-        f"SignalService({feature}) is not in this slice of the PyTorch "
-        f"port (ROADMAP Queue 1 item {item})")
 
 
 class SignalService:
@@ -206,10 +273,11 @@ class SignalService:
     session's core call finalizes (:meth:`open_stream`), and every
     session's carried state lives on the service's device.
 
-    ``scheduler`` must be False (the FIFO pick, which is SigSched's pick
-    for one graph without deadlines), and ``mesh`` None; anything else
-    raises ``NotImplementedError`` naming the ROADMAP item that brings
-    it.
+    ``scheduler`` picks each :meth:`step`'s wave: ``None`` or ``True``
+    (the default) builds a :class:`SigSched`, a dict passes it options,
+    an instance is adopted, ``False`` keeps the FIFO pick.  ``mesh`` must
+    be None (``mesh=`` raises ``NotImplementedError``: SigMesh, ROADMAP
+    Queue 1 item 5); ``self.mesh`` is None.
     """
 
     def __init__(self, batch_size: int = 8,
@@ -220,13 +288,14 @@ class SignalService:
                  backend="reference",
                  mesh=None,
                  precision=None,
-                 scheduler=False,
+                 scheduler: "SigSched | dict | bool | None" = None,
                  device=DEFAULT_DEVICE):
         from ..signal.backends import HopperBackend, get_backend
-        if scheduler is not False:
-            _unported("scheduler=...", "3 (SigSched)")
         if mesh is not None:
-            _unported("mesh=...", "5 (SigMesh)")
+            raise NotImplementedError(
+                "SignalService(mesh=...) is not in this slice of the "
+                "PyTorch port (ROADMAP Queue 1 item 5 (SigMesh))")
+        self.mesh = None
         self.batch_size = batch_size
         self.fuse = FuseLevel.coerce(fuse)
         self.backend = get_backend(backend)
@@ -247,6 +316,7 @@ class SignalService:
         self._graphs: Dict[str, _Registration] = {}
         self._compiled: Dict[Tuple[str, int], CompiledSignalGraph] = {}
         self._cost_cache: Dict[Tuple[str, int], int] = {}
+        self._fp_cache: Dict[Tuple[str, int], Optional[Tuple]] = {}
         self._queue: List[SignalRequest] = []
         self._seq = 0
         self._sessions: Dict[str, List["StreamSession"]] = {}
@@ -261,7 +331,23 @@ class SignalService:
         self.stats = {"compiles": 0, "batches": 0, "bucketed": 0,
                       "exact": 0, "dropped": 0, "detached_sessions": 0,
                       "core_calls": 0, "flush_core_calls": 0,
-                      "stream_ticks": 0, "bucket_overflow": 0}
+                      "stream_ticks": 0, "bucket_overflow": 0,
+                      "param_splits": 0}
+        # the dispatch brain: SigSched decides which wave runs each
+        # step() tick (cross-graph batching, deadline-aware EDF,
+        # preemptible row budgets).  Default configuration reduces to
+        # the legacy FIFO pick when nothing carries a finite deadline.
+        # ``scheduler=False`` disables it (the pure pre-SigSched loop);
+        # a dict passes SigSched options; an instance is adopted.
+        if scheduler is False:
+            self.scheduler: Optional[SigSched] = None
+        elif scheduler is None or scheduler is True:
+            self.scheduler = SigSched(self)
+        elif isinstance(scheduler, dict):
+            self.scheduler = SigSched(self, **scheduler)
+        else:
+            scheduler.service = self
+            self.scheduler = scheduler
 
     # -- registry -----------------------------------------------------------
     def register(self, name: str, graph: SignalGraph, params=None) -> None:
@@ -277,7 +363,7 @@ class SignalService:
         except ValueError:
             struct = None                     # offline-only: exact lengths
         self._graphs[name] = _Registration(graph, params, struct)
-        for cache in (self._compiled, self._cost_cache):
+        for cache in (self._compiled, self._cost_cache, self._fp_cache):
             for key in [k for k in cache
                         if k[0] in (name, f"{name}//core")]:
                 del cache[key]
@@ -285,6 +371,10 @@ class SignalService:
             stale = [r for r in self._queue if r.graph == name]
             for r in stale:
                 self._queue.remove(r)
+            if self.scheduler is not None:
+                # claimed split-wave rows live outside the queue
+                stale += self.scheduler.drop_graph(name)
+            for r in stale:
                 r.error = (f"graph {name!r} was re-registered while the "
                            f"request was queued; resubmit")
             self.stats["dropped"] += len(stale)
@@ -364,6 +454,22 @@ class SignalService:
             req._group_key = key
         return key
 
+    def exec_fingerprint(self, name: str,
+                         length: int) -> Optional[Tuple]:
+        """The structural compile-cache key of ``name``'s program at
+        ``length`` (:func:`repro_torch.signal.backends.program_cache_key`):
+        what the scheduler's cross-graph batching groups by.  ``None``
+        when the program cannot be fingerprinted (opaque lambda closure
+        — such graphs batch per registry name).  Compiles the bucket on
+        first use; cached until re-registration."""
+        key = (name, length)
+        if key not in self._fp_cache:
+            from ..signal.backends import program_cache_key
+            compiled = self.compiled_for(name, length)
+            self._fp_cache[key] = program_cache_key(self.backend,
+                                                    compiled.program)
+        return self._fp_cache[key]
+
     # -- queue --------------------------------------------------------------
     def submit(self, req: SignalRequest) -> None:
         """Validate and enqueue.  ``samples`` must be a real-valued 1-D
@@ -395,6 +501,8 @@ class SignalService:
         req.seq = self._seq
         self._seq += 1
         req._group_key = None          # (re-)keyed by THIS service's buckets
+        req._exec_key = None           # ditto for the scheduler's grouping
+        req._promoted_length = None
         self.group_key(req)
         self._queue.append(req)
         if obs.ENABLED:
@@ -404,8 +512,12 @@ class SignalService:
             m.gauge("service.queue_depth").set(len(self._queue))
 
     def pending(self) -> int:
-        """Requests not yet completed."""
-        return len(self._queue)
+        """Requests not yet completed: the live queue plus rows claimed
+        into the scheduler's partially-executed split waves."""
+        n = len(self._queue)
+        if self.scheduler is not None:
+            n += self.scheduler.backlog_rows()
+        return n
 
     def pending_groups(self) -> List[GroupInfo]:
         """Summaries of the queued batch groups, in FIFO order of their
@@ -449,14 +561,23 @@ class SignalService:
     def step(self, pick: Optional[Callable] = None) -> Dict[int, object]:
         """Execute ONE batched graph call and return ``{rid: output}``.
 
-        The wave is ``pick(queue)`` — by default the oldest request's
-        (graph, bucket) group in arrival order, up to ``batch_size``.
-        Admission is continuous — requests submitted after earlier steps
-        join whichever wave their group forms next.  All requests in a
-        wave share one compiled program; shorter requests are
-        zero-padded to the bucket and masked, and their outputs trimmed
-        back to their true lengths.  Outputs come back as numpy arrays
-        (per-output dicts for multi-output graphs)."""
+        With no explicit ``pick``, the service's :class:`SigSched`
+        decides the wave (cross-graph batching by program fingerprint,
+        EDF with slack-aware deferral when finite deadlines are queued,
+        preemptible row budgets) — with the default configuration and no
+        deadlines anywhere this reduces exactly to the legacy pick: the
+        oldest request's (graph, bucket) group in arrival order, up to
+        ``batch_size``.  Passing ``pick`` (or ``scheduler=False`` at
+        construction) bypasses the scheduler.  Admission is continuous —
+        requests submitted after earlier steps join whichever wave their
+        group forms next.  All requests in a wave share one compiled
+        program; shorter requests are zero-padded to the bucket and
+        masked, and their outputs trimmed back to their true lengths.
+        Scheduling changes WHEN a request computes, never what it
+        computes.  Outputs come back as numpy arrays (per-output dicts
+        for multi-output graphs)."""
+        if pick is None and self.scheduler is not None:
+            return self.scheduler.dispatch()
         if not self._queue:
             return {}
         wave = (pick or self._fifo_pick)(list(self._queue))
@@ -464,18 +585,60 @@ class SignalService:
             return {}
         return self._execute_wave(wave, self.group_key(wave[0])[1])
 
+    # -- wave execution (what SigSched dispatches into) ----------------------
+    def _params_classes(self, wave) -> List[Tuple[object, List[int]]]:
+        """Wave rows grouped by their graph's registered params —
+        identity first, then exact tree equality, each params object
+        compared once a wave (equality reads device leaves back to the
+        host).  One class == every row can share a single params
+        argument."""
+        return _split_by_params(
+            [(self._graphs[r.graph].params, i) for i, r in enumerate(wave)])
+
+    @staticmethod
+    def _stackable(classes, compiled: CompiledSignalGraph) -> bool:
+        """True when every params class shares one tree structure with
+        matching leaf shapes/types — the JAX package's per-row ``vmap``
+        precondition — AND every stage consuming the stacked params can
+        take them one a row (:meth:`CompiledSignalGraph.
+        rows_unsupported`: row-uniform GEMMs and dnn hooks can; grouped
+        or chained units, an int-routed unit, a biquad's coefficients and
+        a learnable window cannot).  Narrower than the JAX package on
+        purpose; an unstackable wave runs one sub-call per params class,
+        counted in ``stats["param_splits"]``."""
+        rep = classes[0][0]
+        td = tree_structure(rep)
+        sig = [_leaf_sig(l) for l in tree_leaves(rep)]
+        for p, _ in classes[1:]:
+            if tree_structure(p) != td:
+                return False
+            if [_leaf_sig(l) for l in tree_leaves(p)] != sig:
+                return False
+        return not compiled.rows_unsupported(rep)
+
+    @torch.no_grad()
     def _execute_wave(self, wave: List[SignalRequest],
                       length: int) -> Dict[int, object]:
         """Pad, stack, execute and trim one wave at compile ``length``.
-        Every row of a wave belongs to one registered graph (the pick
-        groups by ``(graph, bucket)``), so one params argument serves
-        the whole batch."""
+
+        This is the half of ``step`` below the pick — the scheduler
+        dispatches into it (possibly with a wave mixing requests from
+        different fingerprint-equal graphs, or a chunk of a split wave
+        whose siblings already ran).  Requests still in the queue are
+        claimed here; rows keep their own true lengths, so masks and
+        trims are identical however the wave was formed.  Waves mixing
+        rows whose registered params differ execute per-row-batched (one
+        call whose params carry a row axis:
+        :meth:`_run_per_row_params`) when the params stack, else split
+        into one sub-call per params class (``stats["param_splits"]``).
+        Serving never differentiates."""
         _t0 = obs.now() if obs.ENABLED else 0
-        name = wave[0].graph
-        if any(r.graph != name for r in wave):
-            raise ValueError("a wave must hold requests of one graph")
         for r in wave:
-            self._queue.remove(r)
+            try:
+                self._queue.remove(r)
+            except ValueError:
+                pass                   # claimed earlier into a split wave
+        name = wave[0].graph
         reg = self._graphs[name]
         compiled = self.compiled_for(name, length)
         key = (name, length)
@@ -485,6 +648,18 @@ class SignalService:
         masked = padded or (reg.struct is not None
                             and reg.struct.framer is not None
                             and bucketed)
+        classes = self._params_classes(wave)
+        if len(classes) > 1 and not self._stackable(classes, compiled):
+            # params the per-row call cannot take: one sub-call per
+            # params class — the same batched lowering as per-graph
+            # dispatch, so exact.
+            self.stats["param_splits"] += len(classes) - 1
+            results: Dict[int, object] = {}
+            for _, idxs in classes:
+                results.update(
+                    self._execute_wave([wave[i] for i in idxs], length))
+            return results
+
         stack = np.zeros((len(wave), length), np.float32)
         for i, r in enumerate(wave):
             stack[i, : lens[i]] = r.samples
@@ -501,11 +676,14 @@ class SignalService:
         else:
             _t1 = _t0
 
-        with torch.no_grad():
-            if masked:
-                out = self._run_masked(compiled, reg, batch, lens)
-            else:
-                out = _to_host(compiled.jit()(batch, reg.params))
+        if len(classes) > 1:
+            out = self._run_per_row_params(compiled, reg, batch, lens, wave,
+                                           masked)
+        elif masked:
+            out = self._run_masked(compiled, reg, batch, lens,
+                                   classes[0][0])
+        else:
+            out = _to_host(compiled.jit()(batch, classes[0][0]))
         self.stats["bucketed" if masked else "exact"] += 1
         self.stats["batches"] += 1
         cost = self.group_cost(key, batch=len(wave))
@@ -514,13 +692,35 @@ class SignalService:
         results = {}
         for i, r in enumerate(wave):
             r.done = True
-            results[r.rid] = self._request_result(compiled, reg, out, i,
-                                                  lens[i])
+            results[r.rid] = self._request_result(
+                compiled, self._graphs[r.graph], out, i, lens[i])
         if obs.ENABLED:
             obs.complete(f"graph/{name}", "core_call", _t1,
-                         bucket=length, batch=len(wave), masked=masked)
+                         bucket=length, batch=len(wave), masked=masked,
+                         graphs=sorted({r.graph for r in wave}))
             self._record_emits(compiled, wave)
         return results
+
+    def _run_per_row_params(self, compiled, reg, batch, lens, wave,
+                            masked):
+        """Cross-graph wave whose member graphs registered DIFFERENT
+        params: one call whose params carry a leading row axis
+        (:meth:`CompiledSignalGraph.per_row`; the rows' params trees
+        stacked leaf by leaf on the service's device, as the JAX package
+        stacks them for its ``vmap``) — each row computes with its own
+        graph's params, and each kernel launches once for the wave (a
+        row-uniform GEMM on per-row operands, ``shuffle_gemm_blocks``
+        with ``w (B, t, n_out)``)."""
+        dev = self.device
+        pstack = tree_map(
+            lambda *xs: torch.stack([_device_leaf(x, dev) for x in xs]),
+            *[self._graphs[r.graph].params for r in wave])
+        struct = reg.struct
+        vf = None
+        if masked and struct is not None and struct.framer is not None:
+            vf = torch.as_tensor([struct.valid_frames(t) for t in lens],
+                                 dtype=torch.int32, device=dev)
+        return _to_host(compiled.per_row(batch, pstack, valid_frames=vf))
 
     def _record_emits(self, compiled, wave) -> None:
         """Admission->emit latency per request, attributed per graph and
@@ -560,17 +760,17 @@ class SignalService:
         return {name: trim(out[name][i], name)
                 for name in compiled.outputs}
 
-    def _run_masked(self, compiled, reg, batch, lens):
+    def _run_masked(self, compiled, reg, batch, lens, params):
         """Masked/padded execution: valid-frame counts per row ride the
         call, so one compile serves every length mix in the bucket."""
         struct = reg.struct
         if struct.framer is None:
             # pure sample chain: causal stages never read past a row's
             # valid prefix, so padding needs no masking — only trimming.
-            return _to_host(compiled.jit()(batch, reg.params))
+            return _to_host(compiled.jit()(batch, params))
         vf = torch.as_tensor([struct.valid_frames(t) for t in lens],
                              dtype=torch.int32, device=self.device)
-        return _to_host(compiled.masked_jit()(batch, vf, reg.params))
+        return _to_host(compiled.masked_jit()(batch, vf, params))
 
     def serve(self, requests: List[SignalRequest]) -> Dict[int, object]:
         """Drain a request list."""
@@ -619,18 +819,25 @@ class SignalService:
     @torch.no_grad()
     def stream_step(self) -> int:
         """Advance all streaming sessions by at most one block each.
-        Ready blocks of same-graph sessions with matching shapes stack
-        into ONE core call (deciding which are ready reads only host
-        counters); each session then overlap-adds its own slice back
-        into its carried state and pushes what became final to its
-        pending output (a device-to-host copy).  Returns the number of
-        core calls issued (at most one a graph per tick for lock-stepped
-        sessions).  Serving never differentiates: the sessions' carried
+        Ready blocks of sessions with matching shapes stack into ONE core
+        call — same-graph always, and ACROSS graphs when the scheduler's
+        cross-graph batching is on and the graphs' streamed core programs
+        fingerprint identically AND their registered params compare equal
+        (the core call threads one shared params tree).  Deciding which
+        are ready reads only host counters; each session then
+        overlap-adds its own slice back into its carried state through
+        its own graph's structure and params, and pushes what became
+        final to its pending output (a device-to-host copy).  Returns the
+        number of core calls issued (at most one a tick for lock-stepped
+        sessions of one graph, or of fingerprint-equal graphs with equal
+        params).  Serving never differentiates: the sessions' carried
         state must hold no autograd history from tick to tick."""
         calls = 0
         _t0 = obs.now() if obs.ENABLED else 0
         tick_cost = 0
-        groups: Dict[Tuple, List[Tuple["StreamSession", object,
+        cross = (self.scheduler is not None and self.scheduler.cross_graph
+                 and len(self._sessions) > 1)
+        groups: Dict[Tuple, List[Tuple[str, "StreamSession", object,
                                        torch.Tensor]]] = {}
         for name, sessions in self._sessions.items():
             struct = self._graphs[name].struct
@@ -640,43 +847,65 @@ class SignalService:
                 if spec is None:
                     continue
                 block = take_block(sess.state, spec)
-                gkey = (name, spec.n_frames, tuple(block.shape),
+                ident: Tuple = ("graph", name)
+                if cross:
+                    fp = self._stream_fp(name, spec.n_frames)
+                    if fp is not None:
+                        ident = ("fp", fp)
+                gkey = (ident, spec.n_frames, tuple(block.shape),
                         block.dtype)
-                groups.setdefault(gkey, []).append((sess, spec, block))
-        for (name, n_frames, _, _), members in groups.items():
-            reg = self._graphs[name]
-            struct = reg.struct
-            _tc = obs.now() if obs.ENABLED else 0
-            stacked = torch.stack([b for *_, b in members])
-            res = struct.core_jit(n_frames, self.fuse, self.backend,
-                                  self.device)(stacked, reg.params)
-            calls += 1
-            if obs.ENABLED:
-                obs.complete(f"graph/{name}", "stream_core", _tc,
-                             n_frames=n_frames, width=len(members))
-                obs.metrics().histogram(
-                    "service.stream_stack_width").record(len(members))
-            cost = self._stream_cost(name, n_frames) * len(members)
-            self.est_cycles += cost
-            tick_cost += cost
-            for i, (sess, spec, block) in enumerate(members):
-                if isinstance(res, dict):
-                    frames = res[struct.deframer][i]
-                    taps = {t: tap_rows(res[t][i], spec, block.ndim - 1)
-                            for t in struct.frame_outputs}
-                else:
-                    frames, taps = res[i], {}
-                st, piece = commit_frames(struct, sess.state, spec, frames,
-                                          final=False)
-                st, out = finalize_piece(struct, st, piece, final=False,
-                                         params=reg.params)
-                sess.state = st
-                if struct.single:
-                    sess._push_out(out)
-                else:
-                    merged = dict(out) if isinstance(out, dict) else {}
-                    merged.update(taps)
-                    sess._push_outs(merged)
+                groups.setdefault(gkey, []).append((name, sess, spec,
+                                                    block))
+        for (_, n_frames, _, _), members in groups.items():
+            # params ride the stacked core call as ONE shared tree, so a
+            # fingerprint group sub-partitions by params equality —
+            # fp-equal graphs with different weights never mix.
+            for sub in self._stream_params_split(members):
+                rep_name = sub[0][0]
+                reg = self._graphs[rep_name]
+                gnames = sorted({n for n, *_ in sub})
+                _tc = obs.now() if obs.ENABLED else 0
+                stacked = torch.stack([b for *_, b in sub])
+                res = reg.struct.core_jit(n_frames, self.fuse, self.backend,
+                                          self.device)(stacked, reg.params)
+                calls += 1
+                if len(gnames) > 1:
+                    self.scheduler.stats["cross_graph_batches"] += 1
+                    if obs.ENABLED:
+                        obs.metrics().counter(
+                            "sched.cross_graph_batches").inc()
+                if obs.ENABLED:
+                    obs.complete(f"graph/{rep_name}", "stream_core", _tc,
+                                 n_frames=n_frames, width=len(sub),
+                                 graphs=gnames)
+                    obs.metrics().histogram(
+                        "service.stream_stack_width").record(len(sub))
+                cost = sum(self._stream_cost(n, n_frames) for n, *_ in sub)
+                self.est_cycles += cost
+                tick_cost += cost
+                for i, (name, sess, spec, block) in enumerate(sub):
+                    sreg = self._graphs[name]
+                    sstruct = sreg.struct
+                    # fp-equal programs share stage/output names (the
+                    # digest pins them), so the representative's result
+                    # keys are valid for every member's own structure.
+                    if isinstance(res, dict):
+                        frames = res[sstruct.deframer][i]
+                        taps = {t: tap_rows(res[t][i], spec, block.ndim - 1)
+                                for t in sstruct.frame_outputs}
+                    else:
+                        frames, taps = res[i], {}
+                    st, piece = commit_frames(sstruct, sess.state, spec,
+                                              frames, final=False)
+                    st, out = finalize_piece(sstruct, st, piece, final=False,
+                                             params=sreg.params)
+                    sess.state = st
+                    if sstruct.single:
+                        sess._push_out(out)
+                    else:
+                        merged = dict(out) if isinstance(out, dict) else {}
+                        merged.update(taps)
+                        sess._push_outs(merged)
         self.wall_cycles += tick_cost
         self.stats["core_calls"] += calls
         self.stats["stream_ticks"] += 1
@@ -685,6 +914,30 @@ class SignalService:
                          core_calls=calls,
                          sessions=self.stream_sessions())
         return calls
+
+    def _stream_fp(self, name: str, n_frames: int) -> Optional[Tuple]:
+        """Fingerprint-keyed cache key of ``name``'s streamed CORE
+        program at ``n_frames`` — the stream-side analog of
+        :meth:`exec_fingerprint` (``None`` when the core cannot be
+        fingerprinted: such sessions stack per graph name).  Cached
+        until re-registration (the ``//core`` rows purge with the cost
+        cache)."""
+        key = (f"{name}//core", n_frames)
+        if key not in self._fp_cache:
+            from ..signal.backends import program_cache_key
+            struct = self._graphs[name].struct
+            compiled = struct.core_graph(n_frames, self.fuse, self.backend,
+                                         self.device)
+            self._fp_cache[key] = program_cache_key(self.backend,
+                                                    compiled.program)
+        return self._fp_cache[key]
+
+    def _stream_params_split(self, members):
+        """Partition one stream stacking group by registered-params
+        equality (identity fast-path first) — each partition shares one
+        params tree, preserving per-member order."""
+        return [sub for _, sub in _split_by_params(
+            [(self._graphs[m[0]].params, m) for m in members])]
 
     def _stream_cost(self, name: str, n_frames: int) -> int:
         """Perf-model cycles for one session's core block (cached)."""

@@ -70,8 +70,8 @@ import torch
 
 from ..core import bitwidth as bw
 from ..core.exec_ir import (EinsumStep, ExecProgram, GatherStep,
-                            execute_program, resolve_operand,
-                            run_steps_reference)
+                            LambdaStep, execute_program, resolve_operand,
+                            row_operand, run_steps_reference)
 from ..core.fabric import (ShufflePlan, apply_plan, compose_into_einsum,
                            device_constant, identity_plan)
 
@@ -134,9 +134,43 @@ class BoundProgram:
     stage_fns: Dict[str, Callable]
     routes: List[StepRoute]
 
-    def __call__(self, x, params=None, valid_frames=None):
+    def __call__(self, x, params=None, valid_frames=None,
+                 row_params: bool = False):
         return execute_program(self.program, self.stage_fns, x, params,
-                               valid_frames)
+                               valid_frames, row_params)
+
+    def rows_unsupported(self, params) -> List[str]:
+        """The steps that cannot take ``params`` row-stacked (one entry a
+        batch row, :class:`~repro_torch.core.exec_ir.RowParams`), by
+        name; empty when a per-row call can run.  A consumed entry is
+        row-stackable on a row-uniform GEMM (``classify_einsum``: not
+        grouped) that this backend does not int-route — a batched einsum
+        on ``reference``, one ``shuffle_gemm_blocks`` launch with one
+        operand a row on ``hopper`` — and on a lambda marked
+        ``row_params`` (the dnn hook, under ``vmap``).  Grouped and
+        chained units (their operands are constant twiddles in every
+        graph the repo builds), an int-routed unit (``_IntSTEFn``), a
+        biquad's coefficients and a learnable window (an einsum with no
+        contraction) are not: the serving path then runs one call per
+        params class, as the JAX package does for params it cannot
+        stack (``SignalService._stackable``)."""
+        routes = {(r.stage, r.step): r.route for r in self.routes}
+        bad = []
+        for st in self.program.stages:
+            sp = params.get(st.name) if isinstance(params, dict) else params
+            if sp is None:
+                continue
+            for s in st.steps:
+                if isinstance(s, EinsumStep) and s.param_key is not None \
+                        and isinstance(sp, dict) and s.param_key in sp:
+                    shape = classify_einsum(s)
+                    if shape is None or shape.grouped or routes.get(
+                            (st.name, s.name)) not in ("jnp", "fused_gemm"):
+                        bad.append(s.name)
+                elif isinstance(s, LambdaStep) and s.takes_params \
+                        and not s.row_params:
+                    bad.append(s.name)
+        return bad
 
     def report(self) -> dict:
         return _routes_report(self.backend.name, self.routes)
@@ -307,11 +341,19 @@ class _CanonicalOperand:
     """Per-unit cache of the canonical operand: a host array (the static
     operand, or a params entry passed again) is transposed and uploaded
     once per (device, dtype); a tensor operand is re-laid out on every
-    call, since tensors may change in place between calls."""
+    call, since tensors may change in place between calls.
+    :meth:`rows` lays out a row-stacked operand, one a batch row."""
 
     def __init__(self, shape: _EinsumShape):
         self.shape = shape
         self._cache: Dict[Tuple, Tuple] = {}
+
+    def rows(self, op, like: torch.Tensor) -> torch.Tensor:
+        """``op`` (B, *operand shape) -> the kernel's (B, t, n_out): each
+        row converted as :meth:`__call__` converts one operand."""
+        w = torch.as_tensor(op).to(device=like.device, dtype=like.dtype)
+        perm = (0, *(p + 1 for p in self.shape.op_perm))
+        return w.permute(perm).reshape(w.shape[0], *self.shape.op_shape)
 
     def __call__(self, op, like: torch.Tensor) -> torch.Tensor:
         if isinstance(op, torch.Tensor):
@@ -618,7 +660,9 @@ class HopperBackend(ExecBackend):
         canonical = _CanonicalOperand(shape)
 
         def unit(x, sp):
-            w = canonical(resolve_operand(e, sp), x)
+            op = row_operand(e, sp)
+            w = canonical(resolve_operand(e, sp), x) if op is None \
+                else canonical.rows(op, x)
             y = shuffle_gemm(x, plan, w, rows=shape.rows_total, diag=diag)
             y = y.reshape(*y.shape[:-2], -1)
             return apply_plan(y, post) if post is not None else y

@@ -1185,7 +1185,8 @@ def _lower_stage(st: Stage, in_types: List[SigType], fuse: bool,
         fn = p["fn"]
         return None, [LambdaStep(f"{st.name}.model", fn,
                                  takes_params=True,
-                                 param_init=p.get("init"))], t
+                                 param_init=p.get("init"),
+                                 row_params=True)], t
 
     if kind == "dnn_circulant":
         # Block-circulant dense layer as a duplicating im2col gather +
@@ -1477,6 +1478,34 @@ class CompiledSignalGraph:
         def call(x, valid_frames, params=None):
             return self.__call__(x, params, valid_frames=valid_frames)
         return call
+
+    def per_row(self, x, params, *, valid_frames=None):
+        """Run the pipeline with ``params`` carrying a leading row axis on
+        every leaf: batch row i of ``x`` computes with row i of each leaf,
+        masked (``valid_frames``) or not — the JAX package's ``vmap`` of
+        the row program over (row, params row), which the serving
+        scheduler runs for a wave of graphs that registered different
+        weights.  A row-uniform GEMM takes its rows' operands in one
+        launch (``shuffle_gemm_blocks`` with ``w (B, t, n_out)`` on
+        ``hopper``, a batched einsum on ``reference``) and a dnn hook
+        runs under ``torch.func.vmap``; narrower than the JAX package's
+        ``vmap`` on purpose: a stage that cannot take row-stacked params
+        (:meth:`~repro_torch.signal.backends.BoundProgram.
+        rows_unsupported`) raises ``ValueError`` here, and the service
+        runs such a wave one call per params class instead.  A forward
+        only on the card."""
+        bad = self.rows_unsupported(params)
+        if bad:
+            raise ValueError(f"steps {bad} take no row-stacked params")
+        x = self._input(x)
+        if valid_frames is not None:
+            valid_frames = torch.as_tensor(valid_frames, device=self.device)
+        return self._exec(x, params, valid_frames, row_params=True)
+
+    def rows_unsupported(self, params) -> List[str]:
+        """The steps of the bound program that cannot take ``params``
+        row-stacked (see :meth:`per_row`); empty when all can."""
+        return self._exec.rows_unsupported(params)
 
     def sharded_jit(self, mesh, batch_axis: str = "data"):
         """Batch-sharded entry point — the scale-out slice of the port."""

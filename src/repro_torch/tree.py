@@ -8,16 +8,19 @@ from __future__ import annotations
 
 from typing import Callable
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_structure"]
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` over the leaves of ``tree``, keeping its structure."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree``, keeping its structure.  With
+    ``rest`` trees of the same structure, ``fn`` takes the matching leaf
+    of each (``jax.tree_util.tree_map(fn, tree, *rest)``)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -25,3 +28,16 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_structure(tree):
+    """A hashable description of ``tree``'s containers (their types,
+    dict keys and lengths), every leaf ``"*"``: two trees whose
+    structures compare equal line up leaf for leaf."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, tree_structure(tree[k]))
+                              for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,
+                tuple(tree_structure(v) for v in tree))
+    return "*"

@@ -4,9 +4,12 @@ plain PyTorch versions on the same card tensors, the Fig-9 path on the
 int-routed (SigQuant) Fig-9q forward, the shuffle-GEMM kernels' backward
 Function and ``value_and_grad`` on the card, the chain kernel (a list of
 grouped steps in one launch) bit for bit its steps launched one at a time,
-flash attention, and streaming on ``hopper`` (a runner and lock-stepped
+flash attention, streaming on ``hopper`` (a runner and lock-stepped
 sessions against the offline compile, their launches a tick, gradients
-through the runner, a session's checkpoint round trip).
+through the runner, a session's checkpoint round trip), and
+``shuffle_gemm_blocks`` with one operand a batch row (each row bit for
+bit the shared-operand launch on its operand) with SigSched's
+cross-graph wave of two Fig-9 registrations with different params.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False; whether a card is present is
@@ -193,6 +196,106 @@ def test_served_equals_offline(cuda):
         for i, t in enumerate(lens):
             off = g.compile(t, backend="hopper", device=cuda)(
                 torch.as_tensor(xs[i][None], device=cuda), {"mask": cnn})
+            np.testing.assert_allclose(res[i]["out"],
+                                       off["out"][0].cpu().numpy(),
+                                       rtol=0, atol=1e-5)
+            np.testing.assert_allclose(res[i]["mel_tap"],
+                                       off["mel_tap"][0].cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+# -- per-row operands (SigSched's cross-graph waves) ------------------------
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 9, 33, 129])
+@pytest.mark.parametrize("n_out", [1, 24, 64])
+@pytest.mark.parametrize("b", [1, 4, 65])
+def test_blocks_kernel_per_row_w(cuda, dt, t, n_out, b):
+    """w (B, t, n_out): one launch, batch row i bit for bit the shared-w
+    launch on w[i] (both bodies: t < 32 sequential, t >= 32 staged); a
+    rank-2 call unchanged, bit for bit the per-row call on its operand
+    repeated; within the tolerance of the plain version."""
+    rng = np.random.default_rng(1000 * t + 10 * n_out + b)
+    rows, n_in = 31, 3999
+    idx = rng.integers(0, n_in, (rows, t)).astype(np.int32)
+    idx[rng.random((rows, t)) < 0.2] = -1
+    dev = dict(device=cuda, dtype=TDT[dt])
+    x = torch.as_tensor(rng.standard_normal((b, n_in))).to(**dev)
+    pads = torch.as_tensor(rng.standard_normal((rows, t))).to(**dev)
+    scale = torch.as_tensor(rng.standard_normal((rows, t))).to(**dev)
+    w = torch.as_tensor(rng.standard_normal((b, t, n_out))).to(**dev)
+    idx = torch.as_tensor(idx, device=cuda)
+    before = shuffle_gemm_blocks.launches
+    got = shuffle_gemm_blocks(x, idx, pads, w, scale)
+    torch.cuda.synchronize()
+    assert shuffle_gemm_blocks.launches == before + 1
+    assert tuple(got.shape) == (b, rows, n_out)
+    for i in range(b):
+        assert torch.equal(got[i], shuffle_gemm_blocks(x, idx, pads, w[i],
+                                                       scale)[i])
+    shared = shuffle_gemm_blocks(x, idx, pads, w[0], scale)
+    assert torch.equal(shared, shuffle_gemm_blocks(
+        x, idx, pads, w[0].expand(b, t, n_out).contiguous(), scale))
+    torch.testing.assert_close(
+        got.float(), ref_shuffle_gemm_blocks(x, idx, pads, w, scale).float(),
+        rtol=TOL[dt], atol=TOL[dt])
+
+
+def test_blocks_kernel_per_row_refusals(cuda):
+    x = torch.ones((3, 10), device=cuda)
+    idx = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    pads = torch.zeros((2, 4), device=cuda)
+    with pytest.raises(ValueError, match="operands"):
+        shuffle_gemm_blocks(x, idx, pads, torch.ones((2, 4, 1), device=cuda))
+    from repro_torch.core.fabric import ShufflePlan
+    plan = ShufflePlan(gather_idx=np.arange(8, dtype=np.int32),
+                       pad_values=np.zeros(8, np.float32))
+    w = torch.ones((3, 4, 1), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tk.shuffle_gemm(x, plan, w, rows=2)
+    with torch.no_grad():
+        y = tk.shuffle_gemm(x, plan, w, rows=2)
+    assert tuple(y.shape) == (3, 2, 1) and bool((y == 4).all())
+
+
+def test_cross_graph_wave_with_per_row_params(cuda):
+    """Two Fig-9 registrations with different FIR taps and mask weights:
+    one wave of 2 blocks (the FIR call on per-row operands) + 2 chain
+    launches, each row within the served tolerances of its own graph's
+    offline compile.  Rows 0 and 1 (graphs a and b) share a length, so
+    the mask CNN runs them as one call under torch.func.vmap; the other
+    rows run alone."""
+    rng = np.random.default_rng(2)
+    lens = [LENGTH - 500 - 200 * max(i - 1, 0) for i in range(8)]
+    xs = [rng.standard_normal(t).astype(np.float32) for t in lens]
+    params = {}
+    for name in "ab":
+        taps = (rng.standard_normal(9) * 0.3).astype(np.float32)
+        taps[0] = 1.0
+        params[name] = {"front": {"taps": torch.as_tensor(taps, device=cuda)},
+                        "mask": params_from_jax(
+            [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+             .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+            device=cuda)}
+    g = tse.build_graph(LENGTH, ch=CH)
+    svc = SignalService(batch_size=8, backend="hopper", device=cuda)
+    for name in "ab":
+        svc.register(name, g, params=params[name])
+    for x in xs[:2]:                 # compile the bucket outside the count
+        svc.serve([SignalRequest(rid=-1, graph="a", samples=x)])
+    reset_launch_counts()
+    res = svc.serve([SignalRequest(rid=i, graph="ab"[i % 2], samples=x)
+                     for i, x in enumerate(xs)])
+    assert svc.stats["param_splits"] == 0
+    assert svc.scheduler.stats["cross_graph_batches"] == 1
+    assert launch_counts() == {"shuffle_gemm_blocks": 2,
+                               "shuffle_gemm_grouped_blocks": 0,
+                               "shuffle_gemm_chain": 2}
+    with torch.no_grad():
+        for i, t in enumerate(lens):
+            off = g.compile(t, backend="hopper", device=cuda)(
+                torch.as_tensor(xs[i][None], device=cuda),
+                params["ab"[i % 2]])
             np.testing.assert_allclose(res[i]["out"],
                                        off["out"][0].cpu().numpy(),
                                        rtol=0, atol=1e-5)

@@ -22,7 +22,7 @@ from repro.serving import SignalService as JService
 from repro_torch import signal as tsig
 from repro_torch.convert import params_from_jax
 from repro_torch.pipelines import speech_enhancement as tse
-from repro_torch.serving import SignalRequest, SignalService
+from repro_torch.serving import SigSched, SignalRequest, SignalService
 
 LENGTH, CH = 1024, (2, 4, 4, 1)
 LENS = [LENGTH - 100 - 80 * i for i in range(5)]   # one bucket: 1024
@@ -139,11 +139,22 @@ def test_submit_validates_samples():
         svc.submit(SignalRequest(2, "nope", np.zeros(300, np.float32)))
 
 
-@pytest.mark.parametrize("kw,item", [({"scheduler": True}, "SigSched"),
-                                     ({"mesh": object()}, "SigMesh")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "SigMesh")])
 def test_later_slices_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SignalService(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("scheduler", [None, True, {"row_budget": 2}])
+def test_scheduler_option_builds_sigsched(scheduler):
+    """The port's service dispatches through SigSched by default, as the
+    JAX package's does; ``scheduler=False`` keeps the FIFO pick."""
+    kw = {} if scheduler is None else {"scheduler": scheduler}
+    svc = SignalService(device="cpu", **kw)
+    assert isinstance(svc.scheduler, SigSched) and svc.mesh is None
+    assert svc.scheduler.row_budget == (2 if isinstance(scheduler, dict)
+                                        else None)
+    assert SignalService(device="cpu", scheduler=False).scheduler is None
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
