@@ -6,10 +6,11 @@ SigProgram (learned FIR -> STFT -> mask CNN -> iSTFT, plus a mel tap) at
 its own width (length 4096, frame 256, hop 128, 9 FIR taps, 24 mels, mask
 CNN channels (2, 12, 12, 1)), offline, served, trained and streamed,
 its SigQuant form Fig-9q (the mask a block-circulant layer, calibrated,
-served and streamed int-routed), and the FFT, phased-FIR and
-flash-attention entry points,
-with random weights and inputs drawn by numpy from ``--seed`` — phase by
-phase:
+served and streamed int-routed), the FFT, phased-FIR and
+flash-attention entry points, and a dense LM (starcoder2-3b) served and
+co-served with Fig 9,
+with random weights and inputs drawn from ``--seed`` (by numpy; the LM's
+weights by a ``torch.Generator`` on the card) — phase by phase:
 
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
   1. build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` with one
@@ -152,7 +153,39 @@ phase:
      row bit for bit the shared call on its operand; the plain version at
      1e-5).  The per-row call is the kernel JSON's ``per_row`` entry of
      ``shuffle_gemm_blocks``.
- 11. kernels: the kernel JSON of all ten kernels.
+ 11. models: starcoder2-3b at its config's full width (30 layers, d 3072,
+     24 heads over 2, hd 128, d_ff 12288, vocab 49152, bfloat16; random
+     weights drawn on the card from ``--seed``) served by
+     ``ServingEngine``: (a) 16 requests, prompts cut from ``TokenStream``
+     to 256-2048 tokens, ``max_new=32`` at batch 8 — the main path, whose
+     flash launches are the kernel JSON's ``launches`` — every request
+     exactly 32 tokens, exactly 30 ``flash_attention_hopper`` launches a
+     prefill (one a full-length attention layer) and none in a decode
+     step; (b) every ``flash_attention`` call of an 8 x 2048 prefill, as
+     ``models/layers.py`` makes it, against the plain version (relative
+     L2 under 1e-2), one call timed beside its bound and
+     ``F.scaled_dot_product_attention``; (c) ``DecodeWave`` stepped to the
+     end gives ``generate``'s tokens bit for bit; (d) teacher forcing: a
+     prefill of S - 1 tokens and one ``decode_step`` against
+     ``forward_train``'s last two positions (relative L2 under 2e-2);
+     (e) the engine co-served with phase 4's Fig-9 service through
+     ``CoScheduler`` under ``round_robin``, ``latency_aware`` and
+     ``cost_balanced``: 8 LLM requests (prompts 64-512, ``max_new`` 16)
+     and 16 Fig-9 requests all complete, both occupancy counters
+     positive, every tick's launches exactly ``FORWARD_LAUNCHES`` a DSP
+     wave and 30 flash a prefill, DSP results equal the offline compile
+     at phase 4's tolerances, ``round_robin``'s tokens ``engine.serve``'s
+     bit for bit, and ``latency_aware`` serves an EDF deadline script in
+     deadline order; (f) a newcomer admitted mid-flight into a batch-2
+     wave against its solo run, equal wherever the solo run's top-2
+     logit margin is above 1e-2 (a flip on a smaller margin is a tie
+     between batch-2 and batch-1 products; the comparison stops there);
+     (g) smoke readings: prefill time of an 8 x 2048 wave and its flash
+     share, p50 decode step and tokens/s at batch 8, a decode step's
+     launches, ticks/s and ``dsp_share`` by policy, peak memory.
+ 12. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+     are the serving path's call (phase 11), phase 8's under
+     ``entry_point``.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -447,13 +480,14 @@ def check_fig9_calls(calls) -> None:
 
 def profile_forward(torch, forward, wall_ms_per_call: float,
                     calls: int = 5, label: str = "hopper forward",
-                    grad: bool = False):
+                    grad: bool = False, breakdown: list = None):
     """Where one forward's device time goes: ``torch.profiler`` over
     ``calls`` forwards (under ``torch.no_grad()`` unless ``grad``), device
     time summed by kernel name, and the busy share against the
     unprofiled wall time of one forward.  Returns the device launches
     (kernels and copies) of one forward, or None when the profiler saw
-    no device time."""
+    no device time; ``breakdown``, when given, is extended with the
+    ``(us per forward, calls per forward, kernel name)`` entries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.set_grad_enabled(grad):
@@ -475,6 +509,8 @@ def profile_forward(torch, forward, wall_ms_per_call: float,
               "share not measured")
         return None
     by_name.sort(reverse=True)
+    if breakdown is not None:
+        breakdown.extend(by_name)
     busy_us = sum(t for t, _, _ in by_name)
     print(f"profile of one {label}: device busy {busy_us:.1f} us of "
           f"{wall_ms_per_call * 1e3:.1f} us wall "
@@ -568,6 +604,422 @@ def f64_yardstick(torch, xq, wq, want) -> tuple:
                              "with the bitserial kernel")
     f_ms = device_ms(torch, lambda: torch.matmul(a64, w64))
     return f_ms, f"torch.matmul float64 {f_ms * 1e3:8.2f} us (bit-exact)"
+
+
+# Phase 11: a dense LM served at full width, and co-served with Fig 9.
+# starcoder2-3b at its config's widths (src/repro/configs/starcoder2_3b.py:
+# 30 layers, d 3072, 24 heads over 2 kv heads, hd 128, d_ff 12288, GELU,
+# vocab 49152, bfloat16), random weights drawn on the card from --seed.
+# Every prefill's 30 attention layers are full-length calls, each one
+# launch of the bf16 flash kernel; decode steps attend over the cache in
+# plain torch and launch none.
+LM_ARCH, LM_SRC = "starcoder2-3b", "src/repro/configs/starcoder2_3b.py"
+LM_SIZES = {
+    "batch": 8, "requests": 16, "max_new": 32, "prompt_lo": 256,
+    "prompt_hi": 2048,                     # the served traffic
+    "co_llm": 8, "co_lo": 64, "co_hi": 512, "co_max_new": 16,
+    "co_dsp": 16,                          # the co-served traffic
+    "tf_seq": 512,                         # the teacher-forcing check
+    "admit_prompt": 64, "admit_long": 12, "admit_new": 8,
+}
+LM_TF_REL_L2 = 2e-2        # teacher forcing, bf16: see PERF.md §2
+ADMIT_MARGIN = 1e-2        # solo top-2 logit margin under which a flip
+                           # between batch-2 and batch-1 products is a tie
+POLICIES = ("round_robin", "latency_aware", "cost_balanced")
+EDF_DEADLINES = (5.0, 1.0, 3.0, 2.0)
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def models_phase(torch, np, seed: int, smi: str, sig: dict) -> dict:
+    """Phase 11.  ``sig`` carries phase 4's Fig-9 pieces: ``service()``
+    (a fresh hopper ``SignalService`` with Fig 9 registered, warmed on
+    one request), ``signals`` (the served lengths' inputs), ``offline``
+    (their offline outputs at the true lengths, numpy), ``tol``,
+    ``counts`` / ``reset`` (the shuffle-GEMM launch counters) and
+    ``per_wave`` (``FORWARD_LAUNCHES``).  Returns the flash kernel's
+    serving row for the kernel JSON."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ref_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import get_model
+    from repro_torch.serving import (CoScheduler, DecodeWave, Request,
+                                     ServingEngine, SignalRequest)
+    from repro_torch.tree import tree_leaves
+    sz = LM_SIZES
+    cfg = get_config(LM_ARCH)
+    n_attn = sum(lt in ("global", "local") for lt in cfg.layer_types)
+    fa = flash_kernel.flash_attention_hopper
+    per_prefill = {"flash_attention_hopper": n_attn,
+                   "flash_split_kv_hopper": 0}
+    none = {"flash_attention_hopper": 0, "flash_split_kv_hopper": 0}
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+    batch, max_new = sz["batch"], sz["max_new"]
+    engine = ServingEngine(bundle, batch_size=batch, temperature=0.0)
+    engine.load(params, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    kv_token = 2 * n_attn * cfg.kv_dim * torch.finfo(
+        params["embed"].dtype).bits // 8
+    print(f"{LM_ARCH} ({LM_SRC}): {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads}, hd {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff} {cfg.mlp_kind}, vocab {cfg.vocab} "
+          f"(padded {cfg.padded_vocab}), {cfg.dtype}; {n_params} params, "
+          f"{p_bytes} B, KV cache {kv_token} B a token; init and load "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    toks = TokenStream(vocab=cfg.vocab, seq_len=sz["prompt_hi"],
+                       global_batch=max(sz["requests"], batch + 4),
+                       seed=seed).batch_at(0)
+    rng = np.random.default_rng(seed + 20)
+    lens = rng.permutation(np.linspace(sz["prompt_lo"], sz["prompt_hi"],
+                                       sz["requests"]).round().astype(int))
+
+    def requests(base):
+        return [Request(rid=base + i, prompt=toks[i, :lens[i]].tolist(),
+                        max_new=max_new) for i in range(sz["requests"])]
+
+    # (a) the main path: the engine serves the requests, counted
+    flash_kernel.reset_launch_counts()
+    sig["reset"]()
+    t1 = time.perf_counter()
+    served = engine.serve(requests(0))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    serve_counts = flash_kernel.launch_counts()
+    waves = -(-sz["requests"] // batch)
+    if serve_counts != {k: v * waves for k, v in per_prefill.items()} \
+            or any(sig["counts"]().values()):
+        raise AssertionError(f"serving {sz['requests']} requests in {waves} "
+                             f"waves launched {serve_counts} and "
+                             f"{sig['counts']()}, not {n_attn} flash "
+                             f"launches a prefill")
+    if sorted(served) != list(range(sz["requests"])) or any(
+            len(v) != max_new for v in served.values()):
+        raise AssertionError("a served request did not return exactly "
+                             f"{max_new} tokens")
+    print(f"(a) served {sz['requests']} requests (prompts {lens.min()}-"
+          f"{lens.max()} tokens, max_new {max_new}) at batch {batch} in "
+          f"{waves} waves, {serve_s:.3f} s; launches {serve_counts} "
+          f"({n_attn} a prefill); every request {max_new} tokens",
+          flush=True)
+
+    # (c) DecodeWave stepped to the end == generate's tokens; launches a
+    # prefill and a decode step
+    wave_reqs = requests(0)[:batch]
+    flash_kernel.reset_launch_counts()
+    wave = DecodeWave(engine, wave_reqs)
+    torch.cuda.synchronize()
+    if flash_kernel.launch_counts() != per_prefill:
+        raise AssertionError(f"a DecodeWave prefill launched "
+                             f"{flash_kernel.launch_counts()}")
+    step_ms = []
+    while not wave.done:
+        flash_kernel.reset_launch_counts()
+        t1 = time.perf_counter()
+        wave.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if flash_kernel.launch_counts() != none:
+            raise AssertionError(f"a decode step launched "
+                                 f"{flash_kernel.launch_counts()}")
+    if wave.results() != {r.rid: served[r.rid] for r in wave_reqs}:
+        raise AssertionError("DecodeWave's tokens are not generate's")
+    decode_ms = step_ms[:-1]              # the last step decodes nothing
+    p50 = float(np.median(decode_ms))
+    print(f"(c) DecodeWave of the first {batch} requests stepped to the end "
+          f"== engine.serve's tokens bit for bit; {n_attn} flash launches "
+          f"its prefill, 0 in each of its {len(decode_ms)} decode steps",
+          flush=True)
+
+    # (b) every flash call of an 8 x 2048 prefill against its plain version
+    long_prompts = [toks[i, :sz["prompt_hi"]].tolist() for i in range(batch)]
+    calls = record_calls(
+        torch, lambda: engine.prefill_prompts(long_prompts, max_new),
+        module="repro_torch.models.layers", names=("flash_attention",))
+    if len(calls) != n_attn:
+        raise AssertionError(f"{len(calls)} flash_attention calls in a "
+                             f"prefill, not {n_attn}")
+    worst_err = worst_rel = 0.0
+    with torch.no_grad():
+        for _, a in calls:
+            q, k, v = a["q"], a["k"], a["v"]
+            kw = dict(causal=a["causal"], window=a["window"],
+                      softcap=a["softcap"])
+            got, want = fa(q, k, v, **kw), ref_attention(q, k, v, **kw)
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("non-finite flash output")
+            worst_rel = max(worst_rel, rel_l2(torch, got, want))
+            worst_err = max(worst_err,
+                            float((got.float() - want.float()).abs().max()))
+            del got, want
+    if not worst_rel < ATTN_REL_L2:
+        raise AssertionError(f"a prefill's flash call is {worst_rel:.3e} "
+                             f"relative L2 from its plain version")
+    _, a = calls[0]
+    q, k, v = a["q"], a["k"], a["v"]
+    kw = dict(causal=a["causal"], window=a["window"], softcap=a["softcap"])
+    b_, s_, h_, hd_ = q.shape
+    with torch.no_grad():
+        k_ms = device_ms(torch, lambda: fa(q, k, v, **kw), reps=3, iters=3)
+        p_ms = device_ms(torch, lambda: ref_attention(q, k, v, **kw),
+                         reps=1, iters=2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        l_rel = rel_l2(torch, sdpa().transpose(1, 2), fa(q, k, v, **kw))
+        l_ms = device_ms(torch, sdpa, reps=3, iters=3)
+    pairs = s_ * (s_ + 1) // 2
+    flops = 4 * b_ * h_ * hd_ * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b = bound(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"(b) the {n_attn} flash_attention calls of a {batch} x "
+          f"{s_} prefill (q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+          f"{q.dtype}) vs the plain version: max abs err {worst_err:.3e}, "
+          f"max relative L2 {worst_rel:.3e} (limit {ATTN_REL_L2}); one call "
+          f"on {smi}: kernel {k_ms * 1e3:.1f} us ({flops / k_ms / 1e9:.1f} "
+          f"TFLOP/s), plain {p_ms * 1e3:.1f} us, bound {b[0] * 1e3:.1f} us "
+          f"({100 * b[0] / k_ms:.1f}% of it), F.scaled_dot_product_"
+          f"attention {l_ms * 1e3:.1f} us (rel L2 {l_rel:.3e} to the "
+          f"kernel)", flush=True)
+    if not l_rel < ATTN_REL_L2:
+        raise AssertionError(f"SDPA and the kernel differ: {l_rel:.3e}")
+    del calls, q, k, v, qt, kt, vt
+    row = new_row(1, f"one bf16 call of a {LM_ARCH} prefill at {batch} x "
+                     f"{s_} (the serving path's shape); max_abs_err over "
+                     f"the {n_attn} calls of that prefill")
+    add_call(row, worst_err, k_ms, p_ms, b)
+    row.update(library_ms=l_ms, library="F.scaled_dot_product_attention"
+               "(is_causal=True, enable_gqa=True) on the same call",
+               launches=serve_counts["flash_attention_hopper"],
+               launches_per_prefill=n_attn, max_rel_l2=worst_rel)
+
+    # (d) teacher forcing at full width
+    tf = torch.as_tensor(toks[:2, :sz["tf_seq"]], device="cuda")
+    with torch.no_grad():
+        full, _ = bundle.forward(engine.params, {"tokens": tf})
+        lp, cache = bundle.prefill(engine.params, {"tokens": tf[:, :-1]},
+                                   max_len=sz["tf_seq"] + 2)
+        ld, _ = bundle.decode_step(engine.params, cache,
+                                   {"tokens": tf[:, -1:]})
+    tf_rel = (rel_l2(torch, lp[:, -1], full[:, -2]),
+              rel_l2(torch, ld[:, -1], full[:, -1]))
+    print(f"(d) teacher forcing, 2 x {sz['tf_seq']} tokens: prefill of "
+          f"{sz['tf_seq'] - 1} vs forward_train at position -2 relative L2 "
+          f"{tf_rel[0]:.3e}, one decode_step vs position -1 {tf_rel[1]:.3e} "
+          f"(limit {LM_TF_REL_L2})", flush=True)
+    if not max(tf_rel) < LM_TF_REL_L2:
+        raise AssertionError(f"teacher forcing: relative L2 {tf_rel}")
+    del full, lp, ld, cache
+
+    # (f) mid-flight admission against solo runs
+    eng2 = ServingEngine(bundle, batch_size=2, temperature=0.0)
+    eng2.load(engine.params, device="cuda")
+    ap = sz["admit_prompt"]
+    short = Request(rid=0, prompt=toks[batch, :ap].tolist(), max_new=2)
+    long = Request(rid=1, prompt=toks[batch + 1, :ap].tolist(),
+                   max_new=sz["admit_long"])
+    newcomer = Request(rid=2, prompt=toks[batch + 2, :ap + 2].tolist(),
+                       max_new=sz["admit_new"])
+    w2 = DecodeWave(eng2, [short, long])
+    w2.step()
+    w2.step()
+    if w2.free_slots() != 1 or list(w2.admit([newcomer])) != [0]:
+        raise AssertionError("admission did not free the short request")
+    while not w2.done:
+        w2.step()
+    got2 = w2.results()
+
+    def solo(r):
+        """A solo run's tokens and each step's top-2 logit margin (the
+        computation of ``generate`` at batch 1)."""
+        logits, cache, _ = eng2.prefill_prompts([r.prompt], r.max_new)
+        out, margins = [], []
+        for _ in range(r.max_new):
+            top = torch.topk(logits[0, -1].float(), 2).values
+            margins.append(float(top[0] - top[1]))
+            cur = eng2._sample(logits[:, -1], None)
+            out.append(int(cur[0]))
+            logits, cache = eng2._step(cache, cur)
+        return out, margins
+
+    report = []
+    for r in (long, newcomer):
+        want, margins = solo(r)
+        if want != eng2.serve([Request(rid=r.rid, prompt=r.prompt,
+                                       max_new=r.max_new)])[r.rid]:
+            raise AssertionError("the solo reading is not generate's")
+        got = got2[r.rid]
+        if len(got) != r.max_new:
+            raise AssertionError(f"request {r.rid}: {len(got)} tokens")
+        ties = sum(m <= ADMIT_MARGIN for m in margins)
+        flip = next((j for j, (g, w) in enumerate(zip(got, want))
+                     if g != w), None)
+        if flip is not None and margins[flip] > ADMIT_MARGIN:
+            raise AssertionError(f"request {r.rid} differs from its solo run "
+                                 f"at step {flip}, margin {margins[flip]}")
+        how = "equal" if flip is None else (
+            f"equal up to step {flip}, a near-tie (margin "
+            f"{margins[flip]:.2e}) after which the contexts differ")
+        report.append(f"request {r.rid}: {how}; {ties} of {len(margins)} "
+                      f"solo steps under margin {ADMIT_MARGIN}, min margin "
+                      f"{min(margins):.2e}")
+    print(f"(f) admission into a batch-2 wave after 2 steps (newcomer prompt "
+          f"{ap + 2} = active prefix): " + "; ".join(report), flush=True)
+    del eng2, w2
+
+    # (e) co-serving with Fig 9 under each policy
+    co_lens = rng.permutation(np.linspace(sz["co_lo"], sz["co_hi"],
+                                          sz["co_llm"]).round().astype(int))
+    co_spec = [(1000 + i, toks[i, :co_lens[i]].tolist())
+               for i in range(sz["co_llm"])]
+    n_sig = len(sig["signals"])
+    prefills = [0]
+    prefill_prompts = engine.prefill_prompts
+
+    def counted_prefill(*a, **kw):
+        prefills[0] += 1
+        return prefill_prompts(*a, **kw)
+    engine.prefill_prompts = counted_prefill
+    co_read, worst = {}, {k: 0.0 for k, _ in sig["tol"]}
+    try:
+        for policy in POLICIES:
+            svc = sig["service"]()
+            sched = CoScheduler(engine, svc, policy=policy)
+            for rid, p in co_spec:
+                sched.submit_llm(Request(rid=rid, prompt=p,
+                                         max_new=sz["co_max_new"]))
+            for j in range(sz["co_dsp"]):
+                sched.submit_signal(SignalRequest(
+                    rid=2000 + j, graph="speech_enhancement",
+                    samples=sig["signals"][j % n_sig]))
+            tick_counts = []
+            t1 = time.perf_counter()
+            while not sched.idle:
+                flash_kernel.reset_launch_counts()
+                sig["reset"]()
+                b0, p0 = svc.stats["batches"], prefills[0]
+                sched.tick()
+                torch.cuda.synchronize()
+                dsp_w, pre = svc.stats["batches"] - b0, prefills[0] - p0
+                made = {**sig["counts"](), **flash_kernel.launch_counts()}
+                want = {**{n: c * dsp_w for n, c in sig["per_wave"].items()},
+                        **{n: c * pre for n, c in per_prefill.items()}}
+                if made != want:
+                    raise AssertionError(f"{policy} tick {sched.ticks}: "
+                                         f"launches {made}, not {want}")
+                tick_counts.append((dsp_w, pre))
+            co_s = time.perf_counter() - t1
+            llm, dsp = sched.llm_results, sched.dsp_results
+            occ = sched.occupancy()
+            if sorted(llm) != [r for r, _ in co_spec] or any(
+                    len(v) != sz["co_max_new"] for v in llm.values()) \
+                    or sorted(dsp) != [2000 + j
+                                       for j in range(sz["co_dsp"])]:
+                raise AssertionError(f"{policy}: work left undone")
+            if not (occ["llm_cycles"] > 0 and occ["dsp_cycles"] > 0):
+                raise AssertionError(f"{policy}: occupancy {occ}")
+            for j in range(sz["co_dsp"]):
+                want_j = sig["offline"][j % n_sig]
+                for key, (rtol, atol) in sig["tol"]:
+                    np.testing.assert_allclose(
+                        dsp[2000 + j][key], want_j[key], rtol=rtol,
+                        atol=atol, err_msg=f"{policy} request {j} {key}")
+                    worst[key] = max(worst[key], float(np.abs(
+                        dsp[2000 + j][key] - want_j[key]).max()))
+            if policy == "round_robin":
+                ref = engine.serve([Request(rid=r, prompt=p,
+                                            max_new=sz["co_max_new"])
+                                    for r, p in co_spec])
+                if llm != ref:
+                    raise AssertionError("round_robin's tokens are not "
+                                         "engine.serve's")
+            co_read[policy] = (sched.ticks, sched.ticks / co_s,
+                               occ["dsp_share"], sum(p for _, p in
+                                                     tick_counts),
+                               sum(w for w, _ in tick_counts))
+            print(f"(e) {policy}: {sz['co_llm']} LLM requests (prompts "
+                  f"{co_lens.min()}-{co_lens.max()}, max_new "
+                  f"{sz['co_max_new']}) and {sz['co_dsp']} Fig-9 requests "
+                  f"done in {sched.ticks} ticks, {co_read[policy][3]} "
+                  f"prefills, {co_read[policy][4]} DSP waves; every tick's "
+                  f"launches = {sig['per_wave']} a DSP wave + {n_attn} flash "
+                  f"a prefill; occupancy {occ}"
+                  + ("; LLM tokens == engine.serve bit for bit"
+                     if policy == "round_robin" else ""), flush=True)
+        # latency_aware: an EDF script, one DSP request a wave
+        svc = sig["service"](batch_size=1)
+        sched = CoScheduler(engine, svc, policy="latency_aware")
+        for rid, p in co_spec[:2]:
+            sched.submit_llm(Request(rid=rid, prompt=p, max_new=4))
+        for j, dl in enumerate(EDF_DEADLINES):
+            sched.submit_signal(SignalRequest(
+                rid=3000 + j, graph="speech_enhancement", deadline=dl,
+                samples=sig["signals"][j % n_sig]))
+        order = []
+        while not sched.idle:
+            sched.tick()
+            order += [r for r in sched.dsp_results if r not in order]
+        want_order = [3000 + j for j in np.argsort(EDF_DEADLINES)]
+        if order != want_order or sorted(sched.llm_results) != [
+                r for r, _ in co_spec[:2]]:
+            raise AssertionError(f"latency_aware EDF order {order}, not "
+                                 f"{want_order}")
+        print(f"(e) latency_aware EDF script: deadlines {EDF_DEADLINES} "
+              f"served in order {order}; DSP vs offline compile max abs err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()),
+              flush=True)
+    finally:
+        engine.prefill_prompts = prefill_prompts
+
+    # (g) smoke readings
+    with torch.no_grad():
+        pre_ms = wall_ms(torch, lambda: engine.prefill_prompts(
+            long_prompts, max_new), iters=3)
+        by_name = []
+        profile_forward(torch, lambda: engine.prefill_prompts(
+            long_prompts, max_new), pre_ms, calls=1,
+            label=f"{batch} x {sz['prompt_hi']} prefill", breakdown=by_name)
+        busy = sum(t for t, _, _ in by_name)
+        flash_us = sum(t for t, _, key in by_name if "flash" in key)
+        logits, cache, _ = engine.prefill_prompts(long_prompts, max_new)
+        cur = engine._sample(logits[:, -1], None)
+        state = {"cache": cache}      # a step consumes the cache it is given
+
+        def step():
+            state["cache"] = engine._step(state["cache"], cur)[1]
+        step_launches = profile_forward(
+            torch, step, p50, calls=3, label=f"decode step (batch {batch})")
+        del logits, cache, state
+    print(f"(g) smoke readings, not metrics, on {smi}: prefill of {batch} x "
+          f"{sz['prompt_hi']} tokens {pre_ms:.3f} ms wall, flash "
+          + (f"{flash_us:.1f} of {busy:.1f} us device busy "
+             f"({100 * flash_us / busy:.1f}%)" if busy else "not measured")
+          + f"; p50 decode step at batch {batch} {p50:.3f} ms "
+          f"({batch / p50 * 1e3:.1f} tokens/s; steps "
+          f"{', '.join(f'{s:.2f}' for s in decode_ms)} ms), "
+          f"{step_launches} device launches a step; co-serving ticks/s and "
+          f"dsp_share: " + "; ".join(
+              f"{p} {c[1]:.1f} ticks/s ({c[0]} ticks), dsp_share {c[2]:.4f}"
+              for p, c in co_read.items())
+          + f"; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    del engine, params
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -2297,8 +2749,35 @@ def main() -> int:
           f"{per_row_row['plain_ms'] * 1e3:.2f} us; each row bit for bit "
           f"the shared-w call on its operand", flush=True)
 
-    # -- 11. kernel list ----------------------------------------------------
-    phase("11 kernels")
+    # -- 11. models: starcoder2-3b served, and co-served with Fig 9 --------
+    phase("11 models")
+    with torch.no_grad():
+        sig_offline = [
+            {k: v[0].cpu().numpy() for k, v in graph.compile(
+                t, fuse=2, backend="hopper", device="cuda")(
+                torch.as_tensor(xs_serve[i][None], device="cuda"),
+                {"mask": cnn}).items()}
+            for i, t in enumerate(SERVE_LENGTHS)]
+
+    def fig9_service(batch_size=4):
+        """Phase 4's service, warmed on one request (its bucket
+        compiled)."""
+        s_ = SignalService(batch_size=batch_size, backend="hopper",
+                           device="cuda")
+        s_.register("speech_enhancement", graph, params={"mask": cnn})
+        s_.serve([SignalRequest(rid=-1, graph="speech_enhancement",
+                                samples=xs_serve[0])])
+        return s_
+
+    lm_row = models_phase(torch, np, args.seed, smi, {
+        "service": fig9_service, "signals": xs_serve,
+        "offline": sig_offline, "tol": (("out", (0.0, 1e-5)),
+                                        ("mel_tap", (1e-4, 1e-4))),
+        "counts": launch_counts, "reset": reset_launch_counts,
+        "per_wave": FORWARD_LAUNCHES})
+
+    # -- 12. kernel list ----------------------------------------------------
+    phase("12 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -2331,6 +2810,16 @@ def main() -> int:
         "launches": q_stream_counts["bitserial_quant_matmul_hopper"],
         "launches_per_core_call": n_int_core,
         "per": "the calibrated Fig-9q stream's ticks"}
+    # the flash row is the serving path's (phase 11); phase 8's four
+    # entry-point calls stay beside it
+    entry = rows["flash_attention_hopper"]
+    rows["flash_attention_hopper"] = {**lm_row, "entry_point": {
+        "launches": flash_counts["flash_attention_hopper"],
+        **{k: entry[k] for k in (
+            "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "library_ms", "library_kernel_ms", "per_call",
+            "launches_per_call", "per", "library")}}}
+    launches["flash_attention_hopper"] = lm_row["launches"]
     rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
     rows["shuffle_gemm_chain_hopper"]["per"] += (
         " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
@@ -2351,7 +2840,8 @@ def main() -> int:
                                  "backward", "single_stage", "int_mm_ms",
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
                                  "launches_per_call", "launch_floor_ms",
-                                 "stream", "per_row")
+                                 "stream", "per_row", "entry_point",
+                                 "launches_per_prefill", "max_rel_l2")
                if k in r},
         })
     print(smi)

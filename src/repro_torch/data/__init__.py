@@ -1,5 +1,5 @@
 """Synthetic data of the port (the counterpart of ``repro.data``)."""
 
-from .pipeline import SignalStream
+from .pipeline import SignalStream, TokenStream
 
-__all__ = ["SignalStream"]
+__all__ = ["TokenStream", "SignalStream"]

@@ -1,10 +1,12 @@
-"""Deterministic synthetic signal data: the counterpart of
-``SignalStream`` in the JAX package's ``data/pipeline.py``, in numpy.
+"""Deterministic synthetic data: the counterpart of the JAX package's
+``data/pipeline.py``, in numpy.
 
 Every batch is a pure function of ``(seed, step)``, drawn with the same
 numpy calls in the same order as the JAX package, so both give the same
-batches bit for bit: noisy multi-sine "speech-like" signals and their
-clean targets for the Fig-9 training path."""
+batches bit for bit: Zipf-distributed token ids with short-range Markov
+structure (:class:`TokenStream`) for the language models, and noisy
+multi-sine "speech-like" signals with their clean targets
+(:class:`SignalStream`) for the Fig-9 training path."""
 
 from __future__ import annotations
 
@@ -13,7 +15,28 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["SignalStream"]
+__all__ = ["TokenStream", "SignalStream"]
+
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+        b, s = self.global_batch, self.seq_len
+        # Zipf base draw
+        ranks = rng.zipf(1.3, size=(b, s)).astype(np.int64)
+        tokens = (ranks - 1) % self.vocab
+        # Markov structure: with p=0.5, token t+1 = (token t + small) % V
+        carry = rng.random((b, s)) < 0.5
+        shifted = (tokens + rng.integers(1, 17, size=(b, s))) % self.vocab
+        out = np.where(carry, np.roll(shifted, 1, axis=1), tokens)
+        return out.astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -38,3 +61,4 @@ class SignalStream:
                       ).astype(np.float32)
         noise = rng.normal(0.0, 0.8, size=(b, n)).astype(np.float32)
         return {"noisy": clean + noise, "clean": clean}
+

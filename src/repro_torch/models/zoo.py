@@ -1,0 +1,69 @@
+"""Model zoo: one uniform bundle API over the decoder LMs — the port's
+counterpart of the JAX package's ``models/zoo.py``.
+
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator("cuda").manual_seed(0),
+                         device="cuda")
+    loss, _ = bundle.loss_fn(params, batch)
+    logits, cache = bundle.prefill(params, batch, max_len=...)
+    logits, cache = bundle.decode_step(params, cache, batch_t)
+
+This slice carries the dense decoders (layer types ``global`` and
+``local``, the dense MLP).  The encoder-decoder (Whisper), MoE,
+recurrent and xLSTM models raise ``NotImplementedError`` (ROADMAP Queue
+1 item 6); ``input_specs``, ``cache_specs_for`` and ``batch_pspec`` wait
+for the dry-run (item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import DEFAULT_DEVICE, resolve_device
+from . import transformer
+
+__all__ = ["ModelBundle", "get_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    init: Callable
+    loss_fn: Callable
+    forward: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def _on_device(gen: torch.Generator, device) -> torch.Generator:
+    """``gen``, checked to draw on ``device`` (the card by default,
+    raising on a host without one)."""
+    device = resolve_device(device)
+    if gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, params asked for on "
+                         f"{device}")
+    return gen
+
+
+def get_model(cfg: ArchConfig) -> ModelBundle:
+    """The bundle of ``cfg``'s model functions; raises
+    ``NotImplementedError`` for a model family this slice does not
+    carry."""
+    transformer.check_supported(cfg)
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda gen, device=DEFAULT_DEVICE: transformer.init_params(
+            _on_device(gen, device), cfg),
+        loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
+        forward=lambda p, b: transformer.forward_train(p, b, cfg),
+        prefill=lambda p, b, **kw: transformer.prefill(p, b, cfg, **kw),
+        decode_step=lambda p, c, bt: transformer.decode_step(p, c, bt, cfg),
+        init_cache=lambda batch, max_len, device=DEFAULT_DEVICE:
+            transformer.init_cache(cfg, batch, max_len,
+                                   resolve_device(device)),
+    )

@@ -1,6 +1,14 @@
+from .engine import DecodeWave, Request, ServingEngine
+from .quantized import dequantize_tree, quantize_tree, quantized_bytes
 from .scheduler import ExecGroup, SigSched, WaveState
-from .signal_service import (GroupInfo, SignalRequest, SignalService,
-                             StreamSession)
+from .signal_service import (CoScheduler, CostBalancedPolicy, GroupInfo,
+                             LatencyAwarePolicy, RoundRobinPolicy,
+                             SchedulePolicy, SignalRequest, SignalService,
+                             StreamSession, TickPlan, get_policy)
 
-__all__ = ["SignalService", "SignalRequest", "StreamSession", "GroupInfo",
-           "SigSched", "WaveState", "ExecGroup"]
+__all__ = ["ServingEngine", "Request", "DecodeWave",
+           "quantize_tree", "dequantize_tree", "quantized_bytes",
+           "SignalService", "SignalRequest", "StreamSession", "GroupInfo",
+           "CoScheduler", "SigSched", "WaveState", "ExecGroup",
+           "TickPlan", "SchedulePolicy", "RoundRobinPolicy",
+           "LatencyAwarePolicy", "CostBalancedPolicy", "get_policy"]

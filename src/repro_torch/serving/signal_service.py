@@ -49,8 +49,15 @@ override, and preemptible waves under a ``row_budget``.
 ``scheduler=False`` keeps the FIFO pick (the oldest request's ``(graph,
 bucket)`` group in arrival order, up to ``batch_size``; streaming
 sessions stack per graph), which the default reduces to with one graph
-and no deadlines.  SigMesh and the LLM co-scheduler are later slices of
-the port.
+and no deadlines.  SigMesh is a later slice of the port (ROADMAP Queue 1
+item 5).
+
+:class:`CoScheduler` runs one step loop over LLM decode waves
+(:class:`~repro_torch.serving.engine.DecodeWave`) and this service's DSP
+waves and stream ticks, under a :class:`SchedulePolicy`:
+``round_robin``, ``latency_aware`` (EDF across both classes) or
+``cost_balanced`` (an occupancy split of perf-model cycles), as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,10 +78,13 @@ from ..signal.streaming import (StreamState, StreamStructure,
                                 push_chunk, ready_spec, restore_state,
                                 snapshot_state, take_block, tap_rows)
 from ..tree import tree_leaves, tree_map, tree_structure
+from .engine import DecodeWave, Request, ServingEngine
 from .scheduler import SigSched
 
 __all__ = ["SignalRequest", "SignalService", "StreamSession", "GroupInfo",
-           "SigSched"]
+           "SigSched", "TickPlan", "SchedulePolicy", "RoundRobinPolicy",
+           "LatencyAwarePolicy", "CostBalancedPolicy", "get_policy",
+           "CoScheduler"]
 
 
 def _host(a) -> np.ndarray:
@@ -277,7 +287,8 @@ class SignalService:
     (the default) builds a :class:`SigSched`, a dict passes it options,
     an instance is adopted, ``False`` keeps the FIFO pick.  ``mesh`` must
     be None (``mesh=`` raises ``NotImplementedError``: SigMesh, ROADMAP
-    Queue 1 item 5); ``self.mesh`` is None.
+    Queue 1 item 5); ``self.mesh`` and ``self.router`` (SigMesh's
+    per-device ledger) are None.
     """
 
     def __init__(self, batch_size: int = 8,
@@ -296,6 +307,9 @@ class SignalService:
                 "SignalService(mesh=...) is not in this slice of the "
                 "PyTorch port (ROADMAP Queue 1 item 5 (SigMesh))")
         self.mesh = None
+        # SigMesh's per-device ledger (ROADMAP Queue 1 item 5): None, as
+        # on the JAX package's unsharded service.
+        self.router = None
         self.batch_size = batch_size
         self.fuse = FuseLevel.coerce(fuse)
         self.backend = get_backend(backend)
@@ -1283,3 +1297,291 @@ class StreamSession:
                 - sum(a.shape[ax] for a, ax in zip(pieces, axes))
             for a in pieces:
                 self._push_outs({name: a})
+
+
+# --------------------------------------------------------------------------
+# LLM + DSP co-scheduling policies
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TickPlan:
+    """What one CoScheduler tick should do, as decided by a policy."""
+    run_llm: bool = True
+    run_dsp: bool = True                       # one-shot DSP batch
+    run_streams: Optional[bool] = None         # session block round
+    admit: bool = False                        # mid-flight LLM admission
+    dsp_key: Optional[Tuple[str, int]] = None  # group to run (None: FIFO)
+    dsp_order: str = "fifo"                    # "fifo" | "deadline"
+    dsp_sched: bool = False                    # prefer SigSched dispatch
+    # dsp_sched=True: when the service carries a SigSched, let IT pick
+    # the wave (cross-graph batching, bounded deferral, row budgets) —
+    # dsp_key/dsp_order stay filled as the fallback for services built
+    # with scheduler=False (and for tests driving make_pick directly).
+
+    def __post_init__(self):
+        if self.run_streams is None:           # default: ride with DSP
+            self.run_streams = self.run_dsp
+
+
+class SchedulePolicy:
+    """Decides, each tick, which workload classes run and how the DSP
+    wave is picked.  Implement :meth:`plan`; the scheduler exposes its
+    queues / wave / occupancy counters for inspection."""
+
+    name = "base"
+
+    def plan(self, sched: "CoScheduler") -> TickPlan:
+        raise NotImplementedError
+
+
+class RoundRobinPolicy(SchedulePolicy):
+    """Every tick runs one LLM decode step AND one DSP batch, with LLM
+    waves admitted only between waves: the reference policy."""
+
+    name = "round_robin"
+
+    def plan(self, sched: "CoScheduler") -> TickPlan:
+        return TickPlan(run_llm=True, run_dsp=True, admit=False)
+
+
+class LatencyAwarePolicy(SchedulePolicy):
+    """Earliest-deadline-first across both workload classes: each tick
+    runs the single workload whose most urgent pending request has the
+    earliest *finite* deadline.  On a deadline tie (typically ``inf`` ==
+    ``inf`` — nobody declared an SLO) the tick degrades to round-robin,
+    both sides running in arrival order, so deadline-less traffic can
+    never be starved by the other class.  Streaming sessions carry no
+    deadline; their ready blocks ride along on every non-DSP tick.  LLM
+    newcomers join the active wave mid-flight when slots free up — on
+    LLM ticks, since admission itself costs a (re-)prefill and a
+    DSP-only tick must not spend the device on one."""
+
+    name = "latency_aware"
+
+    def plan(self, sched: "CoScheduler") -> TickPlan:
+        groups = sched.signals.pending_groups()
+        dsp_dl = min((g.earliest_deadline for g in groups),
+                     default=math.inf)
+        llm_dl = sched.llm_earliest_deadline()
+        have_llm = sched.llm_pending()
+        if not groups:
+            # no one-shot DSP wave to race: LLM advances, and any ready
+            # stream blocks ride along (streams carry no deadline — they
+            # must neither starve nor starve the token side).
+            return TickPlan(run_llm=True, run_dsp=False,
+                            run_streams=sched.signals.stream_pending(),
+                            admit=True)
+        best = min(groups, key=lambda g: (g.earliest_deadline,
+                                          g.oldest_seq))
+        if not have_llm or dsp_dl < llm_dl:
+            # admit=False: admission re-prefills, an LLM-side action a
+            # DSP-only tick must not perform (tick() honors admit only
+            # when run_llm is set, for the same reason).
+            return TickPlan(run_llm=False, run_dsp=True, admit=False,
+                            dsp_key=best.key, dsp_order="deadline",
+                            dsp_sched=True)
+        if llm_dl < dsp_dl:
+            # streaming blocks still ride along: real-time connections
+            # can never starve behind deadline-bearing token traffic.
+            return TickPlan(run_llm=True, run_dsp=False, run_streams=True,
+                            admit=True)
+        # deadline tie: round-robin the tick so neither class starves.
+        return TickPlan(run_llm=True, run_dsp=True, admit=True,
+                        dsp_key=best.key, dsp_order="deadline",
+                        dsp_sched=True)
+
+
+class CostBalancedPolicy(SchedulePolicy):
+    """Keep the occupancy split between DSP and decode near
+    ``dsp_target`` (fraction of estimated array cycles spent on DSP),
+    using :func:`repro_torch.core.perf_model.step_cost_estimate` for
+    compiled graphs and ``ServingEngine.decode_step_cost`` for decode
+    steps.  Each tick runs the side that is furthest below its target
+    share — under skewed load this shifts the interleave instead of
+    blindly alternating (the paper's §V utilization argument at serving
+    scope)."""
+
+    name = "cost_balanced"
+
+    def __init__(self, dsp_target: float = 0.5):
+        if not 0.0 < dsp_target < 1.0:
+            raise ValueError("dsp_target must be in (0, 1)")
+        self.dsp_target = float(dsp_target)
+
+    def plan(self, sched: "CoScheduler") -> TickPlan:
+        have_llm = sched.llm_pending()
+        have_dsp = (sched.signals.pending() > 0
+                    or sched.signals.stream_pending())
+        if not (have_llm and have_dsp):
+            return TickPlan(run_llm=have_llm, run_dsp=have_dsp, admit=True)
+        total = sched.llm_cycles + sched.dsp_cycles
+        dsp_share = sched.dsp_cycles / total if total else 0.0
+        if dsp_share < self.dsp_target:
+            # admit=False on DSP-only ticks: admission re-prefills (an
+            # LLM-side cost this tick chose not to pay).
+            return TickPlan(run_llm=False, run_dsp=True, admit=False)
+        return TickPlan(run_llm=True, run_dsp=False, admit=True)
+
+
+_POLICIES = {p.name: p for p in
+             (RoundRobinPolicy, LatencyAwarePolicy, CostBalancedPolicy)}
+
+
+def get_policy(policy: Union[str, SchedulePolicy]) -> SchedulePolicy:
+    """Resolve a policy name ('round_robin' | 'latency_aware' |
+    'cost_balanced') or pass an instance through."""
+    if isinstance(policy, SchedulePolicy):
+        return policy
+    try:
+        return _POLICIES[policy]()
+    except KeyError:
+        raise ValueError(
+            f"unknown policy {policy!r}; choose from "
+            f"{sorted(_POLICIES)} or pass a SchedulePolicy instance")
+
+
+# --------------------------------------------------------------------------
+# The co-scheduler
+# --------------------------------------------------------------------------
+
+class CoScheduler:
+    """One step loop over two workload classes on the same device.
+
+    Each :meth:`tick` asks the :class:`SchedulePolicy` for a
+    :class:`TickPlan` and then runs (a) one LLM decode step for the
+    active token wave and/or (b) one batched DSP execution plus one
+    streaming-session block round — the serving analogue of the paper's
+    DLA interleaving signal tasks with DNN layers instead of farming
+    them out to a separate DSP chip.
+
+    Occupancy accounting: ``llm_cycles`` / ``dsp_cycles`` accumulate the
+    perf-model cost estimates of every step executed, which is what the
+    ``cost_balanced`` policy steers.
+    """
+
+    def __init__(self, engine: ServingEngine, signals: SignalService,
+                 policy: Union[str, SchedulePolicy] = "round_robin"):
+        self.engine = engine
+        self.signals = signals
+        self.policy = get_policy(policy)
+        self._llm_queue: List[Request] = []
+        self._wave: Optional[DecodeWave] = None
+        self.llm_results: Dict[int, List[int]] = {}
+        self.dsp_results: Dict[int, np.ndarray] = {}
+        self.ticks = 0
+        self.llm_cycles = 0
+        self.dsp_cycles = 0
+
+    # -- submission ---------------------------------------------------------
+    def submit_llm(self, req: Request) -> None:
+        self._llm_queue.append(req)
+
+    def submit_signal(self, req: SignalRequest) -> None:
+        self.signals.submit(req)
+
+    # -- introspection (used by policies) -----------------------------------
+    def llm_pending(self) -> bool:
+        return self._wave is not None or bool(self._llm_queue)
+
+    def llm_earliest_deadline(self) -> float:
+        dls = [r.deadline for r in self._llm_queue]
+        if self._wave is not None:
+            dls.extend(r.deadline for r in self._wave.reqs)
+        return min(dls, default=math.inf)
+
+    def occupancy(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "llm_cycles": self.llm_cycles,
+            "dsp_cycles": self.dsp_cycles}
+        total = self.llm_cycles + self.dsp_cycles
+        out["dsp_share"] = self.dsp_cycles / total if total else 0.0
+        # the JAX package adds "per_device" from SigMesh's router here;
+        # the port's service has no router until SigMesh (ROADMAP Queue 1
+        # item 5) is ported
+        return out
+
+    @property
+    def idle(self) -> bool:
+        return (self._wave is None and not self._llm_queue
+                and not self.signals.pending()
+                and not self.signals.stream_pending())
+
+    # -- the step loop ------------------------------------------------------
+    def _charge_prefill(self) -> None:
+        """Prefill processes ``prefill_tokens`` positions for the whole
+        batch — first-order, that is one decode-step cost per token."""
+        self.llm_cycles += (self.engine.decode_step_cost(self._wave.size)
+                            * max(1, self._wave.prefill_tokens))
+
+    def tick(self) -> None:
+        _t0 = obs.now() if obs.ENABLED else 0
+        plan = self.policy.plan(self)
+
+        # LLM side (gated by the plan — a DSP-only tick must not spend
+        # the device on a prefill): start a wave between waves, or admit
+        # newcomers into a running wave when the policy allows it.
+        if plan.run_llm:
+            if self._wave is None and self._llm_queue:
+                wave = self._llm_queue[: self.engine.batch_size]
+                self._llm_queue = self._llm_queue[self.engine.batch_size:]
+                self._wave = DecodeWave(self.engine, wave)
+                self._charge_prefill()
+            elif (plan.admit and self._wave is not None and self._llm_queue
+                  and self.engine.temperature <= 0.0):
+                free = self._wave.free_slots()
+                if free > 0:
+                    newcomers = self._llm_queue[:free]
+                    self._llm_queue = self._llm_queue[free:]
+                    self.llm_results.update(self._wave.admit(newcomers))
+                    self._charge_prefill()      # admission re-prefills
+        if plan.run_llm and self._wave is not None:
+            self._wave.step()
+            self.llm_cycles += self.engine.decode_step_cost(self._wave.size)
+            self.llm_results.update(self._wave.pop_done())
+            if self._wave.done:
+                self.llm_results.update(self._wave.results())
+                self._wave = None
+
+        # DSP side: one batched one-shot wave and/or one streaming block
+        # round (streams can ride along on LLM ticks — latency_aware
+        # keeps real-time connections from starving behind token work).
+        before = self.signals.est_cycles
+        if plan.run_dsp:
+            pick = None
+            if plan.dsp_key is not None and not (
+                    plan.dsp_sched and self.signals.scheduler is not None):
+                pick = self.signals.make_pick(plan.dsp_key, plan.dsp_order)
+            self.dsp_results.update(self.signals.step(pick=pick))
+        if plan.run_streams:
+            self.signals.stream_step()
+        self.dsp_cycles += self.signals.est_cycles - before
+        self.ticks += 1
+        if obs.ENABLED:
+            self._record_tick(plan, _t0)
+
+    def _record_tick(self, plan: TickPlan, t0_ns: int) -> None:
+        """One tick's trace footprint: the tick span (with the policy's
+        decisions), the DSP/LLM occupancy counter track, and per-backend
+        plan-cache hit-rate tracks."""
+        obs.complete("CoScheduler", "tick", t0_ns,
+                     tick=self.ticks, policy=self.policy.name,
+                     run_llm=plan.run_llm, run_dsp=plan.run_dsp,
+                     run_streams=plan.run_streams, admit=plan.admit)
+        occ = self.occupancy()
+        tr = obs.tracer()
+        tr.counter("occupancy", {"dsp_cycles": self.dsp_cycles,
+                                 "llm_cycles": self.llm_cycles})
+        tr.counter("dsp_share", {"share": occ["dsp_share"]})
+        m = obs.metrics()
+        m.gauge("sched.dsp_share").set(occ["dsp_share"])
+        m.counter("sched.ticks").inc()
+        from ..signal import plan_cache_info
+        for label, b in plan_cache_info()["by_backend"].items():
+            total = b["hits"] + b["misses"]
+            tr.counter(f"plan_cache/{label}",
+                       {"hit_rate": b["hits"] / total if total else 0.0})
+
+    def run(self) -> Tuple[Dict[int, List[int]], Dict[int, np.ndarray]]:
+        while not self.idle:
+            self.tick()
+        return self.llm_results, self.dsp_results

@@ -9,7 +9,12 @@ sessions against the offline compile, their launches a tick, gradients
 through the runner, a session's checkpoint round trip), and
 ``shuffle_gemm_blocks`` with one operand a batch row (each row bit for
 bit the shared-operand launch on its operand) with SigSched's
-cross-graph wave of two Fig-9 registrations with different params.
+cross-graph wave of two Fig-9 registrations with different params, and
+the dense decoders: five reduced configs on the card against the port
+on the CPU (float32, rtol 1e-4, atol 1e-5), gemma2-2b at full width
+past its window on the bf16 flash kernel (each call within relative L2
+1e-2 of the plain version, the local ring cache), and greedy
+``DecodeWave`` against ``generate`` bit for bit.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is False; whether a card is present is
@@ -1249,3 +1254,140 @@ def test_stream_session_checkpoint_round_trip_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(
             np.concatenate(tails[0][k], axis=-1 if k == "out" else 0),
             np.concatenate(tails[1][k], axis=-1 if k == "out" else 0))
+
+
+# -- dense models and the serving engine on the card ------------------------
+
+MODEL_ARCHS = ["starcoder2-3b", "gemma2-2b", "chatglm3-6b", "minitron-8b",
+               "internvl2-26b"]
+
+
+def _model_batch(cfg, seed, b=2, s=12):
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "embeds":
+        return {"embeds": torch.as_tensor(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32))}
+    return {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))}
+
+
+def _on(tree, device):
+    return {k: _on(v, device) if isinstance(v, dict) else
+            v.to(device) if isinstance(v, torch.Tensor) else v
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_dense_model_on_card_matches_cpu(cuda, arch):
+    """A reduced float32 decoder on the card (full-length attention on
+    the float32 flash kernel, decode in plain torch) against the same
+    port on the CPU: forward, prefill (logits and cache) and one decode
+    step at rtol 1e-4, atol 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = get_config(arch).reduced()
+    bundle = get_model(cfg)
+    cpu_p = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    card_p = _on(cpu_p, cuda)
+    batch = _model_batch(cfg, 1)
+    s = next(iter(batch.values())).shape[1]
+
+    def close(got, want):
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=1e-4, atol=1e-5)
+    with torch.no_grad():
+        close(bundle.forward(card_p, _on(batch, cuda))[0],
+              bundle.forward(cpu_p, batch)[0])
+        head = {k: v[:, :s - 1] for k, v in batch.items()}
+        last = {k: v[:, s - 1:] for k, v in batch.items()}
+        lg, cg = bundle.prefill(card_p, _on(head, cuda), max_len=s + 2)
+        lc, cc = bundle.prefill(cpu_p, head, max_len=s + 2)
+        close(lg, lc)
+        for name in cc["blocks"]:
+            for leaf in ("k", "v"):
+                close(cg["blocks"][name][leaf], cc["blocks"][name][leaf])
+        close(bundle.decode_step(card_p, cg, _on(last, cuda))[0],
+              bundle.decode_step(cpu_p, cc, last)[0])
+
+
+def test_gemma2_full_width_past_window_on_flash(cuda):
+    """gemma2-2b at its full width, 2 layers (one local, one global),
+    bfloat16, a 5000-token prompt past the 4096 window: the local layer's
+    call is the flash kernel with window 4096 and softcap 50, each call
+    within relative L2 1e-2 of the plain version, and the local ring
+    cache after prefill holds the last 4096 keys rolled by 5000 % 4096."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref_attention
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as model_layers
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    assert cfg.layer_types == ("local", "global") and cfg.window == 4096
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    s = 5000
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, s)).astype(np.int32), device=cuda)
+    calls, fa = [], model_layers.flash_attention
+
+    def rec(q, k, v, **kw):
+        calls.append((q.clone(), k.clone(), v.clone(), kw))
+        return fa(q, k, v, **kw)
+    model_layers.flash_attention = rec
+    flash_kernel.reset_launch_counts()
+    try:
+        with torch.no_grad():
+            logits, cache = bundle.prefill(params, {"tokens": toks},
+                                           max_len=s + 4)
+        torch.cuda.synchronize()
+    finally:
+        model_layers.flash_attention = fa
+    assert flash_kernel.launch_counts() == {"flash_attention_hopper": 2,
+                                            "flash_split_kv_hopper": 0}
+    assert [c[3] for c in calls] == [
+        dict(causal=True, window=4096, softcap=50.0),
+        dict(causal=True, window=0, softcap=50.0)]
+    with torch.no_grad():
+        for q, k, v, kw in calls:
+            assert q.dtype == torch.bfloat16 and q.shape[1] == s
+            got, want = fa(q, k, v, **kw), ref_attention(q, k, v, **kw)
+            rel = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            assert rel < 1e-2, rel
+    ring = cache["blocks"]["b0"]["k"][0]
+    assert tuple(ring.shape) == (1, 4096, cfg.n_kv_heads, cfg.head_dim)
+    assert torch.equal(ring, torch.roll(calls[0][1][:, -4096:], s % 4096,
+                                        dims=1))
+    assert torch.equal(cache["blocks"]["b1"]["k"][0][:, :s], calls[1][1])
+    assert bool(torch.isfinite(logits).all())
+    assert float(logits.abs().max()) <= cfg.logit_softcap + 1e-3
+
+
+def test_decode_wave_matches_generate_on_card(cuda):
+    """Greedy ``DecodeWave`` stepped to the end gives ``generate``'s
+    tokens bit for bit on the card (a bf16 reduced starcoder2), and each
+    prefill launches the flash kernel once a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeWave, Request, ServingEngine
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(
+        n_layers=4, d_model=256, n_heads=8, d_ff=512, vocab=1024),
+        dtype="bfloat16")
+    bundle = get_model(cfg)
+    eng = ServingEngine(bundle, batch_size=3)
+    eng.load(bundle.init(torch.Generator(cuda).manual_seed(5),
+                         device=cuda), device=cuda)
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 1024, n).tolist(),
+                    max_new=9) for i, n in enumerate((40, 17, 64))]
+    flash_kernel.reset_launch_counts()
+    wave = DecodeWave(eng, reqs)
+    assert flash_kernel.launch_counts()["flash_attention_hopper"] == 4
+    while not wave.done:
+        wave.step()
+    assert flash_kernel.launch_counts()["flash_attention_hopper"] == 4
+    gen = eng.generate([r.prompt for r in reqs], max_new=9)
+    assert wave.results() == {i: g for i, g in enumerate(gen)}
+    assert eng.serve(reqs) == wave.results()
