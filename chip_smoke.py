@@ -7,8 +7,9 @@ its own width (length 4096, frame 256, hop 128, 9 FIR taps, 24 mels, mask
 CNN channels (2, 12, 12, 1)), offline, served, trained and streamed,
 its SigQuant form Fig-9q (the mask a block-circulant layer, calibrated,
 served and streamed int-routed), the FFT, phased-FIR and
-flash-attention entry points, and a dense LM (starcoder2-3b) served and
-co-served with Fig 9,
+flash-attention entry points, a dense LM (starcoder2-3b) served and
+co-served with Fig 9, and the other model families (MoE, RG-LRU hybrid,
+xLSTM, Whisper) served,
 with random weights and inputs drawn from ``--seed`` (by numpy; the LM's
 weights by a ``torch.Generator`` on the card) — phase by phase:
 
@@ -183,9 +184,35 @@ weights by a ``torch.Generator`` on the card) — phase by phase:
      (g) smoke readings: prefill time of an 8 x 2048 wave and its flash
      share, p50 decode step and tokens/s at batch 8, a decode step's
      launches, ticks/s and ``dsp_share`` by policy, peak memory.
- 12. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 12. families: each other model family served at its config's full
+     width, bf16, random weights drawn on the card from ``--seed``, one
+     model at a time (``FAMILIES``): qwen2-moe-a2.7b (24 layers, 60
+     experts top-4 + a shared expert), grok-1-314b (cut to 2 of its 64
+     layers: 8 experts of d_ff 32768, softcap 30), recurrentgemma-2b (26
+     RG-LRU and local-attention layers, window 2048, MQA at hd 256, a
+     prompt past the window), xlstm-350m (24 mLSTM/sLSTM blocks, no
+     attention) and whisper-small (12 encoder layers over the engine's
+     1500 zero frames, 12 decoder layers).  For each: (a) the requests
+     through ``ServingEngine.serve``, every request exactly ``max_new``
+     tokens, exactly one ``flash_attention_hopper`` launch a full-length
+     attention layer a prefill (24 / 2 / 8 / 0 / 12 + 12), none of
+     ``flash_split_kv_hopper``, and (MoE) the routed slots the prefills
+     dropped at the shipped capacity factor; (c) ``DecodeWave`` == the
+     served tokens bit for bit, 0 flash launches a decode step; (b)
+     every flash call of a prefill of the longest prompts against the
+     plain version (relative L2 under 1e-2), the first one timed beside
+     its bound and ``F.scaled_dot_product_attention`` (with a window
+     mask where the window bites; none for a softcap); (e) smoke
+     readings: parameter bytes, the prefill's wall time, launches and
+     flash share, p50 decode step, a step's launches and busy share,
+     peak memory; (d) last, teacher forcing (a prefill of S - 1 tokens
+     and one decode step against ``forward_train``; MoE at capacity
+     factor E / k, so no slot drops) held at relative L2 1e-3 on the
+     weights upcast to float32 in place, the bf16 reading (and MoE's
+     routing flips at the last token) printed beside it.
+ 13. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
-     ``entry_point``.
+     ``entry_point``, phase 12's under ``families``.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -1020,6 +1047,395 @@ def models_phase(torch, np, seed: int, smi: str, sig: dict) -> dict:
     del engine, params
     torch.cuda.empty_cache()
     return row
+
+
+# Phase 12: the other model families served at full width, one at a time,
+# bf16, random weights drawn on the card from --seed.  Each row: config,
+# its source, depth (None: uncut), requests, prompt lengths (lo, hi),
+# max_new, batch.  grok-1 keeps 2 of its 64 layers: one layer's 8 experts
+# are ~9.7 GB in bf16, so the whole model does not fit one card.
+# recurrentgemma's longest prompt passes its 2048 window; xlstm's prompts
+# stay short because its sLSTM layers run a Python loop over time.
+FAMILIES = [
+    ("qwen2-moe-a2.7b", "src/repro/configs/qwen2_moe_a2_7b.py", None, 16,
+     256, 2048, 32, 8),
+    ("grok-1-314b", "src/repro/configs/grok1_314b.py", 2, 8, 256, 2048, 16,
+     8),
+    ("recurrentgemma-2b", "src/repro/configs/recurrentgemma_2b.py", None, 8,
+     256, 3072, 16, 4),
+    ("xlstm-350m", "src/repro/configs/xlstm_350m.py", None, 8, 64, 512, 16,
+     8),
+    ("whisper-small", "src/repro/configs/whisper_small.py", None, 8, 16, 128,
+     16, 8),
+]
+FAMILY_TF_SEQ = 512        # teacher-forcing tokens (at most the prompts')
+FAMILY_TF_F32_REL_L2 = 1e-3  # teacher forcing on float32 weights; the
+                             # five read <= 1.7e-5 on an H100 (PERF.md §2)
+
+
+def _dicts(tree):
+    """Every dict of a nested dict tree, outermost first."""
+    yield tree
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _dicts(v)
+
+
+def full_length_attention_calls(cfg) -> int:
+    """The full-length attention calls (flash launches on the card) of one
+    prefill: every attention layer of a decoder, and the encoder's and
+    the decoder's self-attention layers of an encoder-decoder."""
+    if cfg.input_kind == "encdec":
+        return cfg.enc_layers + cfg.n_layers
+    return sum(lt in ("global", "local") for lt in cfg.layer_types)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a call's mask lets through."""
+    import numpy as np
+    qi = np.arange(sq)
+    hi = np.minimum(qi + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def serve_family(torch, np, spec, seed: int, smi: str) -> dict:
+    """Phase 12 for one config of ``FAMILIES``: (a) the engine serves the
+    requests, counted; (c) ``DecodeWave`` == ``generate``; (b) every
+    flash call of one prefill against the plain version, one timed; (e)
+    readings; (d) teacher forcing, last: it upcasts the weights in place.
+    Returns the config's ``families``
+    entry of the flash row."""
+    import dataclasses
+    import gc
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ref_attention
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving import DecodeWave, Request, ServingEngine
+    from repro_torch.tree import tree_leaves
+    arch, src, depth, n_req, lo, hi, max_new, batch = spec
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    n_flash = full_length_attention_calls(cfg)
+    per_prefill = {"flash_attention_hopper": n_flash,
+                   "flash_split_kv_hopper": 0}
+    none = {"flash_attention_hopper": 0, "flash_split_kv_hopper": 0}
+    torch.cuda.reset_peak_memory_stats()
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+    engine = ServingEngine(bundle, batch_size=batch, temperature=0.0)
+    engine.load(params, device="cuda")
+    torch.cuda.synchronize()
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"{arch} ({src}): {cfg.n_layers} layers"
+          + (f" (cut from {get_config(arch).n_layers})" if depth else "")
+          + f" {sorted(set(cfg.layer_types))}"
+          + (f" + encoder {cfg.enc_layers}" if cfg.enc_layers else "")
+          + f", d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads}, hd {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"{cfg.mlp_kind}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k} (+"
+             f"{cfg.n_shared_experts} shared), capacity factor "
+             f"{cfg.capacity_factor}" if cfg.n_experts else "")
+          + f", vocab {cfg.vocab}, {cfg.dtype}; {p_bytes} B of params; "
+          f"init and load {time.perf_counter() - t_start:.2f} s", flush=True)
+
+    toks = TokenStream(vocab=cfg.vocab, seq_len=hi, global_batch=n_req,
+                       seed=seed).batch_at(0)
+    rng = np.random.default_rng(seed + 21)
+    lens = rng.permutation(np.linspace(lo, hi, n_req).round().astype(int))
+    reqs = [Request(rid=i, prompt=toks[i, :lens[i]].tolist(),
+                    max_new=max_new) for i in range(n_req)]
+
+    # (a) the main path, counted; MoE: the slots its prefills drop
+    drops, plan = [], moe_mod.dispatch_plan
+
+    def counted_plan(*a, **kw):
+        pos, keep = plan(*a, **kw)
+        drops.append(((~keep).sum(), keep.numel()))
+        return pos, keep
+    moe_mod.dispatch_plan = counted_plan
+    try:
+        flash_kernel.reset_launch_counts()
+        t1 = time.perf_counter()
+        served = engine.serve(reqs)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
+        counts = flash_kernel.launch_counts()
+    finally:
+        moe_mod.dispatch_plan = plan
+    waves = -(-n_req // batch)
+    if counts != {k: v * waves for k, v in per_prefill.items()}:
+        raise AssertionError(f"{arch}: serving {n_req} requests in {waves} "
+                             f"waves launched {counts}, not {n_flash} flash "
+                             f"launches a prefill")
+    if sorted(served) != list(range(n_req)) or any(
+            len(v) != max_new for v in served.values()):
+        raise AssertionError(f"{arch}: a served request did not return "
+                             f"exactly {max_new} tokens")
+    dropped = (int(sum(int(d) for d, _ in drops)), sum(n for _, n in drops))
+    print(f"(a) served {n_req} requests (prompts {lens.min()}-{lens.max()} "
+          f"tokens, max_new {max_new}) at batch {batch} in {waves} waves, "
+          f"{serve_s:.3f} s; launches {counts} ({n_flash} a prefill); every "
+          f"request {max_new} tokens"
+          + (f"; the prefills dropped {dropped[0]} of {dropped[1]} routed "
+             f"slots" if cfg.n_experts else ""), flush=True)
+
+    # (c) DecodeWave stepped to the end == generate's tokens
+    flash_kernel.reset_launch_counts()
+    wave = DecodeWave(engine, reqs[:batch])
+    torch.cuda.synchronize()
+    if flash_kernel.launch_counts() != per_prefill:
+        raise AssertionError(f"{arch}: a DecodeWave prefill launched "
+                             f"{flash_kernel.launch_counts()}")
+    step_ms = []
+    while not wave.done:
+        flash_kernel.reset_launch_counts()
+        t1 = time.perf_counter()
+        wave.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if flash_kernel.launch_counts() != none:
+            raise AssertionError(f"{arch}: a decode step launched "
+                                 f"{flash_kernel.launch_counts()}")
+    if wave.results() != {r.rid: served[r.rid] for r in reqs[:batch]}:
+        raise AssertionError(f"{arch}: DecodeWave's tokens are not "
+                             f"generate's")
+    decode_ms = step_ms[:-1]              # the last step decodes nothing
+    p50 = float(np.median(decode_ms))
+    del wave
+    print(f"(c) DecodeWave of the first {batch} requests == engine.serve's "
+          f"tokens bit for bit; {n_flash} flash launches its prefill, 0 in "
+          f"each of its {len(decode_ms)} decode steps", flush=True)
+
+    # (b) every flash call of one prefill of the longest prompts
+    long_prompts = [toks[i, :hi].tolist() for i in range(batch)]
+    calls = record_calls(
+        torch, lambda: engine.prefill_prompts(long_prompts, max_new),
+        module="repro_torch.models.layers", names=("flash_attention",))
+    if len(calls) != n_flash:
+        raise AssertionError(f"{arch}: {len(calls)} flash_attention calls in "
+                             f"a prefill, not {n_flash}")
+    entry = {"config": arch, "source": src, "depth": cfg.n_layers,
+             "depth_cut_from": get_config(arch).n_layers if depth else None,
+             "launches": counts["flash_attention_hopper"],
+             "launches_per_prefill": n_flash, "max_rel_l2": None,
+             "max_abs_err": None, "shape": None, "ms": None,
+             "bound_ms": None, "bound_by": None, "plain_ms": None,
+             "sdpa_ms": None}
+    if calls:
+        worst_rel = worst_err = 0.0
+        with torch.no_grad():
+            for _, a in calls:
+                kw = dict(causal=a["causal"], window=a["window"],
+                          softcap=a["softcap"])
+                got = flash_kernel.flash_attention_hopper(a["q"], a["k"],
+                                                          a["v"], **kw)
+                want = ref_attention(a["q"], a["k"], a["v"], **kw)
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{arch}: non-finite flash output")
+                worst_rel = max(worst_rel, rel_l2(torch, got, want))
+                worst_err = max(worst_err, float(
+                    (got.float() - want.float()).abs().max()))
+                del got, want
+        if not worst_rel < ATTN_REL_L2:
+            raise AssertionError(f"{arch}: a prefill's flash call is "
+                                 f"{worst_rel:.3e} relative L2 from its "
+                                 f"plain version")
+        _, a = calls[0]
+        q, k, v = a["q"], a["k"], a["v"]
+        kw = dict(causal=a["causal"], window=a["window"],
+                  softcap=a["softcap"])
+        (b_, sq, h_, hd_), skv, kvh = q.shape, k.shape[1], k.shape[2]
+        fa = flash_kernel.flash_attention_hopper
+        with torch.no_grad():
+            k_ms = device_ms(torch, lambda: fa(q, k, v, **kw), reps=3,
+                             iters=3)
+            p_ms = device_ms(torch, lambda: ref_attention(q, k, v, **kw),
+                             reps=1, iters=2)
+            l_ms = l_rel = None
+            if not kw["softcap"]:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                mask = None
+                if kw["window"] and kw["window"] < skv:
+                    qi = torch.arange(sq, device="cuda")[:, None]
+                    ki = torch.arange(skv, device="cuda")[None, :]
+                    mask = (ki > qi - kw["window"]) & (
+                        (ki <= qi) if kw["causal"] else True)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask,
+                        is_causal=kw["causal"] and mask is None,
+                        enable_gqa=kvh < h_)
+                l_rel = rel_l2(torch, sdpa().transpose(1, 2),
+                               fa(q, k, v, **kw))
+                if not l_rel < ATTN_REL_L2:
+                    raise AssertionError(f"{arch}: SDPA and the kernel "
+                                         f"differ: {l_rel:.3e}")
+                l_ms = device_ms(torch, sdpa, reps=3, iters=3)
+        flops = 4 * b_ * h_ * hd_ * visible_pairs(sq, skv, kw["causal"],
+                                                  kw["window"])
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bnd = bound(nbytes, flops, BF16_FLOP_PER_S)
+        shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} causal "
+                 f"{kw['causal']} window {kw['window']} softcap "
+                 f"{kw['softcap']}")
+        entry.update(max_rel_l2=worst_rel, max_abs_err=worst_err,
+                     shape=shape, ms=k_ms, bound_ms=bnd[0],
+                     bound_by="bytes" if bnd[1] >= bnd[2] else "operations",
+                     plain_ms=p_ms, sdpa_ms=l_ms)
+        print(f"(b) the {n_flash} flash_attention calls of a {batch} x {hi} "
+              f"prefill vs the plain version: max abs err {worst_err:.3e}, "
+              f"max relative L2 {worst_rel:.3e} (limit {ATTN_REL_L2}); the "
+              f"first call ({shape}) on {smi}: kernel {k_ms * 1e3:.1f} us "
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms * 1e3:.1f} "
+              f"us, bound {bnd[0] * 1e3:.1f} us ({entry['bound_by']}; "
+              f"{100 * bnd[0] / k_ms:.1f}% of it), "
+              + (f"F.scaled_dot_product_attention {l_ms * 1e3:.1f} us (rel "
+                 f"L2 {l_rel:.3e} to the kernel)" if l_ms is not None else
+                 "no SDPA call computes a softcap"), flush=True)
+        del q, k, v
+    else:
+        print("(b) no full-length attention in this model: no flash call",
+              flush=True)
+    del calls
+
+    # (e) smoke readings
+    def prefill():
+        return engine.prefill_prompts(long_prompts, max_new)
+    with torch.no_grad():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            prefill()
+        end.record()
+        torch.cuda.synchronize()
+        pre_ms = start.elapsed_time(end) / 2
+        by_name = []
+        pre_launches = profile_forward(
+            torch, prefill, pre_ms, calls=1,
+            label=f"{batch} x {hi} prefill", breakdown=by_name)
+        busy = sum(t for t, _, _ in by_name)
+        flash_us = sum(t for t, _, key in by_name if "flash" in key)
+        logits, cache, _ = engine.prefill_prompts(long_prompts, max_new)
+        cur = engine._sample(logits[:, -1], None)
+        state = {"cache": cache}      # a step consumes the cache it is given
+
+        def step():
+            state["cache"] = engine._step(state["cache"], cur)[1]
+        step_launches = profile_forward(
+            torch, step, p50, calls=3, label=f"decode step (batch {batch})")
+        del logits, cache, state
+    peak = torch.cuda.max_memory_allocated()
+    print(f"(e) smoke readings, not metrics, on {smi}: {p_bytes} B of "
+          f"params; prefill of {batch} x {hi} tokens {pre_ms:.3f} ms wall, "
+          f"{pre_launches} device launches"
+          + (f" ({pre_launches / hi:.1f} a prompt position)"
+             if pre_launches else "")
+          + ", flash "
+          + (f"{flash_us:.1f} of {busy:.1f} us device busy "
+             f"({100 * flash_us / busy:.1f}%)" if busy else "not measured")
+          + f"; p50 decode step at batch {batch} {p50:.3f} ms "
+          f"({batch / p50 * 1e3:.1f} tokens/s), {step_launches} device "
+          f"launches a step; max_memory_allocated {peak} B", flush=True)
+
+    # (d) teacher forcing: a prefill of S - 1 tokens and one decode step
+    # against forward_train (MoE at a capacity no slot overflows, where
+    # the capacity path and the decode step's dense path compute one
+    # function).  Held on the weights upcast to float32: in bf16 the
+    # decode step rounds other GEMM shapes and forms (the recurrent
+    # families' one-rounding conv einsum and bf16-rounded carried state,
+    # MoE's dense combine) than the forward, as the JAX package's does,
+    # and a near-tie in MoE routing then picks other experts; the bf16
+    # reading and its routing flips are printed beside it (PERF.md §2).
+    tf_cfg = cfg
+    if cfg.n_experts:
+        tf_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                     / cfg.top_k)
+    n_tf = min(FAMILY_TF_SEQ, hi)
+    tf = torch.as_tensor(toks[:2, :n_tf], device="cuda")
+    extra = {}
+    if cfg.input_kind == "encdec":
+        extra["embeds"] = torch.zeros((2, cfg.enc_seq, cfg.d_model),
+                                      device="cuda")
+
+    def teacher_forcing(run_cfg, run_params):
+        """(relative L2 at position -2, at -1, MoE layers whose top-k
+        set for the last token differs between the forward and the
+        decode step)."""
+        b_, route, picks = get_model(run_cfg), moe_mod.route, []
+
+        def recorded(*a, **kw):
+            out = route(*a, **kw)
+            picks.append(out[2][:, -1].sort(-1).values)
+            return out
+        moe_mod.route = recorded
+        try:
+            with torch.no_grad():
+                full, _ = b_.forward(run_params, {"tokens": tf, **extra})
+                n_fwd = len(picks)
+                lp, cache = b_.prefill(run_params,
+                                       {"tokens": tf[:, :-1], **extra},
+                                       max_len=n_tf + 2)
+                del picks[n_fwd:]
+                ld, _ = b_.decode_step(run_params, cache,
+                                       {"tokens": tf[:, -1:]})
+        finally:
+            moe_mod.route = route
+        flips = sum(not torch.equal(f, d) for f, d in
+                    zip(picks[:n_fwd], picks[n_fwd:]))
+        return (rel_l2(torch, lp[:, -1], full[:, -2]),
+                rel_l2(torch, ld[:, -1], full[:, -1]), flips)
+    tf_read = {"bfloat16": teacher_forcing(tf_cfg, params)}
+    del engine
+    for leaves in _dicts(params):         # upcast in place, leaf by leaf
+        for k in list(leaves):
+            if isinstance(leaves[k], torch.Tensor):
+                leaves[k] = leaves[k].float()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf_read["float32"] = teacher_forcing(
+        dataclasses.replace(tf_cfg, dtype="float32"), params)
+    tf_rel = tf_read["float32"][:2]
+    print(f"(d) teacher forcing, 2 x {n_tf} tokens"
+          + (f" (capacity factor {tf_cfg.capacity_factor})"
+             if cfg.n_experts else "")
+          + ": prefill of S - 1 vs forward_train at position -2, one "
+          "decode_step vs position -1, relative L2: "
+          + "; ".join(f"{dt} {r[0]:.3e}, {r[1]:.3e}"
+                      + (f", {r[2]} of {cfg.n_layers} MoE layers route the "
+                         f"last token to other experts" if cfg.n_experts
+                         else "")
+                      + (f" (held, limit {FAMILY_TF_F32_REL_L2})"
+                         if dt == "float32" else " (not held)")
+                      for dt, r in tf_read.items())
+          + f"; phase wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    if not max(tf_rel) < FAMILY_TF_F32_REL_L2:
+        raise AssertionError(f"{arch}: teacher forcing (float32): relative "
+                             f"L2 {tf_rel}")
+    entry.update(param_bytes=p_bytes, prefill_ms=pre_ms,
+                 prefill_launches=pre_launches,
+                 prefill_flash_share=flash_us / busy if busy else None,
+                 decode_p50_ms=p50, decode_launches=step_launches,
+                 teacher_forcing_rel_l2={k: list(v[:2])
+                                         for k, v in tf_read.items()},
+                 moe_routing_flips_bf16=tf_read["bfloat16"][2]
+                 if cfg.n_experts else None, peak_bytes=peak,
+                 dropped_slots=list(dropped) if cfg.n_experts else None)
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -2776,8 +3192,16 @@ def main() -> int:
         "counts": launch_counts, "reset": reset_launch_counts,
         "per_wave": FORWARD_LAUNCHES})
 
-    # -- 12. kernel list ----------------------------------------------------
-    phase("12 kernels")
+    # -- 12. families: every other model family served ---------------------
+    phase("12 families")
+    t_fam = time.perf_counter()
+    families = [serve_family(torch, np, spec, args.seed, smi)
+                for spec in FAMILIES]
+    print(f"phase 12: {len(families)} configs in "
+          f"{time.perf_counter() - t_fam:.1f} s", flush=True)
+
+    # -- 13. kernel list ----------------------------------------------------
+    phase("13 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -2819,6 +3243,8 @@ def main() -> int:
             "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "library_ms", "library_kernel_ms", "per_call",
             "launches_per_call", "per", "library")}}}
+    # phase 12's families: each config's serving shape beside the row
+    rows["flash_attention_hopper"]["families"] = families
     launches["flash_attention_hopper"] = lm_row["launches"]
     rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
     rows["shuffle_gemm_chain_hopper"]["per"] += (
@@ -2841,6 +3267,7 @@ def main() -> int:
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
                                  "launches_per_call", "launch_floor_ms",
                                  "stream", "per_row", "entry_point",
+                                 "families",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })

@@ -1,7 +1,6 @@
-"""Models of the port (the counterpart of ``repro.models``): the dense
-decoder family — layers, the pattern-grouped transformer and the zoo's
-bundle API.  MoE, RG-LRU, xLSTM and Whisper are later slices (ROADMAP
-Queue 1 item 6)."""
+"""Models of the port (the counterpart of ``repro.models``): layers, the
+pattern-grouped transformer (dense, MoE, RG-LRU hybrid and xLSTM
+blocks), the Whisper encoder-decoder and the zoo's bundle API."""
 
 from .zoo import ModelBundle, get_model
 

@@ -1,6 +1,6 @@
-"""Shared model layers of a dense decoder: norms, RoPE, attention, MLP
-variants — the port's counterpart of the JAX package's
-``models/layers.py``, for the parts a dense decoder uses.
+"""Shared model layers: norms, RoPE, attention, MLP variants and the
+causal depthwise conv of the recurrent blocks — the port's counterpart
+of the JAX package's ``models/layers.py``.
 
 Conventions, as in the JAX package:
 
@@ -32,9 +32,10 @@ import torch.nn.functional as F
 
 from ..kernels import flash_attention
 
-__all__ = ["dense_init", "embed_init", "rms_norm", "apply_rope",
-           "direct_attention", "attention", "init_mlp", "mlp_forward",
-           "matmul", "NEG_INF"]
+__all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm",
+           "group_norm", "apply_rope", "direct_attention", "attention",
+           "init_mlp", "mlp_forward", "init_causal_conv", "causal_conv",
+           "causal_conv_step", "matmul", "einsum", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -67,6 +68,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's promotion of mixed float types, as
+    :func:`matmul`."""
+    t = ops[0].dtype
+    for o in ops[1:]:
+        t = torch.promote_types(t, o.dtype)
+    return torch.einsum(eq, *(o.to(t) for o in ops))
+
+
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
@@ -77,6 +87,27 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, w: torch.Tensor, n_groups: int,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Per-head norm used by xLSTM cells: x (..., H, hd) normalized per
+    head (``n_groups`` is H, implied by the shape, as in the JAX
+    package)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * torch.as_tensor(w, device=x.device).float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -193,3 +224,36 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp kind {kind}")
     return matmul(h, params["w_down"])
+
+
+# --------------------------------------------------------------------------
+# Causal depthwise conv (recurrentgemma / xlstm front conv)
+# --------------------------------------------------------------------------
+
+def init_causal_conv(gen: torch.Generator, width: int, channels: int,
+                     dtype) -> dict:
+    return {"conv_w": (torch.randn((width, channels), generator=gen,
+                                   device=gen.device, dtype=torch.float32)
+                       * (1.0 / np.sqrt(width))).to(dtype)}
+
+
+def causal_conv(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time: x (B, S, C), a sum over the taps
+    of shifted slices."""
+    w = params["conv_w"]
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + s] * w[i]
+    return out
+
+
+def causal_conv_step(params: dict, x_t: torch.Tensor,
+                     conv_state: torch.Tensor):
+    """Single decode step.  conv_state: (B, width-1, C) trailing inputs
+    -> (out (B, C), the next state)."""
+    w = params["conv_w"]
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)
+    out = einsum("bwc,wc->bc", window, w)
+    return out, window[:, 1:]

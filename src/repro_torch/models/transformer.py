@@ -1,11 +1,13 @@
-"""Decoder-LM assembly for the dense family: pattern-grouped blocks,
-embedding, head, loss; train / prefill / decode paths with dict caches —
-the port's counterpart of the JAX package's ``models/transformer.py``
-for layer types ``global`` and ``local`` with the dense MLP slot.
+"""Decoder-LM assembly: pattern-grouped blocks, embedding, head, loss;
+train / prefill / decode paths with dict caches — the port's counterpart
+of the JAX package's ``models/transformer.py`` for every layer type
+(``global``, ``local``, ``rec``, ``m``, ``s``) and MLP slot (dense or
+MoE).
 
 The params and cache trees keep the JAX package's layout: every block
 leaf has a leading *pattern group* axis (``params["blocks"]["b0"]["wq"]``
-is ``(G, d, q_dim)``), so weights map 1:1
+is ``(G, d, q_dim)``), and the unscanned tail blocks (recurrentgemma's
+two ``rec`` layers) sit under ``tail0``, ``tail1``, so weights map 1:1
 (:func:`repro_torch.convert.model_params_from_jax`).  Where the JAX
 package scans the groups with ``lax.scan``, the port loops over them in
 Python, each group reading views of the stacked leaves.
@@ -15,15 +17,11 @@ Differences of form, not of function:
 - the cache's ``pos`` is a Python int (the JAX package keeps an int32
   scalar), so a decode step computes its cache slot without reading the
   card;
-- :func:`prefill` writes the prompt's keys and values into a zeroed
-  cache and :func:`decode_step` writes one slot of it in place (the JAX
-  package returns updated copies); the returned cache holds the same
-  values, and the cache passed in is marked consumed (``pos`` None), so
-  reusing it raises.
-
-Recurrent (``rec``), xLSTM (``m``, ``s``) and MoE layers raise
-``NotImplementedError``: they are later slices of the port (ROADMAP
-Queue 1 item 6).
+- :func:`prefill` writes the prompt's keys and values, and the
+  recurrent states, into a zeroed cache and :func:`decode_step` writes
+  it in place (the JAX package returns updated copies); the returned
+  cache holds the same values, and the cache passed in is marked
+  consumed (``pos`` None), so reusing it raises.
 """
 
 from __future__ import annotations
@@ -37,30 +35,16 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..tree import tree_map
 from . import layers as L
+from . import moe as MOE
+from . import rglru as RG
+from . import xlstm as XL
 
 __all__ = ["init_params", "init_cache", "forward_train", "loss_fn",
-           "prefill", "decode_step", "check_supported", "param_dtype"]
-
-_LATER = ("is not in this slice of the PyTorch port (ROADMAP Queue 1 "
-          "item 6: models and co-serving)")
+           "prefill", "decode_step", "param_dtype"]
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense decoder:
-    layer types ``global``/``local`` only, no experts, token or embedding
-    input."""
-    other = sorted(set(cfg.layer_types) - {"global", "local"})
-    if other:
-        raise NotImplementedError(f"{cfg.name}: layer types {other} {_LATER}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"{cfg.name}: MoE layers {_LATER}")
-    if cfg.input_kind == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder "
-                                  f"(Whisper) {_LATER}")
 
 
 # --------------------------------------------------------------------------
@@ -69,26 +53,40 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def init_block(gen: torch.Generator, ltype: str,
                cfg: ArchConfig) -> Dict[str, Any]:
-    if ltype not in ("global", "local"):
-        raise NotImplementedError(f"layer type {ltype!r} {_LATER}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"MoE layers {_LATER}")
     dt, d, dev = param_dtype(cfg), cfg.d_model, gen.device
-    p: Dict[str, Any] = {
-        "norm_in": torch.zeros((d,), dtype=torch.float32, device=dev),
-        "wq": L.dense_init(gen, d, cfg.q_dim, dt),
-        "wk": L.dense_init(gen, d, cfg.kv_dim, dt),
-        "wv": L.dense_init(gen, d, cfg.kv_dim, dt),
-        "wo": L.dense_init(gen, cfg.q_dim, d, dt),
-    }
-    if cfg.post_norm:
-        p["norm_post"] = torch.zeros((d,), dtype=torch.float32, device=dev)
-    if cfg.mlp_kind != "none":
-        p["norm_mlp"] = torch.zeros((d,), dtype=torch.float32, device=dev)
-        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt)
+
+    def zeros():
+        return torch.zeros((d,), dtype=torch.float32, device=dev)
+    p: Dict[str, Any] = {"norm_in": zeros()}
+    if ltype in ("global", "local"):
+        p.update({
+            "wq": L.dense_init(gen, d, cfg.q_dim, dt),
+            "wk": L.dense_init(gen, d, cfg.kv_dim, dt),
+            "wv": L.dense_init(gen, d, cfg.kv_dim, dt),
+            "wo": L.dense_init(gen, cfg.q_dim, d, dt),
+        })
+    elif ltype == "rec":
+        p.update(RG.init_rglru_block(gen, d, cfg.rnn_width or d,
+                                     cfg.conv_width, dt))
+    elif ltype == "m":
+        p.update(XL.init_mlstm_block(gen, d, cfg.n_heads, dt,
+                                     cfg.mlstm_proj_factor, cfg.conv_width))
+    elif ltype == "s":
+        p.update(XL.init_slstm_block(gen, d, cfg.n_heads, dt))
+    else:
+        raise ValueError(f"unknown layer type {ltype}")
+    if cfg.post_norm and ltype in ("global", "local", "rec"):
+        p["norm_post"] = zeros()
+    # MLP slot (xlstm blocks carry their own projections -> none)
+    if ltype in ("global", "local", "rec") and cfg.mlp_kind != "none":
+        p["norm_mlp"] = zeros()
+        if cfg.n_experts > 0:
+            p["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.n_experts,
+                                    cfg.n_shared_experts, cfg.shared_ff, dt)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dt)
         if cfg.post_norm:
-            p["norm_mlp_post"] = torch.zeros((d,), dtype=torch.float32,
-                                             device=dev)
+            p["norm_mlp_post"] = zeros()
     return p
 
 
@@ -98,18 +96,33 @@ def init_block(gen: torch.Generator, ltype: str,
 
 def init_block_cache(ltype: str, cfg: ArchConfig, batch: int, max_len: int,
                      device, groups: int = 0) -> Dict[str, Any]:
-    """A block's zeroed KV cache; ``groups`` > 0 adds the leading group
-    axis."""
+    """A block's zeroed cache (KV for attention, the recurrent states
+    otherwise); ``groups`` > 0 adds the leading group axis."""
     lead = (groups,) if groups else ()
-    if ltype == "global":
-        length = max_len
-    elif ltype == "local":
-        length = min(cfg.window, max_len)
-    else:
-        raise NotImplementedError(f"layer type {ltype!r} {_LATER}")
-    shape = lead + (batch, length, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=param_dtype(cfg), device=device),
-            "v": torch.zeros(shape, dtype=param_dtype(cfg), device=device)}
+    dt, d, f32 = param_dtype(cfg), cfg.d_model, torch.float32
+
+    def full(shape, dtype=f32, value=0.0):
+        return torch.full(lead + shape, value, dtype=dtype, device=device)
+    if ltype in ("global", "local"):
+        length = max_len if ltype == "global" else min(cfg.window, max_len)
+        shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": full(shape, dt), "v": full(shape, dt)}
+    if ltype == "rec":
+        r = cfg.rnn_width or d
+        return {"h": full((batch, r)),
+                "conv": full((batch, cfg.conv_width - 1, r), dt)}
+    if ltype == "m":
+        di = cfg.mlstm_proj_factor * d
+        hd = di // cfg.n_heads
+        return {"C": full((batch, cfg.n_heads, hd, hd)),
+                "n": full((batch, cfg.n_heads, hd)),
+                "m": full((batch, cfg.n_heads), value=XL.M_INIT),
+                "conv": full((batch, cfg.conv_width - 1, di), dt)}
+    if ltype == "s":
+        shape = (batch, cfg.n_heads, d // cfg.n_heads)
+        return {"c": full(shape), "n": full(shape),
+                "m": full(shape, value=XL.M_INIT), "h": full(shape, dt)}
+    raise ValueError(ltype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -123,6 +136,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     for i, lt in enumerate(cfg.tail):
         cache[f"tail{i}"] = init_block_cache(lt, cfg, batch, max_len, device)
     return cache
+
+
+def _store(cache: Dict[str, Any], **new) -> None:
+    """Write a block's new states into its cache tensors in place."""
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 # --------------------------------------------------------------------------
@@ -160,8 +179,8 @@ def _attn_block(p, x, ltype, cfg: ArchConfig, mode, positions, pos, cache):
             if ltype == "local" and s >= w:
                 # keep the last `w` keys in ring order: key at position p
                 # lives in slot p % w  ->  roll the tail by s % w.
-                cache["k"].copy_(torch.roll(k[:, -w:], s % w, dims=1))
-                cache["v"].copy_(torch.roll(v[:, -w:], s % w, dims=1))
+                _store(cache, k=torch.roll(k[:, -w:], s % w, dims=1),
+                       v=torch.roll(v[:, -w:], s % w, dims=1))
             else:
                 cache["k"][:, :s] = k
                 cache["v"][:, :s] = v
@@ -172,21 +191,76 @@ def _attn_block(p, x, ltype, cfg: ArchConfig, mode, positions, pos, cache):
     return x + out
 
 
+def _rec_block(p, x, cfg: ArchConfig, mode, cache):
+    h = L.rms_norm(x, p["norm_in"])
+    if mode == "train":
+        out = RG.rglru_block(p, h)
+    elif mode == "prefill":
+        out, (hl, cs) = RG.rglru_block_prefill(p, h)
+        _store(cache, h=hl, conv=cs)
+    else:
+        out, (hl, cs) = RG.rglru_block_step(p, h[:, 0],
+                                            (cache["h"], cache["conv"]))
+        out = out[:, None]
+        _store(cache, h=hl, conv=cs)
+    if cfg.post_norm:
+        out = L.rms_norm(out, p["norm_post"])
+    return x + out
+
+
+def _mlstm_blk(p, x, cfg: ArchConfig, mode, cache):
+    h = L.rms_norm(x, p["norm_in"])
+    state = None
+    if mode == "decode":
+        state = ((cache["C"], cache["n"], cache["m"]), cache["conv"])
+    out, new = XL.mlstm_block(p, h, cfg.n_heads, mode, state)
+    if mode != "train":
+        (c, n, m), conv = new
+        _store(cache, C=c, n=n, m=m, conv=conv)
+    return x + out
+
+
+def _slstm_blk(p, x, cfg: ArchConfig, mode, cache):
+    h = L.rms_norm(x, p["norm_in"])
+    state = None
+    if mode == "decode":
+        state = (cache["c"], cache["n"], cache["m"], cache["h"])
+    out, (c, n, m, hh) = XL.slstm_block(p, h, cfg.n_heads, state)
+    if mode != "train":
+        _store(cache, c=c, n=n, m=m, h=hh)
+    return x + out
+
+
 def _mlp_slot(p, x, cfg: ArchConfig):
+    """The block's MLP (dense or MoE) -> (x, aux)."""
     if "norm_mlp" not in p:
-        return x
+        return x, 0.0
     h = L.rms_norm(x, p["norm_mlp"])
-    out = L.mlp_forward(p["mlp"], h, cfg.mlp_kind)
+    if "moe" in p:
+        out, aux = MOE.moe_forward(p["moe"], h, n_experts=cfg.n_experts,
+                                   top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+    else:
+        out, aux = L.mlp_forward(p["mlp"], h, cfg.mlp_kind), 0.0
     if cfg.post_norm:
         out = L.rms_norm(out, p["norm_mlp_post"])
-    return x + out
+    return x + out, aux
 
 
 def block_apply(ltype: str, p, x, cfg: ArchConfig, mode: str, positions,
                 pos, cache):
-    if ltype not in ("global", "local"):
-        raise NotImplementedError(f"layer type {ltype!r} {_LATER}")
-    x = _attn_block(p, x, ltype, cfg, mode, positions, pos, cache)
+    """One block -> (x, aux); a prefill or decode step writes ``cache``
+    in place."""
+    if ltype in ("global", "local"):
+        x = _attn_block(p, x, ltype, cfg, mode, positions, pos, cache)
+    elif ltype == "rec":
+        x = _rec_block(p, x, cfg, mode, cache)
+    elif ltype == "m":
+        x = _mlstm_blk(p, x, cfg, mode, cache)
+    elif ltype == "s":
+        x = _slstm_blk(p, x, cfg, mode, cache)
+    else:
+        raise ValueError(ltype)
     return _mlp_slot(p, x, cfg)
 
 
@@ -194,17 +268,24 @@ def block_apply(ltype: str, p, x, cfg: ArchConfig, mode: str, positions,
 # Full model
 # --------------------------------------------------------------------------
 
+def stack_groups(trees: list):
+    """Stack a list of same-structure dict trees leaf by leaf on a new
+    leading axis, emptying the input dicts as it goes, so at most one
+    stacked leaf exists beside the unstacked ones."""
+    if isinstance(trees[0], dict):
+        return {k: stack_groups([t.pop(k) for t in trees])
+                for k in sorted(trees[0])}
+    return torch.stack(trees)
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """Random params drawn from ``gen`` on its device: per pattern group
     (stacked on a leading group axis), then the embedding, the head and
     the tail blocks."""
-    check_supported(cfg)
     dt, dev = param_dtype(cfg), gen.device
-    groups = [{f"b{i}": init_block(gen, lt, cfg)
-               for i, lt in enumerate(cfg.pattern)}
-              for _ in range(cfg.n_groups())]
-    stacked = tree_map(lambda *ls: torch.stack(ls), *groups)
-    del groups
+    stacked = stack_groups([{f"b{i}": init_block(gen, lt, cfg)
+                             for i, lt in enumerate(cfg.pattern)}
+                            for _ in range(cfg.n_groups())])
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt),
         "head": L.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt),
@@ -240,29 +321,31 @@ def _head_out(params, x, cfg: ArchConfig):
 def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
                  cache):
     """The pattern groups in order, each reading its slice of the stacked
-    params (and cache), then the tail.  In train mode no cache is
-    threaded (``cache`` may be None)."""
-    train = mode == "train"
+    params (and cache), then the tail -> (x, aux summed over the blocks).
+    In train mode no cache is threaded (``cache`` may be None)."""
+    train, aux = mode == "train", 0.0
     for gi in range(cfg.n_groups()):
         for i, lt in enumerate(cfg.pattern):
             name = f"b{i}"
             gp = tree_map(lambda t: t[gi], params["blocks"][name])
             gc = None if train else tree_map(lambda t: t[gi],
                                              cache["blocks"][name])
-            x = block_apply(lt, gp, x, cfg, mode, positions, pos, gc)
+            x, a = block_apply(lt, gp, x, cfg, mode, positions, pos, gc)
+            aux = aux + a
     for i, lt in enumerate(cfg.tail):
-        x = block_apply(lt, params[f"tail{i}"], x, cfg, mode, positions, pos,
-                        None if train else cache[f"tail{i}"])
-    return x
+        x, a = block_apply(lt, params[f"tail{i}"], x, cfg, mode, positions,
+                           pos, None if train else cache[f"tail{i}"])
+        aux = aux + a
+    return x, aux
 
 
 def forward_train(params, batch, cfg: ArchConfig):
-    """Full causal forward -> (logits, aux_loss); the dense family has no
-    auxiliary loss (0.0)."""
+    """Full causal forward -> (logits, aux_loss): the MoE layers' summed
+    load-balance loss, 0.0 for a model without experts."""
     x = _embed_in(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _stack_apply(params, x, cfg, "train", positions, 0, None)
-    return _head_out(params, x, cfg), 0.0
+    x, aux = _stack_apply(params, x, cfg, "train", positions, 0, None)
+    return _head_out(params, x, cfg), aux
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
@@ -286,14 +369,15 @@ def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
     b, s = x.shape[0], x.shape[1]
     cache = init_cache(cfg, b, max_len or s, x.device)
     positions = torch.arange(s, device=x.device)
-    x = _stack_apply(params, x, cfg, "prefill", positions, 0, cache)
+    x, _ = _stack_apply(params, x, cfg, "prefill", positions, 0, cache)
     cache["pos"] = s
     return _head_out(params, x[:, -1:], cfg), cache
 
 
 def decode_step(params, cache, batch_t, cfg: ArchConfig):
     """One token: batch_t {'tokens': (B, 1)} or {'embeds': (B, 1, D)}.
-    Writes the token's keys and values into ``cache``'s tensors in place
+    Writes the token's keys and values and the recurrent layers' states
+    into ``cache``'s tensors in place
     and returns ``(logits, new_cache)`` with ``pos`` advanced.  The input
     cache is consumed: its ``pos`` is set to None, so a second step from
     it (whose tensors already hold this step's keys) raises instead of
@@ -307,7 +391,7 @@ def decode_step(params, cache, batch_t, cfg: ArchConfig):
     pos = int(cache["pos"])
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    x = _stack_apply(params, x, cfg, "decode", positions, pos, cache)
+    x, _ = _stack_apply(params, x, cfg, "decode", positions, pos, cache)
     new_cache = dict(cache, pos=pos + 1)
     cache["pos"] = None
     return _head_out(params, x, cfg), new_cache

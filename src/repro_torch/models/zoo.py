@@ -8,11 +8,11 @@ counterpart of the JAX package's ``models/zoo.py``.
     logits, cache = bundle.prefill(params, batch, max_len=...)
     logits, cache = bundle.decode_step(params, cache, batch_t)
 
-This slice carries the dense decoders (layer types ``global`` and
-``local``, the dense MLP).  The encoder-decoder (Whisper), MoE,
-recurrent and xLSTM models raise ``NotImplementedError`` (ROADMAP Queue
-1 item 6); ``input_specs``, ``cache_specs_for`` and ``batch_pspec`` wait
-for the dry-run (item 7).
+Every config of ``repro_torch.configs`` has a bundle: the decoder LMs
+(dense, MoE, RG-LRU hybrid, xLSTM) from :mod:`.transformer`, the
+encoder-decoder (``input_kind == "encdec"``) from :mod:`.whisper`.
+``input_specs``, ``cache_specs_for`` and ``batch_pspec`` wait for the
+dry-run (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from . import transformer
+from . import transformer, whisper
 
 __all__ = ["ModelBundle", "get_model"]
 
@@ -51,19 +51,17 @@ def _on_device(gen: torch.Generator, device) -> torch.Generator:
 
 
 def get_model(cfg: ArchConfig) -> ModelBundle:
-    """The bundle of ``cfg``'s model functions; raises
-    ``NotImplementedError`` for a model family this slice does not
-    carry."""
-    transformer.check_supported(cfg)
+    """The bundle of ``cfg``'s model functions."""
+    mod = whisper if cfg.input_kind == "encdec" else transformer
     return ModelBundle(
         cfg=cfg,
-        init=lambda gen, device=DEFAULT_DEVICE: transformer.init_params(
+        init=lambda gen, device=DEFAULT_DEVICE: mod.init_params(
             _on_device(gen, device), cfg),
-        loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
-        forward=lambda p, b: transformer.forward_train(p, b, cfg),
-        prefill=lambda p, b, **kw: transformer.prefill(p, b, cfg, **kw),
-        decode_step=lambda p, c, bt: transformer.decode_step(p, c, bt, cfg),
-        init_cache=lambda batch, max_len, device=DEFAULT_DEVICE:
-            transformer.init_cache(cfg, batch, max_len,
-                                   resolve_device(device)),
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        forward=lambda p, b: mod.forward_train(p, b, cfg),
+        prefill=lambda p, b, **kw: mod.prefill(p, b, cfg, **kw),
+        decode_step=lambda p, c, bt: mod.decode_step(p, c, bt, cfg),
+        init_cache=lambda batch, max_len, device=DEFAULT_DEVICE, **kw:
+            mod.init_cache(cfg, batch, max_len, resolve_device(device),
+                           **kw),
     )

@@ -102,6 +102,10 @@ class ServingEngine:
         for i, p in enumerate(prompts):
             toks[i, -len(p):] = p          # left-pad (simple)
         batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if self.cfg.input_kind == "encdec":
+            batch["embeds"] = torch.zeros(
+                (b, self.cfg.enc_seq, self.cfg.d_model), dtype=torch.float32,
+                device=self.device)
         with torch.no_grad():
             logits, cache = self.bundle.prefill(self.params, batch,
                                                 max_len=plen + max_new)

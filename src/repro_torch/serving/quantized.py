@@ -6,8 +6,9 @@ package's ``serving/quantized.py``.
 channel scale) through :func:`repro_torch.core.bitwidth.quantize`, bit for
 bit the JAX package's; ``dequantize_tree`` is the storage-only mode (int
 weights in memory, bf16 compute after dequant) that
-``ServingEngine(quant_bits=...)`` uses.  The int path of LLM weights on
-the bitserial kernel is a later slice (ROADMAP Queue 1 item 6).
+``ServingEngine(quant_bits=...)`` uses.  As in the JAX package the
+engine quantizes for storage only: it dequantizes, then runs float
+GEMMs; no LLM weight takes the bitserial kernel.
 """
 
 from __future__ import annotations

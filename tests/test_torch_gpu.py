@@ -1391,3 +1391,129 @@ def test_decode_wave_matches_generate_on_card(cuda):
     gen = eng.generate([r.prompt for r in reqs], max_new=9)
     assert wave.results() == {i: g for i, g in enumerate(gen)}
     assert eng.serve(reqs) == wave.results()
+
+
+FAMILY_FLASH_CASES = [
+    # B, Sq, Skv, H, KV, hd, causal, window, softcap: the serving shapes
+    # of the families phase 12 of chip_smoke.py serves
+    (2, 1500, 1500, 12, 12, 64, False, 0, 0.0),     # whisper-small encoder
+    (1, 3072, 3072, 10, 1, 256, True, 2048, 0.0),   # recurrentgemma-2b local
+    (1, 1024, 1024, 48, 8, 128, True, 0, 30.0),     # grok-1-314b
+    (2, 2048, 2048, 16, 16, 128, True, 0, 0.0),     # qwen2-moe-a2.7b
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_flash_kernel_at_family_serving_shapes(cuda, case, dt):
+    """The flash kernel at the four new serving shapes (hd 64 non-causal
+    over 1500 frames, a tile count no multiple of the block; MQA 10/1 at
+    hd 256 with a window that bites; 48/8 heads with softcap 30; MHA at
+    hd 128) against the plain version, at the limits of
+    ``test_flash_kernel_matches_plain``."""
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    q, k, v = _qkv(np.random.default_rng(sq + h), cuda, dt, b, sq, h, kv, hd,
+                   skv)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    got = _launches_of(dt, lambda: tk.flash_attention(q, k, v, **kw))
+    _assert_flash_close(got, tk.ref_attention(q, k, v, **kw), dt)
+
+
+FAMILY_ARCHS = ["qwen2-moe-a2.7b", "grok-1-314b", "recurrentgemma-2b",
+                "xlstm-350m", "whisper-small"]
+
+
+def _family_batch(cfg, seed, b=2, s=40):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))}
+    if cfg.input_kind == "encdec":
+        batch["embeds"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _close_trees(got, want, rtol, atol):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _close_trees(got[k], want[k], rtol, atol)
+    elif isinstance(want, torch.Tensor):
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   rtol=rtol, atol=atol)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_model_on_card_matches_cpu(cuda, arch):
+    """A reduced float32 model of each new family on the card against the
+    same port on the CPU: forward logits and aux, prefill logits and every
+    cache leaf, two decode steps, at rtol 1e-4, atol 1e-5 (xlstm-350m at
+    atol 3e-4: its eight exponentially gated blocks amplify float32
+    rounding about threefold a block, ``tests/test_torch_recurrent.py``).
+    recurrentgemma's prompt of 40 passes its reduced window of 32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = get_config(arch).reduced()
+    tol = (1e-4, 3e-4) if arch == "xlstm-350m" else (1e-4, 1e-5)
+    bundle = get_model(cfg)
+    cpu_p = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    card_p = _on(cpu_p, cuda)
+    batch = _family_batch(cfg, 3, s=42)
+
+    def cut(lo, hi):
+        return {k: v if k == "embeds" else v[:, lo:hi]
+                for k, v in batch.items()}
+    with torch.no_grad():
+        (gl, ga), (cl, ca) = (bundle.forward(card_p, _on(cut(0, 40), cuda)),
+                              bundle.forward(cpu_p, cut(0, 40)))
+        _close_trees(gl, cl, *tol)
+        _close_trees(torch.as_tensor(ga).cpu(), torch.as_tensor(ca), *tol)
+        lg, cg = bundle.prefill(card_p, _on(cut(0, 40), cuda), max_len=42)
+        lc, cc = bundle.prefill(cpu_p, cut(0, 40), max_len=42)
+        _close_trees(lg, lc, *tol)
+        _close_trees(cg, cc, *tol)
+        for i in (40, 41):
+            step = {"tokens": batch["tokens"][:, i:i + 1]}
+            lg, cg = bundle.decode_step(card_p, cg, _on(step, cuda))
+            lc, cc = bundle.decode_step(cpu_p, cc, step)
+            _close_trees(lg, lc, *tol)
+            _close_trees(cg, cc, *tol)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_wave_and_launches_on_card(cuda, arch):
+    """Each new family at a small width in bf16 on the card: a prefill
+    launches the flash kernel exactly once a full-length attention layer
+    (the encoder's and the decoder's self-attention for Whisper, none for
+    xLSTM), a decode step none, and ``DecodeWave`` stepped to the end
+    gives ``generate``'s tokens bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import DecodeWave, Request, ServingEngine
+    full = get_config(arch)
+    cfg = dataclasses.replace(
+        full.reduced(d_model=256, n_heads=8, n_kv_heads=min(
+            full.n_kv_heads, 8), d_ff=512, vocab=1024),
+        dtype="bfloat16", capacity_factor=full.capacity_factor)
+    want = (cfg.enc_layers + cfg.n_layers if cfg.input_kind == "encdec"
+            else sum(lt in ("global", "local") for lt in cfg.layer_types))
+    bundle = get_model(cfg)
+    eng = ServingEngine(bundle, batch_size=3)
+    eng.load(bundle.init(torch.Generator(cuda).manual_seed(5),
+                         device=cuda), device=cuda)
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 1024, n).tolist(),
+                    max_new=9) for i, n in enumerate((40, 17, 64))]
+    flash_kernel.reset_launch_counts()
+    wave = DecodeWave(eng, reqs)
+    assert flash_kernel.launch_counts() == {"flash_attention_hopper": want,
+                                            "flash_split_kv_hopper": 0}
+    while not wave.done:
+        wave.step()
+    assert flash_kernel.launch_counts()["flash_attention_hopper"] == want
+    gen = eng.generate([r.prompt for r in reqs], max_new=9)
+    assert wave.results() == {i: g for i, g in enumerate(gen)}
+    assert eng.serve(reqs) == wave.results()

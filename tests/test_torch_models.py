@@ -22,7 +22,11 @@ JAX seeds, and:
     ``chunked_attention`` (its route at 4096 positions and more) called
     with small chunks, with GQA, a window and a softcap;
   * ``TokenStream`` batches equal the JAX package's bit for bit, and the
-    model params converter maps leaf for leaf, dtypes included;
+    model params converter maps leaf for leaf, dtypes included, for the
+    dense trees and every other family's;
+  * the other five configs (MoE, RG-LRU hybrid, xLSTM, Whisper) build,
+    prefill and decode on the port (their parity: ``test_torch_moe.py``,
+    ``test_torch_recurrent.py``, ``test_torch_whisper.py``);
   * the slice's new modules import neither ``jax`` nor ``repro``, and
     their entry points default to the card.
 """
@@ -379,8 +383,56 @@ def test_token_stream_bit_for_bit(step):
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        get_model(tconfigs.get_config(arch).reduced())
+    """Once the families other than the dense decoders raised here; since
+    they are ported (MoE, RG-LRU, xLSTM, Whisper) ``get_model`` returns a
+    working bundle for each: params on the CPU, a prefill and a decode
+    step with finite logits over the padded vocabulary, and nothing
+    raises ``NotImplementedError``.  Their parity with the JAX package is
+    held in ``test_torch_moe.py``, ``test_torch_recurrent.py`` and
+    ``test_torch_whisper.py``."""
+    cfg = tconfigs.get_config(arch).reduced()
+    tb = get_model(cfg)
+    tp = tb.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 9)).astype(np.int32))
+    batch = {"tokens": toks[:, :8]}
+    if cfg.input_kind == "encdec":
+        batch["embeds"] = torch.zeros((2, cfg.enc_seq, cfg.d_model))
+    lp, cache = tb.prefill(tp, batch, max_len=9)
+    ld, cache = tb.decode_step(tp, cache, {"tokens": toks[:, 8:]})
+    for logits in (lp, ld):
+        assert tuple(logits.shape) == (2, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+    assert cache["pos"] == 9
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", OTHER)
+def test_model_params_from_jax_new_families(arch, dtype):
+    """The converter on every other family's tree, leaf for leaf: the
+    3-D expert leaves, ``rg_lambda``, the xLSTM recurrent weights, the
+    per-layer Whisper stacks, in each leaf's own dtype."""
+    cfg = dataclasses.replace(jconfigs.get_config(arch).reduced(),
+                              dtype=dtype)
+    jp = jget_model(cfg).init(jax.random.PRNGKey(4))
+    tp = model_params_from_jax(jp, "cpu")
+    leaves = jax.tree_util.tree_leaves_with_path(jp)
+    for path, leaf in leaves:
+        got = tp
+        for k in path:
+            got = got[k.key]
+        assert tuple(got.shape) == tuple(leaf.shape), path
+        assert got.dtype == (torch.bfloat16 if leaf.dtype == jnp.bfloat16
+                             else torch.float32), path
+        assert np.array_equal(got.float().numpy(),
+                              np.asarray(leaf, np.float32)), path
+    names = {str(p[-1].key) for p, _ in leaves}
+    want = {"qwen2-moe-a2.7b": {"experts_gate", "shared_route"},
+            "grok-1-314b": {"experts_down", "router"},
+            "recurrentgemma-2b": {"rg_lambda", "conv_w"},
+            "xlstm-350m": {"m_wi", "s_rz"},
+            "whisper-small": {"xwk", "norm_x"}}[arch]
+    assert want <= names, names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -401,6 +453,8 @@ def test_new_modules_import_neither_jax_nor_repro():
     mods = ["repro_torch.configs", "repro_torch.configs.sigdla_paper",
             "repro_torch.models", "repro_torch.models.layers",
             "repro_torch.models.transformer", "repro_torch.models.zoo",
+            "repro_torch.models.moe", "repro_torch.models.rglru",
+            "repro_torch.models.xlstm", "repro_torch.models.whisper",
             "repro_torch.data.pipeline", "repro_torch.serving.engine",
             "repro_torch.serving.quantized",
             "repro_torch.serving.signal_service", "repro_torch.convert"]
