@@ -8,8 +8,8 @@ CNN channels (2, 12, 12, 1)), offline, served, trained and streamed,
 its SigQuant form Fig-9q (the mask a block-circulant layer, calibrated,
 served and streamed int-routed), the FFT, phased-FIR and
 flash-attention entry points, a dense LM (starcoder2-3b) served and
-co-served with Fig 9, and the other model families (MoE, RG-LRU hybrid,
-xLSTM, Whisper) served,
+co-served with Fig 9, the other model families (MoE, RG-LRU hybrid,
+xLSTM, Whisper) served, and starcoder2-3b trained at full width,
 with random weights and inputs drawn from ``--seed`` (by numpy; the LM's
 weights by a ``torch.Generator`` on the card) — phase by phase:
 
@@ -210,9 +210,30 @@ weights by a ``torch.Generator`` on the card) — phase by phase:
      factor E / k, so no slot drops) held at relative L2 1e-3 on the
      weights upcast to float32 in place, the bf16 reading (and MoE's
      routing flips at the last token) printed beside it.
- 13. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 13. LM train: (a) starcoder2-3b at full width and depth (30 layers, d
+     3072, bf16, random weights from ``--seed``, the config's microbatch
+     4 and remat) trained 20 steps through ``make_batch_iterator``
+     (``TokenStream(vocab, 2048, 8, seed)``) -> ``make_train_step``
+     (``cosine_schedule(3e-4, 5, 20)``, in-place AdamW) -> ``TrainLoop``:
+     every loss and gradient norm finite, no kernel launched in any step
+     (attention under autograd takes the JAX package's direct route below
+     4096 positions), the mean of the last 5 losses under the first 5's
+     minus 0.3 (``examples/train_e2e.py``'s check); readings: p50 step
+     time, one step's device busy share and launches (``torch.profiler``),
+     peak memory.  (b) The held-out loss at the final params under
+     ``torch.no_grad()`` (the flash kernel, exactly one launch a layer)
+     within relative 1e-2 of the same loss with autograd recording (the
+     direct route, no launch).  (c) ``examples/train_e2e.py``'s recipe on
+     the port (d 768, 8 layers, vocab 8192, float32, seq 256, batch 8,
+     microbatch 2, remat, 200 steps, checkpoints every 50, keep 2): the
+     loss falls by more than 0.3, and a run failing hard at step 120 (3
+     failures against ``max_retries`` 2) restores step 100 and ends on
+     the whole run's last 5 losses at rtol 1e-6 (whether they are bit
+     equal is printed);
+ 14. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
-     ``entry_point``, phase 12's under ``families``.
+     ``entry_point``, phase 12's under ``families``, phase 13's under
+     ``train``.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -1436,6 +1457,347 @@ def serve_family(torch, np, spec, seed: int, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return entry
+
+
+# The LM training phase (13): starcoder2-3b at full width and depth through
+# the port's training stack, then examples/train_e2e.py's recipe.
+TRAIN_ARCH, TRAIN_SRC = LM_ARCH, LM_SRC
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS_LM = 2048, 8, 20
+TRAIN_LR = (3e-4, 5, 20)          # cosine_schedule(base, warmup, total)
+TRAIN_DROP = 0.3                  # examples/train_e2e.py: last < first - 0.3
+TRAIN_PROFILE_STEP = 12           # the step traced by torch.profiler
+ROUTE_REL = 1e-2                  # held-out loss, flash vs direct: phase 8's
+#                                   bf16 limit
+# examples/train_e2e.py's recipe: starcoder2-3b reduced to d 768, 8 layers,
+# 12 heads, d_ff 3072, vocab 8192 (float32, as reduced() makes it), seq 256,
+# batch 8, microbatch 2, remat, 200 steps, cosine_schedule(3e-4, 20, 200),
+# Checkpointer(keep=2) every 50 steps; a second run fails hard at step 120
+# (3 failures against max_retries 2) and must restore step 100
+E2E = {"n_layers": 8, "d_model": 768, "n_heads": 12, "d_ff": 3072,
+       "vocab": 8192, "seq": 256, "batch": 8, "microbatch": 2,
+       "steps": 200, "ckpt_every": 50, "crash_at": 120, "keep": 2}
+E2E_TRAJ_RTOL = 1e-6              # the JAX package's crash-restart limit
+
+
+def all_launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import bitserial_mm as bsm
+    from repro_torch.kernels.fft_stage import kernel as fft_kernel
+    from repro_torch.kernels.fir_conv import kernel as fir_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.shuffle_gemm import launch_counts
+    return {**launch_counts(), **bsm.launch_counts(),
+            **fft_kernel.launch_counts(), **fir_kernel.launch_counts(),
+            **flash_kernel.launch_counts(),
+            "compiled_supported": K.compiled_supported.launches}
+
+
+def kernel_kinds(by_name) -> dict:
+    """Device ms by kind of kernel, from ``(us, calls, name)`` entries:
+    float32 GEMMs outside tensor cores (cuBLAS ``f32f32`` FFMA kernels:
+    the direct attention's einsums), other GEMMs, softmax, and the rest
+    (elementwise kernels, reductions, copies)."""
+    kinds = {"float32 FFMA GEMMs": 0.0, "other GEMMs": 0.0, "softmax": 0.0,
+             "elementwise, reductions, copies": 0.0}
+    for us, _, name in by_name:
+        low = name.lower()
+        kind = ("float32 FFMA GEMMs" if "f32f32" in low and "gemm" in low
+                else "other GEMMs" if "gemm" in low or "nvjet" in low
+                else "softmax" if "softmax" in low
+                else "elementwise, reductions, copies")
+        kinds[kind] += us / 1e3
+    return kinds
+
+
+def launched() -> dict:
+    """The kernels launched since the counts were last reset."""
+    return {k: v for k, v in all_launch_counts().items() if v}
+
+
+def reset_all_launch_counts() -> None:
+    from repro_torch import kernels as K
+    from repro_torch.kernels import bitserial_mm as bsm
+    from repro_torch.kernels.fft_stage import kernel as fft_kernel
+    from repro_torch.kernels.fir_conv import kernel as fir_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.shuffle_gemm import reset_launch_counts
+    for reset in (reset_launch_counts, bsm.reset_launch_counts,
+                  fft_kernel.reset_launch_counts,
+                  fir_kernel.reset_launch_counts,
+                  flash_kernel.reset_launch_counts):
+        reset()
+    K.compiled_supported.launches = 0
+
+
+def lm_train_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 13.  (a) starcoder2-3b at full width and depth (bf16, its
+    ``microbatch`` 4 and ``remat``) trained 20 steps through
+    ``make_batch_iterator`` -> ``make_train_step`` -> ``TrainLoop``:
+    every loss and gradient norm finite, no kernel launched in any step,
+    the mean of the last 5 losses under the first 5's minus 0.3; the p50
+    step time, one step's device busy share and launches
+    (``torch.profiler``) and the peak memory.  (b) The held-out loss at
+    the final params on the flash kernel (``torch.no_grad()``: exactly one
+    launch a layer) against the same loss with autograd recording (the
+    direct route, no launch), relative 1e-2.  (c) ``examples/train_e2e.py``'s
+    recipe on the port, run whole and again with a hard failure at step
+    120, whose last 5 losses must equal the whole run's at rtol 1e-6.
+    Returns the flash row's training entry for the kernel JSON."""
+    import signal
+    # TrainLoop installs a SIGTERM handler (preemption); the script keeps
+    # its own for the other phases
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        return _lm_train(torch, np, seed, smi)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+
+
+def _lm_train(torch, np, seed: int, smi: str) -> dict:
+    import dataclasses
+    import gc
+    import shutil
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch_iterator
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.runtime import TrainLoop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    # (a) full width and depth, the config's own microbatch and remat
+    cfg = get_config(TRAIN_ARCH)
+    n_attn = sum(lt in ("global", "local") for lt in cfg.layer_types)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = get_model(cfg)
+    params, opt = init_train_state(
+        bundle, torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"(a) {TRAIN_ARCH} ({TRAIN_SRC}): {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype};"
+          f" {n_params} params; microbatch {cfg.microbatch}, remat "
+          f"{cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ} from TokenStream"
+          f"(seed {seed}); cosine_schedule{TRAIN_LR}; init "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated()} B allocated", flush=True)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=seed)
+    step = make_train_step(bundle, cosine_schedule(*TRAIN_LR))
+    step_s, step_counts, gnorms, lrs = [], [], [], []
+    prof_box = {}
+
+    def counted_step(p, o, b):
+        """The train step, timed, its launches read, one step traced."""
+        reset_all_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if len(step_s) == TRAIN_PROFILE_STEP:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = step(p, o, b)
+                torch.cuda.synchronize()
+            prof_box["prof"] = prof
+        else:
+            out = step(p, o, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        step_counts.append(launched())
+        gnorms.append(float(out[2]["grad_norm"]))
+        lrs.append(out[2]["lr"])
+        return out
+
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    loop = TrainLoop(counted_step,
+                     lambda s: make_batch_iterator(stream, start_step=s,
+                                                   device="cuda"),
+                     Checkpointer(os.path.join(ck_dir, "full")),
+                     ckpt_every=10 ** 9)
+    t1 = time.perf_counter()
+    out = loop.run(params, opt, n_steps=TRAIN_STEPS_LM)
+    train_s = time.perf_counter() - t1
+    hist = out["history"]
+    params, opt = out["params"], out["opt_state"]
+    peak = torch.cuda.max_memory_allocated()
+    print("losses " + " ".join(f"{x:.4f}" for x in hist))
+    print("grad norms " + " ".join(f"{x:.4f}" for x in gnorms))
+    if len(hist) != TRAIN_STEPS_LM or opt.step != TRAIN_STEPS_LM:
+        raise AssertionError(f"{len(hist)} losses, optimizer step "
+                             f"{opt.step}; want {TRAIN_STEPS_LM}")
+    if not all(np.isfinite(hist)) or not all(np.isfinite(gnorms)):
+        raise AssertionError("a loss or gradient norm is not finite")
+    if any(step_counts):
+        raise AssertionError(f"a training step launched kernels: "
+                             f"{step_counts}")
+    first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    if not last < first - TRAIN_DROP:
+        raise AssertionError(f"loss first-5 {first:.4f} -> last-5 "
+                             f"{last:.4f}: did not fall by {TRAIN_DROP}")
+    steady = sorted(step_s[1:])
+    p50 = steady[len(steady) // 2] * 1e3
+    prof = prof_box["prof"]
+    by_name = [(e.self_device_time_total, e.count, e.key)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(t for t, _, _ in by_name)
+    launches = sum(c for _, c, _ in by_name)
+    prof_ms = step_s[TRAIN_PROFILE_STEP] * 1e3
+    by_name.sort(reverse=True)
+    print(f"(a) {TRAIN_STEPS_LM} steps in {train_s:.1f} s: first step "
+          f"{step_s[0] * 1e3:.1f} ms, p50 of the rest {p50:.1f} ms "
+          f"({TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} tokens/s); no kernel "
+          f"launch (flash_attention_hopper 0) in any of the "
+          f"{TRAIN_STEPS_LM} steps; loss first-5 {first:.4f} "
+          f"-> last-5 {last:.4f} (falls {first - last:.4f} > "
+          f"{TRAIN_DROP}); peak memory {peak} B; {smi}", flush=True)
+    if busy_us:
+        print(f"profile of step {TRAIN_PROFILE_STEP}: device busy "
+              f"{busy_us / 1e3:.1f} ms of {prof_ms:.1f} ms wall (traced; "
+              f"{100 * busy_us / 1e3 / prof_ms:.1f}% busy; "
+              f"{100 * busy_us / 1e3 / p50:.1f}% of the p50 step), "
+              f"{launches} kernels and copies")
+        for t, c, key in by_name[:12]:
+            print(f"  {t / 1e3:9.2f} ms  {c:6d} calls  {key[:90]}")
+        print("  by kind: " + "; ".join(
+            f"{kind} {ms:.1f} ms ({100 * ms * 1e3 / busy_us:.1f}%)"
+            for kind, ms in kernel_kinds(by_name).items()))
+    else:
+        print("profile: the profiler recorded no device time; busy share "
+              "not measured")
+    del loop, out, step
+    gc.collect()
+
+    # (b) held-out loss at the final params: flash route vs direct route
+    held = {"tokens": torch.as_tensor(stream.batch_at(10 ** 6),
+                                      device="cuda")}
+    reset_all_launch_counts()
+    with torch.no_grad():
+        flash_loss = float(bundle.loss_fn(params, held)[0])
+    torch.cuda.synchronize()
+    flash_counts = launched()
+    want = {"flash_attention_hopper": n_attn}
+    if flash_counts != want:
+        raise AssertionError(f"held-out loss under no_grad launched "
+                             f"{flash_counts}, not {want}")
+    reset_all_launch_counts()
+    live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(live)
+    direct_loss = float(bundle.loss_fn(tree_map(lambda _: next(it), params),
+                                       held)[0].detach())
+    torch.cuda.synchronize()
+    direct_counts = launched()
+    del live
+    rel = abs(flash_loss - direct_loss) / abs(direct_loss)
+    print(f"(b) held-out loss (TokenStream step 10**6, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}) at the final params: flash route (no_grad) "
+          f"{flash_loss:.6f}, launches {flash_counts}; direct route (grad "
+          f"recorded) {direct_loss:.6f}, launches {direct_counts or 0}; "
+          f"relative difference {rel:.3e} (limit {ROUTE_REL})", flush=True)
+    if direct_counts or not rel < ROUTE_REL:
+        raise AssertionError("the two attention routes disagree")
+    del params, opt, bundle, held
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) examples/train_e2e.py's recipe, whole and with a crash at 120
+    e2e_cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(
+        n_layers=E2E["n_layers"], d_model=E2E["d_model"],
+        n_heads=E2E["n_heads"], d_ff=E2E["d_ff"], vocab=E2E["vocab"]),
+        microbatch=E2E["microbatch"], remat=True)
+    e2e_bundle = get_model(e2e_cfg)
+    e2e_stream = TokenStream(vocab=e2e_cfg.vocab, seq_len=E2E["seq"],
+                             global_batch=E2E["batch"], seed=seed)
+
+    def e2e_run(name, crash_at):
+        params_, opt_ = init_train_state(
+            e2e_bundle, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        fails = {"n": 0}
+
+        def injector(s, attempt):
+            if s == crash_at and fails["n"] < 3:
+                fails["n"] += 1
+                raise RuntimeError("injected failure")
+        loop_ = TrainLoop(
+            make_train_step(e2e_bundle,
+                            cosine_schedule(3e-4, 20, E2E["steps"])),
+            lambda s: make_batch_iterator(e2e_stream, start_step=s,
+                                          device="cuda"),
+            Checkpointer(os.path.join(ck_dir, name), keep=E2E["keep"]),
+            ckpt_every=E2E["ckpt_every"])
+        reset_all_launch_counts()
+        t_ = time.perf_counter()
+        res = loop_.run(params_, opt_, n_steps=E2E["steps"],
+                        fail_injector=injector if crash_at >= 0 else None)
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t_
+        res["launches"] = launched()
+        res["fails"] = fails["n"]
+        return res
+
+    whole = e2e_run("whole", -1)
+    n_e2e = sum(t.numel() for t in tree_leaves(whole["params"]))
+    e2e_hist = whole["history"]
+    k = max(5, len(e2e_hist) // 20)
+    e2e_first, e2e_last = (float(np.mean(e2e_hist[:k])),
+                           float(np.mean(e2e_hist[-k:])))
+    print(f"(c) train_e2e recipe: {e2e_cfg.n_layers} layers, d "
+          f"{e2e_cfg.d_model}, {e2e_cfg.n_heads} heads, d_ff {e2e_cfg.d_ff},"
+          f" vocab {e2e_cfg.vocab}, {e2e_cfg.dtype}, {n_e2e} params; "
+          f"{E2E['steps']} steps in {whole['seconds']:.1f} s "
+          f"({whole['seconds'] / E2E['steps'] * 1e3:.1f} ms a step with "
+          f"checkpoints); launches {whole['launches'] or 0}; loss first-{k} "
+          f"{e2e_first:.4f} -> last-{k} {e2e_last:.4f}; stragglers "
+          f"{len(whole['stragglers'])}", flush=True)
+    if whole["launches"] or not e2e_last < e2e_first - TRAIN_DROP:
+        raise AssertionError("train_e2e recipe: the loss did not fall by "
+                             f"{TRAIN_DROP} or a kernel launched")
+    crashed = e2e_run("crash", E2E["crash_at"])
+    a, b = np.array(crashed["history"][-5:]), np.array(e2e_hist[-5:])
+    bit_equal = bool(np.array_equal(a, b)) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(crashed["params"]),
+                                          tree_leaves(whole["params"])))
+    print(f"(c) crash at step {E2E['crash_at']}: {crashed['fails']} "
+          f"failures (max_retries 2), {len(crashed['history'])} steps run "
+          f"(restored step {E2E['crash_at'] // E2E['ckpt_every'] * E2E['ckpt_every']}), "
+          f"{crashed['seconds']:.1f} s; last 5 losses "
+          + " ".join(f"{x:.6f}" for x in a) + " vs whole "
+          + " ".join(f"{x:.6f}" for x in b)
+          + f"; max relative difference "
+          f"{float(np.max(np.abs(a - b) / np.abs(b))):.3e} (limit "
+          f"{E2E_TRAJ_RTOL}); bit-equal losses and params: {bit_equal}",
+          flush=True)
+    want_steps = E2E["steps"] + E2E["crash_at"] % E2E["ckpt_every"]
+    if crashed["fails"] != 3 or len(crashed["history"]) != want_steps:
+        raise AssertionError(f"the crash run made {crashed['fails']} "
+                             f"failures and {len(crashed['history'])} steps,"
+                             f" not 3 and {want_steps}")
+    np.testing.assert_allclose(a, b, rtol=E2E_TRAJ_RTOL)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del whole, crashed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_per_step": 0, "steps": TRAIN_STEPS_LM,
+            "held_out_launches": flash_counts["flash_attention_hopper"],
+            "held_out_rel_diff": rel, "step_p50_ms": p50,
+            "busy_share": busy_us / 1e3 / p50 if busy_us else None,
+            "device_launches_per_step": launches if busy_us else None,
+            "peak_bytes": peak, "loss_first5": first, "loss_last5": last,
+            "e2e_bit_equal": bit_equal,
+            "per": "starcoder2-3b trained at full width: the training step "
+                   "runs no kernel; the held-out loss under no_grad runs "
+                   "one flash call a layer"}
 
 
 def main() -> int:
@@ -3200,8 +3562,14 @@ def main() -> int:
     print(f"phase 12: {len(families)} configs in "
           f"{time.perf_counter() - t_fam:.1f} s", flush=True)
 
-    # -- 13. kernel list ----------------------------------------------------
-    phase("13 kernels")
+    # -- 13. LM train: starcoder2-3b trained at full width ------------------
+    phase("13 LM train")
+    t_train = time.perf_counter()
+    train_row = lm_train_phase(torch, np, args.seed, smi)
+    print(f"phase 13: {time.perf_counter() - t_train:.1f} s", flush=True)
+
+    # -- 14. kernel list ----------------------------------------------------
+    phase("14 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -3243,8 +3611,11 @@ def main() -> int:
             "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "library_ms", "library_kernel_ms", "per_call",
             "launches_per_call", "per", "library")}}}
-    # phase 12's families: each config's serving shape beside the row
+    # phase 12's families: each config's serving shape beside the row;
+    # phase 13's training: no launch a step, one a layer in the held-out
+    # loss
     rows["flash_attention_hopper"]["families"] = families
+    rows["flash_attention_hopper"]["train"] = train_row
     launches["flash_attention_hopper"] = lm_row["launches"]
     rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
     rows["shuffle_gemm_chain_hopper"]["per"] += (
@@ -3267,7 +3638,7 @@ def main() -> int:
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
                                  "launches_per_call", "launch_floor_ms",
                                  "stream", "per_row", "entry_point",
-                                 "families",
+                                 "families", "train",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })

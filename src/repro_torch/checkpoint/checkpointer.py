@@ -10,6 +10,13 @@ leaves are tensors or host arrays), with the same on-disk layout:
       leaf_00000.npy ...  one file per leaf, in tree order
       COMMIT              written last -> partial dirs are ignored
 
+A leaf numpy cannot hold keeps its bits: a ``torch.bfloat16`` tensor is
+stored as its 16-bit pattern (``int16``) with ``"dtype": "bfloat16"``
+and ``"stored_as": "int16"`` in the manifest, and comes back as a host
+``torch.bfloat16`` tensor equal bit for bit; a Python ``int`` leaf (the
+step of an ``AdamWState``) is marked ``"python": "int"`` and comes back
+as an ``int``.
+
 Properties the service relies on:
 
 - atomic: a checkpoint exists iff COMMIT exists (tmp dir + rename);
@@ -34,11 +41,37 @@ from ..tree import tree_leaves, tree_map
 __all__ = ["Checkpointer", "latest_step"]
 
 
-def _host(leaf) -> np.ndarray:
-    """An owned host copy of one leaf."""
+# torch dtypes numpy has no counterpart for -> the integer type of their
+# bit pattern
+_BIT_PATTERN = {torch.bfloat16: (torch.int16, "int16")}
+
+
+def _host(leaf):
+    """An owned host copy of one leaf and its manifest entry."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
-    return np.array(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype in _BIT_PATTERN:
+            as_t, as_name = _BIT_PATTERN[t.dtype]
+            a = t.contiguous().view(as_t).numpy().copy()
+            return a, {"shape": list(a.shape),
+                       "dtype": str(t.dtype).replace("torch.", ""),
+                       "stored_as": as_name}
+        a = t.numpy().copy()
+    else:
+        a = np.array(leaf)
+    info = {"shape": list(a.shape), "dtype": str(a.dtype)}
+    if isinstance(leaf, int) and not isinstance(leaf, bool):
+        info["python"] = "int"
+    return a, info
+
+
+def _from_host(a: np.ndarray, info: dict):
+    """The leaf a stored array stands for (see :func:`_host`)."""
+    if "stored_as" in info:
+        return torch.from_numpy(a).view(getattr(torch, info["dtype"]))
+    if info.get("python") == "int":
+        return int(a)
+    return a
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -67,13 +100,13 @@ class Checkpointer:
         tree mixes arrays with scalars/strings) — read back via
         ``restore(..., with_meta=True)``."""
         self.wait()                       # one in-flight save at a time
-        host = [_host(x) for x in tree_leaves(tree)]
+        pairs = [_host(x) for x in tree_leaves(tree)]
+        host = [a for a, _ in pairs]
         user_meta = meta
         meta = {
             "step": step,
             "n_leaves": len(host),
-            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
-                       for a in host],
+            "leaves": [info for _, info in pairs],
         }
         if user_meta is not None:
             meta["meta"] = user_meta
@@ -117,7 +150,8 @@ class Checkpointer:
                 with_meta: bool = False) -> Any:
         """Load ``step`` (default: the latest committed one) into the
         structure of ``like`` (a template tree; its leaf count is checked
-        against the manifest), as host numpy leaves.
+        against the manifest), as host leaves: numpy arrays, host
+        ``torch.bfloat16`` tensors and Python ints (module docstring).
 
         ``like=None`` restores template-free: leaves come back as a flat
         list in manifest order — the process-death path, where no live
@@ -141,6 +175,8 @@ class Checkpointer:
         for a, info in zip(leaves, meta["leaves"]):
             if list(a.shape) != info["shape"]:
                 raise ValueError("manifest/leaf shape mismatch")
+        leaves = [_from_host(a, info)
+                  for a, info in zip(leaves, meta["leaves"])]
         if like is None:
             tree = leaves
         else:

@@ -6,16 +6,22 @@ numpy calls in the same order as the JAX package, so both give the same
 batches bit for bit: Zipf-distributed token ids with short-range Markov
 structure (:class:`TokenStream`) for the language models, and noisy
 multi-sine "speech-like" signals with their clean targets
-(:class:`SignalStream`) for the Fig-9 training path."""
+(:class:`SignalStream`) for the Fig-9 training path.
+:func:`make_batch_iterator` feeds a training loop from a stream, one
+step-addressed batch at a time, so a restarted loop reads the batches it
+would have read."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
-__all__ = ["TokenStream", "SignalStream"]
+from ..device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["TokenStream", "SignalStream", "make_batch_iterator"]
 
 
 @dataclasses.dataclass
@@ -62,3 +68,31 @@ class SignalStream:
         noise = rng.normal(0.0, 0.8, size=(b, n)).astype(np.float32)
         return {"noisy": clean + noise, "clean": clean}
 
+
+
+def make_batch_iterator(stream, cfg=None, sharding=None, start_step: int = 0,
+                        device=DEFAULT_DEVICE) -> Iterator:
+    """Yields ``(step, {name: tensor})`` from ``stream.batch_at(step)``
+    for ``step = start_step, start_step + 1, ...``, each batch's arrays
+    copied to ``device`` (the card unless the caller names the CPU); a
+    bare array is the batch's ``"tokens"``.  ``cfg`` is accepted for the
+    JAX package's signature and unused there too.  ``sharding=`` (a
+    batch split over devices) raises ``NotImplementedError``: multi-device
+    training is ROADMAP Queue 1 item 6e."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "make_batch_iterator(sharding=...): batches sharded over "
+            "devices wait for multi-device training (ROADMAP Queue 1 item "
+            "6e); pass sharding=None")
+    dev = resolve_device(device)
+
+    def batches():
+        step = start_step
+        while True:
+            raw = stream.batch_at(step)
+            if isinstance(raw, np.ndarray):
+                raw = {"tokens": raw}
+            yield step, {k: torch.as_tensor(v, device=dev)
+                         for k, v in raw.items()}
+            step += 1
+    return batches()

@@ -12,28 +12,40 @@ Conventions, as in the JAX package:
 - computations run in the param dtype (bf16 for the big configs) with
   float32 softmax/normalizer internals.
 
-:func:`attention` sends every full-length call (a prefill or a training
-forward) to :func:`repro_torch.kernels.flash_attention`: on the card
-the hand-written kernel, on the CPU its plain version.  Decode calls
-(a cache longer than the query, ``kv_len``) stay :func:`direct_attention`
-in plain torch, as the JAX package computes them outside any kernel.
-The kernel has no backward pass, so a full-length call on the card runs
-under ``torch.no_grad()`` or ``torch.inference_mode()`` (the engine's
-prefill and decode do).
+:func:`attention` picks the route by whether autograd must see through
+the call:
+
+- without a gradient (serving, a held-out loss under
+  ``torch.no_grad()``), every full-length call (a prefill or a forward)
+  goes to :func:`repro_torch.kernels.flash_attention`: on the card the
+  hand-written kernel, on the CPU its plain version;
+- with one (a training step), it takes the JAX package's route exactly:
+  :func:`chunked_attention` for a full-length call of
+  ``chunked_threshold`` (4096) positions or more, :func:`direct_attention`
+  below that.  Both are plain PyTorch that autograd differentiates; the
+  flash kernel has no backward pass (nor has the JAX package's Pallas
+  kernel, which its training step never runs).
+
+Decode calls (a cache longer than the query, ``kv_len``) stay
+:func:`direct_attention`, as the JAX package computes them outside any
+kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm",
-           "group_norm", "apply_rope", "direct_attention", "attention",
+           "group_norm", "apply_rope", "direct_attention",
+           "chunked_attention", "attention",
            "init_mlp", "mlp_forward", "init_causal_conv", "causal_conv",
            "causal_conv_step", "matmul", "einsum", "NEG_INF"]
 
@@ -179,17 +191,103 @@ def direct_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      softcap: float = 0.0, q_chunk: int = 2048,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: a loop over q chunks, each
+    over the kv chunks with a running max, denominator and float32
+    accumulator, so no more than (q_chunk x kv_chunk) scores a head
+    exist at once — the JAX package's ``chunked_attention`` (its
+    ``lax.map`` / ``lax.scan`` become Python loops), which autograd
+    differentiates.  Both sequences are padded to whole chunks; padded
+    keys are masked, padded queries dropped.  The PV product runs in
+    float32, as the JAX package keeps it.
+
+    A kv chunk that the causal or window mask hides from every query of
+    the q chunk is skipped: in the JAX package's scan it scales the
+    running values by exactly 1 (or, before the first visible chunk,
+    leaves values that the first visible one multiplies by exactly 0),
+    so skipping it changes no bit of the output."""
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / np.sqrt(hd)
+    qpad, kpad = (-sq) % q_chunk, (-skv) % kv_chunk
+    qp = F.pad(q, (0, 0, 0, 0, 0, qpad))
+    kp = F.pad(k, (0, 0, 0, 0, 0, kpad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, kpad))
+    nq, nk = qp.shape[1] // q_chunk, kp.shape[1] // kv_chunk
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q0 = qi * q_chunk
+        qb32 = qp[:, q0:q0 + q_chunk].reshape(
+            b, q_chunk, kv, g, hd).float() * scale
+        q_pos = q0 + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, kv, g, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        den = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32,
+                          device=dev)
+        acc = torch.zeros((b, kv, g, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            k0 = ki * kv_chunk
+            if causal and k0 > q0 + q_chunk - 1:
+                continue
+            if window and window > 0 and k0 + kv_chunk - 1 <= q0 - window:
+                continue
+            kb = kp[:, k0:k0 + kv_chunk].float()
+            vb = vp[:, k0:k0 + kv_chunk]
+            s = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qb32, kb),
+                         softcap)
+            k_pos = k0 + torch.arange(kv_chunk, device=dev)
+            msk = (k_pos < skv)[None, :].expand(q_chunk, kv_chunk)
+            if causal:
+                msk = msk & (k_pos[None, :] <= q_pos[:, None])
+            if window and window > 0:
+                msk = msk & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            den = den * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb.float())
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(den, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))       # (B, cq, KV, G, hd)
+    out = torch.cat(outs, dim=1).reshape(b, nq * q_chunk, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, q_offset: int = 0,
-              kv_len: Optional[int] = None) -> torch.Tensor:
-    """Dispatch: a full-length call (``Sq == Skv``, ``q_offset`` 0, no
-    ``kv_len``) runs :func:`repro_torch.kernels.flash_attention` — the
-    CUDA kernel on the card, its plain version on the CPU — and
-    everything else :func:`direct_attention`.  Both compute the function
-    of the JAX package's ``attention`` (which takes XLA's chunked form
-    for full-length calls of 4096 or more, the direct one otherwise)."""
+              kv_len: Optional[int] = None, chunked_threshold: int = 4096,
+              remat: bool = False) -> torch.Tensor:
+    """Dispatch (module docstring).  A full-length call is ``Sq == Skv``,
+    ``q_offset`` 0 and no ``kv_len``.
+
+    - Autograd must see through the call (grad enabled and q, k or v
+      requires grad): the JAX package's ``attention`` route —
+      :func:`chunked_attention` for a full-length call of at least
+      ``chunked_threshold`` positions (under
+      ``torch.utils.checkpoint`` when ``remat``, so the backward
+      recomputes the chunk probabilities), :func:`direct_attention`
+      otherwise.
+    - No gradient: a full-length call runs
+      :func:`repro_torch.kernels.flash_attention` (the CUDA kernel on the
+      card, its plain version on the CPU), anything else
+      :func:`direct_attention`."""
     sq, skv = q.shape[1], k.shape[1]
-    if sq == skv and kv_len is None and q_offset == 0:
+    full = sq == skv and kv_len is None and q_offset == 0
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if full and sq >= chunked_threshold:
+            fn = functools.partial(chunked_attention, causal=causal,
+                                   window=window, softcap=softcap)
+            if remat:
+                return checkpoint(fn, q, k, v, use_reentrant=False)
+            return fn(q, k, v)
+    elif full:
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     return direct_attention(q, k, v, causal=causal, window=window,

@@ -10,7 +10,12 @@ is ``(G, d, q_dim)``), and the unscanned tail blocks (recurrentgemma's
 two ``rec`` layers) sit under ``tail0``, ``tail1``, so weights map 1:1
 (:func:`repro_torch.convert.model_params_from_jax`).  Where the JAX
 package scans the groups with ``lax.scan``, the port loops over them in
-Python, each group reading views of the stacked leaves.
+Python, each group reading views of the stacked leaves (one ``unbind``
+a leaf, so a backward pass stacks each leaf's gradient once).  With
+``cfg.remat``, a training forward under autograd runs each pattern group
+under ``torch.utils.checkpoint`` — the counterpart of the JAX package's
+``jax.checkpoint(body)`` — so the backward recomputes a group's
+activations from its input instead of keeping them.
 
 Differences of form, not of function:
 
@@ -31,16 +36,17 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..tree import tree_map
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
 from . import xlstm as XL
 
 __all__ = ["init_params", "init_cache", "forward_train", "loss_fn",
-           "prefill", "decode_step", "param_dtype"]
+           "prefill", "decode_step", "param_dtype", "stack_groups",
+           "unstack_groups", "remat_call"]
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -278,6 +284,27 @@ def stack_groups(trees: list):
     return torch.stack(trees)
 
 
+def unstack_groups(tree, n: int) -> list:
+    """The ``n`` per-group trees of views of a stacked tree (the inverse
+    of :func:`stack_groups`), one ``unbind`` a leaf."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_groups(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def remat_call(cfg: ArchConfig, train: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``cfg.remat`` asks for it in a training forward that autograd
+    records, as the JAX package wraps its scanned body in
+    ``jax.checkpoint``.  The blocks draw no random numbers, so no RNG
+    state is saved for the recompute."""
+    if cfg.remat and train and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     """Random params drawn from ``gen`` on its device: per pattern group
     (stacked on a leading group axis), then the embedding, the head and
@@ -320,18 +347,28 @@ def _head_out(params, x, cfg: ArchConfig):
 
 def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
                  cache):
-    """The pattern groups in order, each reading its slice of the stacked
+    """The pattern groups in order, each reading its views of the stacked
     params (and cache), then the tail -> (x, aux summed over the blocks).
-    In train mode no cache is threaded (``cache`` may be None)."""
-    train, aux = mode == "train", 0.0
-    for gi in range(cfg.n_groups()):
+    In train mode no cache is threaded (``cache`` may be None), and with
+    ``cfg.remat`` each group runs under :func:`remat_call`."""
+    train, aux, g = mode == "train", 0.0, cfg.n_groups()
+    names = [f"b{i}" for i in range(len(cfg.pattern))]
+    gps = {n: unstack_groups(params["blocks"][n], g) for n in names}
+    gcs = None if train else {n: unstack_groups(cache["blocks"][n], g)
+                              for n in names}
+
+    def group(xx, aux_, gp, gc):       # the JAX package's scanned body
         for i, lt in enumerate(cfg.pattern):
-            name = f"b{i}"
-            gp = tree_map(lambda t: t[gi], params["blocks"][name])
-            gc = None if train else tree_map(lambda t: t[gi],
-                                             cache["blocks"][name])
-            x, a = block_apply(lt, gp, x, cfg, mode, positions, pos, gc)
-            aux = aux + a
+            xx, a = block_apply(lt, gp[names[i]], xx, cfg, mode, positions,
+                                pos, None if gc is None else gc[names[i]])
+            aux_ = aux_ + a
+        return xx, aux_
+
+    for gi in range(g):
+        x, aux = remat_call(cfg, train, group, x, aux,
+                            {n: gps[n][gi] for n in names},
+                            None if train else {n: gcs[n][gi]
+                                                for n in names})
     for i, lt in enumerate(cfg.tail):
         x, a = block_apply(lt, params[f"tail{i}"], x, cfg, mode, positions,
                            pos, None if train else cache[f"tail{i}"])
@@ -349,9 +386,12 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
-    """Next-token NLL (or per-position labels for embedding input).  A
-    forward here: full-length attention on the card has no backward
-    pass yet (the flash kernel is forward only)."""
+    """Next-token NLL (or per-position labels for embedding input) ->
+    ``(loss + 0.01 aux, (nll, aux))``.  Differentiable on the CPU and
+    the card: under autograd, attention takes the JAX package's chunked
+    or direct route (:func:`layers.attention`), never the forward-only
+    flash kernel; under ``torch.no_grad()`` full-length attention runs
+    the flash kernel."""
     logits, aux = forward_train(params, batch, cfg)
     if cfg.input_kind == "embeds":
         lg, lb = logits, batch["labels"]

@@ -7,7 +7,10 @@ sides, RMSNorm throughout.  Encoder: bidirectional MHA + GELU MLP.
 Decoder: causal self-attention + cross-attention + GELU MLP, with a
 self-KV cache and the cross K/V computed once at prefill.  Both stacks'
 layers are stacked on a leading layer axis, as the JAX package scans
-them; the port loops over them in Python.
+them; the port loops over them in Python, and with ``cfg.remat`` a
+training forward runs each encoder and decoder layer under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of
+both scanned bodies).
 
 Which attention runs where: the encoder's self-attention (``Sq == Skv``,
 non-causal) and the decoder prefill's causal self-attention go to
@@ -31,9 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..tree import tree_map
 from . import layers as L
-from .transformer import param_dtype, stack_groups
+from .transformer import param_dtype, remat_call, stack_groups, \
+    unstack_groups
 
 __all__ = ["sinusoid", "init_params", "encode", "decode_train",
            "forward_train", "loss_fn", "init_cache", "prefill",
@@ -96,11 +99,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
     }
 
 
-def _layers(stack: Dict[str, Any], n: int):
-    """The views of layer 0..n-1 of a stacked tree."""
-    return [tree_map(lambda t: t[i], stack) for i in range(n)]
-
-
 def _heads(cfg, t, b):
     return t.reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
 
@@ -136,14 +134,18 @@ def _mlp(lp, xx):
                               "gelu")
 
 
+def _enc_layer(x, lp, cfg):
+    h = L.rms_norm(x, lp["norm_in"])
+    x = x + _mha(lp, h, h, cfg, causal=False)[0]
+    return _mlp(lp, x)
+
+
 def encode(params, embeds, cfg: ArchConfig) -> torch.Tensor:
     x = embeds.to(param_dtype(cfg))
     x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
                      cfg.d_model).to(x.dtype)
-    for lp in _layers(params["enc"], cfg.enc_layers):
-        h = L.rms_norm(x, lp["norm_in"])
-        x = x + _mha(lp, h, h, cfg, causal=False)[0]
-        x = _mlp(lp, x)
+    for lp in unstack_groups(params["enc"], cfg.enc_layers):
+        x = remat_call(cfg, True, _enc_layer, x, lp, cfg)
     return L.rms_norm(x, params["norm_enc"])
 
 
@@ -156,15 +158,19 @@ def _head(params, x):
     return L.matmul(L.rms_norm(x, params["norm_f"]), params["head"]).float()
 
 
+def _dec_layer(x, lp, enc_out, cfg):
+    h = L.rms_norm(x, lp["norm_in"])
+    x = x + _mha(lp, h, h, cfg, causal=True)[0]
+    h = L.rms_norm(x, lp["norm_x"])
+    x = x + _mha(lp, h, enc_out, cfg, causal=False, prefix="x")[0]
+    return _mlp(lp, x)
+
+
 def decode_train(params, tokens, enc_out, cfg: ArchConfig) -> torch.Tensor:
     x = _embed_tokens(params, tokens, torch.arange(tokens.shape[1],
                                                    device=tokens.device), cfg)
-    for lp in _layers(params["dec"], cfg.n_layers):
-        h = L.rms_norm(x, lp["norm_in"])
-        x = x + _mha(lp, h, h, cfg, causal=True)[0]
-        h = L.rms_norm(x, lp["norm_x"])
-        x = x + _mha(lp, h, enc_out, cfg, causal=False, prefix="x")[0]
-        x = _mlp(lp, x)
+    for lp in unstack_groups(params["dec"], cfg.n_layers):
+        x = remat_call(cfg, True, _dec_layer, x, lp, enc_out, cfg)
     return _head(params, x)
 
 
@@ -203,7 +209,7 @@ def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
                        enc_len=enc_out.shape[1])
     x = _embed_tokens(params, tokens, torch.arange(s, device=tokens.device),
                       cfg)
-    for i, lp in enumerate(_layers(params["dec"], cfg.n_layers)):
+    for i, lp in enumerate(unstack_groups(params["dec"], cfg.n_layers)):
         h = L.rms_norm(x, lp["norm_in"])
         a, (k, v) = _mha(lp, h, h, cfg, causal=True)
         cache["self_k"][i, :, :s] = k
@@ -232,7 +238,7 @@ def decode_step(params, cache, batch_t, cfg: ArchConfig):
     b, pos = tokens.shape[0], int(cache["pos"])
     x = _embed_tokens(params, tokens, torch.full(
         (b, 1), pos, dtype=torch.int32, device=tokens.device), cfg)
-    for i, lp in enumerate(_layers(params["dec"], cfg.n_layers)):
+    for i, lp in enumerate(unstack_groups(params["dec"], cfg.n_layers)):
         h = L.rms_norm(x, lp["norm_in"])
         x = x + _mha(lp, h, h, cfg, causal=False,
                      cache=(cache["self_k"][i], cache["self_v"][i]),

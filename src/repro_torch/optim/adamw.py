@@ -3,9 +3,14 @@ tuples of tensors): fp32 moments, global-norm clipping, cosine schedule
 with linear warmup — the counterpart of the JAX package's
 ``optim/adamw.py``, with its defaults (b2 0.95, clip 1.0, decoupled decay
 only on params with ``ndim >= 2``).  ``torch.optim.AdamW`` clips nothing
-and decays every param, so it is not used.  Updates are functional, as
-in the JAX package: ``adamw_update`` returns new tensors and leaves its
-arguments as they were."""
+and decays every param, so it is not used.
+
+``adamw_update`` is functional, as in the JAX package: it returns new
+tensors and leaves its arguments as they were.  ``adamw_update_`` is the
+train step's counterpart of the JAX package's donated buffers: the same
+arithmetic, bit for bit, written into the given params and moments a
+slice of rows at a time, so a full-width step holds one copy of its
+state and one slice's float32 temporaries."""
 
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["AdamWState", "adamw_init", "global_norm", "adamw_update",
-           "cosine_schedule"]
+           "adamw_update_", "cosine_schedule"]
 
 
 class AdamWState(NamedTuple):
@@ -40,6 +45,25 @@ def global_norm(tree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
+def _leaf_update(g, m, v, p, scale, lr, bc1, bc2, b1, b2, eps,
+                 weight_decay, decay: bool):
+    """One leaf's (or slice's) AdamW arithmetic -> (p, m, v) new; the
+    decoupled decay applies when the whole param has ``ndim >= 2``."""
+    g32 = g.float() * scale
+    m_new = b1 * m + (1 - b1) * g32
+    v_new = b2 * v + (1 - b2) * g32 * g32
+    delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if decay:
+        delta = delta + weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), m_new, v_new
+
+
+def _clip(grads, step: int, b1: float, b2: float, clip_norm: float):
+    gnorm = global_norm(grads)
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    return gnorm, scale, 1 - b1 ** step, 1 - b2 ** step
+
+
 def adamw_update(grads, state: AdamWState, params, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, clip_norm: float = 1.0):
@@ -47,27 +71,57 @@ def adamw_update(grads, state: AdamWState, params, lr,
     Gradients are clipped to global norm ``clip_norm`` first; the update
     runs in float32 and is cast back to each param's type."""
     step = state.step + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
-
-    def upd(g, m, v, p):
-        g32 = g.float() * scale
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * g32 * g32
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-        # decoupled weight decay on matrix params only
-        if p.ndim >= 2:
-            delta = delta + weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m_new, v_new
-
-    out = [upd(*leaves) for leaves in zip(
-        *(tree_leaves(t) for t in (grads, state.m, state.v, params)))]
+    gnorm, scale, bc1, bc2 = _clip(grads, step, b1, b2, clip_norm)
+    out = [_leaf_update(g, m, v, p, scale, lr, bc1, bc2, b1, b2, eps,
+                        weight_decay, p.ndim >= 2)
+           for g, m, v, p in zip(*(tree_leaves(t) for t in (
+               grads, state.m, state.v, params)))]
 
     def rebuild(i):
         it = iter(o[i] for o in out)
         return tree_map(lambda _: next(it), params)
     return rebuild(0), AdamWState(step, rebuild(1), rebuild(2)), gnorm
+
+
+def _row_slices(t: torch.Tensor, chunk_elems: int) -> list:
+    """Index slices along ``t``'s leading axis of at most ``chunk_elems``
+    elements each (at least one row); the whole of a 0-d tensor."""
+    if t.ndim == 0:
+        return [...]
+    row = max(t[0].numel(), 1)
+    rows = max(1, chunk_elems // row)
+    return [slice(i, i + rows) for i in range(0, t.shape[0], rows)]
+
+
+@torch.no_grad()
+def adamw_update_(grads, state: AdamWState, params, lr,
+                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.1, clip_norm: float = 1.0,
+                  chunk_elems: int = 1 << 26):
+    """:func:`adamw_update` in place: writes the new params into
+    ``params``' tensors and the new moments into ``state.m`` / ``state.v``,
+    and returns ``(params, AdamWState(step + 1, state.m, state.v),
+    grad_norm)``, every value bit for bit :func:`adamw_update`'s.
+
+    Each leaf is updated a slice of rows at a time, at most
+    ``chunk_elems`` elements a slice (at least one row), so a stacked
+    leaf goes through its leading group axis and no leaf needs more than
+    one slice's float32 temporaries.  The global gradient norm is the
+    functional update's (one reduction a leaf).  The step's arguments
+    are changed as it goes: a failure part way leaves some leaves
+    updated and others not."""
+    step = state.step + 1
+    gnorm, scale, bc1, bc2 = _clip(grads, step, b1, b2, clip_norm)
+    for g, m, v, p in zip(*(tree_leaves(t) for t in (
+            grads, state.m, state.v, params))):
+        for sl in _row_slices(p, chunk_elems):
+            p_new, m_new, v_new = _leaf_update(
+                g[sl], m[sl], v[sl], p[sl], scale, lr, bc1, bc2, b1, b2,
+                eps, weight_decay, p.ndim >= 2)
+            m[sl] = m_new
+            v[sl] = v_new
+            p[sl] = p_new
+    return params, AdamWState(step, state.m, state.v), gnorm
 
 
 def cosine_schedule(base_lr: float, warmup: int,

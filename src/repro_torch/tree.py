@@ -1,8 +1,9 @@
-"""Params trees: nested dicts, lists and tuples whose leaves are tensors
-or host arrays — the port's counterpart of the JAX package's pytrees for
-the params a compiled graph takes.  Dicts are walked in sorted key
-order, as JAX flattens them, so trees of one structure line up whatever
-order their keys were inserted in."""
+"""Params trees: nested dicts, lists, tuples and NamedTuples whose leaves
+are tensors, host arrays or scalars — the port's counterpart of the JAX
+package's pytrees for the params a compiled graph takes and a training
+state (``(params, AdamWState)``).  Dicts are walked in sorted key order,
+as JAX flattens them, so trees of one structure line up whatever order
+their keys were inserted in."""
 
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+        children = [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+        if hasattr(tree, "_fields"):             # a NamedTuple
+            return type(tree)(*children)
+        return type(tree)(children)
     return fn(tree, *rest)
 
 
@@ -33,7 +37,8 @@ def tree_leaves(tree) -> list:
 def tree_structure(tree):
     """A hashable description of ``tree``'s containers (their types,
     dict keys and lengths), every leaf ``"*"``: two trees whose
-    structures compare equal line up leaf for leaf."""
+    structures compare equal line up leaf for leaf; a NamedTuple is told
+    apart from a plain tuple by its type's name."""
     if isinstance(tree, dict):
         return ("dict", tuple((k, tree_structure(tree[k]))
                               for k in sorted(tree)))

@@ -1517,3 +1517,106 @@ def test_family_decode_wave_and_launches_on_card(cuda, arch):
     gen = eng.generate([r.prompt for r in reqs], max_new=9)
     assert wave.results() == {i: g for i, g in enumerate(gen)}
     assert eng.serve(reqs) == wave.results()
+
+
+# -- training the language models on the card --------------------------------
+
+TRAIN_ARCHS = MODEL_ARCHS + FAMILY_ARCHS
+XLSTM_CARD_REL = 5e-3        # 4x the worst leaf read on an H100, 1.18e-3
+
+
+def _train_batch(cfg, seed, b=4, s=24):
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "embeds":
+        return {"embeds": torch.as_tensor(rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)),
+                "labels": torch.as_tensor(rng.integers(
+                    0, cfg.vocab, (b, s)).astype(np.int32))}
+    return _family_batch(cfg, seed, b=b, s=s)
+
+
+def _rel_l2(got, want):
+    got, want = got.float().cpu(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` step of each config at ``reduced()`` width
+    (float32, microbatch 2, remat) on the card against the same step on
+    the CPU: no kernel launched on the card (attention under autograd is
+    plain PyTorch), loss and gradient norm at rtol 1e-4, and the first
+    moment — the clipped gradient times 0.1 — of every leaf within
+    relative L2 1e-4.  xlstm-350m is held at ``XLSTM_CARD_REL``
+    throughout: its eight exponentially gated blocks amplify float32
+    rounding (its logits are held at atol 3e-4, its gradients against
+    the JAX package at relative L2 1e-3 in ``test_torch_lm_train.py``);
+    on an H100 its gradient norm (~600) read 2.9e-4 apart from the CPU's
+    and its worst leaf 1.18e-3."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch).reduced(), microbatch=2,
+                              remat=True)
+    bundle = get_model(cfg)
+    cpu_p, cpu_o = init_train_state(bundle, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    card_p = _on(cpu_p, cuda)
+    card_o = adamw_init(card_p)
+    batch = _train_batch(cfg, 7)
+    step = make_train_step(bundle)
+    _, cpu_o, cpu_m = step(cpu_p, cpu_o, batch)
+    flash_kernel.reset_launch_counts()
+    reset_launch_counts()
+    _, card_o, card_m = step(card_p, card_o, _on(batch, cuda))
+    torch.cuda.synchronize()
+    assert not any(flash_kernel.launch_counts().values())
+    assert not any(launch_counts().values())
+    limit = XLSTM_CARD_REL if arch == "xlstm-350m" else 1e-4
+    for name in ("loss", "grad_norm"):
+        torch.testing.assert_close(card_m[name].cpu(), cpu_m[name],
+                                   rtol=limit, atol=1e-6)
+    for got, want in zip(tree_leaves(card_o.m), tree_leaves(cpu_o.m)):
+        assert got.device.type == cuda.type
+        assert _rel_l2(got, want) <= limit
+
+
+@pytest.mark.parametrize("window", [0, 1500])
+def test_chunked_attention_on_card_matches_direct(cuda, window):
+    """``attention`` under autograd at S 4096 takes the chunked route on
+    the card (no kernel launch); its output and the gradients of q, k
+    and v equal the direct route's within 1e-4 (float32, GQA 8 over 2,
+    hd 64, causal)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 4096, n, 64)).astype(
+        np.float32), device=cuda, requires_grad=True) for n in (8, 2, 2))
+    ct = torch.as_tensor(rng.standard_normal((1, 4096, 8, 64)).astype(
+        np.float32), device=cuda)
+    flash_kernel.reset_launch_counts()
+    got = L.attention(q, k, v, causal=True, window=window)
+    g_got = torch.autograd.grad(got, (q, k, v), ct)
+    assert not any(flash_kernel.launch_counts().values())
+    want = L.direct_attention(q, k, v, causal=True, window=window)
+    g_want = torch.autograd.grad(want, (q, k, v), ct)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_wrapper_refuses_a_differentiable_call_on_card(cuda):
+    """The flash kernel has no backward pass: a call autograd would have
+    to see through raises on the card, and the same call under
+    ``torch.no_grad()`` launches the kernel once."""
+    q = torch.randn((1, 64, 4, 32), device=cuda, requires_grad=True)
+    k = torch.randn((1, 64, 2, 32), device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        tk.flash_attention(q, k, k, causal=True)
+    flash_kernel.reset_launch_counts()
+    with torch.no_grad():
+        tk.flash_attention(q, k, k, causal=True)
+    assert flash_kernel.launch_counts()["flash_attention_hopper"] == 1
