@@ -10,8 +10,10 @@ served and streamed int-routed), the FFT, phased-FIR and
 flash-attention entry points, a dense LM (starcoder2-3b) served and
 co-served with Fig 9, the other model families (MoE, RG-LRU hybrid,
 xLSTM, Whisper) served, and starcoder2-3b trained at full width,
-with random weights and inputs drawn from ``--seed`` (by numpy; the LM's
-weights by a ``torch.Generator`` on the card) — phase by phase:
+and Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
+fault-tolerance paths, with random weights and inputs drawn from
+``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
+card) — phase by phase:
 
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
   1. build: compiles every ``src/repro_torch/kernels/csrc/*.cu`` with one
@@ -230,7 +232,30 @@ weights by a ``torch.Generator`` on the card) — phase by phase:
      failures against ``max_retries`` 2) restores step 100 and ends on
      the whole run's last 5 losses at rtol 1e-6 (whether they are bit
      equal is printed);
- 14. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 14. mesh: SigMesh on Fig 9 at phase 4's width and window (batch 4,
+     ``fuse=2``; the 4 shards wrap onto the one card, as the JAX
+     package's mesh spans one jax device): (a) phase 4's 32 requests
+     through ``SignalService(mesh=4)`` and an unmeshed service, every
+     result ``np.array_equal``, every meshed wave exactly
+     ``FORWARD_LAUNCHES`` (one call on the padded rows), the router
+     charging each shard ``device_step_costs`` a wave and ``wall_cycles``
+     its largest share; (b) ``sharded_jit`` over ``make_data_mesh()`` on
+     a batch of 8, ``torch.equal`` to the plain call, ``FORWARD_LAUNCHES``;
+     (c) 4 sessions on ``mesh=4`` (one a shard, never stacked) against 4
+     unmeshed ones, 256 samples a tick: a meshed tick exactly 4 core
+     calls of ``STREAM_TICK_LAUNCHES``, every output ``np.array_equal``;
+     then ``StreamSupervisor`` over fresh meshed services under each of
+     ``MESH_FAULTS`` (a transient failure, retry exhaustion, a lost
+     shard), each run ``np.array_equal`` to the unfailed supervised run
+     with the listed ``stats``, the dropped shard holding no session and
+     the re-homed state on the card; (d) ``CoScheduler`` over a meshed
+     service and starcoder2-3b cut to 2 layers at full width: all work
+     done, ``occupancy()["per_device"]`` charging every shard, the DSP
+     results equal to (a)'s; (e) smoke readings in turns (unmeshed,
+     meshed, meshed, unmeshed; 4 windows each): p50 ``step()`` and p50
+     tick meshed against unmeshed, launches a tick, the phase's seconds.
+     Its launches are the shuffle-GEMM rows' ``mesh`` entry.
+ 15. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
      ``train``.
@@ -1800,6 +1825,349 @@ def _lm_train(torch, np, seed: int, smi: str) -> dict:
                    "one flash call a layer"}
 
 
+# Phase 14: SigMesh — Fig 9 served and streamed over a 4-shard mesh.  On
+# one card the 4 logical shards wrap onto the one device (SignalMesh spans
+# it, as the JAX package's mesh spans one jax device): a meshed wave is
+# ONE call on the padded rows, FORWARD_LAUNCHES as an unmeshed wave, while
+# the router charges each shard ceil(rows / 4) rows; 4 sessions homed on 4
+# shards never stack (the shard is part of the stacking key), so a tick is
+# 4 core calls of STREAM_TICK_LAUNCHES where an unmeshed tick is 1.  The
+# co-serving engine is starcoder2-3b cut to MESH_CO["layers"] of its 30
+# layers at full width (bf16, random weights from --seed).
+MESH_SHARDS, MESH_ROUNDS, MESH_TURNS = 4, 4, 4
+MESH_SHARDED_BATCH = 8
+MESH_FAULTS = (                    # (label, supervisor options, stats)
+    ("transient failure at tick 2", {},
+     {"retries": 1, "checkpoint_restores": 0, "device_losses": 0}),
+    ("retry exhaustion at tick 3", {"ckpt_every": 2, "max_retries": 2},
+     {"retries": 3, "checkpoint_restores": 1, "device_losses": 0}),
+    ("DeviceLoss(1) at tick 6", {"ckpt_every": 2},
+     {"retries": 0, "checkpoint_restores": 1, "device_losses": 1}),
+)
+MESH_CO = {"layers": 2, "llm": 4, "prompt": 128, "max_new": 8}
+
+
+def mesh_phase(torch, np, seed: int, smi: str, fig: dict) -> dict:
+    """Phase 14.  ``fig`` carries the Fig-9 pieces of phase 4: ``graph``,
+    ``cnn`` (the mask CNN's weights on the card), ``signals`` (the 8
+    served lengths' inputs), ``compiled`` (phase 3's hopper compile at
+    length 4096) and ``params``.  (a) phase 4's window through ``SignalService(mesh=4)``
+    and an unmeshed service: every result ``np.array_equal``, every wave
+    exactly ``FORWARD_LAUNCHES``, the router charging each shard
+    ``device_step_costs`` a wave and ``wall_cycles`` the largest share;
+    (b) ``sharded_jit`` over ``make_data_mesh()`` on a batch of 8,
+    ``torch.equal`` to the plain call; (c) 4 sessions on ``mesh=4``
+    against 4 unmeshed ones, 256 samples a tick: exactly 4 core calls of
+    ``STREAM_TICK_LAUNCHES`` a meshed tick, outputs ``np.array_equal``;
+    then ``StreamSupervisor`` over fresh meshed services with each of
+    ``MESH_FAULTS`` injected, each run's outputs ``np.array_equal`` to the
+    unfailed supervised run's and its ``stats`` as listed, the dropped
+    shard left with no session and the re-homed state on the card; (d)
+    ``CoScheduler`` over a meshed service and the cut engine: all work
+    done, ``occupancy()["per_device"]`` charging every shard, DSP results
+    equal to (a)'s; (e) smoke readings in turns.  Returns the launch
+    counts of the shuffle-GEMM rows' ``mesh`` entry."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.perf_model import device_step_costs
+    from repro_torch.kernels.shuffle_gemm import (launch_counts,
+                                                  reset_launch_counts)
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import DeviceLoss, StreamSupervisor
+    from repro_torch.serving import (CoScheduler, Request, ServingEngine,
+                                     SignalRequest, SignalService)
+    t_phase = time.perf_counter()
+    graph, cnn, sigs = fig["graph"], fig["cnn"], fig["signals"]
+    totals = {"serve": {}, "sharded_jit": {}, "stream": {}, "coserve": {}}
+    failures = []
+
+    def add(where, counts):
+        for n, c in counts.items():
+            totals[where][n] = totals[where].get(n, 0) + c
+
+    def service(mesh=None):
+        s_ = SignalService(batch_size=BATCH, backend="hopper",
+                           device="cuda", mesh=mesh,
+                           block_frames=STREAM_BLOCK_FRAMES)
+        s_.register("se", graph, params={"mask": cnn})
+        return s_
+
+    def requests(base):
+        return [SignalRequest(rid=base + i, graph="se", samples=s)
+                for i, s in enumerate(sigs)]
+
+    def serve_window(svc, base, rounds):
+        for k in range(rounds):
+            for r in requests(base + 100 * k):
+                svc.submit(r)
+        results, ms, made = {}, [], []
+        while svc.pending():
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            results.update(svc.step())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            made.append(launch_counts())
+        return results, ms, made
+
+    def unequal(ref, got):
+        """The (rid, output, max abs difference) of results that are not
+        equal bit for bit."""
+        out = []
+        for rid, want in ref.items():
+            for k, v in want.items():
+                if not np.array_equal(v, got[rid][k]):
+                    out.append((rid, k, float(np.abs(v - got[rid][k]).max())
+                                if v.shape == got[rid][k].shape else None))
+        return out
+
+    # (a) meshed serving: phase 4's window, meshed and unmeshed
+    unm, msh = service(), service(MESH_SHARDS)
+    n_slots = len(msh.mesh.devices)
+    for s_ in (unm, msh):
+        s_.serve(requests(-1000))            # compiles the 4096 bucket
+    torch.cuda.synchronize()
+    cyc0, wall0 = list(msh.router.device_cycles), msh.wall_cycles
+    ref, _, _ = serve_window(unm, 1000, MESH_ROUNDS)
+    got, m_ms, made = serve_window(msh, 1000, MESH_ROUNDS)
+    for m in made:
+        add("serve", m)
+    per_item = msh.group_cost(unm.group_key(requests(0)[0]))
+    share = device_step_costs(per_item, BATCH, MESH_SHARDS)
+    charged = [a - b for a, b in zip(msh.router.device_cycles, cyc0)]
+    diff = unequal(ref, got)
+    print(f"(a) SignalService(mesh={MESH_SHARDS}) over {n_slots} device(s) "
+          f"{[str(d) for d in msh.mesh.devices]}: {len(got)} requests in "
+          f"{len(made)} waves, launches a wave {made[0]} (unmeshed "
+          f"{FORWARD_LAUNCHES}); results != unmeshed: {len(diff)} "
+          f"{diff[:4]}; shards charged {charged} (device_step_costs "
+          f"{share} a wave x {len(made)}), wall_cycles +"
+          f"{msh.wall_cycles - wall0}, est per wave {per_item * BATCH}",
+          flush=True)
+    if sorted(got) != sorted(ref) or diff:
+        failures.append(f"(a) meshed results differ from unmeshed: {diff[:4]}")
+    if any(m != FORWARD_LAUNCHES for m in made):
+        failures.append(f"(a) meshed waves launched {made}")
+    if charged != [c * len(made) for c in share] \
+            or msh.wall_cycles - wall0 != max(share) * len(made):
+        failures.append(f"(a) router charged {charged}, wall "
+                        f"{msh.wall_cycles - wall0}")
+
+    # (b) sharded_jit over make_data_mesh() on a batch of 8
+    dmesh = make_data_mesh(device="cuda")
+    rng = np.random.default_rng(seed + 14)
+    x8 = torch.as_tensor(rng.standard_normal(
+        (MESH_SHARDED_BATCH, LENGTH)).astype(np.float32), device="cuda")
+    compiled = fig["compiled"]
+    sharded = compiled.sharded_jit(dmesh)
+    with torch.no_grad():
+        want = compiled(x8, fig["params"])
+        reset_launch_counts()
+        out8 = sharded(x8, fig["params"])
+        torch.cuda.synchronize()
+        sj_counts = launch_counts()
+    add("sharded_jit", sj_counts)
+    sj_equal = all(torch.equal(out8[k], want[k]) for k in want)
+    print(f"(b) sharded_jit over {dmesh} on a batch of "
+          f"{MESH_SHARDED_BATCH}: torch.equal to the plain call {sj_equal}; "
+          f"launches {sj_counts}", flush=True)
+    if not sj_equal or sj_counts != FORWARD_LAUNCHES:
+        failures.append(f"(b) sharded_jit equal {sj_equal}, launches "
+                        f"{sj_counts}")
+
+    # (c) meshed streaming and supervision
+    rng = np.random.default_rng(seed + 15)
+    waves_s = [rng.standard_normal(LENGTH).astype(np.float32)
+               for _ in range(MESH_SHARDS)]
+
+    def stream(svc, sup=None, injector=None, length=LENGTH, at_end=None):
+        sessions = [svc.open_stream("se") for _ in waves_s]
+        accs = [{} for _ in sessions]
+        ticks = []
+        for lo in range(0, length, STREAM_CHUNK):
+            for sess, w in zip(sessions, waves_s):
+                chunk = w[lo:lo + STREAM_CHUNK]
+                if sup is None:
+                    sess.feed(chunk)
+                else:
+                    sup.feed(sess, chunk)
+            reset_launch_counts()
+            c0 = svc.stats["core_calls"]
+            t1 = time.perf_counter()
+            if sup is None:
+                svc.stream_step()
+            else:
+                sup.tick(injector)
+            torch.cuda.synchronize()
+            ticks.append((svc.stats["core_calls"] - c0, launch_counts(),
+                          (time.perf_counter() - t1) * 1e3))
+            for acc, sess in zip(accs, sessions):
+                for k, v in sess.read().items():
+                    acc.setdefault(k, []).append(v)
+        if at_end is not None:
+            at_end(svc, sessions)
+        for acc, sess in zip(accs, sessions):
+            for k, v in sess.close().items():
+                acc.setdefault(k, []).append(v)
+        return ([{k: np.concatenate(v, axis=-1 if k == "out" else 0)
+                  for k, v in acc.items()} for acc in accs], ticks)
+
+    def streams_unequal(a, b):
+        return [(i, k, float(np.abs(x[k] - y[k]).max())
+                 if x[k].shape == y[k].shape else None)
+                for i, (x, y) in enumerate(zip(a, b)) for k in x
+                if not np.array_equal(x[k], y[k])]
+
+    s_unm, u_ticks = stream(service())
+    s_msh, m_ticks = stream(service(MESH_SHARDS))
+    for _, m, _ in m_ticks:
+        add("stream", m)
+    bad_ticks = [(c, m) for c, m, _ in m_ticks
+                 if c not in (0, MESH_SHARDS)
+                 or m != {n: v * c for n, v in STREAM_TICK_LAUNCHES.items()}]
+    bad_ticks += [(c, m) for c, m, _ in u_ticks
+                  if c not in (0, 1) or m != {n: v * c for n, v in
+                                              STREAM_TICK_LAUNCHES.items()}]
+    # the launches of the first tick that ran a core call, as measured
+    m_tick = next(m for c, m, _ in m_ticks if c)
+    u_tick = next(m for c, m, _ in u_ticks if c)
+    s_diff = streams_unequal(s_unm, s_msh)
+    print(f"(c) {MESH_SHARDS} sessions, chunks of {STREAM_CHUNK}: meshed "
+          f"core calls a tick {[c for c, _, _ in m_ticks]} (unmeshed "
+          f"{[c for c, _, _ in u_ticks]}), launches of a meshed tick "
+          f"{m_tick} (unmeshed {u_tick}); outputs != unmeshed: "
+          f"{len(s_diff)} {s_diff[:4]}", flush=True)
+    if bad_ticks:
+        failures.append(f"(c) ticks {bad_ticks[:3]}")
+    if s_diff:
+        failures.append(f"(c) meshed streams differ from unmeshed: "
+                        f"{s_diff[:4]}")
+    svc_b = service(MESH_SHARDS)
+    base, _ = stream(svc_b, sup=StreamSupervisor(svc_b))
+    for (label, kw, stats), fail_tick in zip(MESH_FAULTS, (2, 3, 6)):
+        svc_f = service(MESH_SHARDS)
+        sup = StreamSupervisor(svc_f, **kw)
+        fired, seen = [], {}
+
+        def injector(tick, attempt, fail_tick=fail_tick, label=label):
+            if tick != fail_tick:
+                return
+            if label.startswith("DeviceLoss"):
+                if not fired:
+                    fired.append(attempt)
+                    raise DeviceLoss(1)
+            elif label.startswith("transient"):
+                if attempt == 0:
+                    fired.append(attempt)
+                    raise RuntimeError("transient device error")
+            elif len(fired) <= sup.max_retries:
+                fired.append(attempt)
+                raise RuntimeError("persistent device error")
+
+        def at_end(svc, sessions):
+            seen["alive"] = list(svc.router.alive)
+            seen["sessions"] = list(svc.router.device_sessions)
+            seen["homes"] = [s.device_index for s in sessions]
+            seen["state_devices"] = sorted({str(s.state.buf.device)
+                                            for s in sessions})
+        out_f, _ = stream(svc_f, sup=sup, injector=injector, at_end=at_end)
+        f_diff = streams_unequal(base, out_f)
+        print(f"    supervised, {label}: fired at attempts {fired}, stats "
+              f"{sup.stats}; outputs != unfailed run: {len(f_diff)} "
+              f"{f_diff[:4]}; shards alive {seen['alive']}, sessions "
+              f"{seen['sessions']}, homes {seen['homes']}, state on "
+              f"{seen['state_devices']}", flush=True)
+        if f_diff or sup.stats != stats or not fired:
+            failures.append(f"(c) {label}: stats {sup.stats}, "
+                            f"{len(f_diff)} outputs differ")
+        if label.startswith("DeviceLoss") and (
+                seen["alive"][1] or seen["sessions"][1] or 1 in seen["homes"]
+                or not all(d.startswith("cuda")
+                           for d in seen["state_devices"])):
+            failures.append(f"(c) after DeviceLoss(1): {seen}")
+
+    # (d) co-serving on a meshed service, with the cut engine
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=MESH_CO["layers"])
+    bundle = get_model(cfg)
+    lm_params = bundle.init(torch.Generator(device="cuda").manual_seed(seed),
+                            device="cuda")
+    engine = ServingEngine(bundle, batch_size=MESH_CO["llm"],
+                           temperature=0.0)
+    engine.load(lm_params, device="cuda")
+    svc_c = service(MESH_SHARDS)
+    svc_c.serve(requests(-1000))
+    sched = CoScheduler(engine, svc_c, policy="round_robin")
+    toks = np.random.default_rng(seed + 16).integers(
+        0, cfg.vocab, (MESH_CO["llm"], MESH_CO["prompt"]))
+    for i in range(MESH_CO["llm"]):
+        sched.submit_llm(Request(rid=i, prompt=toks[i].tolist(),
+                                 max_new=MESH_CO["max_new"]))
+    for r in requests(3000):
+        sched.submit_signal(r)
+    reset_launch_counts()
+    llm, dsp = sched.run()
+    torch.cuda.synchronize()
+    add("coserve", launch_counts())
+    occ = sched.occupancy()
+    per = occ.get("per_device", {})
+    co_diff = unequal({3000 + i: ref[1000 + i] for i in range(len(sigs))},
+                      dsp)
+    print(f"(d) CoScheduler over SignalService(mesh={MESH_SHARDS}) and "
+          f"{LM_ARCH} cut to {cfg.n_layers} layers: {len(llm)} LLM, "
+          f"{len(dsp)} DSP requests in {sched.ticks} ticks; per_device "
+          f"{per}; DSP != (a)'s unmeshed: {len(co_diff)}; launches "
+          f"{totals['coserve']}", flush=True)
+    if sorted(llm) != list(range(MESH_CO["llm"])) or any(
+            len(v) != MESH_CO["max_new"] for v in llm.values()) or co_diff \
+            or len(per.get("device_cycles", [])) != MESH_SHARDS \
+            or not all(per["device_cycles"]):
+        failures.append(f"(d) co-serving: per_device {per}, "
+                        f"{len(co_diff)} DSP results differ")
+    del engine, lm_params, bundle, sched
+    torch.cuda.empty_cache()
+
+    # (e) smoke readings, in turns: unmeshed, meshed, meshed, unmeshed, ...
+    steps = {"unmeshed": [], "meshed": []}
+    ticks = {"unmeshed": [], "meshed": []}
+    order = ["unmeshed", "meshed", "meshed", "unmeshed"] * (MESH_TURNS // 2)
+    for i, which in enumerate(order):
+        svc_t = unm if which == "unmeshed" else msh
+        steps[which] += serve_window(svc_t, 5000 + 1000 * i, 1)[1]
+        _, tk = stream(service(MESH_SHARDS if which == "meshed" else None),
+                       length=LENGTH // 2)
+        ticks[which] += [ms for c, _, ms in tk if c]
+    p50 = {k: float(np.median(v)) for k, v in steps.items()}
+    t50 = {k: float(np.median(v)) for k, v in ticks.items()}
+    launches_tick = {"meshed": sum(m_tick.values()),
+                     "unmeshed": sum(u_tick.values())}
+    secs = time.perf_counter() - t_phase
+    print(smi)
+    print(f"(e) smoke readings (not a benchmark), {MESH_TURNS} windows each "
+          f"in turns: p50 step() meshed {p50['meshed']:.3f} ms, unmeshed "
+          f"{p50['unmeshed']:.3f} ms (ratio "
+          f"{p50['meshed'] / p50['unmeshed']:.3f}); p50 tick meshed "
+          f"{t50['meshed']:.3f} ms ({MESH_SHARDS} core calls), unmeshed "
+          f"{t50['unmeshed']:.3f} ms (1 call) (ratio "
+          f"{t50['meshed'] / t50['unmeshed']:.3f}); shuffle-GEMM launches "
+          f"a tick {launches_tick}; phase 14 {secs:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
+    return {name: {"launches": sum(totals[w].get(name, 0) for w in totals),
+                   **{w: totals[w].get(name, 0) for w in totals},
+                   "per_wave": made[0].get(name, 0),
+                   "per_meshed_tick": m_tick.get(name, 0),
+                   "per_unmeshed_tick": u_tick.get(name, 0),
+                   "step_p50_ms": p50, "tick_p50_ms": t50,
+                   "launches_per_tick": launches_tick, "phase_s": secs,
+                   "per": f"phase 14: phase 4's window served on "
+                          f"mesh={MESH_SHARDS}, one sharded_jit call, "
+                          f"{MESH_SHARDS} meshed sessions' ticks, a "
+                          f"meshed co-serve"}
+            for name in ("shuffle_gemm_blocks", "shuffle_gemm_chain")}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2953,8 +3321,9 @@ def main() -> int:
     reset_launch_counts()
     tick()
     torch.cuda.synchronize()
-    if launch_counts() != STREAM_TICK_LAUNCHES:
-        raise AssertionError(f"a steady tick launched {launch_counts()}")
+    steady_tick = launch_counts()
+    if steady_tick != STREAM_TICK_LAUNCHES:
+        raise AssertionError(f"a steady tick launched {steady_tick}")
     tick_launches = profile_forward(torch, tick, tick_p50,
                                   label=f"stream tick ({STREAM_SESSIONS} "
                                         f"sessions)")
@@ -3002,7 +3371,7 @@ def main() -> int:
           f"{tick_p50:.3f} ms over {STREAM_STEADY_TICKS} ticks (ticks "
           f"{', '.join(f'{v:.3f}' for v in steady_ms)} ms); "
           f"{STREAM_SESSIONS * STREAM_CHUNK / tick_p50 * 1e3:.0f} samples/s "
-          f"streamed; launches a tick {STREAM_TICK_LAUNCHES}; device "
+          f"streamed; launches a tick {steady_tick}; device "
           f"launches a tick (kernels and copies, from the profile) "
           f"{'not measured' if tick_launches is None else tick_launches}",
           flush=True)
@@ -3568,8 +3937,14 @@ def main() -> int:
     train_row = lm_train_phase(torch, np, args.seed, smi)
     print(f"phase 13: {time.perf_counter() - t_train:.1f} s", flush=True)
 
-    # -- 14. kernel list ----------------------------------------------------
-    phase("14 kernels")
+    # -- 14. mesh: Fig 9 served and streamed over a 4-shard mesh -----------
+    phase("14 mesh")
+    mesh_rows = mesh_phase(torch, np, args.seed, smi, {
+        "graph": graph, "cnn": cnn, "signals": xs_serve,
+        "compiled": hopper, "params": params})
+
+    # -- 15. kernel list ----------------------------------------------------
+    phase("15 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -3594,10 +3969,12 @@ def main() -> int:
                 "bound_ms", "shared_ms", "per")}
         rows[name]["stream"] = {
             "launches": stream_counts[name],
-            "launches_per_tick": STREAM_TICK_LAUNCHES[name],
+            "launches_per_tick": steady_tick[name],
             **{k: stream_rows[name][k] for k in (
                 "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "per")}}
+    for name, mr in mesh_rows.items():
+        rows[name]["mesh"] = mr
     rows["bitserial_quant_matmul_hopper"]["stream"] = {
         "launches": q_stream_counts["bitserial_quant_matmul_hopper"],
         "launches_per_core_call": n_int_core,
@@ -3637,7 +4014,8 @@ def main() -> int:
                                  "backward", "single_stage", "int_mm_ms",
                                  "int_mm_kernel_ms", "int_mm", "steps_ms",
                                  "launches_per_call", "launch_floor_ms",
-                                 "stream", "per_row", "entry_point",
+                                 "stream", "per_row", "mesh",
+                                 "entry_point",
                                  "families", "train",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},

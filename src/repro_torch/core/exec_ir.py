@@ -557,7 +557,10 @@ def run_valid_prefix(fn: Callable, h: torch.Tensor, sp, valid_frames,
     a count run as one call; row-stacked params (:class:`RowParams`,
     their row axis the leading batch axis) are cut to the same rows, and
     a row alone with its count runs as a batch of one with its own
-    params entry (the per-row semantics without ``vmap``'s dispatch)."""
+    params entry (the per-row semantics without ``vmap``'s dispatch).
+    Rows of 0 valid frames (a meshed wave's zero pad rows) stay zero:
+    the stage runs on their first frame only when no row has any, to
+    learn its output's shape."""
     axis = h.ndim - suffix_rank
     batch = h.shape[:axis]
     hb = h.reshape(-1, *h.shape[axis:])
@@ -565,19 +568,24 @@ def run_valid_prefix(fn: Callable, h: torch.Tensor, sp, valid_frames,
     # flat row i of hb computes with row i // per of row-stacked params
     per = hb.shape[0] // batch[0] if batch else 1
     out = None
-    for v in sorted(set(vf)):
+    counts = sorted(set(vf))
+    if len(counts) > 1 and counts[0] == 0:
+        counts = counts[1:]
+    for v in counts:
         rows = [i for i, c in enumerate(vf) if c == v]
         sel = torch.as_tensor(rows, device=h.device)
+        n = max(v, 1)
         if not isinstance(sp, RowParams):
-            y = fn(hb[sel, :v], sp)
+            y = fn(hb[sel, :n], sp)
         elif len(rows) == 1:
-            y = fn(hb[sel, :v], sp.row(rows[0] // per))
+            y = fn(hb[sel, :n], sp.row(rows[0] // per))
         else:
-            y = fn(hb[sel, :v], sp.take(torch.as_tensor(
+            y = fn(hb[sel, :n], sp.take(torch.as_tensor(
                 [i // per for i in rows], device=h.device)))
         if out is None:
             out = y.new_zeros((hb.shape[0], hb.shape[1], *y.shape[2:]))
-        out[sel, :v] = y
+        if v:
+            out[sel, :v] = y
     return out.reshape(*batch, *out.shape[1:])
 
 

@@ -44,8 +44,9 @@ executes through the service's masked/padded bucket path):
   executes ``row_budget`` rows per tick through a resumable
   :class:`WaveState` (remaining requests keep their own masks /
   true lengths); urgent newcomers interleave between chunks instead of
-  waiting out the whole batch.  The port's service has no mesh
-  (``service.mesh`` is None), so the budget is used as given.
+  waiting out the whole batch.  On a meshed service the budget aligns
+  up to the shard width (``SignalMesh.align_row_budget``), so only the
+  remainder chunk carries pad rows.
 
 With the default configuration (``row_budget=None``, no finite
 deadlines in the queue) dispatch reduces exactly to the legacy
@@ -125,7 +126,7 @@ class SigSched:
 
     ``row_budget`` caps rows executed per tick for one wave (``None``:
     unsplit — the legacy behaviour); on a meshed service the effective
-    budget aligns up to the shard width (the port has no mesh yet).  ``cross_graph`` groups
+    budget aligns up to the shard width.  ``cross_graph`` groups
     requests by compiled-program fingerprint instead of graph name.
     ``defer_slack`` enables the wait-a-tick heuristic for under-full
     all-slack groups (at most ``max_defers`` consecutive deferrals per

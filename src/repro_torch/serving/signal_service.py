@@ -49,8 +49,17 @@ override, and preemptible waves under a ``row_budget``.
 ``scheduler=False`` keeps the FIFO pick (the oldest request's ``(graph,
 bucket)`` group in arrival order, up to ``batch_size``; streaming
 sessions stack per graph), which the default reduces to with one graph
-and no deadlines.  SigMesh is a later slice of the port (ROADMAP Queue 1
-item 5).
+and no deadlines.
+
+``mesh=`` serves data-parallel over a
+:class:`~repro_torch.serving.signal_mesh.SignalMesh` (SigMesh, as in the
+JAX package): waves pad their rows to a shard multiple with zero rows,
+run one call per placement slot (:meth:`CompiledSignalGraph.sharded_jit`)
+and are trimmed before any result is read; streaming sessions get a
+shard for life from a :class:`~repro_torch.serving.signal_mesh.
+DeviceRouter`, which also keeps the per-device cycle ledger
+(``CoScheduler.occupancy()["per_device"]``) and re-homes the sessions of
+a dropped shard (:meth:`SignalService.drop_device`).
 
 :class:`CoScheduler` runs one step loop over LLM decode waves
 (:class:`~repro_torch.serving.engine.DecodeWave`) and this service's DSP
@@ -72,6 +81,7 @@ import torch
 
 from .. import obs
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..launch.mesh import DataMesh
 from ..signal.graph import CompiledSignalGraph, FuseLevel, SignalGraph
 from ..signal.streaming import (StreamState, StreamStructure,
                                 commit_frames, drain_state, finalize_piece,
@@ -80,11 +90,12 @@ from ..signal.streaming import (StreamState, StreamStructure,
 from ..tree import tree_leaves, tree_map, tree_structure
 from .engine import DecodeWave, Request, ServingEngine
 from .scheduler import SigSched
+from .signal_mesh import DeviceRouter, SignalMesh, trim_rows
 
 __all__ = ["SignalRequest", "SignalService", "StreamSession", "GroupInfo",
            "SigSched", "TickPlan", "SchedulePolicy", "RoundRobinPolicy",
            "LatencyAwarePolicy", "CostBalancedPolicy", "get_policy",
-           "CoScheduler"]
+           "CoScheduler", "SignalMesh", "DeviceRouter"]
 
 
 def _host(a) -> np.ndarray:
@@ -285,10 +296,27 @@ class SignalService:
 
     ``scheduler`` picks each :meth:`step`'s wave: ``None`` or ``True``
     (the default) builds a :class:`SigSched`, a dict passes it options,
-    an instance is adopted, ``False`` keeps the FIFO pick.  ``mesh`` must
-    be None (``mesh=`` raises ``NotImplementedError``: SigMesh, ROADMAP
-    Queue 1 item 5); ``self.mesh`` and ``self.router`` (SigMesh's
-    per-device ledger) are None.
+    an instance is adopted, ``False`` keeps the FIFO pick.
+
+    ``mesh`` shards the service data-parallel
+    (:class:`~repro_torch.serving.signal_mesh.SignalMesh`; a shard count,
+    built over ``device`` 's type, or a
+    :class:`~repro_torch.launch.mesh.DataMesh` coerce).  Bucket batches
+    pad their row count to a shard multiple with zero rows and run one
+    call per placement slot; streaming sessions get device affinity (a
+    least-loaded shard assigned at :meth:`open_stream`, whose device then
+    holds their carried state across ticks); a :class:`DeviceRouter`
+    keeps the per-device cycle ledger the :class:`CoScheduler` reports.
+    Outputs equal the unmeshed path's — pad rows are zero rows of
+    row-independent math, trimmed before anything reads them.  As in the
+    JAX package, shards beyond the devices wrap round-robin: on one card
+    ``mesh=4`` runs each wave as ONE call on the padded rows (the same
+    launches as an unmeshed wave) while the router charges all four
+    shards, and four sessions on four shards never stack, so a tick makes
+    four core calls where an unmeshed tick makes one.  ``mesh=None`` (the
+    default) is the unmeshed service; ``self.mesh`` and ``self.router``
+    are then None, and a wave takes the same path over one slot on the
+    service's device, where padding and trimming change nothing.
     """
 
     def __init__(self, batch_size: int = 8,
@@ -297,19 +325,25 @@ class SignalService:
                  bucketing: bool = True,
                  block_frames: int = 8,
                  backend="reference",
-                 mesh=None,
+                 mesh: "SignalMesh | DataMesh | int | None" = None,
                  precision=None,
                  scheduler: "SigSched | dict | bool | None" = None,
                  device=DEFAULT_DEVICE):
         from ..signal.backends import HopperBackend, get_backend
-        if mesh is not None:
-            raise NotImplementedError(
-                "SignalService(mesh=...) is not in this slice of the "
-                "PyTorch port (ROADMAP Queue 1 item 5 (SigMesh))")
-        self.mesh = None
-        # SigMesh's per-device ledger (ROADMAP Queue 1 item 5): None, as
-        # on the JAX package's unsharded service.
-        self.router = None
+        self.device = resolve_device(device)
+        self.mesh = SignalMesh.coerce(mesh, device=self.device)
+        if self.mesh is not None and any(
+                d.type != self.device.type for d in self.mesh.devices):
+            raise ValueError(f"mesh devices {self.mesh.devices} are not "
+                             f"of the service's device type "
+                             f"{self.device.type!r}")
+        self.router = DeviceRouter(self.mesh.n_shards) \
+            if self.mesh is not None else None
+        # where a one-shot wave runs: the mesh, or one slot on the
+        # service's own device — the same split/pad/trim path either way
+        # (at one shard the pad and the trim change nothing)
+        self._placement = self.mesh if self.mesh is not None else \
+            SignalMesh(mesh=DataMesh([self.device]))
         self.batch_size = batch_size
         self.fuse = FuseLevel.coerce(fuse)
         self.backend = get_backend(backend)
@@ -323,12 +357,12 @@ class SignalService:
                     f"array backend int-routes calibrated widths")
             self.backend = HopperBackend(precision=precision)
         self.precision = precision
-        self.device = resolve_device(device)
         self.buckets = sorted(int(b) for b in buckets) if buckets else None
         self.bucketing = bucketing
         self.block_frames = int(block_frames)
         self._graphs: Dict[str, _Registration] = {}
         self._compiled: Dict[Tuple[str, int], CompiledSignalGraph] = {}
+        self._sharded: Dict[Tuple[str, int], Callable] = {}
         self._cost_cache: Dict[Tuple[str, int], int] = {}
         self._fp_cache: Dict[Tuple[str, int], Optional[Tuple]] = {}
         self._queue: List[SignalRequest] = []
@@ -337,9 +371,11 @@ class SignalService:
         self._sid = 0
         self._ckpt_seq = 0            # next save_checkpoint step number
         # est_cycles accumulates the perf-model cost of every executed
-        # batch, one-shot and streaming (the JAX package's co-scheduler
-        # reads deltas of it); wall_cycles is the latency clock, which
-        # equals it on one device.
+        # batch, one-shot and streaming (the co-scheduler reads deltas of
+        # it).  wall_cycles is the sharded-aware latency clock: per
+        # execution it advances by the MAX per-shard share (shards run
+        # concurrently), so on a mesh it runs up to n_shards-fold slower
+        # than est_cycles.  They coincide when mesh is None.
         self.est_cycles = 0
         self.wall_cycles = 0
         self.stats = {"compiles": 0, "batches": 0, "bucketed": 0,
@@ -377,7 +413,8 @@ class SignalService:
         except ValueError:
             struct = None                     # offline-only: exact lengths
         self._graphs[name] = _Registration(graph, params, struct)
-        for cache in (self._compiled, self._cost_cache, self._fp_cache):
+        for cache in (self._compiled, self._sharded, self._cost_cache,
+                      self._fp_cache):
             for key in [k for k in cache
                         if k[0] in (name, f"{name}//core")]:
                 del cache[key]
@@ -555,6 +592,26 @@ class SignalService:
                 self.compiled_for(*key))
         return self._cost_cache[key] * max(1, batch)
 
+    def _charge_devices(self, per_item: int, batch: int) -> int:
+        """Charge one wave's per-device cost split to the router ledger
+        (:func:`repro_torch.core.perf_model.device_step_costs` — pad rows
+        execute, so every shard pays ``ceil(batch/n)`` rows) and return
+        the wave's wall-clock cycles: the max per-device share on a mesh,
+        the plain total otherwise."""
+        if self.router is None:
+            return per_item * max(1, batch)
+        from ..core.perf_model import device_step_costs
+        costs = device_step_costs(per_item, batch, self.router.n_devices)
+        for i, c in enumerate(costs):
+            if c:
+                self.router.charge(i, c)
+        if obs.ENABLED:
+            obs.tracer().counter(
+                "device_occupancy",
+                {f"d{i}": c
+                 for i, c in enumerate(self.router.device_cycles)})
+        return max(costs)
+
     # -- one-shot batched execution -----------------------------------------
     def _fifo_pick(self, queue: List[SignalRequest]) -> List[SignalRequest]:
         key = self.group_key(queue[0])
@@ -663,10 +720,12 @@ class SignalService:
                             and reg.struct.framer is not None
                             and bucketed)
         classes = self._params_classes(wave)
-        if len(classes) > 1 and not self._stackable(classes, compiled):
-            # params the per-row call cannot take: one sub-call per
-            # params class — the same batched lowering as per-graph
-            # dispatch, so exact.
+        if len(classes) > 1 and (self.mesh is not None
+                                 or not self._stackable(classes, compiled)):
+            # params the per-row call cannot take (or a mesh, whose
+            # per-slot split the per-row call does not thread): one
+            # sub-call per params class — the same batched lowering as
+            # per-graph dispatch, so exact.
             self.stats["param_splits"] += len(classes) - 1
             results: Dict[int, object] = {}
             for _, idxs in classes:
@@ -674,10 +733,15 @@ class SignalService:
                     self._execute_wave([wave[i] for i in idxs], length))
             return results
 
-        stack = np.zeros((len(wave), length), np.float32)
+        # on a mesh the row count pads to a shard multiple so the rows
+        # split evenly over the slots; pad rows are zeros (a valid,
+        # row-independent input) and are trimmed before any result is
+        # read.  The host batch goes to each slot's device in its block.
+        rows = self._placement.padded_rows(len(wave))
+        stack = np.zeros((rows, length), np.float32)
         for i, r in enumerate(wave):
             stack[i, : lens[i]] = r.samples
-        batch = torch.as_tensor(stack, device=self.device)
+        batch = torch.as_tensor(stack)
         if obs.ENABLED:
             # pad waste: the fraction of the stacked (batch, bucket)
             # array that is zero padding past each row's true length.
@@ -694,15 +758,15 @@ class SignalService:
             out = self._run_per_row_params(compiled, reg, batch, lens, wave,
                                            masked)
         elif masked:
-            out = self._run_masked(compiled, reg, batch, lens,
-                                   classes[0][0])
+            out = self._run_masked(key, reg, batch, lens, classes[0][0])
         else:
-            out = _to_host(compiled.jit()(batch, classes[0][0]))
+            out = _to_host(self._sharded_for(key)(batch, classes[0][0]))
+        out = trim_rows(out, len(wave))
         self.stats["bucketed" if masked else "exact"] += 1
         self.stats["batches"] += 1
-        cost = self.group_cost(key, batch=len(wave))
-        self.est_cycles += cost
-        self.wall_cycles += cost
+        self.est_cycles += self.group_cost(key, batch=len(wave))
+        self.wall_cycles += self._charge_devices(self.group_cost(key),
+                                                 len(wave))
         results = {}
         for i, r in enumerate(wave):
             r.done = True
@@ -734,7 +798,8 @@ class SignalService:
         if masked and struct is not None and struct.framer is not None:
             vf = torch.as_tensor([struct.valid_frames(t) for t in lens],
                                  dtype=torch.int32, device=dev)
-        return _to_host(compiled.per_row(batch, pstack, valid_frames=vf))
+        return _to_host(compiled.per_row(batch.to(dev), pstack,
+                                         valid_frames=vf))
 
     def _record_emits(self, compiled, wave) -> None:
         """Admission->emit latency per request, attributed per graph and
@@ -774,17 +839,32 @@ class SignalService:
         return {name: trim(out[name][i], name)
                 for name in compiled.outputs}
 
-    def _run_masked(self, compiled, reg, batch, lens, params):
+    def _sharded_for(self, key: Tuple[str, int]) -> Callable:
+        """The per-slot entry point of ``key`` 's compiled bucket
+        (:meth:`CompiledSignalGraph.sharded_jit` over the placement: the
+        mesh, or one slot on the service's device; cached, so each slot's
+        params copy is made once)."""
+        if key not in self._sharded:
+            self._sharded[key] = self.compiled_for(*key).sharded_jit(
+                self._placement.mesh)
+        return self._sharded[key]
+
+    def _run_masked(self, key, reg, batch, lens, params):
         """Masked/padded execution: valid-frame counts per row ride the
         call, so one compile serves every length mix in the bucket."""
         struct = reg.struct
         if struct.framer is None:
             # pure sample chain: causal stages never read past a row's
             # valid prefix, so padding needs no masking — only trimming.
-            return _to_host(compiled.jit()(batch, params))
-        vf = torch.as_tensor([struct.valid_frames(t) for t in lens],
-                             dtype=torch.int32, device=self.device)
-        return _to_host(compiled.masked_jit()(batch, vf, params))
+            return _to_host(self._sharded_for(key)(batch, params))
+        # meshed batches carry zero pad rows past the wave: 0 valid
+        # frames masks every frame of a pad row (an all-zero result
+        # nothing reads back).
+        counts = [struct.valid_frames(t) for t in lens]
+        counts += [0] * (batch.shape[0] - len(counts))
+        vf = torch.as_tensor(counts, dtype=torch.int32)
+        return _to_host(self._sharded_for(key)(batch, params,
+                                               valid_frames=vf))
 
     def serve(self, requests: List[SignalRequest]) -> Dict[int, object]:
         """Drain a request list."""
@@ -811,9 +891,20 @@ class SignalService:
             raise ValueError(f"graph {name!r} is not streamable")
         sess = StreamSession(self, name, self._sid,
                              block_frames or self.block_frames)
+        if self.router is not None:
+            # device affinity for life: the session's carried state
+            # lands on this shard's device and stays there across ticks.
+            sess.device_index = self.router.assign()
         self._sid += 1
         self._sessions.setdefault(name, []).append(sess)
         return sess
+
+    def _session_device(self, sess: "StreamSession") -> torch.device:
+        """The device holding ``sess`` 's carried state: its shard's on
+        a mesh, the service's otherwise."""
+        if self.mesh is not None and sess.device_index is not None:
+            return self.mesh.device_for(sess.device_index)
+        return self.device
 
     def stream_sessions(self, name: Optional[str] = None) -> int:
         if name is not None:
@@ -837,18 +928,24 @@ class SignalService:
         call — same-graph always, and ACROSS graphs when the scheduler's
         cross-graph batching is on and the graphs' streamed core programs
         fingerprint identically AND their registered params compare equal
-        (the core call threads one shared params tree).  Deciding which
+        (the core call threads one shared params tree).  On a mesh a
+        stacked call never mixes shards: the session's shard is part of
+        the stacking key, so no carried state migrates to serve a batch.
+        Deciding which
         are ready reads only host counters; each session then
         overlap-adds its own slice back into its carried state through
         its own graph's structure and params, and pushes what became
         final to its pending output (a device-to-host copy).  Returns the
         number of core calls issued (at most one a tick for lock-stepped
         sessions of one graph, or of fingerprint-equal graphs with equal
-        params).  Serving never differentiates: the sessions' carried
-        state must hold no autograd history from tick to tick."""
+        params, on one shard).  Serving never differentiates: the
+        sessions' carried state must hold no autograd history from tick
+        to tick."""
         calls = 0
         _t0 = obs.now() if obs.ENABLED else 0
-        tick_cost = 0
+        # per-shard cost of THIS tick: shards run concurrently, so the
+        # tick's wall-clock contribution is the max over shards.
+        tick_costs: Dict[Optional[int], int] = {}
         cross = (self.scheduler is not None and self.scheduler.cross_graph
                  and len(self._sessions) > 1)
         groups: Dict[Tuple, List[Tuple[str, "StreamSession", object,
@@ -867,10 +964,11 @@ class SignalService:
                     if fp is not None:
                         ident = ("fp", fp)
                 gkey = (ident, spec.n_frames, tuple(block.shape),
-                        block.dtype)
+                        block.dtype, sess.device_index)
                 groups.setdefault(gkey, []).append((name, sess, spec,
                                                     block))
-        for (_, n_frames, _, _), members in groups.items():
+        for (_, n_frames, _, _, dev), members in groups.items():
+            device = self._session_device(members[0][1])
             # params ride the stacked core call as ONE shared tree, so a
             # fingerprint group sub-partitions by params equality —
             # fp-equal graphs with different weights never mix.
@@ -879,9 +977,9 @@ class SignalService:
                 reg = self._graphs[rep_name]
                 gnames = sorted({n for n, *_ in sub})
                 _tc = obs.now() if obs.ENABLED else 0
-                stacked = torch.stack([b for *_, b in sub])
+                stacked = torch.stack([b for *_, b in sub]).to(device)
                 res = reg.struct.core_jit(n_frames, self.fuse, self.backend,
-                                          self.device)(stacked, reg.params)
+                                          device)(stacked, reg.params)
                 calls += 1
                 if len(gnames) > 1:
                     self.scheduler.stats["cross_graph_batches"] += 1
@@ -891,12 +989,14 @@ class SignalService:
                 if obs.ENABLED:
                     obs.complete(f"graph/{rep_name}", "stream_core", _tc,
                                  n_frames=n_frames, width=len(sub),
-                                 graphs=gnames)
+                                 device=dev, graphs=gnames)
                     obs.metrics().histogram(
                         "service.stream_stack_width").record(len(sub))
                 cost = sum(self._stream_cost(n, n_frames) for n, *_ in sub)
                 self.est_cycles += cost
-                tick_cost += cost
+                tick_costs[dev] = tick_costs.get(dev, 0) + cost
+                if self.router is not None and dev is not None:
+                    self.router.charge(dev, cost)
                 for i, (name, sess, spec, block) in enumerate(sub):
                     sreg = self._graphs[name]
                     sstruct = sreg.struct
@@ -920,7 +1020,13 @@ class SignalService:
                         merged = dict(out) if isinstance(out, dict) else {}
                         merged.update(taps)
                         sess._push_outs(merged)
-        self.wall_cycles += tick_cost
+        if tick_costs:
+            self.wall_cycles += max(tick_costs.values())
+            if obs.ENABLED and self.router is not None:
+                obs.tracer().counter(
+                    "device_occupancy",
+                    {f"d{i}": c
+                     for i, c in enumerate(self.router.device_cycles)})
         self.stats["core_calls"] += calls
         self.stats["stream_ticks"] += 1
         if obs.ENABLED:
@@ -968,6 +1074,8 @@ class SignalService:
         lst = self._sessions.get(sess.graph_name, [])
         if sess in lst:
             lst.remove(sess)
+            if self.router is not None:
+                self.router.release(sess.device_index)
 
     # -- checkpoint / restore (the fault-tolerance contract) ----------------
     def session_by_sid(self, sid: int) -> Optional["StreamSession"]:
@@ -979,9 +1087,10 @@ class SignalService:
 
     def checkpoint(self) -> Dict:
         """Host-side snapshot of every open streaming session (carried
-        state, pending unread output, delivery counters) plus the
-        service counters.  Plain numpy throughout — independent of the
-        device, cheap enough to take per tick.  One-shot queue entries
+        state, pending unread output, delivery counters, shard affinity)
+        plus the service counters and the router's cycle ledger.  Plain
+        numpy throughout — independent of the device, cheap enough to
+        take per tick.  One-shot queue entries
         are NOT captured (they are client-owned request objects,
         resubmittable by contract); streaming state is what only the
         service can reconstruct.  Restoring rewinds the state; the
@@ -993,13 +1102,16 @@ class SignalService:
                 "sid": self._sid,
                 "sessions": sessions,
                 "est_cycles": self.est_cycles,
-                "wall_cycles": self.wall_cycles}
+                "wall_cycles": self.wall_cycles,
+                "device_cycles": list(self.router.device_cycles)
+                if self.router is not None else None}
 
     def restore(self, ckpt: Dict) -> None:
         """Restore the streaming side to a :meth:`checkpoint`.  Live
         session handles are restored IN PLACE (client code keeps its
         ``StreamSession`` objects); sessions opened after the
-        checkpoint are detached with an explanatory ``error``.  Delivery
+        checkpoint are detached with an explanatory ``error``; sessions
+        homed on a since-dropped shard are re-homed by the router.  Delivery
         counters are merged, not rewound — data a client already
         ``read()`` is never emitted twice after the replay (exactly-once
         delivery; see :meth:`StreamSession._dedup`)."""
@@ -1027,6 +1139,10 @@ class SignalService:
         self._sid = max(self._sid, int(ckpt["sid"]))
         self.est_cycles = ckpt.get("est_cycles", self.est_cycles)
         self.wall_cycles = ckpt.get("wall_cycles", self.wall_cycles)
+        dc = ckpt.get("device_cycles")
+        if self.router is not None and dc is not None \
+                and len(dc) == self.router.n_devices:
+            self.router.device_cycles = [int(c) for c in dc]
 
     def save_checkpoint(self, directory: str, step: Optional[int] = None,
                         keep: int = 3, blocking: bool = True) -> int:
@@ -1072,6 +1188,34 @@ class SignalService:
         self._ckpt_seq = max(self._ckpt_seq, step + 1)
         return step
 
+    def drop_device(self, index: int, carry_state: bool = True) -> None:
+        """Simulated device loss: mark the shard dead in the router and
+        re-home its sessions onto surviving shards (their carried state
+        moves once, to the new shard's device — affinity then holds
+        there).  ``carry_state=False`` re-homes the sessions without
+        reading their state off the lost device, for a caller that
+        restores them from a host checkpoint next
+        (:class:`~repro_torch.runtime.StreamSupervisor`)."""
+        if self.router is None:
+            raise ValueError("drop_device needs a meshed service")
+        self.router.drop(index)
+        moved = 0
+        for sessions in self._sessions.values():
+            for sess in sessions:
+                if sess.device_index == index:
+                    self.router.release(index)
+                    sess.device_index = self.router.assign()
+                    if carry_state:
+                        sess.state = restore_state(
+                            snapshot_state(sess.state),
+                            self._session_device(sess))
+                    moved += 1
+        self.stats["device_losses"] = self.stats.get("device_losses",
+                                                     0) + 1
+        if obs.ENABLED:
+            obs.instant("SignalService", "device_loss", device=index,
+                        sessions_moved=moved)
+
 
 class StreamSession:
     """One streaming connection to a :class:`SignalService`.
@@ -1098,6 +1242,7 @@ class StreamSession:
         self.state = StreamState()
         self.closed = False
         self.error: Optional[str] = None      # set when force-detached
+        self.device_index: Optional[int] = None   # shard affinity (mesh)
         self._out: List[np.ndarray] = []
         self._outs: Dict[str, List[np.ndarray]] = {}
         # exactly-once delivery counters, in absolute stream positions
@@ -1127,7 +1272,8 @@ class StreamSession:
         if self.closed:
             raise ValueError(self.error or f"session {self.sid} is closed")
         self.state, out = push_chunk(self._reg.struct, self.state, chunk,
-                                     self._reg.params, self.service.device)
+                                     self._reg.params,
+                                     self.service._session_device(self))
         if isinstance(out, dict):        # multi-output: chain taps emit now
             self._push_outs(out)
         elif out is not None:            # pure sample chain: no latency
@@ -1224,9 +1370,13 @@ class StreamSession:
                 cost = svc._stream_cost(self.graph_name, n_frames)
                 svc.est_cycles += cost
                 svc.wall_cycles += cost
+                if svc.router is not None \
+                        and self.device_index is not None:
+                    svc.router.charge(self.device_index, cost)
                 svc.stats["flush_core_calls"] += 1
                 res = struct.core_jit(n_frames, svc.fuse, svc.backend,
-                                      svc.device)(block[None], reg.params)
+                                      svc._session_device(self))(
+                    block[None], reg.params)
                 if isinstance(res, dict):
                     return {k: v[0] for k, v in res.items()}
                 return res[0]
@@ -1244,13 +1394,15 @@ class StreamSession:
     # -- checkpoint / restore ------------------------------------------------
     def snapshot(self) -> Dict:
         """Plain-data (host numpy) snapshot of this connection: carried
-        state, pending unread output and exactly-once delivery counters.
-        Deep copies throughout — the snapshot is valid after any amount
-        of further streaming."""
+        state, pending unread output, exactly-once delivery counters and
+        shard affinity.  Deep copies throughout — the snapshot is valid
+        after any amount of further streaming, and after losing the
+        device the live state was homed on."""
         return {
             "sid": self.sid,
             "graph": self.graph_name,
             "block_frames": self.block_frames,
+            "device_index": self.device_index,
             "closed": self.closed,
             "error": self.error,
             "state": snapshot_state(self.state),
@@ -1263,15 +1415,28 @@ class StreamSession:
 
     def _load_snapshot(self, snap: Dict) -> None:
         """Restore this connection in place from :meth:`snapshot`.  The
-        carried state lands on the service's device.  Pending output is
-        re-pushed through the exactly-once filter, and the delivery
-        counter keeps the live handle's progress — a client that read
-        past the checkpoint sees no duplicates when replay catches the
-        stream back up."""
+        carried state lands back on the session's shard's device
+        (re-homed first if that shard was dropped), or on the service's
+        device when unmeshed.  Pending output is re-pushed through the
+        exactly-once filter, and the delivery counter keeps the live
+        handle's progress — a client that read past the checkpoint sees
+        no duplicates when replay catches the stream back up."""
+        svc = self.service
         self.block_frames = int(snap["block_frames"])
         self.closed = bool(snap["closed"])
         self.error = snap["error"]
-        self.state = restore_state(snap["state"], device=self.service.device)
+        home = snap.get("device_index")
+        if svc.router is not None and home is not None \
+                and not svc.router.alive[home]:
+            if self.device_index is not None and self.device_index != home \
+                    and svc.router.alive[self.device_index]:
+                home = self.device_index   # re-homed by drop_device already
+            else:
+                svc.router.release(home)
+                home = svc.router.assign()
+        self.device_index = home
+        self.state = restore_state(snap["state"],
+                                   device=svc._session_device(self))
         # delivery memory merges forward: a fresh process takes the
         # checkpoint's counters, a live handle keeps what its client
         # already consumed (the larger of the two).
@@ -1495,9 +1660,10 @@ class CoScheduler:
             "dsp_cycles": self.dsp_cycles}
         total = self.llm_cycles + self.dsp_cycles
         out["dsp_share"] = self.dsp_cycles / total if total else 0.0
-        # the JAX package adds "per_device" from SigMesh's router here;
-        # the port's service has no router until SigMesh (ROADMAP Queue 1
-        # item 5) is ported
+        if self.signals.router is not None:
+            # per-device view of the DSP side: the mesh router's ledger
+            # (offered cycles per shard, liveness)
+            out["per_device"] = self.signals.router.occupancy()
         return out
 
     @property
@@ -1572,6 +1738,11 @@ class CoScheduler:
         tr.counter("occupancy", {"dsp_cycles": self.dsp_cycles,
                                  "llm_cycles": self.llm_cycles})
         tr.counter("dsp_share", {"share": occ["dsp_share"]})
+        if "per_device" in occ:
+            per = occ["per_device"]
+            tr.counter("device_occupancy",
+                       {f"d{i}": c
+                        for i, c in enumerate(per["device_cycles"])})
         m = obs.metrics()
         m.gauge("sched.dsp_share").set(occ["dsp_share"])
         m.counter("sched.ticks").inc()

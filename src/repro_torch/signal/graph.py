@@ -83,6 +83,7 @@ cores are compiled graphs too.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import warnings
@@ -1508,10 +1509,57 @@ class CompiledSignalGraph:
         return self._exec.rows_unsupported(params)
 
     def sharded_jit(self, mesh, batch_axis: str = "data"):
-        """Batch-sharded entry point — the scale-out slice of the port."""
-        raise NotImplementedError(
-            "sharded execution is the scale-out slice of the PyTorch port "
-            "(ROADMAP Queue 1 item 5: torch.distributed)")
+        """Batch-sharded entry point ``(x, params=None, *,
+        valid_frames=None) -> outputs`` over a 1-D
+        :class:`~repro_torch.launch.mesh.DataMesh` (or a
+        :class:`~repro_torch.serving.signal_mesh.SignalMesh` 's): the
+        input's rows (and ``valid_frames``, one count a row) split over
+        the mesh's slots by :func:`~repro_torch.models.sharding.
+        split_rows` — one block on the first slot when they do not
+        divide —, params replicated (tensor leaves moved once to each
+        slot's device and cached there for the params object last seen;
+        host leaves upload through the per-device constant cache, as on
+        an unsharded call), each slot's
+        block run through this graph's bound lowering on its own device,
+        and the outputs concatenated back in row order on the first
+        slot's device.  Slots are called one after another from this
+        process; on one device the call is this graph's own on all the
+        rows."""
+        from ..models.sharding import split_rows
+        mesh = getattr(mesh, "mesh", mesh)
+        if tuple(mesh.axis_names) != (batch_axis,):
+            raise ValueError(f"sharded_jit needs a 1-D mesh over "
+                             f"{batch_axis!r}; got axes {mesh.axis_names}")
+        replicas: Dict[torch.device, Tuple[object, object]] = {}
+
+        def on(dev, params):
+            hit = replicas.get(dev)
+            if hit is None or hit[0] is not params:
+                hit = (params, tree_map(
+                    lambda a: a.to(dev) if isinstance(a, torch.Tensor)
+                    else a, params))
+                replicas[dev] = hit
+            return hit[1]
+
+        def call(x, params=None, *, valid_frames=None):
+            x = x if isinstance(x, torch.Tensor) else self._input(x)
+            xs = split_rows(mesh, x)
+            vfs = (None,) * len(xs) if valid_frames is None else \
+                split_rows(mesh, torch.as_tensor(valid_frames).reshape(-1))
+            outs = []
+            for xb, vb in zip(xs, vfs):
+                dev = xb.device
+                with torch.cuda.device(dev) if dev.type == "cuda" \
+                        else contextlib.nullcontext():
+                    outs.append(self._exec(xb, on(dev, params), vb))
+            if len(outs) == 1:
+                return outs[0]
+            first = mesh.devices[0]
+            if isinstance(outs[0], dict):
+                return {k: torch.cat([o[k].to(first) for o in outs])
+                        for k in outs[0]}
+            return torch.cat([o.to(first) for o in outs])
+        return call
 
     # -- accounting (consumed by perf_model.signal_graph_report) ------------
     def gather_steps(self) -> List[GatherStep]:

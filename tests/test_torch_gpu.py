@@ -9,8 +9,9 @@ sessions against the offline compile, their launches a tick, gradients
 through the runner, a session's checkpoint round trip), and
 ``shuffle_gemm_blocks`` with one operand a batch row (each row bit for
 bit the shared-operand launch on its operand) with SigSched's
-cross-graph wave of two Fig-9 registrations with different params, and
-the dense decoders: five reduced configs on the card against the port
+cross-graph wave of two Fig-9 registrations with different params,
+SigMesh (a meshed wave and a meshed tick bit for bit the unmeshed ones,
+their launches counted), and the dense decoders: five reduced configs on the card against the port
 on the CPU (float32, rtol 1e-4, atol 1e-5), gemma2-2b at full width
 past its window on the bf16 flash kernel (each call within relative L2
 1e-2 of the plain version, the local ring cache), and greedy
@@ -1254,6 +1255,94 @@ def test_stream_session_checkpoint_round_trip_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(
             np.concatenate(tails[0][k], axis=-1 if k == "out" else 0),
             np.concatenate(tails[1][k], axis=-1 if k == "out" else 0))
+
+
+# -- SigMesh on the card: meshed waves and ticks against unmeshed -----------
+
+FORWARD = {"shuffle_gemm_blocks": 2, "shuffle_gemm_grouped_blocks": 0,
+           "shuffle_gemm_chain": 2}
+
+
+def _mesh_service(g, cnn, dev, mesh=None):
+    svc = SignalService(batch_size=4, backend="hopper", block_frames=8,
+                        device=dev, mesh=mesh)
+    svc.register("se", g, params={"mask": cnn})
+    return svc
+
+
+def test_meshed_wave_on_card_equals_unmeshed(cuda):
+    """Fig 9 served on ``mesh=4`` over the card's devices: each wave of 4
+    mixed-length requests is one call of 2 + 2 shuffle-GEMM launches on
+    one card (the shards wrap onto it), every result equal bit for bit to
+    the unmeshed service's, every shard charged its
+    ``device_step_costs``; ``sharded_jit`` over ``make_data_mesh`` equals
+    the plain call bit for bit."""
+    from repro_torch.core.perf_model import device_step_costs
+    from repro_torch.launch.mesh import make_data_mesh
+    rng, g, c, params, cnn = _stream_setup(cuda, seed=4)
+    sigs = [rng.standard_normal(LENGTH - 500 - 200 * i).astype(np.float32)
+            for i in range(8)]
+    unm, msh = _mesh_service(g, cnn, cuda), _mesh_service(g, cnn, cuda, 4)
+    ref = unm.serve([SignalRequest(rid=i, graph="se", samples=x)
+                     for i, x in enumerate(sigs)])
+    for i, x in enumerate(sigs):
+        msh.submit(SignalRequest(rid=i, graph="se", samples=x))
+    got = {}
+    while msh.pending():
+        reset_launch_counts()
+        got.update(msh.step())
+        torch.cuda.synchronize()
+        assert launch_counts() == FORWARD
+    for i in ref:
+        for k in ref[i]:
+            np.testing.assert_array_equal(got[i][k], ref[i][k])
+    per_item = msh.group_cost(("se", LENGTH))
+    assert msh.router.device_cycles == [
+        2 * c_ for c_ in device_step_costs(per_item, 4, 4)]
+    x8 = torch.as_tensor(rng.standard_normal((8, LENGTH)).astype(
+        np.float32), device=cuda)
+    with torch.no_grad():
+        want = c(x8, params)
+        out = c.sharded_jit(make_data_mesh(device=cuda))(x8, params)
+    for k in want:
+        assert torch.equal(out[k], want[k])
+
+
+def test_meshed_tick_on_card_equals_unmeshed(cuda):
+    """4 sessions on ``mesh=4`` land on 4 shards and never stack: a tick
+    is 4 core calls of the mel GEMM and two chains, and every session's
+    stream equals the unmeshed sessions' (one stacked call a tick) bit
+    for bit."""
+    rng, g, _, _, cnn = _stream_setup(cuda, seed=5)
+    waves = [rng.standard_normal(LENGTH).astype(np.float32)
+             for _ in range(4)]
+    outs = []
+    for mesh in (None, 4):
+        svc = _mesh_service(g, cnn, cuda, mesh)
+        sessions = [svc.open_stream("se") for _ in waves]
+        if mesh:
+            assert sorted(s.device_index for s in sessions) == [0, 1, 2, 3]
+        accs = [{} for _ in waves]
+        for lo in range(0, LENGTH, 256):
+            for s, w in zip(sessions, waves):
+                s.feed(w[lo:lo + 256])
+            reset_launch_counts()
+            calls = svc.stream_step()
+            torch.cuda.synchronize()
+            assert calls in ((0, 4) if mesh else (0, 1))
+            assert launch_counts() == {n: k * calls
+                                       for n, k in STREAM_TICK.items()}
+            for acc, s in zip(accs, sessions):
+                for k, v in s.read().items():
+                    acc.setdefault(k, []).append(v)
+        for acc, s in zip(accs, sessions):
+            for k, v in s.close().items():
+                acc.setdefault(k, []).append(v)
+        outs.append([{k: np.concatenate(v, axis=-1 if k == "out" else 0)
+                      for k, v in acc.items()} for acc in accs])
+    for a, b in zip(*outs):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 # -- dense models and the serving engine on the card ------------------------

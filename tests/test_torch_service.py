@@ -141,7 +141,9 @@ def test_submit_validates_samples():
 
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "SigMesh")])
 def test_later_slices_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """SigMesh is ported (tests/test_torch_mesh*.py): a mesh of a kind it
+    does not take is refused, naming what it takes."""
+    with pytest.raises(TypeError, match=item):
         SignalService(device="cpu", **kw)
 
 
