@@ -10,9 +10,11 @@ served and streamed int-routed), the FFT, phased-FIR and
 flash-attention entry points, a dense LM (starcoder2-3b) served and
 co-served with Fig 9, the other model families (MoE, RG-LRU hybrid,
 xLSTM, Whisper) served, and starcoder2-3b trained at full width,
-and Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
-fault-tolerance paths, with random weights and inputs drawn from
-``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
+Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
+fault-tolerance paths, and the multi-device models (a pipelined
+forward, a sharded train step, the compressed all-reduce and an elastic
+checkpoint) on 4 gloo ranks sharing the card, with random weights and
+inputs drawn from ``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
 card) — phase by phase:
 
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
@@ -255,10 +257,36 @@ card) — phase by phase:
      meshed, meshed, unmeshed; 4 windows each): p50 ``step()`` and p50
      tick meshed against unmeshed, launches a tick, the phase's seconds.
      Its launches are the shuffle-GEMM rows' ``mesh`` entry.
- 15. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 15. mesh models (``mesh_models_phase``, callable alone after
+     ``kernels.build()``): 4 gloo ranks started with ``spawn``, all on
+     ``cuda:0`` (one H100 takes one NCCL rank), their collectives through
+     the port's staged group (pinned host buffers, counted): every time
+     here is that one-card transport's, not an inter-card link's.  (a)
+     ``all_reduce``, ``broadcast``, ``all_gather_into_tensor``,
+     ``reduce_scatter_tensor``, ``send``/``recv`` and
+     ``all_to_all_single`` on CUDA tensors, by plain gloo (one 2-rank
+     group an op) and by the staged group: a table of what ran; (b)
+     ``spmd_pipeline`` over 4 stages, each one starcoder2-3b block at
+     full width (bf16), 8 microbatches of 1 x 2048 under ``no_grad``:
+     bit for bit the same blocks run one after another in the parent,
+     exactly 8 ``flash_attention_hopper`` launches a rank; (c)
+     starcoder2-3b at full width cut to 2 layers, float32, TF32 off, its
+     microbatch 4 and remat, on a (2, 2) mesh, 3 steps at batch 8 x 512
+     from ``make_batch_iterator(sharding=)``: loss and gradient norm at
+     rtol 1e-5, every moment and param at rtol 1e-4 / atol 1e-6 (params
+     whose gradient came within 100x of AdamW's eps at 2 x steps x lr)
+     against the unsharded ``make_train_step`` in the parent, and each
+     moment's largest error over its largest value; p50 step, collectives
+     and staged bytes a step, peak memory by rank; (d)
+     ``allreduce_compressed`` of a 3072 x 12288 gradient within 0.1 of
+     the mean, its int8 and float32 payload bytes, and a tree saved from
+     (2, 2) and restored under (4, 1) bit for bit.  A failed rank fails
+     the phase.
+ 16. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
-     ``train``.
+     ``train``, phase 15's pipelined forward under ``mesh_models`` (its
+     launches added to the row's).
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -2168,6 +2196,647 @@ def mesh_phase(torch, np, seed: int, smi: str, fig: dict) -> dict:
             for name in ("shuffle_gemm_blocks", "shuffle_gemm_chain")}
 
 
+# -- phase 15: multi-device models on gloo ranks that share the card ------
+# One H100 takes one NCCL rank, so the ranks are gloo processes on cuda:0
+# whose collectives the port's staged group (launch/staged_gloo.py) runs
+# through pinned host memory: every time of this phase is that one-card
+# transport's, not an inter-card link's.
+MM_WORLD = 4
+MM_PROBE_WORLD = 2                 # ranks of each plain-gloo probe group
+MM_ARCH = "starcoder2-3b"
+MM_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                "reduce_scatter_tensor", "send_recv", "all_to_all_single")
+MM_PIPE = {"stages": 4, "microbatches": 8, "seq": 2048}   # one block a stage
+# full width, depth cut to 2 layers, float32 (TF32 off) so the sharded
+# step can be held at the CPU test's tolerances; the config's microbatch 4
+# and remat
+MM_TRAIN = {"mesh": (2, 2), "n_layers": 2, "batch": 8, "seq": 512,
+            "steps": 3, "lr": 1e-3}
+MM_LOSS_RTOL, MM_RTOL, MM_ATOL = 1e-5, 1e-4, 1e-6
+MM_NEAR_EPS = 1e-6     # a gradient element this small makes AdamW's ratio
+                       # ill-conditioned: held to 2 x steps x lr instead (a
+                       # flipped sign moves a step's update by 2 lr)
+MM_COMPRESS = (3072, 12288)                # starcoder2-3b's w_up
+MM_COMPRESS_REL = 0.1                      # the JAX package's test limit
+MM_TIMEOUT = 600
+
+
+def _mm_probe_op(torch, dist, name: str, rank: int, world: int) -> bool:
+    """Collective ``name`` on CUDA tensors of ``cuda:0``; True when every
+    element of its result is right."""
+    dev = torch.device("cuda", 0)
+    if name == "all_reduce":
+        x = torch.full((1 << 20,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        return bool((x == world * (world + 1) / 2).all())
+    if name == "broadcast":
+        x = torch.full((1 << 20,), float(rank), device=dev)
+        dist.broadcast(x, src=world - 1)
+        return bool((x == world - 1).all())
+    if name == "all_gather_into_tensor":
+        x = torch.full((1 << 18,), float(rank), device=dev)
+        out = torch.empty(world << 18, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return bool(torch.equal(out.view(world, -1)[:, 0].cpu(),
+                                torch.arange(world, dtype=torch.float32)))
+    if name == "reduce_scatter_tensor":
+        x = torch.arange(world << 18, device=dev, dtype=torch.float32)
+        out = torch.empty(1 << 18, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        return bool(torch.equal(out, world * x.view(world, -1)[rank]))
+    if name == "send_recv":
+        x = torch.full((1 << 18,), float(rank), device=dev)
+        if rank % 2 == 0:
+            dist.send(x, rank + 1)
+            return True
+        dist.recv(x, rank - 1)
+        return bool((x == rank - 1).all())
+    if name == "all_to_all_single":
+        x = (torch.arange(world, device=dev, dtype=torch.float32)
+             .repeat_interleave(1 << 16) + 10 * rank)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        want = (torch.arange(world, device=dev, dtype=torch.float32) * 10
+                + rank).repeat_interleave(1 << 16)
+        return bool(torch.equal(out, want))
+    raise ValueError(name)
+
+
+def _mm_plain_probe(op: str, rank: int, world: int, init: str,
+                    out_dir: str) -> None:
+    """One rank of 15a's plain-gloo probe of ``op`` (its own 4-rank
+    group); a crash or an exception is the probe's finding, read by the
+    parent from the exit code."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    ok = _mm_probe_op(torch, dist, op, rank, world)
+    torch.cuda.synchronize()
+    with open(os.path.join(out_dir, f"plain_{op}_{rank}.json"), "w") as f:
+        json.dump({"ok": ok}, f)
+    dist.destroy_process_group()
+
+
+def _mm_flat(tree, prefix: str = "") -> dict:
+    """``{"a/b": leaf}`` of a dict tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_mm_flat(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _mm_stage_block(torch, cfg, seed: int, stage: int):
+    from repro_torch.models import transformer as T
+    return T.init_block(torch.Generator(device="cuda").manual_seed(
+        seed * 1000 + 100 + stage), "global", cfg)
+
+
+def _mm_pipe_inputs(torch, cfg, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + 99)
+    return torch.randn((MM_PIPE["microbatches"], 1, MM_PIPE["seq"],
+                        cfg.d_model), generator=gen, device="cuda").to(
+                            torch.bfloat16)
+
+
+def _mm_block_fn(torch, cfg):
+    """One stage's compute: a starcoder2-3b block (the flash kernel on
+    its full-length attention under ``no_grad``)."""
+    from repro_torch.models import transformer as T
+    positions = torch.arange(MM_PIPE["seq"], device="cuda")
+
+    def fn(p, x):
+        return T.block_apply("global", p, x, cfg, "train", positions, 0,
+                             None)[0]
+    return fn
+
+
+def _mm_train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MM_ARCH),
+                               n_layers=MM_TRAIN["n_layers"],
+                               dtype="float32")
+
+
+def _mm_references(torch, seed: int) -> tuple:
+    """The parent's single-process references, on the card: the four
+    stages run one after another on every microbatch (15b), and
+    ``MM_TRAIN["steps"]`` steps of the unsharded ``make_train_step`` on
+    the same weights and batches (15c).  Returns the readings and the
+    tensors the ranks compare against, left on the card: the ranks get
+    them through CUDA IPC (``torch.multiprocessing``), nothing copied."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_batch_iterator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import adamw_init
+    out, t_start = {}, time.perf_counter()
+    cfg = get_config(MM_ARCH)
+    fn = _mm_block_fn(torch, cfg)
+    blocks = [_mm_stage_block(torch, cfg, seed, s)
+              for s in range(MM_PIPE["stages"])]
+    x = _mm_pipe_inputs(torch, cfg, seed)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = torch.stack([_mm_sequential(fn, blocks, x[i])
+                           for i in range(MM_PIPE["microbatches"])])
+        torch.cuda.synchronize()
+    out["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+    del blocks, x
+    out["pipe_s"] = time.perf_counter() - t_start
+
+    tcfg = _mm_train_cfg()
+    bundle = get_model(tcfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+    opt = adamw_init(params)
+    step = make_train_step(bundle, lambda s: MM_TRAIN["lr"])
+    it = make_batch_iterator(TokenStream(
+        tcfg.vocab, MM_TRAIN["seq"], MM_TRAIN["batch"], seed), device="cuda")
+    m_prev = {k: v.clone() for k, v in _mm_flat(opt.m).items()}
+    near = {k: torch.zeros_like(v, dtype=torch.bool)
+            for k, v in m_prev.items()}
+    losses, norms, times = [], [], []
+    for _ in range(MM_TRAIN["steps"]):
+        _, batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        for k, v in _mm_flat(opt.m).items():
+            # this step's clipped gradient, from the first moment's update
+            g = (v - 0.9 * m_prev[k]).abs() / 0.1
+            near[k] |= (g > 0) & (g < MM_NEAR_EPS)
+            m_prev[k].copy_(v)
+    del m_prev
+    torch.cuda.empty_cache()
+    out["single_step_s"] = times
+    out["single_p50_s"] = float(np.median(times))
+    out["loss"], out["grad_norm"] = losses, norms
+    out["near_eps"] = int(sum(int(v.sum()) for v in near.values()))
+    out["seconds"] = time.perf_counter() - t_start
+    shared = {"pipe": seq, "loss": losses, "grad_norm": norms,
+              "params": _mm_flat(params), "m": _mm_flat(opt.m),
+              "v": _mm_flat(opt.v), "near_eps": near}
+    return out, shared
+
+
+def _mm_sequential(fn, blocks, x):
+    """``x`` through every block in order, in this process."""
+    for p in blocks:
+        x = fn(p, x)
+    return x
+
+
+def _mm_rank_pipeline(torch, dist, seed: int, ref) -> dict:
+    """15b in one rank: ``spmd_pipeline`` over the 4 stages, this rank's
+    block a ``Shard(0)`` row of the stacked stage params."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.pipeline import spmd_pipeline
+    from repro_torch.tree import tree_map
+    cfg = get_config(MM_ARCH)
+    mesh = make_test_mesh((MM_PIPE["stages"],), ("stage",), device="cuda")
+    stage = mesh.get_local_rank("stage")
+    block = _mm_stage_block(torch, cfg, seed, stage)
+    stacked = tree_map(lambda t: DTensor.from_local(
+        t[None], mesh, [Shard(0)], run_check=False), block)
+    x = _mm_pipe_inputs(torch, cfg, seed)
+    fn = _mm_block_fn(torch, cfg)
+    FK.reset_launch_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = spmd_pipeline(fn, stacked, x, mesh=mesh, axis_name="stage",
+                            n_microbatches=MM_PIPE["microbatches"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = FK.launch_counts()
+    diff = (out.float() - ref.float())
+    return {"stage": stage, "launches": counts, "ms": wall * 1e3,
+            "equal": bool(torch.equal(out, ref)),
+            "max_abs_diff": float(diff.abs().max()),
+            "rel_l2": float(diff.norm() / ref.float().norm())}
+
+
+def _mm_rank_train(torch, dist, seed: int, ref: dict) -> dict:
+    """15c in one rank: ``MM_TRAIN["steps"]`` sharded steps on a (2, 2)
+    mesh, then this rank's shards held against the parent's unsharded
+    run."""
+    import numpy as np
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.data import TokenStream, make_batch_iterator
+    from repro_torch.launch import staged_gloo
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim.adamw import adamw_init
+    cfg = _mm_train_cfg()
+    bundle = get_model(cfg)
+    mesh = make_test_mesh(MM_TRAIN["mesh"], device="cuda")
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(seed),
+                         device="cuda")
+    params = SH.distribute_tree(params, SH.param_specs(
+        params, SH.mesh_axes_of(mesh), cfg.fsdp), mesh)
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    step = make_train_step(bundle, lambda s: MM_TRAIN["lr"])
+    it = make_batch_iterator(TokenStream(
+        cfg.vocab, MM_TRAIN["seq"], MM_TRAIN["batch"], seed),
+        sharding=SH.row_sharding(mesh, (MM_TRAIN["batch"], MM_TRAIN["seq"])))
+    losses, norms, times, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MM_TRAIN["steps"]):
+        _, batch = next(it)
+        before = staged_gloo.staged_totals()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = staged_gloo.staged_totals()
+        per_step.append({k: after.get(k, 0) - before.get(k, 0)
+                         for k in after if after.get(k, 0) != before.get(k, 0)})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    worst, bad, n_near, bad_moments, m_scaled = {}, 0, 0, 0, 0.0
+
+    def local(t, placements):
+        return distribute_tensor(t, mesh, placements,
+                                 src_data_rank=None).to_local()
+    for name, leaf in _mm_flat(params).items():
+        want = local(ref["params"][name], leaf.placements)
+        sens = local(ref["near_eps"][name], leaf.placements)
+        err = (leaf.to_local() - want).abs()
+        tol = torch.where(sens, 2 * MM_TRAIN["steps"] * MM_TRAIN["lr"],
+                          MM_ATOL + MM_RTOL * want.abs())
+        bad += int((err > tol).sum())
+        n_near += int(sens.sum())
+        worst[name] = float(err[~sens].max()) if (~sens).any() else 0.0
+    # the moments, linear and quadratic in the gradients, have no such
+    # ill-conditioned elements: all of them at the CPU test's tolerances
+    for key, tree in (("m", opt.m), ("v", opt.v)):
+        for name, leaf in _mm_flat(tree).items():
+            want = local(ref[key][name], leaf.placements)
+            err = (leaf.to_local() - want).abs()
+            bad_moments += int((err > MM_ATOL + MM_RTOL * want.abs()).sum())
+            if want.numel() and float(want.abs().max()) > 0:
+                m_scaled = max(m_scaled, float(err.max() / want.abs().max()))
+    return {"loss": losses, "grad_norm": norms,
+            "ref_loss": ref["loss"], "ref_grad_norm": ref["grad_norm"],
+            "step_s": times, "p50_s": float(np.median(times)),
+            "collectives_per_step": per_step, "peak_bytes": peak,
+            "violations": bad, "moment_violations": bad_moments,
+            "moment_err_over_max": m_scaled,
+            "near_eps_local": n_near,
+            "max_abs_err": max(worst.values()),
+            "worst_leaf": max(worst, key=worst.get)}
+
+
+def _mm_rank_compress(torch, dist, seed: int, rank: int, world: int) -> dict:
+    """15d (1): ``allreduce_compressed`` of a full-width ``w_up``
+    gradient, each rank its own, against the mean of all four."""
+    from repro_torch.launch import staged_gloo
+    from repro_torch.optim.compression import (allreduce_compressed,
+                                               compress_int8)
+
+    def grad(r):
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + 200
+                                                         + r)
+        return torch.randn(MM_COMPRESS, generator=gen, device="cuda") * 1e-3
+    mean = grad(0)
+    for r in range(1, world):
+        mean += grad(r)
+    mean /= world
+    q, s = compress_int8(grad(rank))
+    before = staged_gloo.staged_totals()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = allreduce_compressed(q, s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = staged_gloo.staged_totals()
+    n = q.numel()
+    return {"rel": float((out - mean).abs().max() / mean.abs().max()),
+            "ms": wall * 1e3, "int8_payload_bytes": n,
+            "float32_payload_bytes": 4 * n, "int32_sum_bytes": 4 * n,
+            "staged": {k: after.get(k, 0) - before.get(k, 0) for k in after
+                       if after.get(k, 0) != before.get(k, 0)}}
+
+
+def _mm_rank_checkpoint(torch, dist, seed: int, work: str) -> dict:
+    """15d (2): a tree placed by its fsdp specs on (2, 2), saved, and
+    restored under (4, 1): each rank's blocks bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding as SH
+    gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + 300)
+    tree = {"w_up": torch.randn(MM_COMPRESS, generator=gen, device="cuda"),
+            "wq": torch.randn((3072, 3072), generator=gen, device="cuda"),
+            "norm_in": torch.randn((3072,), generator=gen, device="cuda")}
+    m1 = make_test_mesh((2, 2), device="cuda")
+    t1 = SH.distribute_tree(tree, SH.param_specs(
+        tree, SH.mesh_axes_of(m1), True), m1)
+    ck = Checkpointer(os.path.join(work, "ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(1, t1, blocking=True)
+    save_s = time.perf_counter() - t0
+    m2 = make_test_mesh((4, 1), device="cuda")
+    specs2 = SH.param_specs(tree, SH.mesh_axes_of(m2), True)
+    shardings = {k: SH.NamedSharding(m2, s) for k, s in specs2.items()}
+    t0 = time.perf_counter()
+    step, back = ck.restore(like=tree, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = {}
+    for k in tree:
+        want = distribute_tensor(tree[k], m2, SH.to_placements(specs2[k], m2),
+                                 src_data_rank=None)
+        equal[k] = bool(torch.equal(back[k].to_local(), want.to_local())
+                        and back[k].placements == want.placements)
+    return {"step": step, "equal": equal, "save_s": save_s,
+            "restore_s": restore_s,
+            "placements": {k: str(back[k].placements) for k in tree}}
+
+
+def _mm_rank(rank: int, world: int, init: str, work: str, seed: int,
+             ref: dict) -> None:
+    """One of the 4 ranks of phase 15 (b-d and 15a's staged probe);
+    ``ref`` holds the parent's references on the card (CUDA IPC); the
+    readings go to ``work/rank<r>.json``, a traceback to
+    ``work/rank<r>.err``."""
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch import kernels as K
+        from repro_torch.launch import staged_gloo
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(rank, world, init, device="cuda", timeout_s=300)
+        res = {"backend": dist.get_backend()}
+        # the kernel library's first use in this rank: the probe
+        K.compiled_supported.launches = 0
+        if not K.compiled_supported():
+            raise AssertionError("compiled_supported() is False")
+        res["probe_launches"] = K.compiled_supported.launches
+        staged = {}
+        for op in MM_PROBE_OPS:
+            before = staged_gloo.staged_totals()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = _mm_probe_op(torch, dist, op, rank, world)
+            torch.cuda.synchronize()
+            after = staged_gloo.staged_totals()
+            staged[op] = {"ok": ok, "ms": (time.perf_counter() - t0) * 1e3,
+                          "staged_bytes": sum(
+                              after.get(k, 0) - before.get(k, 0)
+                              for k in ("bytes_to_host",
+                                        "bytes_to_device"))}
+            dist.barrier()
+        res["staged"] = staged
+        t0 = time.perf_counter()
+        res["pipeline"] = _mm_rank_pipeline(torch, dist, seed, ref["pipe"])
+        res["pipeline_s"] = time.perf_counter() - t0
+        dist.barrier()
+        t0 = time.perf_counter()
+        res["train"] = _mm_rank_train(torch, dist, seed, ref)
+        res["train_s"] = time.perf_counter() - t0
+        dist.barrier()
+        torch.cuda.empty_cache()
+        res["compress"] = _mm_rank_compress(torch, dist, seed, rank, world)
+        res["checkpoint"] = _mm_rank_checkpoint(torch, dist, seed, work)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["staged_totals"] = staged_gloo.staged_totals()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _mm_join(procs, deadline: float, grace: float = 15.0) -> list:
+    """Wait for ``procs`` until they end, ``deadline`` (monotonic) passes,
+    or ``grace`` seconds after the first failure; kill what is left and
+    return the exit codes."""
+    failed_at = None
+    while any(p.is_alive() for p in procs):
+        now = time.monotonic()
+        if failed_at is None and any(p.exitcode not in (None, 0)
+                                     for p in procs):
+            failed_at = now
+        if now > deadline or (failed_at is not None
+                              and now > failed_at + grace):
+            break
+        time.sleep(0.1)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 15, callable alone after ``kernels.build()`` (the ranks load
+    the library the parent built: N ranks building into one directory at
+    once would race).  (a) each collective the slice uses, on CUDA
+    tensors, by plain gloo (one 2-rank group an op, all at once) and by
+    the port's staged group; (b) ``spmd_pipeline`` over 4 stages of one
+    starcoder2-3b block each (bf16, 8 microbatches of 1 x 2048, no_grad)
+    against the same blocks run one after another in this process; (c)
+    ``MM_TRAIN`` sharded steps on a (2, 2) mesh against the unsharded
+    step here; (d) ``allreduce_compressed`` of a w_up gradient and the
+    (2, 2) -> (4, 1) checkpoint.  Returns the readings and the launch
+    counts of the kernel JSON."""
+    import shutil
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx = mp.get_context("spawn")
+    # 15a: plain gloo, one 2-rank group an op, started first so their
+    # start-up overlaps the references below
+    probes = {}
+    for op in MM_PROBE_OPS:
+        init = "file://" + os.path.join(work, f"rdv_plain_{op}")
+        probes[op] = [ctx.Process(target=_mm_plain_probe,
+                                  args=(op, r, MM_PROBE_WORLD, init, work))
+                      for r in range(MM_PROBE_WORLD)]
+        for p in probes[op]:
+            p.start()
+    refs, shared = _mm_references(torch, seed)
+    print(f"references: 4 blocks one after another on 8 microbatches "
+          f"{refs['sequential_ms']:.1f} ms ({refs['pipe_s']:.1f} s with "
+          f"the set-up); unsharded step {refs['single_step_s']} s, p50 "
+          f"{refs['single_p50_s']:.3f} s (losses {refs['loss']}); "
+          f"{refs['seconds']:.1f} s", flush=True)
+    deadline = time.monotonic() + 120
+    plain = {op: _mm_join(ps, deadline) for op, ps in probes.items()}
+    plain_s = time.perf_counter() - t_phase
+
+    init = "file://" + os.path.join(work, "rdv_mesh")
+    procs = [ctx.Process(target=_mm_rank,
+                         args=(r, MM_WORLD, init, work, seed, shared))
+             for r in range(MM_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    codes = _mm_join(procs, time.monotonic() + MM_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    del shared                        # the ranks are gone: free the card
+    torch.cuda.empty_cache()
+    if any(c != 0 for c in codes):
+        errs = []
+        for r in range(MM_WORLD):
+            path = os.path.join(work, f"rank{r}.err")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f"--- rank {r} ---\n{f.read()}")
+        raise AssertionError(f"phase 15 ranks exited {codes}:\n"
+                             + ("\n".join(errs) or "no traceback written"))
+    res = []
+    for r in range(MM_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    failures = []
+
+    # -- 15a --
+    print(f"15a collectives on CUDA tensors of cuda:0 ({smi}): plain gloo "
+          f"in a {MM_PROBE_WORLD}-rank group an op, the staged group in the "
+          f"phase's {MM_WORLD} ranks:")
+    print(f"  {'op':24s} {'plain gloo':34s} staged gloo "
+          f"(ms, bytes staged by rank 0)")
+    table = {}
+    for op in MM_PROBE_OPS:
+        oks = []
+        for r in range(MM_PROBE_WORLD):
+            path = os.path.join(work, f"plain_{op}_{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    oks.append(json.load(f)["ok"])
+        if all(c == 0 for c in plain[op]) and len(oks) == MM_PROBE_WORLD:
+            verdict = "ran, right" if all(oks) else "ran, WRONG result"
+        else:
+            verdict = f"failed: exit codes {plain[op]}"
+        st = [x["staged"][op] for x in res]
+        table[op] = {"plain": verdict, "plain_exit": plain[op],
+                     "staged_ok": all(s_["ok"] for s_ in st),
+                     "staged_ms": st[0]["ms"],
+                     "staged_bytes": st[0]["staged_bytes"]}
+        print(f"  {op:24s} {verdict:34s} "
+              f"{'ran, right' if table[op]['staged_ok'] else 'WRONG'} "
+              f"({st[0]['ms']:.2f} ms, {st[0]['staged_bytes']} B)")
+        if not table[op]["staged_ok"]:
+            failures.append(f"15a: staged {op} gave a wrong result")
+    print(f"  backend of the ranks: {res[0]['backend']}; probe launches a "
+          f"rank {[x['probe_launches'] for x in res]}", flush=True)
+
+    # -- 15b --
+    pipe = [x["pipeline"] for x in res]
+    flash = [x["launches"]["flash_attention_hopper"] for x in pipe]
+    split = [x["launches"]["flash_split_kv_hopper"] for x in pipe]
+    print(f"15b spmd_pipeline: {MM_PIPE['stages']} stages x 1 block of "
+          f"{MM_ARCH} (d 3072, 24/2 heads, hd 128, d_ff 12288, bf16), "
+          f"{MM_PIPE['microbatches']} microbatches of 1 x {MM_PIPE['seq']}: "
+          f"wall {[round(x['ms'], 1) for x in pipe]} ms by rank, "
+          f"sequential {refs['sequential_ms']:.1f} ms; bit for bit the "
+          f"sequential run on every rank: {[x['equal'] for x in pipe]} "
+          f"(max abs diff {[x['max_abs_diff'] for x in pipe]}); flash "
+          f"launches by rank {flash}", flush=True)
+    if flash != [MM_PIPE["microbatches"]] * MM_WORLD or any(split):
+        failures.append(f"15b: flash launches {flash}, split_kv {split}")
+    for x in pipe:
+        if not x["equal"] and x["rel_l2"] > ATTN_REL_L2:
+            failures.append(f"15b: stage {x['stage']} rel L2 {x['rel_l2']}")
+
+    # -- 15c --
+    tr = [x["train"] for x in res]
+    t0r = tr[0]
+    for i in range(MM_TRAIN["steps"]):
+        for key in ("loss", "grad_norm"):
+            got, want = t0r[key][i], t0r["ref_" + key][i]
+            if abs(got - want) > MM_LOSS_RTOL * abs(want):
+                failures.append(f"15c: step {i} {key} {got} vs {want}")
+    bad = sum(x["violations"] for x in tr)
+    bad_m = sum(x["moment_violations"] for x in tr)
+    if bad or bad_m:
+        failures.append(f"15c: {bad} param and {bad_m} moment elements "
+                        f"outside tolerance")
+    coll = t0r["collectives_per_step"][-1]
+    print(f"15c {MM_ARCH} full width, {MM_TRAIN['n_layers']} layers "
+          f"(cut from 30), float32, microbatch "
+          f"{_mm_train_cfg().microbatch}, remat, batch {MM_TRAIN['batch']} "
+          f"x {MM_TRAIN['seq']}, (2, 2) mesh, {MM_TRAIN['steps']} steps: "
+          f"loss {t0r['loss']} vs unsharded {t0r['ref_loss']}; grad_norm "
+          f"{t0r['grad_norm']} vs {t0r['ref_grad_norm']}; moments (m, v) "
+          f"outside rtol {MM_RTOL} / atol {MM_ATOL}: {bad_m} (largest error "
+          f"over a leaf's largest value "
+          f"{max(x['moment_err_over_max'] for x in tr):.3e}); params: {bad} "
+          f"(elements near eps, "
+          f"held to 2 x steps x lr: {sum(x['near_eps_local'] for x in tr)} "
+          f"shard elements; max abs err elsewhere "
+          f"{max(x['max_abs_err'] for x in tr):.3e}); step p50 "
+          f"{t0r['p50_s']:.3f} s sharded vs {refs['single_p50_s']:.3f} s "
+          f"unsharded; rank 0's collectives and staged bytes of the last "
+          f"step {coll}; peak memory by rank "
+          f"{[round(x['peak_bytes'] / 1e9, 2) for x in tr]} GB", flush=True)
+
+    # -- 15d --
+    cp = [x["compress"] for x in res]
+    ck = [x["checkpoint"] for x in res]
+    print(f"15d allreduce_compressed of a {MM_COMPRESS} gradient over "
+          f"{MM_WORLD} ranks: max rel err vs the mean "
+          f"{max(x['rel'] for x in cp):.4f} (limit {MM_COMPRESS_REL}); "
+          f"payload {cp[0]['int8_payload_bytes']} B int8 against "
+          f"{cp[0]['float32_payload_bytes']} B float32 (the sum runs on "
+          f"{cp[0]['int32_sum_bytes']} B of int32); {cp[0]['ms']:.1f} ms, "
+          f"staged {cp[0]['staged']}", flush=True)
+    if max(x["rel"] for x in cp) >= MM_COMPRESS_REL:
+        failures.append("15d: compressed all-reduce off the mean")
+    print(f"15d checkpoint (2, 2) -> (4, 1): equal {[x['equal'] for x in ck]}"
+          f", placements {ck[0]['placements']}, save {ck[0]['save_s']:.2f} s"
+          f", restore {ck[0]['restore_s']:.2f} s", flush=True)
+    if not all(all(x["equal"].values()) and x["step"] == 1 for x in ck):
+        failures.append("15d: the elastic restore differs")
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 15: {phase_s:.1f} s (references {refs['seconds']:.1f} s"
+          f", with the plain probe {plain_s:.1f} s; ranks {ranks_s:.1f} s: "
+          f"pipeline "
+          f"{res[0]['pipeline_s']:.1f} s, train {res[0]['train_s']:.1f} s)",
+          flush=True)
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    return {"flash_launches": sum(flash), "flash_per_rank": flash,
+            "probe_launches": sum(x["probe_launches"] for x in res),
+            "pipeline_ms": [x["ms"] for x in pipe],
+            "collectives": table, "seconds": phase_s,
+            "train_p50_s": t0r["p50_s"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3943,8 +4612,12 @@ def main() -> int:
         "graph": graph, "cnn": cnn, "signals": xs_serve,
         "compiled": hopper, "params": params})
 
-    # -- 15. kernel list ----------------------------------------------------
-    phase("15 kernels")
+    # -- 15. mesh models: gloo ranks sharing the card ---------------------
+    phase("15 mesh models")
+    mm = mesh_models_phase(torch, np, args.seed, smi)
+
+    # -- 16. kernel list ----------------------------------------------------
+    phase("16 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -3993,7 +4666,20 @@ def main() -> int:
     # loss
     rows["flash_attention_hopper"]["families"] = families
     rows["flash_attention_hopper"]["train"] = train_row
-    launches["flash_attention_hopper"] = lm_row["launches"]
+    # phase 15b's pipelined forward: one launch a stage a microbatch, in
+    # each rank
+    rows["flash_attention_hopper"]["mesh_models"] = {
+        "launches": mm["flash_launches"],
+        "launches_per_rank": mm["flash_per_rank"],
+        "pipeline_ms_per_rank": mm["pipeline_ms"],
+        "per": "spmd_pipeline over 4 gloo ranks on the card, one "
+               "starcoder2-3b block a stage, 8 microbatches of 1 x 2048"}
+    launches["flash_attention_hopper"] = (lm_row["launches"]
+                                          + mm["flash_launches"])
+    rows["compiled_supported"]["mesh_models"] = {
+        "launches": mm["probe_launches"],
+        "per": "each phase-15 rank's first use of the library"}
+    launches["compiled_supported"] += mm["probe_launches"]
     rows["shuffle_gemm_chain_hopper"] = rows.pop("shuffle_gemm_chain")
     rows["shuffle_gemm_chain_hopper"]["per"] += (
         " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
@@ -4016,7 +4702,7 @@ def main() -> int:
                                  "launches_per_call", "launch_floor_ms",
                                  "stream", "per_row", "mesh",
                                  "entry_point",
-                                 "families", "train",
+                                 "families", "train", "mesh_models",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })

@@ -22,7 +22,13 @@ Properties the service relies on:
 - atomic: a checkpoint exists iff COMMIT exists (tmp dir + rename);
 - async: ``save`` copies every leaf to host numpy first, then writes on
   a background thread when asked to, off the caller's critical path;
-- bounded retention: keep the last N checkpoints.
+- bounded retention: keep the last N checkpoints;
+- elastic: leaves are stored whole (unsharded).  Saving a tree of
+  DTensors gathers each leaf (``full_tensor()``, a collective every rank
+  of its mesh calls) and only global rank 0 writes; a blocking save ends
+  in a barrier, so every rank can read the checkpoint after it.
+  ``restore(..., shardings=)`` places each leaf on any mesh by its spec
+  — save under a (2, 2) mesh, restore under (4, 1).
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..models.sharding import distribute_tree
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["Checkpointer", "latest_step"]
@@ -74,6 +83,16 @@ def _from_host(a: np.ndarray, info: dict):
     return a
 
 
+def _place(leaf, sharding):
+    """A restored leaf as a DTensor on ``sharding.mesh`` by its spec
+    (every rank holds the whole leaf, so nothing is sent); as it is
+    when ``sharding`` is None."""
+    if sharding is None:
+        return leaf
+    return distribute_tree(torch.as_tensor(leaf).to(
+        sharding.mesh.device_type), sharding.spec, sharding.mesh)
+
+
 def latest_step(directory: str) -> Optional[int]:
     if not os.path.isdir(directory):
         return None
@@ -100,7 +119,15 @@ class Checkpointer:
         tree mixes arrays with scalars/strings) — read back via
         ``restore(..., with_meta=True)``."""
         self.wait()                       # one in-flight save at a time
-        pairs = [_host(x) for x in tree_leaves(tree)]
+        leaves = tree_leaves(tree)
+        sharded = any(isinstance(x, DTensor) for x in leaves)
+        leaves = [x.full_tensor() if isinstance(x, DTensor) else x
+                  for x in leaves]
+        if sharded and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
+        pairs = [_host(x) for x in leaves]
         host = [a for a, _ in pairs]
         user_meta = meta
         meta = {
@@ -128,6 +155,8 @@ class Checkpointer:
 
         if blocking:
             write()
+            if sharded:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -147,11 +176,17 @@ class Checkpointer:
 
     # -- restore ------------------------------------------------------------
     def restore(self, like: Any = None, step: Optional[int] = None,
-                with_meta: bool = False) -> Any:
+                shardings: Any = None, with_meta: bool = False) -> Any:
         """Load ``step`` (default: the latest committed one) into the
         structure of ``like`` (a template tree; its leaf count is checked
         against the manifest), as host leaves: numpy arrays, host
         ``torch.bfloat16`` tensors and Python ints (module docstring).
+
+        ``shardings``: a tree matching ``like`` of
+        :class:`~repro_torch.models.sharding.NamedSharding` s (a
+        ``DeviceMesh`` and a spec) or ``None`` s — the elastic path: each
+        leaf with a sharding comes back a DTensor placed by its spec on
+        that mesh, every rank reading the file.
 
         ``like=None`` restores template-free: leaves come back as a flat
         list in manifest order — the process-death path, where no live
@@ -177,6 +212,9 @@ class Checkpointer:
                 raise ValueError("manifest/leaf shape mismatch")
         leaves = [_from_host(a, info)
                   for a, info in zip(leaves, meta["leaves"])]
+        if shardings is not None:
+            leaves = [_place(a, sh) for a, sh in
+                      zip(leaves, tree_leaves(shardings))]
         if like is None:
             tree = leaves
         else:

@@ -9,7 +9,7 @@ multi-sine "speech-like" signals with their clean targets
 (:class:`SignalStream`) for the Fig-9 training path.
 :func:`make_batch_iterator` feeds a training loop from a stream, one
 step-addressed batch at a time, so a restarted loop reads the batches it
-would have read."""
+would have read, whole or sharded over a ``DeviceMesh``."""
 
 from __future__ import annotations
 
@@ -18,8 +18,10 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..models.sharding import distribute_tree
 
 __all__ = ["TokenStream", "SignalStream", "make_batch_iterator"]
 
@@ -76,15 +78,26 @@ def make_batch_iterator(stream, cfg=None, sharding=None, start_step: int = 0,
     for ``step = start_step, start_step + 1, ...``, each batch's arrays
     copied to ``device`` (the card unless the caller names the CPU); a
     bare array is the batch's ``"tokens"``.  ``cfg`` is accepted for the
-    JAX package's signature and unused there too.  ``sharding=`` (a
-    batch split over devices) raises ``NotImplementedError``: multi-device
-    training is ROADMAP Queue 1 item 6e."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "make_batch_iterator(sharding=...): batches sharded over "
-            "devices wait for multi-device training (ROADMAP Queue 1 item "
-            "6e); pass sharding=None")
-    dev = resolve_device(device)
+    JAX package's signature and unused there too.
+
+    ``sharding``: a :class:`~repro_torch.models.sharding.NamedSharding`
+    bound to a ``DeviceMesh`` (``row_sharding(mesh, (batch, seq))``):
+    every rank draws the global batch, as the JAX package's single
+    controller does, and keeps its own block of each array as a DTensor
+    placed by the spec (nothing is sent: the ranks draw the same
+    batch) on the mesh's device type, which stands in for ``device``."""
+    if sharding is not None and not isinstance(
+            getattr(sharding, "mesh", None), DeviceMesh):
+        raise TypeError(f"make_batch_iterator(sharding=): a NamedSharding "
+                        f"bound to a DeviceMesh, not {sharding!r}")
+    dev = resolve_device(device if sharding is None
+                         else sharding.mesh.device_type)
+
+    def put(v):
+        if sharding is None:
+            return torch.as_tensor(v, device=dev)
+        return distribute_tree(torch.as_tensor(v, device=dev),
+                               sharding.spec, sharding.mesh)
 
     def batches():
         step = start_step
@@ -92,7 +105,6 @@ def make_batch_iterator(stream, cfg=None, sharding=None, start_step: int = 0,
             raw = stream.batch_at(step)
             if isinstance(raw, np.ndarray):
                 raw = {"tokens": raw}
-            yield step, {k: torch.as_tensor(v, device=dev)
-                         for k, v in raw.items()}
+            yield step, {k: put(v) for k, v in raw.items()}
             step += 1
     return batches()

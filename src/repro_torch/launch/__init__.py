@@ -2,5 +2,8 @@
 ``repro_torch.launch.train`` holds the training step factory and its
 CLI (``python -m repro_torch.launch.train``), imported from there so
 that running it as a module loads it once; ``repro_torch.launch.mesh``
-the serving stack's ``DataMesh`` and ``make_data_mesh``.  As in the JAX
-package, the package itself exports nothing."""
+the serving stack's ``DataMesh`` and ``make_data_mesh``, the
+``DeviceMesh`` factories ``make_test_mesh`` and ``make_production_mesh``
+and ``init_distributed``; ``repro_torch.launch.staged_gloo`` the process
+group that several ranks on one card share.  As in the JAX package, the
+package itself exports nothing."""

@@ -1,5 +1,16 @@
-"""The serving stack's device mesh — the port's counterpart of the JAX
-package's ``launch/mesh.py`` ``make_data_mesh``.
+"""Device meshes — the port's counterpart of the JAX package's
+``launch/mesh.py``.
+
+:func:`make_production_mesh` and :func:`make_test_mesh` return a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`
+with named dims over the ranks of the default process group (one process
+a mesh position), as ``jax.make_mesh`` returns a mesh over devices; the
+specs of :mod:`repro_torch.models.sharding` place DTensors on it.
+:func:`init_distributed` starts that group with the backend the device
+type takes: gloo for ``cpu``; for ``cuda``, gloo with every tensor
+staged through pinned host memory
+(:mod:`repro_torch.launch.staged_gloo`), so several ranks can share one
+card, which NCCL refuses.
 
 A :class:`DataMesh` is an ordered tuple of ``torch.device`` s on one
 axis, ``"data"``: the placement slots that
@@ -14,13 +25,19 @@ forced host devices, on which the per-slot split and gather really run.
 
 from __future__ import annotations
 
+import datetime
+import math
 from typing import Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from . import staged_gloo
 
-__all__ = ["DataMesh", "make_data_mesh"]
+__all__ = ["DataMesh", "make_data_mesh", "make_test_mesh",
+           "make_production_mesh", "init_distributed"]
 
 
 class DataMesh:
@@ -67,3 +84,56 @@ def make_data_mesh(n_devices: Optional[int] = None,
         raise ValueError(f"make_data_mesh: {n} devices requested, "
                          f"{len(avail)} {dev.type} device(s) visible")
     return DataMesh(avail[:n])
+
+
+def init_distributed(rank: int, world_size: int, init_method: str,
+                     device=DEFAULT_DEVICE,
+                     timeout_s: float = 120.0) -> None:
+    """Join the default process group as ``rank`` of ``world_size`` at
+    ``init_method`` (``file://...`` or ``tcp://localhost:<port>``) with
+    the backend of ``device`` 's type: gloo for the CPU; for CUDA
+    :data:`~repro_torch.launch.staged_gloo.BACKEND`, on the current
+    device (every rank of one card on ``cuda:0``).  Collectives that wait
+    longer than ``timeout_s`` raise."""
+    dev = resolve_device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+        staged_gloo.register()
+        backend = staged_gloo.BACKEND
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def _device_mesh(shape, axes, device) -> DeviceMesh:
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    if not dist.is_initialized():
+        raise RuntimeError("a DeviceMesh needs the default process group "
+                           "(init_distributed)")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks; the "
+                         f"process group has {dist.get_world_size()}")
+    return init_device_mesh(resolve_device(device).type, shape,
+                            mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=DEFAULT_DEVICE) -> DeviceMesh:
+    """Single pod: (16, 16) over ``("data", "model")``; multi-pod:
+    (2, 16, 16) over ``("pod", "data", "model")`` — 256 or 512 ranks.  A
+    world of another size raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _device_mesh(shape, axes, device)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"),
+                   device=DEFAULT_DEVICE) -> DeviceMesh:
+    """A small mesh over the ranks of the default process group (the
+    multi-rank tests' ``(2, 2)``, ``(2, 4)``, ``(4, 1)``).  A world of
+    another size raises."""
+    return _device_mesh(shape, axes, device)

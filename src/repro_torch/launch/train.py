@@ -22,8 +22,11 @@ from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import DEFAULT_DEVICE
+from ..models.sharding import placed_like
 from ..models.zoo import ModelBundle
 from ..optim.adamw import (AdamWState, adamw_init, adamw_update_,
                            cosine_schedule)
@@ -51,7 +54,14 @@ def make_train_step(bundle: ModelBundle,
 
     The params and moments passed in are updated in place and returned;
     ``loss`` and ``grad_norm`` are 0-d tensors on the params' device,
-    ``lr`` a float."""
+    ``lr`` a float.
+
+    Params placed on a ``DeviceMesh`` as DTensors (a batch too,
+    :func:`repro_torch.models.sharding.distribute_tree`) take the same
+    step on every rank: DTensor's propagation shards the compute, each
+    gradient is reduced to its param's placements once a step, and AdamW
+    updates each rank's shards (the JAX package's ``jit`` with
+    ``in_shardings``)."""
     cfg = bundle.cfg
 
     def grads_of(live, params_like, batch):
@@ -65,31 +75,48 @@ def make_train_step(bundle: ModelBundle,
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_() for p in leaves]
         k = cfg.microbatch
-        with torch.enable_grad():
+        # a plain tensor met by a DTensor op (positions, masks) is read as
+        # replicated, as a constant is under jit
+        with torch.enable_grad(), implicit_replication():
             if k > 1:
                 # STRIDED split, as the JAX package's: microbatch m is rows
-                # {m, m + k, ...}
+                # {m, m + k, ...}, so a batch sharded over the data axis
+                # keeps every microbatch sharded over all of it
                 mbatch = {n: x.reshape((x.shape[0] // k, k) + x.shape[1:])
                           .transpose(0, 1) for n, x in batch.items()}
-                gsum = [torch.zeros(p.shape, dtype=p.dtype if cfg.fsdp
-                                    else torch.float32, device=p.device)
-                        for p in leaves]
-                lsum = 0.0
+                # a DTensor gradient comes back in the layout its last op
+                # left (Partial over the data axis for a replicated
+                # param); placed_like reduces it to its param's placements
+                # — the data-parallel all-reduce (a no-op on plain tensors)
+                gsum, lsum = None, 0.0
                 for m in range(k):
                     loss_m, g = grads_of(live, params,
                                          {n: x[m] for n, x in mbatch.items()})
+                    if gsum is None:
+                        # zeros_like: a DTensor gradient's sum keeps its
+                        # layout, so partial sums over the data axis add
+                        # up locally and are reduced once, below
+                        gsum = [torch.zeros_like(gg, dtype=p.dtype
+                                                 if cfg.fsdp
+                                                 else torch.float32)
+                                for gg, p in zip(g, leaves)]
                     for a, gg in zip(gsum, g):
                         a.add_(gg)    # gg promoted element by element
                     del g
                     lsum = lsum + loss_m
-                grads = [a.div_(k) for a in gsum]
+                grads = [placed_like(a, p).div_(k)
+                         for a, p in zip(gsum, leaves)]
                 loss = lsum / k
             else:
                 loss, grads = grads_of(live, params, batch)
+                grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
         del live
         lr = lr_fn(opt_state.step)
-        params, opt_state, gnorm = adamw_update_(
-            _rebuild(params, grads), opt_state, params, lr)
+        with implicit_replication():
+            params, opt_state, gnorm = adamw_update_(
+                _rebuild(params, grads), opt_state, params, lr)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "lr": lr}
 

@@ -4,6 +4,6 @@ blocks), the Whisper encoder-decoder, the zoo's bundle API and the
 sharding rules (``repro_torch.models.sharding``, imported from there as
 the JAX package's ``repro.models.sharding`` is)."""
 
-from .zoo import ModelBundle, get_model
+from .zoo import ModelBundle, batch_pspec, get_model
 
-__all__ = ["ModelBundle", "get_model"]
+__all__ = ["ModelBundle", "get_model", "batch_pspec"]

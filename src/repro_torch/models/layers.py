@@ -39,9 +39,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
+from .sharding import on_local_heads
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm",
            "group_norm", "apply_rope", "direct_attention",
@@ -277,7 +279,20 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     - No gradient: a full-length call runs
       :func:`repro_torch.kernels.flash_attention` (the CUDA kernel on the
       card, its plain version on the CPU), anything else
-      :func:`direct_attention`."""
+      :func:`direct_attention`.
+
+    On DTensors (params placed on a ``DeviceMesh``) each rank runs that
+    dispatch on its local heads and batch rows
+    (:func:`repro_torch.models.sharding.on_local_heads`): the flash
+    kernel, which reads plain tensors, gets each rank's own heads."""
+    if isinstance(q, DTensor):
+        # a DTensor's attention is each rank's, over its own heads (q, k
+        # and v gathered first where the heads do not split evenly), by
+        # the routes below on its local tensors; autograd sees through
+        return on_local_heads(functools.partial(
+            attention, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, kv_len=kv_len,
+            chunked_threshold=chunked_threshold, remat=remat), q, k, v)
     sq, skv = q.shape[1], k.shape[1]
     full = sq == skv and kv_len is None and q_offset == 0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -15,9 +15,46 @@ The serving mesh (:class:`~repro_torch.serving.signal_mesh.SignalMesh`)
 and :meth:`~repro_torch.signal.graph.CompiledSignalGraph.sharded_jit`
 split bucket batches into per-slot blocks by :func:`split_rows`, under
 :func:`batch_spec` 's degrade-to-replicate rules, as training batches
-are; :func:`row_sharding` binds that spec to a mesh.  Placing parameters
-and activations by these specs (DTensor) waits for the multi-device
-models (ROADMAP Queue 1 item 6e).
+are; :func:`row_sharding` binds that spec to a mesh.
+
+On a :class:`torch.distributed.device_mesh.DeviceMesh` (one process a
+mesh position, :func:`repro_torch.launch.mesh.make_test_mesh`) the specs
+place tensors as DTensors — the counterpart of ``jax.device_put`` under
+a ``NamedSharding``: :func:`to_placements` turns a spec into DTensor
+placements, :func:`distribute_tree` places a tree by a spec tree, and
+:func:`shard_activations` pins a residual stream's batch sharding once
+:func:`set_activation_mesh` has registered the mesh.  The JAX package's
+sharded step relies on the SPMD partitioner; the port relies on
+DTensor's sharding propagation, run with plain tensors (positions,
+masks) read as replicated
+(``torch.distributed.tensor.experimental.implicit_replication``, which
+the train step enters).  Where DTensor has no
+sharding rule for an op on the layout it is given, the operand is
+redistributed explicitly to ``Replicate`` on the offending dims by
+:func:`replicate_dims` — what GSPMD's inserted all-gather does.  Its
+callers:
+
+- :func:`split_dim`, where a dim sharded over the model axis is viewed
+  as two, the first with fewer entries than the axis has positions (the
+  view has no sharding then, so that dim is gathered first): the
+  attention block's q/k/v projections viewed as (heads, head_dim) in
+  ``models/transformer.py`` (kv heads under GQA);
+- :func:`embedding_lookup`, the token embedding of a sharded table in
+  ``models/transformer.py``: DTensor's rules for a lookup in a
+  vocab-sharded table fail (indexing's backward, ``index_put``, on torch
+  2.11; ``F.embedding`` 's masked partial sum once redistributed), so
+  each rank looks its tokens up in its own rows and the vocab shards'
+  partial rows are summed by one all-reduce; the table's model dim is
+  gathered first when fsdp shards it over the data axis, which the
+  tokens' batch uses;
+- :func:`on_local_heads`, which :func:`repro_torch.models.layers.attention`
+  calls on DTensors, with or without autograd: DTensor's einsum has no
+  sharding for attention's grouped-head products (it views a batch dim
+  and a head dim sharded on two mesh axes as one), and the flash kernel
+  reads plain tensors, so each rank attends over its own heads and rows
+  (``to_local()``) where q, k and v split their heads alike over axes
+  that divide the kv heads, and q, k and v are gathered on all but the
+  batch dim otherwise.
 """
 
 from __future__ import annotations
@@ -25,13 +62,20 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+
+from ..tree import tree_map
 
 __all__ = ["P", "NamedSharding", "param_spec", "param_specs", "zero1_spec",
            "batch_axes", "batch_spec", "cache_specs", "mesh_axes_of",
-           "row_sharding", "split_rows"]
+           "row_sharding", "split_rows", "to_placements", "distribute_tree",
+           "set_activation_mesh", "shard_activations", "replicate_dims",
+           "split_dim", "placed_like", "on_local_heads", "embedding_lookup"]
 
 
 class P(tuple):
@@ -215,8 +259,16 @@ def cache_specs(cache, mesh_axes: Dict[str, int], batch: int):
     return _map_named(f, cache)
 
 
+def _axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: a ``DeviceMesh`` 's ``mesh_dim_names``, a
+    :class:`~repro_torch.launch.mesh.DataMesh` 's ``axis_names``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
 def mesh_axes_of(mesh) -> Dict[str, int]:
-    return dict(zip(mesh.axis_names, mesh.shape))
+    """``{axis name: size}`` of a ``DeviceMesh`` or a ``DataMesh``."""
+    return dict(zip(_axis_names(mesh), tuple(mesh.shape)))
 
 
 def row_sharding(mesh, shape: Tuple[int, ...],
@@ -240,3 +292,238 @@ def split_rows(mesh, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     per = rows // len(mesh.devices)
     return tuple(x[i * per:(i + 1) * per].to(d)
                  for i, d in enumerate(mesh.devices))
+
+
+# --------------------------------------------------------------------------
+# Placement on a DeviceMesh (DTensor)
+# --------------------------------------------------------------------------
+
+def to_placements(spec, mesh) -> List:
+    """DTensor placements of ``spec`` on ``mesh``: one entry per mesh
+    dim, ``Shard(i)`` where dim i of the tensor names that mesh axis,
+    ``Replicate()`` elsewhere.  A tuple entry such as ``("pod", "data")``
+    shards dim i over both axes, the first named the major one, as JAX
+    lays it out; DTensor splits over mesh dims in mesh order, so the
+    tuple must list its axes in that order."""
+    names = _axis_names(mesh)
+    out: List = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} lists mesh axes out of "
+                             f"the mesh's order {names}")
+        for j in idx:
+            if not isinstance(out[j], Replicate):
+                raise ValueError(f"mesh axis {names[j]!r} used twice in "
+                                 f"{spec!r}")
+            out[j] = Shard(i)
+    return out
+
+
+def distribute_tree(tree, specs, mesh):
+    """``tree`` with every tensor leaf placed on ``mesh`` by the matching
+    spec of ``specs`` (a tree of :class:`P`, or one spec for every leaf)
+    — ``jax.device_put`` under ``NamedSharding`` s.  Every rank holds the
+    same whole tree (drawn from one seed, or loaded alike, as the JAX
+    package's single controller holds it) and keeps its own block of
+    each leaf: nothing is sent.  A leaf of spec ``P()`` is replicated; a
+    leaf that is not a tensor (an ``AdamWState`` 's step) stays as it
+    is."""
+    def place(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return distribute_tensor(leaf, mesh, to_placements(spec, mesh),
+                                 src_data_rank=None)
+    if isinstance(specs, P):
+        return tree_map(lambda leaf: place(leaf, specs), tree)
+    return tree_map(place, tree, specs)
+
+
+def replicate_dims(x, dims) -> torch.Tensor:
+    """``x`` with no mesh axis sharding any of ``dims`` (negative dims
+    count from the end) and no partial sum pending: each such ``Shard``
+    is redistributed to ``Replicate`` (an all-gather), each ``Partial``
+    too (an all-reduce), other placements stay.  A plain tensor is
+    returned as it is.  The module docstring lists the callers."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.ndim for d in dims}
+    pl = [Replicate() if isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim % x.ndim in dims) else p
+        for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def split_dim(x, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor:
+    """``x`` with dim ``dim`` viewed as ``sizes`` (their product its
+    size).  A DTensor whose ``dim`` is sharded over mesh axes of a total
+    size that does not divide ``sizes[0]`` has that dim gathered first
+    (:func:`replicate_dims`): DTensor has no sharding for such a view."""
+    dim %= x.ndim
+    if isinstance(x, DTensor):
+        ways = math.prod(x.device_mesh.size(j)
+                         for j, p in enumerate(x.placements)
+                         if isinstance(p, Shard) and p.dim % x.ndim == dim)
+        if sizes[0] % ways:
+            x = replicate_dims(x, [dim])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def placed_like(x, ref) -> torch.Tensor:
+    """``x`` redistributed to ``ref`` 's placements when both are
+    DTensors (a ``Partial`` of ``ref`` 's read as ``Replicate``: a
+    pending sum is never recreated), else ``x``: an op's result goes
+    back to its input's layout (:func:`on_local_heads`), a gradient to
+    its param's (the train step)."""
+    if not (isinstance(x, DTensor) and isinstance(ref, DTensor)):
+        return x
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in ref.placements)
+    if tuple(x.placements) == pl:
+        return x
+    return x.redistribute(ref.device_mesh, pl)
+
+
+def on_local_heads(fn, q, k, v) -> torch.Tensor:
+    """``fn(q, k, v)`` — an attention on plain tensors, q (B, S, H, hd),
+    k / v (B, S, KV, hd), its output shaped like q — on DTensors.  When
+    q, k and v share their placements, none shards the sequence or the
+    head dim, and every mesh axis that shards the heads divides KV (so a
+    rank's query heads read only its own kv heads), and no partial sum
+    is pending, each rank calls ``fn`` on its own blocks
+    (``to_local()``, nothing sent); otherwise q, k and v are first
+    gathered on all but the batch dim and their partial sums reduced
+    (:func:`replicate_dims`).  Returns a DTensor laid out as ``q`` was."""
+    def local_ok():
+        if not (tuple(q.placements) == tuple(k.placements)
+                == tuple(v.placements)) or any(
+                    isinstance(p, Partial) for p in q.placements):
+            return False
+        ways = 1
+        for j, p in enumerate(q.placements):
+            if isinstance(p, Shard):
+                if p.dim % q.ndim not in (0, 2):
+                    return False
+                if p.dim % q.ndim == 2:
+                    ways *= q.device_mesh.size(j)
+        return k.shape[2] % ways == 0
+    q0 = q
+    if not local_ok():
+        q, k, v = (replicate_dims(t, [1, 2, 3]) for t in (q, k, v))
+        if not (tuple(q.placements) == tuple(k.placements)
+                == tuple(v.placements)):
+            q, k, v = (replicate_dims(t, [0, 1, 2, 3]) for t in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local())
+    # fn's output is contiguous: give the DTensor q's shape with the
+    # contiguous strides (q's own may not be)
+    out = DTensor.from_local(out, q.device_mesh, q.placements,
+                             run_check=False, shape=q.shape,
+                             stride=torch.empty(q.shape,
+                                                device="meta").stride())
+    return placed_like(out, q0)
+
+
+class _VocabLookup(torch.autograd.Function):
+    """``table[tokens]`` on one rank's rows ``[v0, v0 + rows)`` of a
+    vocab-sharded table, summed over the vocab shards' ``group`` (one
+    rank holds each token's row, the others add zeros: exact).  The
+    backward is each rank's: the output's gradient added into the rows
+    its tokens read."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, v0: int, group):
+        idx = tokens - v0
+        hit = (idx >= 0) & (idx < table.shape[0])
+        idx = torch.where(hit, idx, torch.zeros_like(idx))
+        out = torch.where(hit[..., None], table[idx],
+                          torch.zeros((), dtype=table.dtype,
+                                      device=table.device))
+        if group is not None:
+            dist.all_reduce(out, group=group)
+        ctx.save_for_backward(idx, hit)
+        ctx.rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, hit = ctx.saved_tensors
+        out = torch.zeros((ctx.rows, grad.shape[-1]), dtype=grad.dtype,
+                          device=grad.device)
+        out.index_add_(0, idx[hit], grad[hit])
+        return out, None, None, None
+
+
+def embedding_lookup(table, tokens) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor ``table`` (vocab, d) and token ids
+    (a DTensor, or a plain tensor read as replicated), differentiable in
+    ``table``.  The table's model dim is gathered first where it is
+    sharded (:func:`replicate_dims`), as are the tokens over a mesh axis
+    that shards the vocab; each rank then reads its own rows, and an
+    all-reduce over the axis sharding the vocab sums the shards' partial
+    rows.  The result is split over the mesh axes that split the
+    tokens' batch; the table's gradient comes back in the table's
+    layout, a partial sum over those axes."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    table = replicate_dims(table, [1])
+    vocab = [j for j, p in enumerate(table.placements)
+             if isinstance(p, Shard)]
+    if len(vocab) > 1:
+        raise ValueError(f"embedding_lookup: the vocab is split over "
+                         f"{len(vocab)} mesh axes; the rules split it over "
+                         f"the model axis alone")
+    tokens = replicate_dims(tokens, range(tokens.ndim)) if any(
+        isinstance(tokens.placements[j], Shard) for j in vocab) else tokens
+    grad_pl, out_pl = [], []
+    for j, tp in enumerate(tokens.placements):
+        split = isinstance(tp, Shard)
+        grad_pl.append(Shard(0) if j in vocab else
+                       Partial() if split else Replicate())
+        out_pl.append(Shard(tp.dim) if split else Replicate())
+    rows = table.to_local(grad_placements=grad_pl)
+    v0 = mesh.get_coordinate()[vocab[0]] * rows.shape[0] if vocab else 0
+    out = _VocabLookup.apply(rows, tokens.to_local(), v0,
+                             mesh.get_group(vocab[0]) if vocab else None)
+    shape = (*tokens.shape, table.shape[1])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+# --------------------------------------------------------------------------
+# Activation sharding constraints: with fsdp params the partitioner may
+# replicate activations over the data axis instead of gathering params;
+# the launcher registers the mesh and the models pin their residual
+# streams explicitly (the JAX package's ``shard_activations``).
+# --------------------------------------------------------------------------
+
+_ACT_MESH = None
+
+
+def set_activation_mesh(mesh) -> None:
+    """Register the ``DeviceMesh`` :func:`shard_activations` pins to
+    (``None`` clears it)."""
+    global _ACT_MESH
+    _ACT_MESH = mesh
+
+
+def shard_activations(x, batch_dim: int = 0):
+    """Redistribute a (B, S, D)-style DTensor so its batch dim is split
+    over (pod, data) as :func:`batch_spec` gives it, every other dim
+    replicated.  A no-op without a registered mesh, on a plain tensor,
+    or when the batch does not divide."""
+    if _ACT_MESH is None or not isinstance(x, DTensor):
+        return x
+    spec = batch_spec(tuple(x.shape), mesh_axes_of(_ACT_MESH), batch_dim)
+    if all(p is None for p in spec):
+        return x
+    return x.redistribute(_ACT_MESH, to_placements(spec, _ACT_MESH))

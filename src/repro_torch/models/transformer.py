@@ -36,12 +36,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
+from . import sharding as SH
 from . import xlstm as XL
 
 __all__ = ["init_params", "init_cache", "forward_train", "loss_fn",
@@ -157,9 +159,12 @@ def _store(cache: Dict[str, Any], **new) -> None:
 def _attn_block(p, x, ltype, cfg: ArchConfig, mode, positions, pos, cache):
     b, s, _ = x.shape
     h = L.rms_norm(x, p["norm_in"])
-    q = L.matmul(h, p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.matmul(h, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.matmul(h, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = SH.split_dim(L.matmul(h, p["wq"]), -1,
+                     (cfg.n_heads, cfg.head_dim))
+    k = SH.split_dim(L.matmul(h, p["wk"]), -1,
+                     (cfg.n_kv_heads, cfg.head_dim))
+    v = SH.split_dim(L.matmul(h, p["wv"]), -1,
+                     (cfg.n_kv_heads, cfg.head_dim))
     if cfg.use_rope:
         q = L.apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -329,6 +334,8 @@ def _embed_in(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
     dt = param_dtype(cfg)
     if cfg.input_kind == "embeds":
         x = batch["embeds"].to(dt)
+    elif isinstance(params["embed"], DTensor):
+        x = SH.embedding_lookup(params["embed"], batch["tokens"].long())
     else:
         x = params["embed"][batch["tokens"].long()]
     if cfg.scale_embed:
@@ -358,6 +365,11 @@ def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
                               for n in names}
 
     def group(xx, aux_, gp, gc):       # the JAX package's scanned body
+        if cfg.fsdp:
+            # pin the residual stream's batch sharding: with fsdp params
+            # the propagation may otherwise replicate activations over
+            # the data axis (a no-op on plain tensors)
+            xx = SH.shard_activations(xx)
         for i, lt in enumerate(cfg.pattern):
             xx, a = block_apply(lt, gp[names[i]], xx, cfg, mode, positions,
                                 pos, None if gc is None else gc[names[i]])

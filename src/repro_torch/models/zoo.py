@@ -11,22 +11,23 @@ counterpart of the JAX package's ``models/zoo.py``.
 Every config of ``repro_torch.configs`` has a bundle: the decoder LMs
 (dense, MoE, RG-LRU hybrid, xLSTM) from :mod:`.transformer`, the
 encoder-decoder (``input_kind == "encdec"``) from :mod:`.whisper`.
-``input_specs``, ``cache_specs_for`` and ``batch_pspec`` wait for the
-dry-run (ROADMAP Queue 1 item 7).
+:func:`batch_pspec` gives a batch's partition specs on a mesh;
+``input_specs`` and ``cache_specs_for`` (the dry-run's abstract inputs)
+wait for the dry-run (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from . import transformer, whisper
+from . import sharding, transformer, whisper
 
-__all__ = ["ModelBundle", "get_model"]
+__all__ = ["ModelBundle", "get_model", "batch_pspec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +66,12 @@ def get_model(cfg: ArchConfig) -> ModelBundle:
             mod.init_cache(cfg, batch, max_len, resolve_device(device),
                            **kw),
     )
+
+
+def batch_pspec(specs: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The partition spec of each batch entry (anything with a
+    ``shape``) on ``mesh``: its batch dim over (pod, data) by
+    :func:`~repro_torch.models.sharding.batch_spec`."""
+    axes = sharding.mesh_axes_of(mesh)
+    return {k: sharding.batch_spec(tuple(v.shape), axes)
+            for k, v in specs.items()}

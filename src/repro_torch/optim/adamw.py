@@ -10,7 +10,14 @@ tensors and leaves its arguments as they were.  ``adamw_update_`` is the
 train step's counterpart of the JAX package's donated buffers: the same
 arithmetic, bit for bit, written into the given params and moments a
 slice of rows at a time, so a full-width step holds one copy of its
-state and one slice's float32 temporaries."""
+state and one slice's float32 temporaries.
+
+On a tree of DTensors (params placed on a ``DeviceMesh`` by
+:func:`repro_torch.models.sharding.distribute_tree`) the moments take
+their param's placements, :func:`global_norm` is the norm of the whole
+tree — each rank's partial sum of squares over its own shards, one
+reduction — and ``adamw_update_`` runs the same arithmetic on every
+rank's local shards (``to_local()``)."""
 
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from ..tree import tree_leaves, tree_map
 
@@ -32,17 +40,48 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero float32 moments shaped like ``params``, step 0."""
+    """Zero float32 moments shaped like ``params`` (a DTensor param's
+    with its placements), step 0."""
     def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return AdamWState(step=0, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
 
 
+def _sharded_norm(leaves) -> torch.Tensor:
+    """The L2 norm of DTensor leaves on one mesh, as a plain 0-d tensor
+    on every rank: each rank sums the squares of its local shards, a
+    leaf replicated over a mesh dim counted only at coordinate 0 of that
+    dim, and the partial sums are reduced once (a ``Partial`` 0-d
+    DTensor made ``Replicate``)."""
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].to_local().device)
+    for leaf in leaves:
+        if leaf.device_mesh != mesh:
+            raise ValueError("global_norm: DTensor leaves on two meshes")
+        if any(isinstance(p, Partial) for p in leaf.placements):
+            raise ValueError("global_norm: a Partial leaf; redistribute it "
+                             "to its param's placements first")
+        if all(c == 0 or not isinstance(p, Replicate)
+               for c, p in zip(coord, leaf.placements)):
+            total = total + torch.sum(leaf.to_local().float() ** 2)
+    part = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                              run_check=False)
+    return torch.sqrt(part.full_tensor())
+
+
 def global_norm(tree) -> torch.Tensor:
-    """The float32 L2 norm of every leaf of ``tree`` together."""
+    """The float32 L2 norm of every leaf of ``tree`` together (of a tree
+    of DTensors, the whole tree's: a plain 0-d tensor on every rank)."""
+    leaves = tree_leaves(tree)
+    if leaves and isinstance(leaves[0], DTensor):
+        return _sharded_norm(leaves)
     return torch.sqrt(sum(torch.sum(leaf.float() ** 2)
-                          for leaf in tree_leaves(tree)))
+                          for leaf in leaves))
 
 
 def _leaf_update(g, m, v, p, scale, lr, bc1, bc2, b1, b2, eps,
@@ -109,11 +148,23 @@ def adamw_update_(grads, state: AdamWState, params, lr,
     one slice's float32 temporaries.  The global gradient norm is the
     functional update's (one reduction a leaf).  The step's arguments
     are changed as it goes: a failure part way leaves some leaves
-    updated and others not."""
+    updated and others not.
+
+    DTensor leaves are updated shard by shard on each rank (module
+    docstring); the grads must have their params' placements."""
     step = state.step + 1
     gnorm, scale, bc1, bc2 = _clip(grads, step, b1, b2, clip_norm)
     for g, m, v, p in zip(*(tree_leaves(t) for t in (
             grads, state.m, state.v, params))):
+        if isinstance(p, DTensor):
+            # every rank updates its own shards; grads and moments must
+            # be laid out as their param is
+            for t in (g, m, v):
+                if t.placements != p.placements:
+                    raise ValueError(f"adamw_update_: placements "
+                                     f"{t.placements} against the param's "
+                                     f"{p.placements}")
+            g, m, v, p = (t.to_local() for t in (g, m, v, p))
         for sl in _row_slices(p, chunk_elems):
             p_new, m_new, v_new = _leaf_update(
                 g[sl], m[sl], v[sl], p[sl], scale, lr, bc1, bc2, b1, b2,

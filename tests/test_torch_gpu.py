@@ -11,7 +11,9 @@ through the runner, a session's checkpoint round trip), and
 bit the shared-operand launch on its operand) with SigSched's
 cross-graph wave of two Fig-9 registrations with different params,
 SigMesh (a meshed wave and a meshed tick bit for bit the unmeshed ones,
-their launches counted), and the dense decoders: five reduced configs on the card against the port
+their launches counted), the multi-device models (two gloo ranks on the
+card through the staged group: its collectives, and a sharded train
+step against one process), and the dense decoders: five reduced configs on the card against the port
 on the CPU (float32, rtol 1e-4, atol 1e-5), gemma2-2b at full width
 past its window on the bf16 flash kernel (each call within relative L2
 1e-2 of the plain version, the local ring cache), and greedy
@@ -1709,3 +1711,68 @@ def test_flash_wrapper_refuses_a_differentiable_call_on_card(cuda):
     with torch.no_grad():
         tk.flash_attention(q, k, k, causal=True)
     assert flash_kernel.launch_counts()["flash_attention_hopper"] == 1
+
+
+# -- multi-device models: gloo ranks sharing the card --------------------------
+
+def test_staged_collectives_on_card(cuda, tmp_path):
+    """Two ranks on ``cuda:0`` through the staged gloo group: every
+    collective the slice uses (all-reduce SUM and MAX, broadcast,
+    all-gather, reduce-scatter, a send/recv ring, all-to-all) and
+    DTensor's redistributions give the right results on CUDA tensors,
+    and the group staged their bytes through the host."""
+    import _torch_dist_ranks as R
+    from _torch_dist import run_ranks
+    got = run_ranks(R.card_collectives, 2, tmp_path, device="cuda")
+    assert all(got["ok"].values()), got["ok"]
+    assert got["counts"]["bytes_to_host"] > 0
+    assert got["counts"]["bytes_to_device"] > 0
+
+
+def test_sharded_train_step_on_card_matches_one_process(cuda, tmp_path):
+    """A float32 step of reduced starcoder2-3b (microbatch 2) with params
+    on a (1, 2) mesh of two ranks on the card equals the unsharded step
+    in this process on the same card: loss and gradient norm at rtol
+    1e-5, params at rtol 1e-4, atol 1e-6 (elements whose gradient is
+    nonzero and under 1e-6, where AdamW's ratio is ill-conditioned, at
+    2 lr: a flipped sign)."""
+    import dataclasses
+
+    import _torch_dist_ranks as R
+    from _torch_dist import run_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(vocab=256),
+                              microbatch=2)
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    params_np = tree_map(lambda t: t.numpy(), params)
+    tokens = np.random.default_rng(3).integers(0, 256, (8, 32)).astype(
+        np.int32)
+    lr = 1e-3
+    p1 = tree_map(lambda a: torch.as_tensor(a, device=cuda), params_np)
+    p1, o1, m1 = make_train_step(bundle, lambda s: lr)(
+        p1, adamw_init(p1), {"tokens": torch.as_tensor(tokens, device=cuda)})
+    out = str(tmp_path / "port.npz")
+    got = run_ranks(R.card_sharded_step, 2, tmp_path, params_np, tokens, lr,
+                    out, device="cuda")
+    np.testing.assert_allclose(got["loss"], float(m1["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"], float(m1["grad_norm"]),
+                               rtol=1e-5)
+    port = np.load(out)
+    want = {}
+    R._flat("params", p1, want)
+    R._flat("m", o1.m, want)
+    for name, w in want.items():
+        g = port[name]
+        if name.startswith("params/"):
+            grad = np.abs(want["m" + name[len("params"):]]) / 0.1
+            near = (grad > 0) & (grad < 1e-6)
+            np.testing.assert_allclose(g[near], w[near], rtol=0,
+                                       atol=2 * lr, err_msg=name)
+            g, w = g[~near], w[~near]
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6, err_msg=name)

@@ -69,15 +69,16 @@ def test_batch_iterator_matches_reference(start):
 
 
 def test_batch_iterator_dict_stream_and_sharding():
-    """A stream of dicts passes its keys through; ``sharding=`` raises
-    ``NotImplementedError`` naming multi-device training."""
+    """A stream of dicts passes its keys through; ``sharding=`` takes a
+    sharding bound to a ``DeviceMesh`` and refuses anything else (the
+    sharded batches themselves: ``tests/test_torch_distributed.py``)."""
     step, b = next(make_batch_iterator(SignalStream(64, 2, seed=1),
                                        start_step=2, device="cpu"))
     assert step == 2 and sorted(b) == ["clean", "noisy"]
     np.testing.assert_array_equal(b["noisy"].numpy(),
                                   SignalStream(64, 2, seed=1)
                                   .batch_at(2)["noisy"])
-    with pytest.raises(NotImplementedError, match="6e"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_batch_iterator(TokenStream(10, 4, 2), sharding=object(),
                             device="cpu")
 
