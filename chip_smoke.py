@@ -11,10 +11,11 @@ flash-attention entry points, a dense LM (starcoder2-3b) served and
 co-served with Fig 9, the other model families (MoE, RG-LRU hybrid,
 xLSTM, Whisper) served, and starcoder2-3b trained at full width,
 Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
-fault-tolerance paths, and the multi-device models (a pipelined
+fault-tolerance paths, the multi-device models (a pipelined
 forward, a sharded train step, the compressed all-reduce and an elastic
-checkpoint) on 4 gloo ranks sharing the card, with random weights and
-inputs drawn from ``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
+checkpoint) on 4 gloo ranks sharing the card, and the launchers (the
+serve CLI at full width, the dry-run on fake CUDA tensors), with random
+weights and inputs drawn from ``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
 card) — phase by phase:
 
   0. environment: torch, the card, ``nvidia-smi`` name and power limit;
@@ -282,11 +283,26 @@ card) — phase by phase:
      the mean, its int8 and float32 payload bytes, and a tree saved from
      (2, 2) and restored under (4, 1) bit for bit.  A failed rank fails
      the phase.
- 16. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 16. launchers (``launchers_phase``, callable alone after
+     ``kernels.build()``): (a) ``python -m repro_torch.launch.serve
+     --arch gemma2-2b --no-reduced`` (``serve.main`` in this process) at
+     full width, in bf16 and with ``--quant-bits 8``: 6 requests at batch
+     4, ``max_new`` 16, each exactly 16 tokens, exactly 2 waves x 26
+     ``flash_attention_hopper`` launches a run and no other kernel, the
+     tokens equal to ``ServingEngine.serve`` on the same weights, tok/s
+     printed; (b) the dry-run (``launch/dryrun.py`` ``lower_cell``) of
+     ``DRYRUN_CELLS`` on fake CUDA tensors over a fake 256 / 512-rank
+     process group, one ``spawn``ed process a cell, all started before
+     (a): no launch, no card memory but FakeTensorMode's own probe,
+     ``argument_bytes`` equal to the sharding specs' count, the
+     prefill's flash op 30 calls at the flop formula; per cell the trace
+     seconds, FLOPs, HBM bytes, collectives and memory per device.
+ 17. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
-     ``train``, phase 15's pipelined forward under ``mesh_models`` (its
-     launches added to the row's).
+     ``train``, phase 15's pipelined forward under ``mesh_models`` and
+     phase 16a's serve CLI under ``launchers`` (their launches added to
+     the row's).
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -2837,6 +2853,352 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
             "train_p50_s": t0r["p50_s"]}
 
 
+# -- phase 16: the launchers: the serve CLI and the dry-run ----------------
+
+# 16a: repro_torch.launch.serve at full width, in this process, twice
+LAUNCH_SERVE = {"arch": "gemma2-2b", "requests": 6, "batch": 4,
+                "max_new": 16, "quant_bits": (0, 8)}
+# 16b: dry-run cells (arch, shape, multi_pod), each in a process of its
+# own, all at once; traced on fake CUDA tensors over a fake process group
+DRYRUN_CELLS = [("starcoder2-3b", "train_4k", False),
+                ("starcoder2-3b", "prefill_32k", False),
+                ("starcoder2-3b", "decode_32k", False),
+                ("gemma2-2b", "decode_32k", False),
+                ("starcoder2-3b", "train_4k", True)]
+DRYRUN_TIMEOUT = 600
+
+
+def _dryrun_tag(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+
+
+def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str) -> None:
+    """One 16b cell in a process of its own: ``dryrun.lower_cell`` on
+    fake CUDA tensors, with this process's kernel launches and
+    ``torch.cuda.memory_allocated()`` around it; the record and the
+    readings go to ``work/<tag>.json``, a traceback to ``<tag>.err``."""
+    tag = _dryrun_tag(arch, shape, multi_pod)
+    try:
+        import torch
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.launch import dryrun as DR
+        torch.cuda.init()
+        reset_all_launch_counts()
+        # where any card memory is allocated, with its Python stack
+        torch.cuda.memory._record_memory_history(max_entries=1000)
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rec = DR.lower_cell(arch, shape, multi_pod, device="cuda")
+        res = {"record": rec, "wall_s": time.perf_counter() - t0,
+               "launches": launched(), "allocated_before": before,
+               "allocated_after": torch.cuda.memory_allocated(),
+               "max_allocated": torch.cuda.max_memory_allocated(),
+               "allocations": [
+                   {"bytes": e["size"], "frames": [
+                       f"{f['filename']}:{f['line']} {f['name']}"
+                       for f in e.get("frames", [])
+                       if f["filename"].endswith(".py")][:12]}
+                   for trace in torch.cuda.memory._snapshot()[
+                       "device_traces"] for e in trace
+                   if e["action"] == "alloc"][:8]}
+        torch.cuda.memory._record_memory_history(enabled=None)
+        with open(os.path.join(work, tag + ".json"), "w") as f:
+            json.dump(res, f, indent=1)
+    except BaseException:
+        import traceback
+        with open(os.path.join(work, tag + ".err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _spec_bytes(torch, tree, specs, axes: dict) -> int:
+    """Local bytes of ``tree`` 's tensors under the matching ``specs``:
+    each leaf's elements over the product of the mesh axes its spec
+    names, times its item size (the count the 16b cells' own
+    ``argument_bytes`` must equal)."""
+    if isinstance(tree, dict):
+        return sum(_spec_bytes(torch, tree[k], specs[k], axes)
+                   for k in tree)
+    if isinstance(tree, (list, tuple)):
+        return sum(_spec_bytes(torch, t, sp, axes)
+                   for t, sp in zip(tree, specs))
+    if not isinstance(tree, torch.Tensor):
+        return 0                      # AdamWState.step, the cache's pos
+    ways = 1
+    for entry in specs:
+        for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+            ways *= axes[ax]
+    if tree.numel() % ways:
+        raise AssertionError(f"a spec {specs} that does not divide "
+                             f"{tuple(tree.shape)}")
+    return tree.numel() // ways * tree.element_size()
+
+
+def _expected_arguments(torch, arch: str, shape_name: str,
+                        multi_pod: bool) -> int:
+    """Rank 0's argument bytes of a cell from the config's shapes and the
+    sharding rules alone: params by ``param_specs``, moments (float32)
+    by ``zero1_spec``, the batch by ``batch_spec``, a decode cell's cache
+    by ``cache_specs``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.zoo import cache_specs_for, input_specs
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    axes = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
+    with FakeTensorMode():
+        params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                     device="cpu")
+    pspecs = SH.param_specs(params, axes, cfg.fsdp)
+    total = _spec_bytes(torch, params, pspecs, axes)
+    batch = input_specs(cfg, shape)
+    total += _spec_bytes(torch, batch, {k: SH.batch_spec(tuple(v.shape),
+                                                         axes)
+                                        for k, v in batch.items()}, axes)
+    if shape.kind == "train":
+        def moment_bytes(p, sp):
+            if isinstance(p, dict):
+                return sum(moment_bytes(p[k], sp[k]) for k in p)
+            zsp = SH.zero1_spec(sp, tuple(p.shape), axes)
+            return 4 * _spec_bytes(torch, p, zsp, axes) // p.element_size()
+        total += 2 * moment_bytes(params, pspecs)
+    elif shape.kind == "decode":
+        cache = cache_specs_for(cfg, shape)
+        total += _spec_bytes(torch, cache, SH.cache_specs(
+            cache, axes, shape.global_batch), axes)
+    return total
+
+
+def _dense_step_flops(cfg, shape) -> int:
+    """Global FLOPs of one prefill or decode step of a dense decoder, from
+    its config alone (the count a 16b cell's share must equal, over its
+    ranks): the projections' and the MLP's dots on every position, the
+    LM head on the returned positions (the last of a prefill), and 4 a
+    head dim a (query, key) pair — the pairs the flash kernel's mask
+    lets through in a prefill, the whole cache buffer (a local layer's
+    ring of ``window`` slots) in a decode."""
+    d, b, s = cfg.d_model, shape.global_batch, shape.seq_len
+    nmat = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    layer = 2 * d * (2 * cfg.q_dim + 2 * cfg.kv_dim) \
+        + 2 * nmat * d * cfg.d_ff
+    tokens = b * s if shape.kind == "prefill" else b
+    total = tokens * cfg.n_layers * layer + b * 2 * d * cfg.padded_vocab
+    for lt in cfg.layer_types:
+        window = cfg.window if lt == "local" else 0
+        pairs = (visible_pairs(s, s, True, window) if shape.kind == "prefill"
+                 else min(window, s) if window else s)
+        total += 4 * b * cfg.n_heads * cfg.head_dim * pairs
+    return total
+
+
+def launchers_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 16.  (a) ``python -m repro_torch.launch.serve --arch
+    gemma2-2b --no-reduced`` (``serve.main``) in this process, once in
+    bf16 and once with ``--quant-bits 8``: 6 requests at batch 4,
+    ``max_new`` 16, every request exactly 16 tokens, exactly ``waves x
+    26`` flash launches (one a full-length attention layer a prefill,
+    none a decode step) and no other kernel, the tokens equal to
+    ``ServingEngine.serve`` called directly on the same weights; tok/s
+    printed as a smoke reading (96 tokens a run: no throughput).  (b)
+    then ``DRYRUN_CELLS`` through ``dryrun.lower_cell`` on fake CUDA
+    tensors over a fake 256 / 512-rank group, each in a process of its
+    own, all at once: no kernel launched,
+    ``memory_allocated`` 0 before and after, and no allocation on the
+    card but PyTorch's own (FakeTensorMode's one-element context probe,
+    its Python stack read from the allocator's history),
+    ``argument_bytes`` equal to ``_expected_arguments``, the prefill
+    cell's flash op called once a
+    layer with ``4 B H hd`` FLOPs a visible pair on the rank's batch rows
+    and heads, all but a model rank's share of them repeated where the
+    heads do not split; a prefill or decode cell's share of the work
+    (``loop_aware.flops`` less ``replicated.flops``) the step's analytic
+    count (``_dense_step_flops``) over its ranks; each record written
+    under ``build/chip_smoke_dryrun``.
+    Returns the readings and the serve CLI's flash launches for the
+    kernel JSON."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+
+    # -- 16a: alone, before 16b's processes load the host --
+    ls = LAUNCH_SERVE
+    cfg = get_config(ls["arch"])
+    waves = -(-ls["requests"] // ls["batch"])
+    want = {"flash_attention_hopper":
+            waves * full_length_attention_calls(cfg)}
+    serve_rows, flash_launches = [], 0
+    for quant in ls["quant_bits"]:
+        argv = ["--arch", ls["arch"], "--no-reduced", "--requests",
+                str(ls["requests"]), "--batch-size", str(ls["batch"]),
+                "--max-new", str(ls["max_new"]), "--quant-bits", str(quant)]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = serve_mod.main(argv)
+        wall = time.perf_counter() - t0
+        counts = launched()
+        text = buf.getvalue().strip()
+        print(f"16a python -m repro_torch.launch.serve {' '.join(argv)} "
+              f"({wall:.1f} s with the weights' init):")
+        for line in text.splitlines():
+            print(f"  {line}")
+        if counts != want:
+            raise AssertionError(f"serve CLI (quant {quant}) launched "
+                                 f"{counts}, want {want}")
+        if sorted(got) != list(range(ls["requests"])) or any(
+                len(v) != ls["max_new"] for v in got.values()):
+            raise AssertionError(f"serve CLI (quant {quant}): "
+                                 f"{ {k: len(v) for k, v in got.items()} }")
+        rate = float(re.search(r"\(([0-9.]+) tok/s", text).group(1))
+        flash_launches += counts["flash_attention_hopper"]
+        bundle = get_model(cfg)
+        params = bundle.init(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+        eng = ServingEngine(bundle, batch_size=ls["batch"],
+                            quant_bits=quant)
+        eng.load(params, device="cuda")
+        del params
+        direct = eng.serve(serve_mod.requests_for(ls["requests"], cfg.vocab,
+                                                  ls["max_new"]))
+        del eng
+        torch.cuda.empty_cache()
+        if direct != got:
+            raise AssertionError(f"serve CLI (quant {quant}) tokens differ "
+                                 f"from ServingEngine.serve's")
+        print(f"  launches {counts} ({waves} waves x "
+              f"{full_length_attention_calls(cfg)} attention layers, 0 a "
+              f"decode step); tokens == ServingEngine.serve's on the same "
+              f"weights; {rate} tok/s (a smoke reading of "
+              f"{ls['requests'] * ls['max_new']} tokens, not a throughput; "
+              f"{smi})", flush=True)
+        serve_rows.append({"quant_bits": quant, "launches": counts,
+                           "smoke_tok_per_s": rate, "wall_s": wall})
+
+    # -- 16b --
+    work = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ctx = mp.get_context("spawn")
+    procs = {cell: ctx.Process(target=_dryrun_cell, args=(*cell, work))
+             for cell in DRYRUN_CELLS}
+    for p in procs.values():
+        p.start()
+    codes = _mm_join(list(procs.values()),
+                     time.monotonic() + DRYRUN_TIMEOUT)
+    errs = []
+    for cell, code in zip(procs, codes):
+        path = os.path.join(work, _dryrun_tag(*cell) + ".err")
+        if code != 0:
+            errs.append(f"--- {cell} exit {code} ---\n" + (
+                open(path).read() if os.path.exists(path) else
+                "no traceback written"))
+    if errs:
+        raise AssertionError("16b dry-run cells failed:\n" + "\n".join(errs))
+    cells = {}
+    print(f"16b dry-run on fake CUDA tensors, rank 0 of a fake group "
+          f"({smi}; the records are per device of the (2 x) 16 x 16 mesh, "
+          f"counted, not timed):")
+    failures = []
+    for arch, shape_name, multi_pod in DRYRUN_CELLS:
+        tag = _dryrun_tag(arch, shape_name, multi_pod)
+        with open(os.path.join(work, tag + ".json")) as f:
+            res = json.load(f)
+        rec = res["record"]
+        with open(os.path.join(work, tag + ".record.json"), "w") as f:
+            json.dump(rec, f, indent=2)
+        # the one allocation allowed is PyTorch's own: FakeTensorMode
+        # makes one real 1-element tensor on a device the first time it
+        # fakes a tensor there (fake_tensor.py, init_gpu_context)
+        ours = [a for a in res["allocations"] if a["bytes"] > 4 or not any(
+            "init_gpu_context" in f for f in a["frames"])]
+        if res["launches"] or res["allocated_before"] \
+                or res["allocated_after"] or ours:
+            failures.append(f"{tag}: launches {res['launches']}, allocated "
+                            f"{res['allocated_before']} -> "
+                            f"{res['allocated_after']} (max "
+                            f"{res['max_allocated']}) at "
+                            f"{json.dumps(ours, indent=1)}")
+        want_args = _expected_arguments(torch, arch, shape_name, multi_pod)
+        if rec["memory"]["argument_bytes"] != want_args:
+            failures.append(f"{tag}: argument_bytes "
+                            f"{rec['memory']['argument_bytes']} != "
+                            f"{want_args} from the specs")
+        cfg_c, shape = get_config(arch), SHAPES[shape_name]
+        fl = rec["flash_attention"]
+        la, mem, rep = rec["loop_aware"], rec["memory"], rec["replicated"]
+        share = la["flops"] - rep["flops"]
+        if shape.kind == "prefill":
+            model = 16
+            data = 32 if multi_pod else 16
+            b_local = shape.global_batch // data
+            # split_dim gathers heads that do not split over the model
+            # axis; on_local_heads then attends over all of them on
+            # every model rank
+            split = (cfg_c.n_heads % model == 0
+                     and cfg_c.n_kv_heads % model == 0)
+            h_local = cfg_c.n_heads // model if split else cfg_c.n_heads
+            calls = full_length_attention_calls(cfg_c)
+            per = 4 * b_local * h_local * cfg_c.head_dim * visible_pairs(
+                shape.seq_len, shape.seq_len, True, 0)
+            want_fl = {"calls": calls, "flops": float(calls * per)}
+            # its FLOPs repeated on the other model ranks
+            want_rep = 0.0 if split else float(calls * per * (model - 1)
+                                               // model)
+            got_rep = rep["by_op"].get("repro_torch.flash_attention", 0.0)
+            if fl != want_fl or got_rep != want_rep:
+                failures.append(f"{tag}: flash op {fl}, {got_rep} of its "
+                                f"FLOPs repeated; want {want_fl}, "
+                                f"{want_rep}")
+        elif fl["calls"]:
+            failures.append(f"{tag}: flash op called {fl}")
+        if shape.kind != "train":
+            want_share = _dense_step_flops(cfg_c, shape) / rec["n_devices"]
+            if share != want_share:
+                failures.append(f"{tag}: FLOPs less replicated {share}, "
+                                f"the step's analytic count a device "
+                                f"{want_share}")
+        coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                         la["collective_bytes"].items() if v)
+        held = "" if shape.kind == "train" else ", the analytic count"
+        print(f"  {tag}: traced in {rec['lower_s']} s ({res['wall_s']:.1f} "
+              f"s in its process); {la['flops']:.4e} FLOPs ("
+              f"{rep['flops']:.4e} repeated by other ranks, the rank's "
+              f"share {share:.4e}{held}), "
+              f"{la['hbm_bytes']:.4e} HBM bytes, collectives "
+              f"{la['collective_count']:.0f} ({coll} GB); arguments "
+              f"{mem['argument_bytes']} B (the specs' count {want_args}), "
+              f"outputs {mem['output_bytes']}, temp {mem['temp_bytes']}; "
+              f"flash op {fl['calls']} calls, {fl['flops']:.6e} FLOPs; "
+              f"launches {res['launches']}, card bytes allocated "
+              f"{res['allocated_before']} -> {res['allocated_after']} (max "
+              f"{res['max_allocated']}: {len(res['allocations'])} "
+              f"allocation(s), "
+              f"{sum(a['bytes'] for a in res['allocations'])} B, all "
+              f"FakeTensorMode's context probe)", flush=True)
+        cells[tag] = {"seconds": rec["lower_s"], "wall_s": res["wall_s"],
+                      "flops": la["flops"], "replicated_flops": rep["flops"],
+                      "hbm_bytes": la["hbm_bytes"],
+                      "collective_bytes": la["collective_bytes"],
+                      "memory": mem, "flash_attention": fl}
+    if failures:
+        raise AssertionError("16b:\n" + "\n".join(failures))
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 16: {seconds:.1f} s", flush=True)
+    return {"flash_launches": flash_launches, "serve": serve_rows,
+            "dryrun": cells, "seconds": seconds}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4616,8 +4978,12 @@ def main() -> int:
     phase("15 mesh models")
     mm = mesh_models_phase(torch, np, args.seed, smi)
 
-    # -- 16. kernel list ----------------------------------------------------
-    phase("16 kernels")
+    # -- 16. launchers: the serve CLI and the dry-run ---------------------
+    phase("16 launchers")
+    ln = launchers_phase(torch, np, args.seed, smi)
+
+    # -- 17. kernel list ----------------------------------------------------
+    phase("17 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -4674,8 +5040,15 @@ def main() -> int:
         "pipeline_ms_per_rank": mm["pipeline_ms"],
         "per": "spmd_pipeline over 4 gloo ranks on the card, one "
                "starcoder2-3b block a stage, 8 microbatches of 1 x 2048"}
+    # phase 16a's serve CLI: one launch a layer a prefill, both runs
+    rows["flash_attention_hopper"]["launchers"] = {
+        "launches": ln["flash_launches"], "serve": ln["serve"],
+        "per": "python -m repro_torch.launch.serve --arch gemma2-2b "
+               "--no-reduced, 6 requests at batch 4, max_new 16, bf16 and "
+               "--quant-bits 8"}
     launches["flash_attention_hopper"] = (lm_row["launches"]
-                                          + mm["flash_launches"])
+                                          + mm["flash_launches"]
+                                          + ln["flash_launches"])
     rows["compiled_supported"]["mesh_models"] = {
         "launches": mm["probe_launches"],
         "per": "each phase-15 rank's first use of the library"}
@@ -4703,6 +5076,7 @@ def main() -> int:
                                  "stream", "per_row", "mesh",
                                  "entry_point",
                                  "families", "train", "mesh_models",
+                                 "launchers",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })

@@ -165,18 +165,25 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def direct_attention(q, k, v, *, causal: bool, window: int = 0,
                      softcap: float = 0.0, q_offset: int = 0,
-                     kv_len: Optional[int] = None) -> torch.Tensor:
+                     kv_len: Optional[int] = None, score_reduce=None,
+                     head_dim: Optional[int] = None) -> torch.Tensor:
     """Materializes (Sq, Skv) scores in float32 — decode steps and
     partially-filled caches.
 
     q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd).  ``q_offset`` is the
     absolute position of q[0] (decode: current position).  ``kv_len``
-    masks a partially-filled cache (keys at ``kv_len`` and past)."""
+    masks a partially-filled cache (keys at ``kv_len`` and past).  On a
+    block of the head dim (a rank's, ``sharding.on_local_heads``),
+    ``score_reduce`` sums the partial q.k products over the blocks and
+    ``head_dim`` is the whole head dim, which scales them."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
     qg = q.reshape(b, sq, kv, g, hd).float()
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / np.sqrt(hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    if score_reduce is not None:
+        scores = score_reduce(scores)
+    scores = scores / np.sqrt(head_dim or hd)
     scores = _softcap(scores, softcap)
     qi = torch.arange(sq, device=q.device)[:, None] + q_offset
     ki = torch.arange(skv, device=q.device)[None, :]
@@ -265,7 +272,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               softcap: float = 0.0, q_offset: int = 0,
               kv_len: Optional[int] = None, chunked_threshold: int = 4096,
-              remat: bool = False) -> torch.Tensor:
+              remat: bool = False, score_reduce=None,
+              head_dim: Optional[int] = None) -> torch.Tensor:
     """Dispatch (module docstring).  A full-length call is ``Sq == Skv``,
     ``q_offset`` 0 and no ``kv_len``.
 
@@ -284,7 +292,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     On DTensors (params placed on a ``DeviceMesh``) each rank runs that
     dispatch on its local heads and batch rows
     (:func:`repro_torch.models.sharding.on_local_heads`): the flash
-    kernel, which reads plain tensors, gets each rank's own heads."""
+    kernel, which reads plain tensors, gets each rank's own heads.  A
+    cache sharded on the head dim reaches :func:`direct_attention` with
+    ``score_reduce`` and ``head_dim`` (only a decode step's call, never a
+    full-length one, reads such a cache)."""
     if isinstance(q, DTensor):
         # a DTensor's attention is each rank's, over its own heads (q, k
         # and v gathered first where the heads do not split evenly), by
@@ -295,6 +306,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
             chunked_threshold=chunked_threshold, remat=remat), q, k, v)
     sq, skv = q.shape[1], k.shape[1]
     full = sq == skv and kv_len is None and q_offset == 0
+    if full and score_reduce is not None:
+        raise ValueError("attention: a full-length call on a block of the "
+                         "head dim; only direct_attention sums partial "
+                         "scores")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if full and sq >= chunked_threshold:
             fn = functools.partial(chunked_attention, causal=causal,
@@ -307,7 +322,8 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                                softcap=softcap)
     return direct_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, q_offset=q_offset,
-                            kv_len=kv_len)
+                            kv_len=kv_len, score_reduce=score_reduce,
+                            head_dim=head_dim)
 
 
 # --------------------------------------------------------------------------

@@ -47,6 +47,10 @@ callers:
   partial rows are summed by one all-reduce; the table's model dim is
   gathered first when fsdp shards it over the data axis, which the
   tokens' batch uses;
+- ``transformer.unstack_groups``, where a cache leaf is sharded on its
+  stacked group axis (:func:`cache_specs` shards the first dim equal to
+  the batch, as the JAX package's do): DTensor does not unbind a
+  sharded dim;
 - :func:`on_local_heads`, which :func:`repro_torch.models.layers.attention`
   calls on DTensors, with or without autograd: DTensor's einsum has no
   sharding for attention's grouped-head products (it views a batch dim
@@ -54,7 +58,16 @@ callers:
   reads plain tensors, so each rank attends over its own heads and rows
   (``to_local()``) where q, k and v split their heads alike over axes
   that divide the kv heads, and q, k and v are gathered on all but the
-  batch dim otherwise.
+  batch dim otherwise (a decode step's cache sharded on the head dim
+  keeps its blocks: each rank's partial scores are summed by one
+  all-reduce).
+
+A prefill of sharded params makes its cache sharded by
+:func:`cache_specs` (:func:`cache_full`), and a block's output is
+placed like its input (:func:`placed_like`) before the residual add —
+the all-reduce of a row-parallel product, which also keeps DTensor from
+splitting the residual stream's sequence, whose strided shards its
+redistribution planner searches for minutes on a (2, 16, 16) mesh.
 """
 
 from __future__ import annotations
@@ -68,14 +81,18 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor import full as dtensor_full
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..tree import tree_map
 
 __all__ = ["P", "NamedSharding", "param_spec", "param_specs", "zero1_spec",
-           "batch_axes", "batch_spec", "cache_specs", "mesh_axes_of",
-           "row_sharding", "split_rows", "to_placements", "distribute_tree",
-           "set_activation_mesh", "shard_activations", "replicate_dims",
-           "split_dim", "placed_like", "on_local_heads", "embedding_lookup"]
+           "batch_axes", "batch_spec", "cache_spec", "cache_specs",
+           "cache_full", "mesh_axes_of", "row_sharding", "split_rows",
+           "to_placements", "distribute_tree", "set_activation_mesh",
+           "shard_activations", "replicate_dims", "split_dim",
+           "placed_like", "on_local_heads", "local_copies",
+           "embedding_lookup"]
 
 
 class P(tuple):
@@ -223,40 +240,53 @@ def batch_spec(shape: Tuple[int, ...], mesh_axes: Dict[str, int],
     return P(*parts)
 
 
+def cache_spec(shape: Tuple[int, ...], mesh_axes: Dict[str, int],
+               batch: int) -> P:
+    """One cache leaf's spec (:func:`cache_specs`)."""
+    shape = tuple(shape)
+    if not shape:
+        return P()
+    dp_axes = batch_axes(mesh_axes)
+    dp = math.prod(mesh_axes[a] for a in dp_axes) if dp_axes else 1
+    tp = mesh_axes.get("model", 1)
+    parts: list = [None] * len(shape)
+    batch_i = None
+    for i, d in enumerate(shape):
+        if d == batch and _axis_fits(d, dp):
+            parts[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            batch_i = i
+            break
+    model_done = False
+    if len(shape) >= 4 and len(shape) - 2 != batch_i \
+            and _axis_fits(shape[-2], tp):
+        parts[-2] = "model"
+        model_done = True
+    elif len(shape) >= 4 and _axis_fits(shape[-1], tp):
+        # kv-heads don't divide the model axis (GQA): shard head_dim
+        parts[-1] = "model"
+        model_done = True
+    if batch_i is None and not model_done and _axis_fits(shape[-1], tp):
+        parts[-1] = "model"
+    return P(*parts)
+
+
 def cache_specs(cache, mesh_axes: Dict[str, int], batch: int):
     """KV caches / states: shard batch over the data axes when divisible,
     AND the kv-head dim (dim -2 of rank >= 4 attention caches) over model
     when divisible, else the head dim; falls back to sharding the
     trailing feature dim when neither applies."""
-    dp_axes = batch_axes(mesh_axes)
-    dp = math.prod(mesh_axes[a] for a in dp_axes) if dp_axes else 1
-    tp = mesh_axes.get("model", 1)
+    return _map_named(lambda _, leaf: cache_spec(_shape(leaf), mesh_axes,
+                                                 batch), cache)
 
-    def f(_, leaf):
-        shape = _shape(leaf)
-        if not shape:
-            return P()
-        parts: list = [None] * len(shape)
-        batch_i = None
-        for i, d in enumerate(shape):
-            if d == batch and _axis_fits(d, dp):
-                parts[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
-                batch_i = i
-                break
-        model_done = False
-        if len(shape) >= 4 and len(shape) - 2 != batch_i \
-                and _axis_fits(shape[-2], tp):
-            parts[-2] = "model"
-            model_done = True
-        elif len(shape) >= 4 and _axis_fits(shape[-1], tp):
-            # kv-heads don't divide the model axis (GQA): shard head_dim
-            parts[-1] = "model"
-            model_done = True
-        if batch_i is None and not model_done and _axis_fits(shape[-1], tp):
-            parts[-1] = "model"
-        return P(*parts)
 
-    return _map_named(f, cache)
+def cache_full(shape: Tuple[int, ...], value: float, dtype, mesh,
+               batch: int) -> torch.Tensor:
+    """A cache leaf of ``shape`` filled with ``value``, made as a DTensor
+    on ``mesh`` placed by :func:`cache_spec`: each rank allocates only
+    its own block (a prefill of sharded params builds its cache so)."""
+    spec = cache_spec(shape, mesh_axes_of(mesh), batch)
+    return dtensor_full(tuple(shape), value, dtype=dtype, device_mesh=mesh,
+                        placements=to_placements(spec, mesh))
 
 
 def _axis_names(mesh) -> Tuple[str, ...]:
@@ -389,16 +419,47 @@ def placed_like(x, ref) -> torch.Tensor:
     return x.redistribute(ref.device_mesh, pl)
 
 
+# the local blocks on_local_heads hands its fn, by the number of ranks
+# that hold each alike (its mesh axes that replicate them)
+_LOCAL_COPIES = WeakIdKeyDictionary()
+
+
+def local_copies(t: torch.Tensor) -> int:
+    """How many ranks hold the local block ``t`` alike, when
+    :func:`on_local_heads` handed it to its ``fn``; 1 for any other
+    tensor.  ``launch/hlo_analysis.CostMode`` reads it to tell the work
+    other ranks repeat from a rank's own share."""
+    return _LOCAL_COPIES.get(t, 1)
+
+
 def on_local_heads(fn, q, k, v) -> torch.Tensor:
     """``fn(q, k, v)`` — an attention on plain tensors, q (B, S, H, hd),
     k / v (B, S, KV, hd), its output shaped like q — on DTensors.  When
-    q, k and v share their placements, none shards the sequence or the
-    head dim, and every mesh axis that shards the heads divides KV (so a
-    rank's query heads read only its own kv heads), and no partial sum
-    is pending, each rank calls ``fn`` on its own blocks
-    (``to_local()``, nothing sent); otherwise q, k and v are first
-    gathered on all but the batch dim and their partial sums reduced
-    (:func:`replicate_dims`).  Returns a DTensor laid out as ``q`` was."""
+    q, k and v share their placements, none shards the sequence, every
+    mesh axis that shards the heads divides KV (so a rank's query heads
+    read only its own kv heads), and no partial sum is pending, each rank
+    calls ``fn`` on its own blocks (``to_local()``); otherwise q, k and v
+    are first gathered on all but the batch dim and their partial sums
+    reduced (:func:`replicate_dims`).  Returns a DTensor laid out as
+    ``q`` was.
+
+    A cache sharded on the head dim (``cache_specs`` shards it where the
+    kv heads do not divide the model axis) keeps its blocks: a q
+    replicated where k and v shard the head dim takes its own block of
+    it (nothing sent), and ``fn`` gets ``score_reduce`` — the sum of the
+    partial scores over those mesh axes, one all-reduce of the (B, H, Sq,
+    Skv) scores — and ``head_dim``, the whole head dim for the scale.
+    Its output block is gathered back to q's layout."""
+    if (tuple(k.placements) == tuple(v.placements)
+            and tuple(q.placements) != tuple(k.placements)
+            and all(pq == pk or (isinstance(pq, Replicate)
+                                 and isinstance(pk, Shard)
+                                 and pk.dim % k.ndim == 3)
+                    for pq, pk in zip(q.placements, k.placements))):
+        q0, q = q, q.redistribute(q.device_mesh, k.placements)
+    else:
+        q0 = q
+
     def local_ok():
         if not (tuple(q.placements) == tuple(k.placements)
                 == tuple(v.placements)) or any(
@@ -407,20 +468,38 @@ def on_local_heads(fn, q, k, v) -> torch.Tensor:
         ways = 1
         for j, p in enumerate(q.placements):
             if isinstance(p, Shard):
-                if p.dim % q.ndim not in (0, 2):
+                if p.dim % q.ndim not in (0, 2, 3):
                     return False
                 if p.dim % q.ndim == 2:
                     ways *= q.device_mesh.size(j)
         return k.shape[2] % ways == 0
-    q0 = q
     if not local_ok():
         q, k, v = (replicate_dims(t, [1, 2, 3]) for t in (q, k, v))
         if not (tuple(q.placements) == tuple(k.placements)
                 == tuple(v.placements)):
             q, k, v = (replicate_dims(t, [0, 1, 2, 3]) for t in (q, k, v))
-    out = fn(q.to_local(), k.to_local(), v.to_local())
-    # fn's output is contiguous: give the DTensor q's shape with the
-    # contiguous strides (q's own may not be)
+    mesh = q.device_mesh
+    hd_axes = [j for j, p in enumerate(q.placements)
+               if isinstance(p, Shard) and p.dim % q.ndim == 3]
+    extra = {}
+    if hd_axes:
+        from torch.distributed import _functional_collectives as funcol
+
+        def score_reduce(scores):
+            for j in hd_axes:
+                scores = funcol.all_reduce(scores, "sum", mesh.get_group(j))
+            return scores
+        extra = {"score_reduce": score_reduce, "head_dim": q.shape[3]}
+    # the DTensor is declared with q's shape and contiguous strides (q's
+    # own may not be), so its local block is made contiguous: the plain
+    # routes' einsum output may be a permuted view
+    local = [t.to_local() for t in (q, k, v)]
+    copies = math.prod(mesh.size(j) for j, p in enumerate(q.placements)
+                       if isinstance(p, Replicate))
+    if copies > 1:
+        for t in local:
+            _LOCAL_COPIES[t] = copies
+    out = fn(*local, **extra).contiguous()
     out = DTensor.from_local(out, q.device_mesh, q.placements,
                              run_check=False, shape=q.shape,
                              stride=torch.empty(q.shape,
@@ -454,7 +533,13 @@ class _VocabLookup(torch.autograd.Function):
         idx, hit = ctx.saved_tensors
         out = torch.zeros((ctx.rows, grad.shape[-1]), dtype=grad.dtype,
                           device=grad.device)
-        out.index_add_(0, idx[hit], grad[hit])
+        # a missed token adds an exact zero to row 0 (its idx): no
+        # data-dependent shape, so the backward also runs on fake tensors
+        d = grad.shape[-1]
+        out.index_add_(0, idx.reshape(-1), torch.where(
+            hit[..., None], grad, torch.zeros((), dtype=grad.dtype,
+                                              device=grad.device))
+            .reshape(-1, d))
         return out, None, None, None
 
 

@@ -103,13 +103,17 @@ def init_block(gen: torch.Generator, ltype: str,
 # --------------------------------------------------------------------------
 
 def init_block_cache(ltype: str, cfg: ArchConfig, batch: int, max_len: int,
-                     device, groups: int = 0) -> Dict[str, Any]:
+                     device, groups: int = 0, mesh=None) -> Dict[str, Any]:
     """A block's zeroed cache (KV for attention, the recurrent states
-    otherwise); ``groups`` > 0 adds the leading group axis."""
+    otherwise); ``groups`` > 0 adds the leading group axis.  With a
+    ``mesh`` each leaf is a DTensor placed by the cache specs
+    (:func:`repro_torch.models.sharding.cache_full`)."""
     lead = (groups,) if groups else ()
     dt, d, f32 = param_dtype(cfg), cfg.d_model, torch.float32
 
     def full(shape, dtype=f32, value=0.0):
+        if mesh is not None:
+            return SH.cache_full(lead + shape, value, dtype, mesh, batch)
         return torch.full(lead + shape, value, dtype=dtype, device=device)
     if ltype in ("global", "local"):
         length = max_len if ltype == "global" else min(cfg.window, max_len)
@@ -133,16 +137,19 @@ def init_block_cache(ltype: str, cfg: ArchConfig, batch: int, max_len: int,
     raise ValueError(ltype)
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device) -> Dict[str, Any]:
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device,
+               mesh=None) -> Dict[str, Any]:
+    """The model's zeroed cache, ``pos`` 0; with a ``mesh``, DTensor
+    leaves placed by the cache specs (:func:`init_block_cache`)."""
     g = cfg.n_groups()
     cache: Dict[str, Any] = {
         "blocks": {f"b{i}": init_block_cache(lt, cfg, batch, max_len, device,
-                                             groups=g)
+                                             groups=g, mesh=mesh)
                    for i, lt in enumerate(cfg.pattern)},
         "pos": 0}
     for i, lt in enumerate(cfg.tail):
-        cache[f"tail{i}"] = init_block_cache(lt, cfg, batch, max_len, device)
+        cache[f"tail{i}"] = init_block_cache(lt, cfg, batch, max_len, device,
+                                             mesh=mesh)
     return cache
 
 
@@ -180,8 +187,10 @@ def _attn_block(p, x, ltype, cfg: ArchConfig, mode, positions, pos, cache):
             slot, kv_len = min(pos, wlen - 1), pos + 1
         ck[:, slot:slot + 1] = k
         cv[:, slot:slot + 1] = v
-        out = L.direct_attention(q, ck, cv, causal=False, window=0,
-                                 softcap=cfg.attn_softcap, kv_len=kv_len)
+        # attention's dispatch: direct_attention over the cache, on each
+        # rank's own heads for DTensors (sharding.on_local_heads)
+        out = L.attention(q, ck, cv, causal=False, window=0,
+                          softcap=cfg.attn_softcap, kv_len=kv_len)
     else:
         out = L.attention(q, k, v, causal=True, window=window,
                           softcap=cfg.attn_softcap)
@@ -196,7 +205,7 @@ def _attn_block(p, x, ltype, cfg: ArchConfig, mode, positions, pos, cache):
                 cache["k"][:, :s] = k
                 cache["v"][:, :s] = v
 
-    out = L.matmul(out.reshape(b, s, cfg.q_dim), p["wo"])
+    out = SH.placed_like(L.matmul(out.reshape(b, s, cfg.q_dim), p["wo"]), x)
     if cfg.post_norm:
         out = L.rms_norm(out, p["norm_post"])
     return x + out
@@ -253,6 +262,7 @@ def _mlp_slot(p, x, cfg: ArchConfig):
                                    capacity_factor=cfg.capacity_factor)
     else:
         out, aux = L.mlp_forward(p["mlp"], h, cfg.mlp_kind), 0.0
+    out = SH.placed_like(out, x)
     if cfg.post_norm:
         out = L.rms_norm(out, p["norm_mlp_post"])
     return x + out, aux
@@ -291,11 +301,13 @@ def stack_groups(trees: list):
 
 def unstack_groups(tree, n: int) -> list:
     """The ``n`` per-group trees of views of a stacked tree (the inverse
-    of :func:`stack_groups`), one ``unbind`` a leaf."""
+    of :func:`stack_groups`), one ``unbind`` a leaf.  A DTensor leaf
+    sharded on the group axis (the cache specs shard the first dim equal
+    to the batch, which may be that axis) is gathered on it first."""
     if isinstance(tree, dict):
         parts = {k: unstack_groups(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(tree.unbind(0))
+    return list(SH.replicate_dims(tree, [0]).unbind(0))
 
 
 def remat_call(cfg: ArchConfig, train: bool, fn, *args):
@@ -416,10 +428,13 @@ def loss_fn(params, batch, cfg: ArchConfig):
 
 
 def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
-    """Run the prompt, return (last-token logits, cache)."""
+    """Run the prompt, return (last-token logits, cache).  On sharded
+    params (DTensors) the cache is made sharded on their mesh, by the
+    cache specs."""
     x = _embed_in(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, b, max_len or s, x.device)
+    cache = init_cache(cfg, b, max_len or s, x.device,
+                       x.device_mesh if isinstance(x, DTensor) else None)
     positions = torch.arange(s, device=x.device)
     x, _ = _stack_apply(params, x, cfg, "prefill", positions, 0, cache)
     cache["pos"] = s

@@ -27,14 +27,17 @@ cross K/V once (the JAX package computes them twice).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import sharding as SH
 from .transformer import param_dtype, remat_call, stack_groups, \
     unstack_groups
 
@@ -100,7 +103,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _heads(cfg, t, b):
-    return t.reshape(b, -1, cfg.n_kv_heads, cfg.head_dim)
+    return SH.split_dim(t, -1, (cfg.n_kv_heads, cfg.head_dim))
 
 
 def _mha(p, x, kv_x, cfg, *, causal, prefix="", cache=None, pos=None,
@@ -111,8 +114,8 @@ def _mha(p, x, kv_x, cfg, *, causal, prefix="", cache=None, pos=None,
     step's key and value are written into when ``kv_x`` is given) the
     queries attend over it with :func:`layers.direct_attention`."""
     b, s, _ = x.shape
-    q = L.matmul(x, p[prefix + "wq"]).reshape(b, s, cfg.n_heads,
-                                              cfg.head_dim)
+    q = SH.split_dim(L.matmul(x, p[prefix + "wq"]), -1,
+                     (cfg.n_heads, cfg.head_dim))
     if cache is None:
         k = _heads(cfg, L.matmul(kv_x, p[prefix + "wk"]), b)
         v = _heads(cfg, L.matmul(kv_x, p[prefix + "wv"]), b)
@@ -125,7 +128,11 @@ def _mha(p, x, kv_x, cfg, *, causal, prefix="", cache=None, pos=None,
                                                                + "wk"]), b)
             v[:, slot:slot + 1] = _heads(cfg, L.matmul(kv_x, p[prefix
                                                                + "wv"]), b)
-        out = L.direct_attention(q, k, v, causal=False, kv_len=kv_len)
+        attend = functools.partial(L.direct_attention, causal=False,
+                                   kv_len=kv_len)
+        # on DTensors each rank attends over its own heads
+        out = SH.on_local_heads(attend, q, k, v) \
+            if isinstance(q, DTensor) else attend(q, k, v)
     return L.matmul(out.reshape(b, s, cfg.q_dim), p[prefix + "wo"]), (k, v)
 
 
@@ -188,15 +195,19 @@ def loss_fn(params, batch, cfg: ArchConfig):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-               enc_len: Optional[int] = None) -> Dict[str, Any]:
+               enc_len: Optional[int] = None, mesh=None) -> Dict[str, Any]:
+    """Zeroed self- and cross-attention caches, ``pos`` 0; with a
+    ``mesh``, DTensor leaves placed by the cache specs."""
     dt, n = param_dtype(cfg), cfg.n_layers
     kv = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     xkv = (n, batch, enc_len or cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"self_k": torch.zeros(kv, dtype=dt, device=device),
-            "self_v": torch.zeros(kv, dtype=dt, device=device),
-            "cross_k": torch.zeros(xkv, dtype=dt, device=device),
-            "cross_v": torch.zeros(xkv, dtype=dt, device=device),
-            "pos": 0}
+
+    def zeros(shape):
+        if mesh is not None:
+            return SH.cache_full(shape, 0.0, dt, mesh, batch)
+        return torch.zeros(shape, dtype=dt, device=device)
+    return {"self_k": zeros(kv), "self_v": zeros(kv),
+            "cross_k": zeros(xkv), "cross_v": zeros(xkv), "pos": 0}
 
 
 def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
@@ -206,7 +217,9 @@ def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, enc_out.device,
-                       enc_len=enc_out.shape[1])
+                       enc_len=enc_out.shape[1],
+                       mesh=enc_out.device_mesh
+                       if isinstance(enc_out, DTensor) else None)
     x = _embed_tokens(params, tokens, torch.arange(s, device=tokens.device),
                       cfg)
     for i, lp in enumerate(unstack_groups(params["dec"], cfg.n_layers)):

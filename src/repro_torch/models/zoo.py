@@ -11,23 +11,26 @@ counterpart of the JAX package's ``models/zoo.py``.
 Every config of ``repro_torch.configs`` has a bundle: the decoder LMs
 (dense, MoE, RG-LRU hybrid, xLSTM) from :mod:`.transformer`, the
 encoder-decoder (``input_kind == "encdec"``) from :mod:`.whisper`.
-:func:`batch_pspec` gives a batch's partition specs on a mesh;
-``input_specs`` and ``cache_specs_for`` (the dry-run's abstract inputs)
-wait for the dry-run (ROADMAP Queue 1 item 7).
+:func:`input_specs` and :func:`cache_specs_for` give the abstract inputs
+of every (shape x mode) cell — the dry-run's contract — as ``meta``
+tensors (shape and dtype, no storage), the counterpart of the JAX
+package's ``jax.ShapeDtypeStruct`` s; :func:`batch_pspec` gives a batch's
+partition specs on a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import sharding, transformer, whisper
 
-__all__ = ["ModelBundle", "get_model", "batch_pspec"]
+__all__ = ["ModelBundle", "get_model", "input_specs", "cache_specs_for",
+           "batch_pspec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +69,47 @@ def get_model(cfg: ArchConfig) -> ModelBundle:
             mod.init_cache(cfg, batch, max_len, resolve_device(device),
                            **kw),
     )
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The inputs of the cell as ``meta`` tensors; ``mode`` defaults to
+    ``shape.kind``.
+
+    train  : full batch {tokens|embeds(+labels)} (+ decoder tokens, encdec)
+    prefill: same tensors, serving batch (encdec: ``cfg.enc_seq`` frames)
+    decode : single-token batch (the cache comes separately)
+
+    Token ids are int32 and embeddings bfloat16, as in the JAX package."""
+    mode = mode or shape.kind
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(bb, ss):
+        return torch.empty((bb, ss), dtype=torch.int32, device="meta")
+
+    def emb(bb, ss):
+        return torch.empty((bb, ss, cfg.d_model), dtype=torch.bfloat16,
+                           device="meta")
+
+    if mode == "decode":
+        if cfg.input_kind == "embeds":
+            return {"embeds": emb(b, 1), "labels": tok(b, 1)}
+        return {"tokens": tok(b, 1)}
+    if cfg.input_kind == "embeds":
+        return {"embeds": emb(b, s), "labels": tok(b, s)}
+    if cfg.input_kind == "encdec":
+        if mode == "train":
+            return {"embeds": emb(b, s), "tokens": tok(b, s)}
+        return {"embeds": emb(b, cfg.enc_seq), "tokens": tok(b, s)}
+    return {"tokens": tok(b, s)}
+
+
+def cache_specs_for(cfg: ArchConfig, shape: ShapeConfig) -> Any:
+    """The abstract cache of a decode cell: the bundle's ``init_cache``
+    for ``shape.global_batch`` rows of ``shape.seq_len`` positions on
+    ``meta`` (its ``pos`` a Python int, as the port keeps it)."""
+    return get_model(cfg).init_cache(shape.global_batch, shape.seq_len,
+                                     device="meta")
 
 
 def batch_pspec(specs: Dict[str, Any], mesh) -> Dict[str, Any]:

@@ -17,7 +17,11 @@ On a tree of DTensors (params placed on a ``DeviceMesh`` by
 their param's placements, :func:`global_norm` is the norm of the whole
 tree — each rank's partial sum of squares over its own shards, one
 reduction — and ``adamw_update_`` runs the same arithmetic on every
-rank's local shards (``to_local()``)."""
+rank's local shards (``to_local()``).  Moments placed further than their
+param (zero-1: :func:`repro_torch.models.sharding.zero1_spec` adds the
+data axis, as the JAX package's dry-run places them) are updated on
+each rank's block of the moments, and the param's new blocks are
+gathered back to its own placements (one all-gather a leaf)."""
 
 from __future__ import annotations
 
@@ -151,27 +155,45 @@ def adamw_update_(grads, state: AdamWState, params, lr,
     updated and others not.
 
     DTensor leaves are updated shard by shard on each rank (module
-    docstring); the grads must have their params' placements."""
+    docstring); the grads must have their params' placements, the
+    moments their params' or the zero-1 ones."""
     step = state.step + 1
     gnorm, scale, bc1, bc2 = _clip(grads, step, b1, b2, clip_norm)
     for g, m, v, p in zip(*(tree_leaves(t) for t in (
             grads, state.m, state.v, params))):
+        decay = p.ndim >= 2
+        dest = None
         if isinstance(p, DTensor):
-            # every rank updates its own shards; grads and moments must
-            # be laid out as their param is
-            for t in (g, m, v):
-                if t.placements != p.placements:
-                    raise ValueError(f"adamw_update_: placements "
-                                     f"{t.placements} against the param's "
-                                     f"{p.placements}")
-            g, m, v, p = (t.to_local() for t in (g, m, v, p))
+            # every rank updates its own shards; grads must be laid out as
+            # their param is, moments as their param or zero-1
+            if g.placements != p.placements or v.placements != m.placements:
+                raise ValueError(f"adamw_update_: placements of the grad "
+                                 f"{g.placements} and moments {m.placements}"
+                                 f" / {v.placements} against the param's "
+                                 f"{p.placements}")
+            if m.placements != p.placements:
+                # zero-1: this rank's block of the moments' layout (a local
+                # chunk of the param and grad, nothing sent), its new param
+                # block gathered back below
+                dest, zpl = p, m.placements
+                g, p = (t.redistribute(m.device_mesh, zpl) for t in (g, p))
+                p = p.to_local().clone()
+            else:
+                p = p.to_local()
+            g, m, v = (t.to_local() for t in (g, m, v))
         for sl in _row_slices(p, chunk_elems):
             p_new, m_new, v_new = _leaf_update(
                 g[sl], m[sl], v[sl], p[sl], scale, lr, bc1, bc2, b1, b2,
-                eps, weight_decay, p.ndim >= 2)
+                eps, weight_decay, decay)
             m[sl] = m_new
             v[sl] = v_new
             p[sl] = p_new
+        if dest is not None:
+            new = DTensor.from_local(p, dest.device_mesh, zpl,
+                                     run_check=False, shape=dest.shape,
+                                     stride=dest.stride())
+            dest.to_local().copy_(new.redistribute(
+                dest.device_mesh, dest.placements).to_local())
     return params, AdamWState(step, state.m, state.v), gnorm
 
 

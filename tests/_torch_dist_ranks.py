@@ -357,3 +357,87 @@ def staged_group_on_cpu(rank, world):
     ok["dtensor_replicate"] = bool(torch.equal(r.to_local(), a))
     return {"ok": ok, "counts": dict(group.counts),
             "backend": group.getBackendName()}
+
+
+def zero1_adamw(rank, world, params_np, grads_np, lr):
+    """``adamw_update_`` on a (2, 2) ``("data", "model")`` mesh, params
+    and grads placed by ``P(None, "model")``: once with the moments laid
+    out as the params, once by ``zero1_spec`` (the data axis added).
+    Returns rank 0's placements and whether both runs' params and
+    moments are ``torch.equal`` (gathered whole)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim.adamw import AdamWState, adamw_update_
+    from repro_torch.tree import tree_map
+
+    mesh = make_test_mesh((2, 2), device="cpu")
+    axes = SH.mesh_axes_of(mesh)
+    spec = SH.P(None, "model")
+    runs = {}
+    for kind in ("plain", "zero1"):
+        params = SH.distribute_tree(_tensors(params_np), spec, mesh)
+        grads = SH.distribute_tree(_tensors(grads_np), spec, mesh)
+        mspec = spec if kind == "plain" else SH.zero1_spec(
+            spec, tuple(params["w"].shape), axes)
+        moments = [SH.distribute_tree(tree_map(
+            lambda p: torch.full(p.shape, 0.01 * (i + 1)), _tensors(
+                params_np)), mspec, mesh) for i in range(2)]
+        state = AdamWState(3, *moments)
+        for _ in range(2):
+            params, state, _ = adamw_update_(grads, state, params, lr)
+        runs[kind] = (params, state, str(state.m["w"].placements))
+    same = all(torch.equal(a.full_tensor(), b.full_tensor())
+               for a, b in zip(
+                   [runs["plain"][0]["w"], runs["plain"][1].m["w"],
+                    runs["plain"][1].v["w"], runs["plain"][0]["b"]],
+                   [runs["zero1"][0]["w"], runs["zero1"][1].m["w"],
+                    runs["zero1"][1].v["w"], runs["zero1"][0]["b"]]))
+    return {"equal": bool(same), "plain_m": runs["plain"][2],
+            "zero1_m": runs["zero1"][2]}
+
+
+def sharded_decode(rank, world, arch, reduced_kw, params_np, tokens, steps):
+    """Prefill ``tokens`` and take ``steps`` greedy decode steps with
+    params placed by ``param_specs`` on a (2, 2) mesh (the cache made
+    sharded by the cache specs), and the same unsharded on this rank;
+    returns the largest logit difference, the tokens of both, and the
+    placements of the first attention cache."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as SH
+
+    cfg = get_config(arch).reduced(**reduced_kw)
+    bundle = get_model(cfg)
+    mesh = make_test_mesh((2, 2), device="cpu")
+    axes = SH.mesh_axes_of(mesh)
+    plain = _tensors(params_np)
+    sharded = SH.distribute_tree(plain, SH.param_specs(plain, axes, False),
+                                 mesh)
+    tok = torch.as_tensor(tokens)
+    batch = {"tokens": SH.distribute_tree(
+        tok, SH.batch_spec(tuple(tok.shape), axes), mesh)}
+    out = {"diff": 0.0, "tokens": [], "plain_tokens": []}
+    with torch.no_grad(), implicit_replication():
+        lg_s, c_s = bundle.prefill(sharded, batch, max_len=tok.shape[1]
+                                   + steps)
+        lg_p, c_p = bundle.prefill(plain, {"tokens": tok},
+                                   max_len=tok.shape[1] + steps)
+        out["cache"] = str(c_s["blocks"]["b0"]["k"].placements)
+        for _ in range(steps):
+            full = lg_s.full_tensor()
+            out["diff"] = max(out["diff"],
+                              float((full - lg_p).abs().max()))
+            nxt_s = full[:, -1].argmax(-1).to(torch.int32)[:, None]
+            nxt_p = lg_p[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out["tokens"].append(nxt_s[:, 0].tolist())
+            out["plain_tokens"].append(nxt_p[:, 0].tolist())
+            lg_s, c_s = bundle.decode_step(sharded, c_s, {
+                "tokens": SH.distribute_tree(nxt_s, SH.batch_spec(
+                    tuple(nxt_s.shape), axes), mesh)})
+            lg_p, c_p = bundle.decode_step(plain, c_p, {"tokens": nxt_p})
+        out["diff"] = max(out["diff"], float(
+            (lg_s.full_tensor() - lg_p).abs().max()))
+    return out

@@ -1776,3 +1776,157 @@ def test_sharded_train_step_on_card_matches_one_process(cuda, tmp_path):
                                        atol=2 * lr, err_msg=name)
             g, w = g[~near], w[~near]
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+# -- the launchers: the serve CLI, the flash op, the dry-run ------------------
+
+def test_serve_cli_on_card(cuda):
+    """``python -m repro_torch.launch.serve`` (reduced gemma2-2b, float32,
+    the default device: the card) serves every request ``max_new``
+    tokens, one float32 flash call (pre-pass and body) a full-length
+    attention layer a prefill wave."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    flash_kernel.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = serve.main(["--arch", "gemma2-2b", "--requests", "6",
+                          "--max-new", "5", "--quant-bits", "8"])
+    cfg = get_config("gemma2-2b").reduced()
+    layers = sum(lt in ("global", "local") for lt in cfg.layer_types)
+    assert sorted(got) == list(range(6))
+    assert all(len(v) == 5 for v in got.values())
+    assert flash_kernel.launch_counts() == {
+        "flash_attention_hopper": 2 * layers,
+        "flash_split_kv_hopper": 2 * layers}
+    assert "tok/s" in buf.getvalue() and "quant=8" in buf.getvalue()
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_flash_op_is_the_kernel(cuda, dt):
+    """The custom op ``repro_torch::flash_attention`` on the card is
+    ``flash_attention_hopper`` bit for bit, one call of its launches; its
+    fake implementation under ``FakeTensorMode`` launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attention.kernel import LAUNCHES_PER_CALL
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 77, 8, 64), generator=gen, device=cuda).to(TDT[dt])
+    k = torch.randn((2, 77, 2, 64), generator=gen, device=cuda).to(TDT[dt])
+    v = torch.randn((2, 77, 2, 64), generator=gen, device=cuda).to(TDT[dt])
+    want = flash_kernel.flash_attention_hopper(q, k, v, True, 16, 30.0)
+    flash_kernel.reset_launch_counts()
+    got = torch.ops.repro_torch.flash_attention(q, k, v, True, 16, 30.0)
+    torch.cuda.synchronize()
+    assert flash_kernel.launch_counts() == {
+        "flash_attention_hopper": 0, "flash_split_kv_hopper": 0,
+        **LAUNCHES_PER_CALL[TDT[dt]]}
+    assert torch.equal(got, want)
+    assert torch.equal(flash_attention(q, k, v, window=16, softcap=30.0),
+                       want)
+    flash_kernel.reset_launch_counts()
+    with FakeTensorMode():
+        fq = torch.empty(q.shape, dtype=q.dtype, device=cuda)
+        fk = torch.empty(k.shape, dtype=k.dtype, device=cuda)
+        out = flash_attention(fq, fk, fk, window=16)
+    assert out.shape == q.shape and out.device.type == "cuda"
+    assert flash_kernel.launch_counts() == {
+        "flash_attention_hopper": 0, "flash_split_kv_hopper": 0}
+
+
+def _all_launch_counts() -> dict:
+    return {**flash_kernel.launch_counts(), **launch_counts(),
+            **bitserial_mm.launch_counts(), **fft_kernel.launch_counts(),
+            **fir_kernel.launch_counts()}
+
+
+def _reset_all_launch_counts() -> None:
+    for reset in (flash_kernel.reset_launch_counts, reset_launch_counts,
+                  bitserial_mm.reset_launch_counts,
+                  fft_kernel.reset_launch_counts,
+                  fir_kernel.reset_launch_counts):
+        reset()
+
+
+def _settled_memory_allocated() -> int:
+    """``torch.cuda.memory_allocated()`` once earlier tests' unreachable
+    card tensors are freed, so a collection inside the dry-run does not
+    read as a change."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def test_dryrun_cell_on_fake_cuda_tensors(cuda):
+    """gemma2-2b ``decode_32k`` on the fake (16, 16) world, every tensor
+    a fake CUDA one: a record with the step's analytic FLOPs over 256
+    (``_torch_flops``), no kernel launched and
+    ``torch.cuda.memory_allocated()`` unchanged; and on the same world's
+    CUDA mesh the cost counter reads one device's product of a sharded
+    matmul, 15/16 of it repeated by the data ranks, on this torch's
+    DTensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from _torch_flops import dense_step_flops
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import make_test_mesh
+    before = _settled_memory_allocated()
+    _reset_all_launch_counts()
+    rec = dryrun.lower_cell("gemma2-2b", "decode_32k", False)
+    counts = _all_launch_counts()
+    assert not any(counts.values()), counts
+    assert torch.cuda.memory_allocated() == before
+    assert rec["mesh"] == "16x16" and rec["n_devices"] == 256
+    assert rec["cost"]["flops_per_device_naive"] > 0
+    assert rec["memory"]["argument_bytes"] > 0
+    assert rec["replicated"]["flops"] == 0
+    assert rec["loop_aware"]["flops"] * 256 == dense_step_flops(
+        get_config("gemma2-2b"), SHAPES["decode_32k"])
+
+    with dryrun.fake_world(256):
+        mesh = make_test_mesh((16, 16), device="cuda")
+        with FakeTensorMode():
+            a = torch.empty(4096, 8192, device=cuda)
+            b = torch.empty(8192, 2048, device=cuda)
+            da = distribute_tensor(a, mesh, [Replicate(), Shard(1)],
+                                   src_data_rank=None)
+            db = distribute_tensor(b, mesh, [Replicate(), Shard(0)],
+                                   src_data_rank=None)
+            for _ in range(2):
+                with hlo_analysis.CostMode() as mode:
+                    da @ db
+                assert mode.summary.flops == 2 * 4096 * 512 * 2048
+                assert mode.replicated_flops \
+                    == 2 * 4096 * 512 * 2048 * 15 // 16
+    assert not any(_all_launch_counts().values())
+    assert torch.cuda.memory_allocated() == before
+
+
+def test_dryrun_prefill_on_fake_cuda_tensors(cuda):
+    """starcoder2-3b ``prefill_32k`` on the fake (16, 16) world through
+    the flash kernel's op: 30 calls, no launch; its 24 heads do not
+    split 16 ways, so every model rank attends over all of them and 15/16
+    of the op's FLOPs are repeated; the rest, the rank's share, is the
+    step's analytic count over 256 (``_torch_flops``)."""
+    from _torch_flops import dense_step_flops
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    before = _settled_memory_allocated()
+    _reset_all_launch_counts()
+    rec = dryrun.lower_cell("starcoder2-3b", "prefill_32k", False)
+    assert not any(_all_launch_counts().values())
+    assert torch.cuda.memory_allocated() == before
+    fl = rec["flash_attention"]
+    assert fl["calls"] == 30
+    assert rec["replicated"]["by_op"]["repro_torch.flash_attention"] \
+        == fl["flops"] * 15 / 16
+    share = rec["loop_aware"]["flops"] - rec["replicated"]["flops"]
+    assert share * 256 == dense_step_flops(get_config("starcoder2-3b"),
+                                           SHAPES["prefill_32k"])
