@@ -281,8 +281,24 @@ card) — phase by phase:
      and staged bytes a step, peak memory by rank; (d)
      ``allreduce_compressed`` of a 3072 x 12288 gradient within 0.1 of
      the mean, its int8 and float32 payload bytes, and a tree saved from
-     (2, 2) and restored under (4, 1) bit for bit.  A failed rank fails
-     the phase.
+     (2, 2) and restored under (4, 1) bit for bit; (e) run first, in a
+     spawn of 4 ranks of its own (``mesh_families``), qwen2-moe-a2.7b cut
+     to 1 layer and
+     xlstm-350m to 8 (one pattern of 7 mLSTM + 1 sLSTM), full width,
+     float32, TF32 off, on the (2, 2) mesh, params drawn on the CPU and
+     each rank's blocks moved to the card, moments zero-1: a sharded
+     prefill of 8 x 256 and one greedy decode step against the parent's
+     unsharded ones (logits rtol 1e-4, atol 1e-5 — xlstm's by relative L2
+     1e-3, phase 12's float32 limit —, both tokens bit for bit), qwen2-moe's
+     prefill exactly one float32 ``flash_attention_hopper`` call and its
+     ``flash_split_kv_hopper`` pre-pass a layer a rank (8 of 16 heads),
+     none in a decode step or in xlstm; then one sharded train step
+     against the unsharded one at (c)'s limits
+     (params near eps in either run exempt; xlstm: its loss there, its
+     gradient norm and the whole first and
+     second moments by relative L2 at 1e-2, each leaf's error printed);
+     step p50 sharded against unsharded, staged bytes a step.  A failed
+     rank fails the phase.
  16. launchers (``launchers_phase``, callable alone after
      ``kernels.build()``): (a) ``python -m repro_torch.launch.serve
      --arch gemma2-2b --no-reduced`` (``serve.main`` in this process) at
@@ -295,8 +311,16 @@ card) — phase by phase:
      process group, one ``spawn``ed process a cell, all started before
      (a): no launch, no card memory but FakeTensorMode's own probe,
      ``argument_bytes`` equal to the sharding specs' count, the
-     prefill's flash op 30 calls at the flop formula; per cell the trace
-     seconds, FLOPs, HBM bytes, collectives and memory per device.
+     prefills' flash op 30 (starcoder2-3b) and 24 (qwen2-moe-a2.7b) calls
+     at the flop formula; the same step traced on one fake device with
+     no mesh (``dryrun.unsharded_flops``), and a prefill's or decode's
+     share (FLOPs less ``replicated.flops``) times the ranks equal to
+     its FLOPs at relative 1e-9 (a train cell's ratio printed); per cell
+     the trace seconds, FLOPs, HBM bytes, collectives and memory per
+     device.  The cells: starcoder2-3b train_4k (also on (2, 16, 16)),
+     prefill_32k and decode_32k, gemma2-2b decode_32k, qwen2-moe-a2.7b
+     prefill_32k and decode_32k, grok-1-314b decode_32k, xlstm-350m
+     decode_32k and long_500k.
  17. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
@@ -2235,6 +2259,38 @@ MM_NEAR_EPS = 1e-6     # a gradient element this small makes AdamW's ratio
 MM_COMPRESS = (3072, 12288)                # starcoder2-3b's w_up
 MM_COMPRESS_REL = 0.1                      # the JAX package's test limit
 MM_TIMEOUT = 600
+# 15e: the MoE and xLSTM families on the (2, 2) mesh, full width, float32
+# (TF32 off), cut in depth as 15c is (qwen2-moe-a2.7b to 1 of its 24
+# layers: at 2, four ranks' steps beside the references overflow the
+# 80 GB card; xlstm-350m to 8: one pattern of 7 mLSTM and 1 sLSTM), with
+# their configs' microbatch 4 and remat; MM_TRAIN's batch of 8, 256
+# positions and one step (its gradient is then the first moment over
+# 0.1: no rank keeps a copy of its moments to find it).  Params are drawn on the CPU, so the parent and
+# every rank draw the same values, and each rank moves only its own
+# blocks to the card and keeps its moments in the zero-1 layout; the
+# ranks are a second spawn, after 15b-d's references are freed:
+# qwen2-moe's float32 references (params and moments, 21 GB) would not
+# fit the card beside 15c's and four ranks' steps.
+MM_FAMILIES = {"qwen2-moe-a2.7b": 1, "xlstm-350m": 8}     # layers kept
+MM_FAMILY_RUN = {"mesh": (2, 2), "batch": 8, "seq": 256, "steps": 1,
+                 "lr": 1e-3}
+MM_LOGITS_RTOL, MM_LOGITS_ATOL = 1e-4, 1e-5
+# xlstm-350m: its logits by relative L2 at phase 12's float32 limit for
+# the recurrent families (FAMILY_TF_F32_REL_L2): its exponentially gated
+# blocks amplify one block's float32 rounding about threefold a block
+# (tests/test_torch_recurrent.py holds the reduced model at atol 3e-4;
+# at full width the card read 3.4e-4 for the largest element); one train
+# step, its
+# loss at MM_LOSS_RTOL, its gradient norm and the whole first and second
+# moments (every leaf together) by relative L2 at MM_XLSTM_GRAD_REL.  Its
+# gradient is ill-conditioned: the stabilizers' gradient paths cancel
+# analytically and leave float32 rounding amplified by the exponentials,
+# so a sharded step's GEMMs over fewer rows move it draw by draw (a CPU
+# rehearsal at d 64, 8 layers: the gradient norm 7.6e-6 from the
+# unsharded one's at one seed, 1.2e-3 at another, where one
+# zero-initialized norm weight's update flips sign); each leaf's error
+# is printed, not held
+MM_XLSTM_GRAD_REL = 1e-2
 
 
 def _mm_probe_op(torch, dist, name: str, rank: int, world: int) -> bool:
@@ -2652,6 +2708,276 @@ def _mm_rank(rank: int, world: int, init: str, work: str, seed: int,
         raise SystemExit(1)
 
 
+def _mm_family_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MM_FAMILIES[arch],
+                               dtype="float32")
+
+
+def _mm_family_seed(seed: int, arch: str) -> int:
+    return seed * 1000 + 400 + 10 * sorted(MM_FAMILIES).index(arch)
+
+
+def _mm_family_init(torch, arch: str, seed: int):
+    """15e's params of ``arch``, drawn on the CPU: the parent and every
+    rank draw the same values."""
+    from repro_torch.models import get_model
+    return get_model(_mm_family_cfg(arch)).init(
+        torch.Generator().manual_seed(_mm_family_seed(seed, arch)),
+        device="cpu")
+
+
+def _mm_family_stream(arch: str, seed: int):
+    """15e's token stream: its first batch the prompt, the next ones the
+    train steps'."""
+    from repro_torch.data import TokenStream
+    r = MM_FAMILY_RUN
+    return TokenStream(_mm_family_cfg(arch).vocab, r["seq"], r["batch"],
+                       _mm_family_seed(seed, arch) + 1)
+
+
+def _mm_block(t, mesh, placements):
+    """This rank's block of ``t`` under ``placements`` (each dim split
+    evenly, by one mesh dim at most, as the specs split them)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for j, p in enumerate(placements):
+        if isinstance(p, Shard):
+            t = t.chunk(mesh.size(j), dim=p.dim)[coord[j]]
+    return t.contiguous()
+
+
+def _mm_place(torch, tree, specs, mesh):
+    """``tree`` (CPU tensors) placed on ``mesh`` by ``specs``: each rank
+    moves only its own block of each leaf to the card."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import sharding as SH
+    from repro_torch.tree import tree_map
+
+    def place(leaf, spec):
+        pl = SH.to_placements(spec, mesh)
+        return DTensor.from_local(_mm_block(leaf, mesh, pl).to("cuda"), mesh,
+                                  pl, run_check=False, shape=leaf.shape,
+                                  stride=leaf.stride())
+    return tree_map(place, tree, specs)
+
+
+def _mm_family_references(torch, seed: int) -> tuple:
+    """15e's references in the parent, one family at a time: the
+    unsharded prefill of the stream's first batch and one greedy decode
+    step, then ``MM_FAMILY_RUN["steps"]`` unsharded train steps on the
+    next batches.  Returns the readings and the tensors the ranks
+    compare against, left on the card (CUDA IPC)."""
+    import numpy as np
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_map
+    r, out, shared = MM_FAMILY_RUN, {}, {}
+    for arch in MM_FAMILIES:
+        t0 = time.perf_counter()
+        bundle = get_model(_mm_family_cfg(arch))
+        params = tree_map(lambda t: t.to("cuda"),
+                          _mm_family_init(torch, arch, seed))
+        it = make_batch_iterator(_mm_family_stream(arch, seed),
+                                 device="cuda")
+        prompt = next(it)[1]
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = bundle.prefill(params, prompt, max_len=r["seq"] + 1)
+            nxt = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            lg2, _ = bundle.decode_step(params, cache, {"tokens": nxt})
+            torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
+        del cache
+        ref = {"prefill": lg, "decode": lg2,
+               "tokens": [nxt[:, 0].tolist(),
+                          lg2[:, -1].argmax(-1).tolist()]}
+        opt = adamw_init(params)
+        step = make_train_step(bundle, lambda s: r["lr"])
+        m_prev = {k: v.clone() for k, v in _mm_flat(opt.m).items()}
+        near = {k: torch.zeros_like(v, dtype=torch.bool)
+                for k, v in m_prev.items()}
+        losses, norms, times = [], [], []
+        for _ in range(MM_FAMILY_RUN["steps"]):
+            _, batch = next(it)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            for k, v in _mm_flat(opt.m).items():
+                g = (v - 0.9 * m_prev[k]).abs() / 0.1
+                near[k] |= (g > 0) & (g < MM_NEAR_EPS)
+                m_prev[k].copy_(v)
+        del m_prev
+        ref.update(loss=losses, grad_norm=norms, params=_mm_flat(params),
+                   m=_mm_flat(opt.m), v=_mm_flat(opt.v), near_eps=near)
+        shared[arch] = ref
+        out[arch] = {"step_s": times, "p50_s": float(np.median(times)),
+                     "prefill_decode_s": serve_s,
+                     "seconds": time.perf_counter() - t0}
+        del params, opt
+        torch.cuda.empty_cache()
+    return out, shared
+
+
+def _mm_rank_family(torch, dist, seed: int, arch: str, ref: dict) -> dict:
+    """15e in one rank for ``arch``: this rank's blocks of the CPU-drawn
+    params placed by the specs on the (2, 2) mesh; a sharded prefill of
+    the prompt and one greedy decode step (no_grad; the kernel launches
+    of each), then ``MM_FAMILY_RUN["steps"]`` sharded train steps with
+    zero-1 moments; every block held against the parent's unsharded
+    results."""
+    import numpy as np
+    from torch.distributed.tensor import zeros as dtensor_zeros
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import staged_gloo
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as SH
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import tree_map
+    r, res = MM_FAMILY_RUN, {}
+    bundle = get_model(_mm_family_cfg(arch))
+    mesh = make_test_mesh(r["mesh"], device="cuda")
+    axes = SH.mesh_axes_of(mesh)
+    t0 = time.perf_counter()
+    cpu = _mm_family_init(torch, arch, seed)
+    pspecs = SH.param_specs(cpu, axes, bundle.cfg.fsdp)
+    params = _mm_place(torch, cpu, pspecs, mesh)
+    del cpu
+    res["place_s"] = time.perf_counter() - t0
+    it = make_batch_iterator(_mm_family_stream(arch, seed),
+                             sharding=SH.row_sharding(
+                                 mesh, (r["batch"], r["seq"])))
+    prompt = next(it)[1]
+
+    def logits(got, want):
+        err = (got - want).abs()
+        rel = float((got - want).norm() / want.norm())
+        within = (rel <= FAMILY_TF_F32_REL_L2 if arch == "xlstm-350m" else
+                  bool((err <= MM_LOGITS_ATOL
+                        + MM_LOGITS_RTOL * want.abs()).all()))
+        return {"max_abs_err": float(err.max()), "rel_l2": rel,
+                "within": within}
+    with torch.no_grad(), implicit_replication():
+        FK.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = bundle.prefill(params, prompt, max_len=r["seq"] + 1)
+        first = lg.full_tensor()
+        res["prefill_launches"] = FK.launch_counts()
+        nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
+        FK.reset_launch_counts()
+        lg2, _ = bundle.decode_step(params, cache, {
+            "tokens": SH.distribute_tree(nxt, SH.batch_spec(
+                tuple(nxt.shape), axes), mesh)})
+        second = lg2.full_tensor()
+        torch.cuda.synchronize()
+        res["decode_launches"] = FK.launch_counts()
+        res["prefill_decode_s"] = time.perf_counter() - t0
+    del cache
+    res["prefill"] = logits(first, ref["prefill"])
+    res["decode"] = logits(second, ref["decode"])
+    res["tokens"] = [nxt[:, 0].tolist(), second[:, -1].argmax(-1).tolist()]
+    # the train steps, moments in the zero-1 layout
+    mspecs = tree_map(lambda p, sp: SH.zero1_spec(sp, tuple(p.shape), axes),
+                      params, pspecs)
+    opt = AdamWState(0, *(tree_map(lambda p, sp: dtensor_zeros(
+        tuple(p.shape), dtype=torch.float32, device_mesh=mesh,
+        placements=SH.to_placements(sp, mesh)), params, mspecs)
+        for _ in range(2)))
+    step = make_train_step(bundle, lambda s: r["lr"])
+    losses, norms, times, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MM_FAMILY_RUN["steps"]):
+        _, batch = next(it)
+        before = staged_gloo.staged_totals()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        after = staged_gloo.staged_totals()
+        per_step.append({k: after.get(k, 0) - before.get(k, 0)
+                         for k in after if after.get(k, 0)
+                         != before.get(k, 0)})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    # this run's own near-eps elements, as the parent marks its own (one
+    # step: its gradient is m / 0.1): an element whose gradient is under
+    # MM_NEAR_EPS in either run has an ill-conditioned AdamW ratio
+    near = {k: (v.abs() > 0) & (v.abs() < 0.1 * MM_NEAR_EPS)
+            for k, v in _mm_flat(opt.m).items()}
+    peak = torch.cuda.max_memory_allocated()
+    bad, bad_m, n_near, sq = 0, 0, 0, {}
+    for key, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
+        for name, leaf in _mm_flat(tree).items():
+            got = leaf.to_local()
+            want = _mm_block(ref[key][name], mesh, leaf.placements)
+            err = (got - want).abs()
+            tol = MM_ATOL + MM_RTOL * want.abs()
+            if key == "params":
+                # near eps in the parent's run or in this one (its mask
+                # in the zero-1 moments' layout, moved to the param's)
+                own = near[name].to(torch.uint8).redistribute(
+                    mesh, leaf.placements).to_local().bool()
+                sens = _mm_block(ref["near_eps"][name], mesh,
+                                 leaf.placements) | own
+                tol = torch.where(sens, 2 * r["steps"] * r["lr"], tol)
+                n_near += int(sens.sum())
+                bad += int((err > tol).sum())
+            else:
+                bad_m += int((err > tol).sum())
+            # squared error and squared reference of the block: summed
+            # over the ranks, a leaf's relative L2 error
+            sq[f"{key}/{name}"] = [float(err.double().pow(2).sum()),
+                                   float(want.double().pow(2).sum())]
+    res.update(loss=losses, grad_norm=norms, step_s=times,
+               p50_s=float(np.median(times)), collectives_per_step=per_step,
+               peak_bytes=peak, violations=bad, moment_violations=bad_m,
+               near_eps_local=n_near, sq=sq)
+    return res
+
+
+def _mm_family_rank(rank: int, world: int, init: str, work: str, seed: int,
+                    refs: dict) -> None:
+    """One of the 4 ranks of 15e (a second spawn); readings to
+    ``work/family<r>.json``, a traceback to ``work/family<r>.err``."""
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(rank, world, init, device="cuda", timeout_s=300)
+        res = {}
+        for arch in MM_FAMILIES:
+            t0 = time.perf_counter()
+            res[arch] = _mm_rank_family(torch, dist, seed, arch, refs[arch])
+            res[arch]["seconds"] = time.perf_counter() - t0
+            dist.barrier()
+            torch.cuda.empty_cache()
+        with open(os.path.join(work, f"family{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        import traceback
+        with open(os.path.join(work, f"family{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
 def _mm_join(procs, deadline: float, grace: float = 15.0) -> list:
     """Wait for ``procs`` until they end, ``deadline`` (monotonic) passes,
     or ``grace`` seconds after the first failure; kill what is left and
@@ -2673,6 +2999,154 @@ def _mm_join(procs, deadline: float, grace: float = 15.0) -> list:
     return [p.exitcode for p in procs]
 
 
+def mesh_families(torch, seed: int, work: str, ctx) -> tuple:
+    """15e: ``MM_FAMILIES`` on the (2, 2) mesh of 4 gloo ranks on the card
+    (``_mm_family_rank``, a spawn of its own in ``ctx`` after the parent's
+    references, ``_mm_family_references``), each held against the
+    parent's unsharded run.  Returns (the failures, the flash and pre-pass
+    launches summed over the ranks, per-family readings, the seconds of
+    the references and of the ranks)."""
+    from repro_torch.configs import get_config
+    failures = []
+    torch.cuda.empty_cache()
+    print(f"15e: the parent holds {torch.cuda.memory_allocated()} B on the "
+          f"card before its references", flush=True)
+    frefs, fshared = _mm_family_references(torch, seed)
+    print(f"15e: {torch.cuda.memory_allocated()} B with them", flush=True)
+    init = "file://" + os.path.join(work, "rdv_families")
+    procs = [ctx.Process(target=_mm_family_rank,
+                         args=(r, MM_WORLD, init, work, seed, fshared))
+             for r in range(MM_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    codes = _mm_join(procs, time.monotonic() + MM_TIMEOUT)
+    family_ranks_s = time.perf_counter() - t0
+    # the unsharded steps' metrics and tokens; the tensors are freed
+    fmetrics = {arch: {k: fshared[arch][k] for k in
+                       ("loss", "grad_norm", "tokens")}
+                for arch in MM_FAMILIES}
+    del fshared
+    torch.cuda.empty_cache()
+    if any(c != 0 for c in codes):
+        errs = []
+        for r in range(MM_WORLD):
+            path = os.path.join(work, f"family{r}.err")
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f"--- rank {r} ---\n{f.read()}")
+        raise AssertionError(f"phase 15e ranks exited {codes}:\n"
+                             + ("\n".join(errs) or "no traceback written"))
+    fam = []
+    for r in range(MM_WORLD):
+        with open(os.path.join(work, f"family{r}.json")) as f:
+            fam.append(json.load(f))
+    run = MM_FAMILY_RUN
+    family_flash = family_split = 0
+    family_rows = {}
+    for arch, layers in MM_FAMILIES.items():
+        got = [x[arch] for x in fam]
+        g0, ref = got[0], fmetrics[arch]
+        cfg_f = _mm_family_cfg(arch)
+        # qwen2-moe: one float32 flash call a layer on each rank's 8 of
+        # the 16 heads, each with its pre-pass; xLSTM has no attention
+        calls = full_length_attention_calls(cfg_f)
+        want_pre = {"flash_attention_hopper": calls,
+                    "flash_split_kv_hopper": calls}
+        want_dec = {"flash_attention_hopper": 0, "flash_split_kv_hopper": 0}
+        for x in got:
+            if x["prefill_launches"] != want_pre or \
+                    x["decode_launches"] != want_dec:
+                failures.append(f"15e {arch}: launches a rank: prefill "
+                                f"{x['prefill_launches']}, decode "
+                                f"{x['decode_launches']}; want {want_pre}, "
+                                f"{want_dec}")
+        family_flash += sum(x["prefill_launches"]["flash_attention_hopper"]
+                            for x in got)
+        family_split += sum(x["prefill_launches"]["flash_split_kv_hopper"]
+                            for x in got)
+        xl = arch == "xlstm-350m"
+        limit = (f"relative L2 {FAMILY_TF_F32_REL_L2}" if xl else
+                 f"rtol {MM_LOGITS_RTOL}, atol {MM_LOGITS_ATOL}")
+        for key in ("prefill", "decode"):
+            if not all(x[key]["within"] for x in got):
+                failures.append(f"15e {arch}: {key} logits off by "
+                                f"{max(x[key]['max_abs_err'] for x in got)}"
+                                f" (relative L2 "
+                                f"{max(x[key]['rel_l2'] for x in got)}; "
+                                f"limit {limit})")
+        if any(x["tokens"] != got[0]["tokens"] for x in got):
+            failures.append(f"15e {arch}: ranks' tokens differ")
+        # relative L2 errors over the ranks' blocks (a replicated block
+        # counts once a rank on both sides): each leaf's, and the whole
+        # first and second moments'
+        sums = {}
+        for name in g0["sq"]:
+            sums[name] = [sum(x["sq"][name][i] for x in got) for i in (0, 1)]
+        rel = {n: (a ** 0.5) / max(b ** 0.5, 1e-30)
+               for n, (a, b) in sums.items()}
+        whole = {}
+        for key in ("m", "v"):
+            a = sum(v[0] for n, v in sums.items() if n.startswith(key + "/"))
+            b = sum(v[1] for n, v in sums.items() if n.startswith(key + "/"))
+            whole[key] = (a ** 0.5) / max(b ** 0.5, 1e-30)
+        worst = max(rel, key=rel.get)
+        norm_tol = MM_XLSTM_GRAD_REL if xl else MM_LOSS_RTOL
+        for i in range(MM_FAMILY_RUN["steps"]):
+            for key, tol in (("loss", MM_LOSS_RTOL), ("grad_norm", norm_tol)):
+                a, b = g0[key][i], ref[key][i]
+                if abs(a - b) > tol * abs(b):
+                    failures.append(f"15e {arch}: step {i} {key} {a} vs {b}")
+        bad = sum(x["violations"] for x in got)
+        bad_m = sum(x["moment_violations"] for x in got)
+        if xl:
+            if max(whole.values()) > MM_XLSTM_GRAD_REL:
+                failures.append(f"15e {arch}: moments' relative L2 {whole} "
+                                f"> {MM_XLSTM_GRAD_REL}")
+        elif bad or bad_m:
+            failures.append(f"15e {arch}: {bad} param and {bad_m} moment "
+                            f"elements outside tolerance")
+        held = (f"held by the moments' relative L2 {whole['m']:.3e} / "
+                f"{whole['v']:.3e} (limit {MM_XLSTM_GRAD_REL}), the "
+                f"elementwise counts a reading" if xl else "held")
+        coll = g0["collectives_per_step"][-1]
+        print(f"15e {arch} full width, {layers} layers (cut from "
+              f"{get_config(arch).n_layers}), float32, microbatch "
+              f"{cfg_f.microbatch}, remat, (2, 2) mesh: prefill of "
+              f"{run['batch']} x {run['seq']} and one decode step: logits "
+              f"max abs err {max(x['prefill']['max_abs_err'] for x in got):.3e}"
+              f" / {max(x['decode']['max_abs_err'] for x in got):.3e}, "
+              f"relative L2 {max(x['prefill']['rel_l2'] for x in got):.3e} / "
+              f"{max(x['decode']['rel_l2'] for x in got):.3e} vs unsharded "
+              f"(held: {limit}); "
+              f"tokens {g0['tokens'] == ref['tokens']} bit for bit "
+              f"({g0['tokens'][1][:4]}...); launches a rank prefill "
+              f"{g0['prefill_launches']}, decode {g0['decode_launches']}; "
+              f"{MM_FAMILY_RUN["steps"]} train step(s) of {run['batch']} x "
+              f"{run['seq']}: "
+              f"loss {g0['loss']} vs unsharded {ref['loss']}; grad_norm "
+              f"{g0['grad_norm']} vs {ref['grad_norm']}; elements outside "
+              f"rtol {MM_RTOL} / atol {MM_ATOL}: params {bad} (near eps, at "
+              f"2 x steps x lr: {sum(x['near_eps_local'] for x in got)}), "
+              f"moments {bad_m} ({held}); largest leaf relative L2 "
+              f"{rel[worst]:.3e} ({worst}); step p50 {g0['p50_s']:.3f} s sharded vs "
+              f"{frefs[arch]['p50_s']:.3f} s unsharded; rank 0's collectives "
+              f"and staged bytes of the last step {coll}; peak memory by "
+              f"rank {[round(x['peak_bytes'] / 1e9, 2) for x in got]} GB; "
+              f"{g0['seconds']:.1f} s in the ranks", flush=True)
+        if g0["tokens"] != ref["tokens"]:
+            failures.append(f"15e {arch}: tokens {g0['tokens']} vs "
+                            f"unsharded {ref['tokens']}")
+        family_rows[arch] = {"train_p50_s": g0["p50_s"],
+                             "unsharded_p50_s": frefs[arch]["p50_s"],
+                             "staged_last_step": coll,
+                             "prefill_launches_per_rank":
+                             g0["prefill_launches"]}
+    timing = {"references_s": sum(x["seconds"] for x in frefs.values()),
+              "ranks_s": family_ranks_s}
+    return failures, family_flash, family_split, family_rows, timing
+
+
 def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
     """Phase 15, callable alone after ``kernels.build()`` (the ranks load
     the library the parent built: N ranks building into one directory at
@@ -2683,16 +3157,30 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
     against the same blocks run one after another in this process; (c)
     ``MM_TRAIN`` sharded steps on a (2, 2) mesh against the unsharded
     step here; (d) ``allreduce_compressed`` of a w_up gradient and the
-    (2, 2) -> (4, 1) checkpoint.  Returns the readings and the launch
+    (2, 2) -> (4, 1) checkpoint; (e) ``mesh_families``, the MoE and
+    xLSTM families' sharded prefill, decode step and train step, run
+    first, in a spawn of its own.  Returns the readings and the launch
     counts of the kernel JSON."""
     import shutil
     import torch.multiprocessing as mp
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    print(f"phase 15: the parent holds {torch.cuda.memory_allocated()} B "
+          f"on the card at its start", flush=True)
     work = os.path.join(ROOT, "build", "chip_smoke_mesh")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     ctx = mp.get_context("spawn")
+    # -- 15e first, a spawn of its own, while the parent holds least on
+    # the card: tensors a rank reads through CUDA IPC stay allocated in
+    # the parent until the rank releases them, and a rank that exits
+    # holding them never does (15c's references stayed, 7.6 GB, and
+    # 15e's ranks then overflowed the card) --
+    t_e = time.perf_counter()
+    efails, family_flash, family_split, family_rows, ftime = mesh_families(
+        torch, seed, work, ctx)
+    family_s = time.perf_counter() - t_e
+    t_ad = time.perf_counter()
     # 15a: plain gloo, one 2-rank group an op, started first so their
     # start-up overlaps the references below
     probes = {}
@@ -2711,7 +3199,7 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
           f"{refs['seconds']:.1f} s", flush=True)
     deadline = time.monotonic() + 120
     plain = {op: _mm_join(ps, deadline) for op, ps in probes.items()}
-    plain_s = time.perf_counter() - t_phase
+    plain_s = time.perf_counter() - t_ad
 
     init = "file://" + os.path.join(work, "rdv_mesh")
     procs = [ctx.Process(target=_mm_rank,
@@ -2837,12 +3325,16 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
           f", restore {ck[0]['restore_s']:.2f} s", flush=True)
     if not all(all(x["equal"].values()) and x["step"] == 1 for x in ck):
         failures.append("15d: the elastic restore differs")
+
+    failures += efails
     shutil.rmtree(work, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     print(f"phase 15: {phase_s:.1f} s (references {refs['seconds']:.1f} s"
           f", with the plain probe {plain_s:.1f} s; ranks {ranks_s:.1f} s: "
           f"pipeline "
-          f"{res[0]['pipeline_s']:.1f} s, train {res[0]['train_s']:.1f} s)",
+          f"{res[0]['pipeline_s']:.1f} s, train {res[0]['train_s']:.1f} s; "
+          f"15e {family_s:.1f} s: references "
+          f"{ftime['references_s']:.1f} s, ranks {ftime['ranks_s']:.1f} s)",
           flush=True)
     if failures:
         raise AssertionError("phase 15: " + "; ".join(failures))
@@ -2850,7 +3342,10 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
             "probe_launches": sum(x["probe_launches"] for x in res),
             "pipeline_ms": [x["ms"] for x in pipe],
             "collectives": table, "seconds": phase_s,
-            "train_p50_s": t0r["p50_s"]}
+            "train_p50_s": t0r["p50_s"],
+            "family_flash_launches": family_flash,
+            "family_split_launches": family_split,
+            "families": family_rows, "family_seconds": family_s}
 
 
 # -- phase 16: the launchers: the serve CLI and the dry-run ----------------
@@ -2864,8 +3359,16 @@ DRYRUN_CELLS = [("starcoder2-3b", "train_4k", False),
                 ("starcoder2-3b", "prefill_32k", False),
                 ("starcoder2-3b", "decode_32k", False),
                 ("gemma2-2b", "decode_32k", False),
-                ("starcoder2-3b", "train_4k", True)]
+                ("starcoder2-3b", "train_4k", True),
+                ("qwen2-moe-a2.7b", "prefill_32k", False),
+                ("qwen2-moe-a2.7b", "decode_32k", False),
+                ("grok-1-314b", "decode_32k", False),
+                ("xlstm-350m", "decode_32k", False),
+                ("xlstm-350m", "long_500k", False)]
 DRYRUN_TIMEOUT = 600
+# a prefill or decode cell's share of the work times its ranks against
+# the same step traced on one fake device with no mesh
+DRYRUN_SHARE_REL = 1e-9
 
 
 def _dryrun_tag(arch: str, shape: str, multi_pod: bool) -> str:
@@ -2889,7 +3392,14 @@ def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str) -> None:
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         rec = DR.lower_cell(arch, shape, multi_pod, device="cuda")
-        res = {"record": rec, "wall_s": time.perf_counter() - t0,
+        wall = time.perf_counter() - t0
+        # the same step on one fake device with no mesh
+        from repro_torch.configs import SHAPES, get_config
+        t0 = time.perf_counter()
+        one = DR.unsharded_flops(get_config(arch), SHAPES[shape],
+                                 device="cuda")
+        res = {"record": rec, "wall_s": wall, "unsharded": one,
+               "unsharded_s": time.perf_counter() - t0,
                "launches": launched(), "allocated_before": before,
                "allocated_after": torch.cuda.memory_allocated(),
                "max_allocated": torch.cuda.max_memory_allocated(),
@@ -3013,8 +3523,11 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     layer with ``4 B H hd`` FLOPs a visible pair on the rank's batch rows
     and heads, all but a model rank's share of them repeated where the
     heads do not split; a prefill or decode cell's share of the work
-    (``loop_aware.flops`` less ``replicated.flops``) the step's analytic
-    count (``_dense_step_flops``) over its ranks; each record written
+    (``loop_aware.flops`` less ``replicated.flops``) times its ranks the
+    FLOPs of the same step traced on one fake device with no mesh
+    (``dryrun.unsharded_flops``) at ``DRYRUN_SHARE_REL``, and for a dense
+    decoder also the step's analytic count (``_dense_step_flops``) over
+    its ranks; a train cell's ratio printed; each record written
     under ``build/chip_smoke_dryrun``.
     Returns the readings and the serve CLI's flash launches for the
     kernel JSON."""
@@ -3162,17 +3675,34 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
                                 f"{want_rep}")
         elif fl["calls"]:
             failures.append(f"{tag}: flash op called {fl}")
+        # the share times the ranks over the unsharded trace's FLOPs: 1
+        # where no work was lost and none counted twice (held on prefill
+        # and decode cells; a reading of the train cells, whose DTensor
+        # plan also repeats work it does not mark)
+        ratio = share * rec["n_devices"] / res["unsharded"]["flops"]
         if shape.kind != "train":
-            want_share = _dense_step_flops(cfg_c, shape) / rec["n_devices"]
-            if share != want_share:
-                failures.append(f"{tag}: FLOPs less replicated {share}, "
-                                f"the step's analytic count a device "
-                                f"{want_share}")
+            if abs(ratio - 1.0) > DRYRUN_SHARE_REL:
+                failures.append(f"{tag}: share x {rec['n_devices']} ranks "
+                                f"over the unsharded step's FLOPs "
+                                f"{ratio!r}")
+            if cfg_c.family == "dense":
+                want_share = (_dense_step_flops(cfg_c, shape)
+                              / rec["n_devices"])
+                if share != want_share:
+                    failures.append(f"{tag}: FLOPs less replicated {share},"
+                                    f" the step's analytic count a device "
+                                    f"{want_share}")
         coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
                          la["collective_bytes"].items() if v)
-        held = "" if shape.kind == "train" else ", the analytic count"
+        held = (f"; x {rec['n_devices']} ranks over the unsharded step's "
+                f"{res['unsharded']['flops']:.4e}: {ratio!r}"
+                + ("" if shape.kind == "train" else
+                   f", held at {DRYRUN_SHARE_REL}"
+                   + (", and the analytic count" if cfg_c.family == "dense"
+                      else "")))
         print(f"  {tag}: traced in {rec['lower_s']} s ({res['wall_s']:.1f} "
-              f"s in its process); {la['flops']:.4e} FLOPs ("
+              f"s in its process; unsharded {res['unsharded_s']:.1f} s); "
+              f"{la['flops']:.4e} FLOPs ("
               f"{rep['flops']:.4e} repeated by other ranks, the rank's "
               f"share {share:.4e}{held}), "
               f"{la['hbm_bytes']:.4e} HBM bytes, collectives "
@@ -3187,6 +3717,9 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
               f"{sum(a['bytes'] for a in res['allocations'])} B, all "
               f"FakeTensorMode's context probe)", flush=True)
         cells[tag] = {"seconds": rec["lower_s"], "wall_s": res["wall_s"],
+                      "unsharded_flops": res["unsharded"]["flops"],
+                      "unsharded_s": res["unsharded_s"],
+                      "share_ratio": ratio,
                       "flops": la["flops"], "replicated_flops": rep["flops"],
                       "hbm_bytes": la["hbm_bytes"],
                       "collective_bytes": la["collective_bytes"],
@@ -5035,11 +5568,16 @@ def main() -> int:
     # phase 15b's pipelined forward: one launch a stage a microbatch, in
     # each rank
     rows["flash_attention_hopper"]["mesh_models"] = {
-        "launches": mm["flash_launches"],
+        "launches": mm["flash_launches"] + mm["family_flash_launches"],
         "launches_per_rank": mm["flash_per_rank"],
         "pipeline_ms_per_rank": mm["pipeline_ms"],
+        "families": {"launches": mm["family_flash_launches"],
+                     "pre_pass_launches": mm["family_split_launches"],
+                     **mm["families"]},
         "per": "spmd_pipeline over 4 gloo ranks on the card, one "
-               "starcoder2-3b block a stage, 8 microbatches of 1 x 2048"}
+               "starcoder2-3b block a stage, 8 microbatches of 1 x 2048; "
+               "families: phase 15e's sharded float32 prefills, one call "
+               "a layer a rank on its 8 of qwen2-moe-a2.7b's 16 heads"}
     # phase 16a's serve CLI: one launch a layer a prefill, both runs
     rows["flash_attention_hopper"]["launchers"] = {
         "launches": ln["flash_launches"], "serve": ln["serve"],
@@ -5048,7 +5586,9 @@ def main() -> int:
                "--quant-bits 8"}
     launches["flash_attention_hopper"] = (lm_row["launches"]
                                           + mm["flash_launches"]
+                                          + mm["family_flash_launches"]
                                           + ln["flash_launches"])
+    launches["flash_split_kv_hopper"] += mm["family_split_launches"]
     rows["compiled_supported"]["mesh_models"] = {
         "launches": mm["probe_launches"],
         "per": "each phase-15 rank's first use of the library"}

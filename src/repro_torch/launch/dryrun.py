@@ -5,7 +5,7 @@ of the JAX package's ``launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b \\
         --shape train_4k [--multi-pod] [--out artifacts/dryrun_torch] \\
-        [--device cpu]
+        [--device cpu] [--unsharded]
 
 The JAX package lowers and compiles each cell for 256 (512) forced host
 devices and reads XLA's analyses.  The port has no compiler between it
@@ -37,9 +37,12 @@ plan, e.g. attention over all heads on every model rank where the heads
 do not split; ``CostMode.replicated_flops``), by op — ``flops`` less
 them is the rank's share of the step's work, the count a roofline share
 reads — and ``flash_attention``, the calls and FLOPs of the flash
-kernel's op.  The MoE and xLSTM families do not trace on a
-mesh yet (:data:`UNTRACED`).  Two values have no counterpart and
-are ``null``: ``compile_s`` (nothing is compiled) and
+kernel's op.  Every cell of ``configs.cell_applicable`` traces: the
+MoE routing and the xLSTM cells run on each rank's own blocks
+(``models/sharding.LocalBlocks``).  :func:`unsharded_flops` traces the
+same step on one fake device with no mesh: ``flops`` less
+``replicated.flops``, times the ranks, is that count.  Two values have
+no counterpart and are ``null``: ``compile_s`` (nothing is compiled) and
 ``memory.code_bytes`` (no executable); no HLO file is written.
 Records go to ``artifacts/dryrun_torch`` by default, beside, never
 over, the JAX package's.
@@ -70,17 +73,8 @@ from . import hlo_analysis
 from .mesh import make_production_mesh
 from .train import make_train_step
 
-__all__ = ["UNTRACED", "fake_world", "local_bytes", "trace_cell",
+__all__ = ["fake_world", "local_bytes", "trace_cell", "unsharded_flops",
            "lower_cell", "main"]
-
-# families whose step DTensor cannot run yet, by what it lacks
-UNTRACED = {
-    "moe": "the MoE routing: DTensor has no sharding strategy for "
-           "aten.scatter_add_ (train, prefill), and the dense decode "
-           "path's scatter_ writes DTensor values into a plain tensor",
-    "ssm": "the xLSTM gates: DTensor has no sharding strategy for "
-           "aten.log_sigmoid_forward",
-}
 
 
 @contextlib.contextmanager
@@ -226,6 +220,38 @@ def trace_cell(cfg: ArchConfig, shape_name: str, shape: ShapeConfig, mesh,
     }
 
 
+def unsharded_flops(cfg: ArchConfig, shape: ShapeConfig,
+                    device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """The cell's step traced on one fake device with no mesh (plain
+    fake tensors, no process group): its FLOPs, and the flash op's calls
+    and FLOPs, under a :class:`~repro_torch.launch.hlo_analysis.CostMode`
+    — the count a sharded record's share (``loop_aware.flops`` less
+    ``replicated.flops``) times its ranks is held to."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dev = resolve_device(device)
+    bundle = get_model(cfg)
+    with FakeTensorMode():
+        params = bundle.init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        args: Dict[str, Any] = {
+            "params": params,
+            "batch": _zeros_like_meta(input_specs(cfg, shape), dev)}
+        if shape.kind == "train":
+            args["opt"] = AdamWState(0, *(tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=dev), params)
+                for _ in range(2)))
+        elif shape.kind == "decode":
+            args["cache"] = _zeros_like_meta(cache_specs_for(cfg, shape),
+                                             dev)
+        with hlo_analysis.CostMode() as cost:
+            _step(bundle, shape, args, True)
+    op = "repro_torch.flash_attention"
+    return {"flops": float(cost.summary.flops),
+            "flash_attention": {"calls": cost.op_counts.get(op, 0),
+                                "flops": float(cost.op_flops.get(op, 0))}}
+
+
 def _step(bundle, shape: ShapeConfig, args: Dict[str, Any], donate: bool):
     """One step of the cell's kind on ``args``; returns its results."""
     def copied(tree):
@@ -248,12 +274,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """The record of ``arch`` x ``shape_name`` on the production mesh:
     (16, 16) over 256 fake ranks, (2, 16, 16) over 512 with
-    ``multi_pod``.  A family of :data:`UNTRACED` raises
-    ``NotImplementedError`` naming what DTensor lacks."""
+    ``multi_pod``."""
     cfg, shape = get_config(arch), SHAPES[shape_name]
-    if cfg.family in UNTRACED:
-        raise NotImplementedError(f"{arch} ({cfg.family}) does not trace "
-                                  f"on a mesh: {UNTRACED[cfg.family]}")
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         return trace_cell(cfg, shape_name, shape, mesh, donate=donate,
@@ -267,6 +289,10 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--unsharded", action="store_true",
+                    help="also trace the step on one fake device with no "
+                         "mesh (unsharded_flops), as the record's "
+                         "'unsharded' entry")
     args = ap.parse_args(argv)
 
     if not cell_applicable(args.arch, args.shape):
@@ -275,6 +301,12 @@ def main(argv=None) -> None:
 
     rec = lower_cell(args.arch, args.shape, args.multi_pod,
                      device=args.device)
+    if args.unsharded:
+        t0 = time.perf_counter()
+        rec["unsharded"] = unsharded_flops(get_config(args.arch),
+                                           SHAPES[args.shape],
+                                           device=args.device)
+        rec["unsharded"]["trace_s"] = round(time.perf_counter() - t0, 1)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out,
                         f"{args.arch}__{args.shape}__{rec['mesh']}.json")

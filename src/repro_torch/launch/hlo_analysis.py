@@ -45,10 +45,13 @@ Work other ranks repeat: :attr:`CostMode.replicated_flops` holds the
 part of the rank's FLOPs beyond its share of the step's work.  A local
 op that computes a DTensor op's result has as its share the op's FLOPs
 on the global shapes over the mesh's size; an op on plain local tensors
-(the attention ``sharding.on_local_heads`` runs on blocks that several
-ranks hold alike, and the ops derived from them, its backward
+(the blocks ``sharding.on_local_heads`` and ``sharding.LocalBlocks``
+hand to plain code, and the ops derived from them, their backward
 included) has its FLOPs over the number of ranks that hold its inputs
-(:func:`repro_torch.models.sharding.local_copies`).  ``flops`` less
+alike (:func:`repro_torch.models.sharding.local_copies`): the fewest
+among the blocks it reads, a block's own registration first.  The count
+does not pass through a DTensor op's local ops, whose placements say
+who repeats them.  ``flops`` less
 ``replicated_flops`` is the rank's share, the count a roofline share
 reads; the rest is work that ranks of a replicated mesh axis repeat, or
 an uneven shard's surplus.
@@ -275,6 +278,8 @@ class CostMode(TorchDispatchMode):
         self._pending: List[Tuple[object, float]] = []
         # plain tensors derived from blocks several ranks hold alike
         self._copies = WeakIdKeyDictionary()
+        # the local tensors of the DTensors the mode has seen an op of
+        self._dtensor_locals = WeakIdKeyDictionary()
         self._iso: Optional[contextlib.ExitStack] = None
 
     def __enter__(self):
@@ -298,14 +303,25 @@ class CostMode(TorchDispatchMode):
             if func.overloadpacket in _FLOP_OPS:
                 flops, size = _global_flops(func, args, kwargs)
                 self._pending.append((func.overloadpacket, flops / size))
+            for t in _tensors((args, kwargs)):
+                if isinstance(t, DTensor):
+                    self._dtensor_locals[t._local_tensor] = True
             return NotImplemented
         out = func(*args, **kwargs)
         ins = _tensors((args, kwargs))
-        copies = max((self._copies.get(t) or local_copies(t) for t in ins),
-                     default=1)
-        if copies > 1:
-            for t in _tensors(out):
-                self._copies[t] = copies
+        # the copy count passes through plain code only (a DTensor op's
+        # local op has the DTensor op's share): a block's registration
+        # first, else the count of what it was computed from, the fewest
+        # among the inputs
+        copies = 1
+        if not any(t in self._dtensor_locals for t in ins):
+            marks = [m for m in (local_copies(t, None)
+                                 or self._copies.get(t) for t in ins)
+                     if m is not None]
+            if marks:
+                copies = min(marks)
+                for t in _tensors(out):
+                    self._copies[t] = copies
         self._count(func, args, kwargs, out, copies)
         return out
 

@@ -16,13 +16,14 @@ its Pallas kernels.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import DEFAULT_DEVICE
@@ -33,6 +34,24 @@ from ..optim.adamw import (AdamWState, adamw_init, adamw_update_,
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "init_train_state", "main"]
+
+
+def _strided_ready(x, k: int):
+    """``x`` with its batch dim split only over the mesh axes whose
+    product divides a microbatch's ``B / k`` rows — the major ones
+    gathered first, as ``sharding.batch_spec`` degrades a batch that does
+    not divide —, so the strided split below keeps each microbatch split
+    evenly (grok-1's 16 microbatches of 16 rows over 2 x 16 batch
+    shards).  A plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = x.device_mesh, list(x.placements)
+    axes = [j for j, p in enumerate(pl)
+            if isinstance(p, Shard) and p.dim % x.ndim == 0]
+    rows = x.shape[0] // k
+    while axes and rows % math.prod(mesh.size(j) for j in axes):
+        pl[axes.pop(0)] = Replicate()
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
 
 
 def _rebuild(like, leaves):
@@ -82,8 +101,9 @@ def make_train_step(bundle: ModelBundle,
                 # STRIDED split, as the JAX package's: microbatch m is rows
                 # {m, m + k, ...}, so a batch sharded over the data axis
                 # keeps every microbatch sharded over all of it
-                mbatch = {n: x.reshape((x.shape[0] // k, k) + x.shape[1:])
-                          .transpose(0, 1) for n, x in batch.items()}
+                mbatch = {n: _strided_ready(x, k).reshape(
+                    (x.shape[0] // k, k) + x.shape[1:]).transpose(0, 1)
+                    for n, x in batch.items()}
                 # a DTensor gradient comes back in the layout its last op
                 # left (Partial over the data axis for a replicated
                 # param); placed_like reduces it to its param's placements

@@ -43,7 +43,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
-from .sharding import on_local_heads
+from .sharding import LocalBlocks, on_local_heads
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm",
            "group_norm", "apply_rope", "direct_attention",
@@ -116,12 +116,16 @@ def group_norm(x: torch.Tensor, w: torch.Tensor, n_groups: int,
                eps: float = 1e-6) -> torch.Tensor:
     """Per-head norm used by xLSTM cells: x (..., H, hd) normalized per
     head (``n_groups`` is H, implied by the shape, as in the JAX
-    package)."""
+    package).  A Python-number ``w`` scales as a number: no tensor is
+    made for it (the dry-run's fake-tensor trace allocates nothing on the
+    card)."""
     x32 = x.float()
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * torch.as_tensor(w, device=x.device).float()).to(x.dtype)
+    if not isinstance(w, (int, float)):
+        w = torch.as_tensor(w, device=x.device).float()
+    return (y * w).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -368,21 +372,27 @@ def init_causal_conv(gen: torch.Generator, width: int, channels: int,
 
 def causal_conv(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along time: x (B, S, C), a sum over the taps
-    of shifted slices."""
-    w = params["conv_w"]
+    of shifted slices.  On DTensors each rank convolves its own rows and
+    channels (``sharding.LocalBlocks``: DTensor's pad fails to plan on
+    torch 2.11)."""
+    blocks = LocalBlocks(x, heads=x.shape[-1])
+    w = blocks.param(params["conv_w"], 1)
+    x = blocks.local(x, 2)
     width, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):
         out = out + xp[:, i:i + s] * w[i]
-    return out
+    return blocks.rows(out, 2)
 
 
 def causal_conv_step(params: dict, x_t: torch.Tensor,
                      conv_state: torch.Tensor):
     """Single decode step.  conv_state: (B, width-1, C) trailing inputs
-    -> (out (B, C), the next state)."""
-    w = params["conv_w"]
-    window = torch.cat([conv_state, x_t[:, None]], dim=1)
-    out = einsum("bwc,wc->bc", window, w)
-    return out, window[:, 1:]
+    -> (out (B, C), the next state); on DTensors on each rank's own rows
+    and channels, as :func:`causal_conv`."""
+    blocks = LocalBlocks(x_t, heads=x_t.shape[-1])
+    window = torch.cat([blocks.local(conv_state, 2),
+                        blocks.local(x_t, 1)[:, None]], dim=1)
+    out = einsum("bwc,wc->bc", window, blocks.param(params["conv_w"], 1))
+    return blocks.rows(out, 1), blocks.rows(window[:, 1:], 2)

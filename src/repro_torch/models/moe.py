@@ -25,7 +25,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from . import sharding as SH
 from .layers import dense_init, einsum, matmul
 
 __all__ = ["init_moe", "capacity", "route", "moe_forward_dense",
@@ -87,11 +89,16 @@ def moe_forward_dense(params: dict, x: torch.Tensor, *, n_experts: int,
     every expert's weights.  The JAX package's three-operand combine
     ``bsef,efd,bse->bsd`` runs as two contractions: the gates scale the
     expert activations, then one GEMM over (expert, ff) — no (B, S, E, F,
-    D) intermediate."""
+    D) intermediate; on DTensors one GEMM an expert, summed over them."""
     b, s, d = x.shape
-    _, gate_vals, expert_idx = route(params, x, top_k)
-    gates = torch.zeros((b, s, n_experts), dtype=torch.float32,
-                        device=x.device).scatter_(-1, expert_idx, gate_vals)
+    # the routing on each rank's rows (sharding.LocalBlocks: the plain
+    # ops on plain tensors), the gates written into a block of its own
+    blocks = SH.LocalBlocks(x)
+    _, gate_vals, expert_idx = route(
+        {"router": blocks.param(params["router"])}, blocks.local(x), top_k)
+    gates = blocks.rows(gate_vals.new_zeros(
+        (*gate_vals.shape[:2], n_experts)).scatter_(-1, expert_idx,
+                                                    gate_vals))
     x2 = x.reshape(1, b * s, d)
     # (E, N, F): one batched GEMM a weight, batch over the experts
     hg = matmul(x2, params["experts_gate"])
@@ -99,8 +106,15 @@ def moe_forward_dense(params: dict, x: torch.Tensor, *, n_experts: int,
     hf = F.silu(hg) * hu
     e, f = hf.shape[0], hf.shape[-1]
     hf = hf * gates.reshape(b * s, e).t()[..., None].to(hf.dtype)
-    out = matmul(hf.permute(1, 0, 2).reshape(b * s, e * f),
-                 params["experts_down"].reshape(e * f, d)).reshape(b, s, d)
+    if isinstance(hf, DTensor):
+        # one GEMM an expert, summed over the experts: DTensor (torch
+        # 2.11) has no sharding for flattening (expert, ff) with ff split
+        # over the model axis
+        out = matmul(hf, params["experts_down"]).sum(0).reshape(b, s, d)
+    else:
+        out = matmul(hf.permute(1, 0, 2).reshape(b * s, e * f),
+                     params["experts_down"].reshape(e * f, d)).reshape(
+                         b, s, d)
     if "shared_gate" in params:
         sh, sgate = _shared(params, x)
         out = out + sh * sgate.to(out.dtype)
@@ -130,37 +144,51 @@ def moe_forward(params: dict, x: torch.Tensor, *, n_experts: int,
                                  top_k=top_k)
     e, k = n_experts, top_k
     c = capacity(s, e, k, capacity_factor)
-    probs, gate_vals, expert_idx = route(params, x, k)
+    # dispatch is per sequence, so routing, dispatch and combine run on
+    # each rank's own rows (sharding.LocalBlocks), the expert GEMMs on the
+    # experts' shards; on plain tensors every LocalBlocks call is the
+    # identity
+    blocks = SH.LocalBlocks(x)
+    xl = blocks.local(x)
+    bl = xl.shape[0]
+    probs, gate_vals, expert_idx = route(
+        {"router": blocks.param(params["router"])}, xl, k)
 
-    # Load-balance aux loss (Switch): E * sum_e f_e * P_e
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(expert_idx, e).float().sum(dim=2).mean(dim=(0, 1)) / k
+    # Load-balance aux loss (Switch): E * sum_e f_e * P_e, over the
+    # global batch
+    me = blocks.mean(probs, (0, 1))
+    ce = blocks.mean(F.one_hot(expert_idx, e).float().sum(dim=2),
+                     (0, 1)) / k
     aux = e * torch.sum(me * ce)
 
     pos, keep = dispatch_plan(expert_idx, e, c)
     # overflow slots land on slot C - 1 as zeros (and weigh 0 below)
     idx = expert_idx * c + torch.clamp_max(pos, c - 1)     # (B, S, k)
 
-    buf = torch.zeros((b, e * c, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((bl, e * c, d), dtype=x.dtype, device=x.device)
     for slot in range(k):
-        xk = torch.where(keep[:, :, slot, None], x, 0).to(x.dtype)
-        buf.scatter_add_(1, idx[:, :, slot, None].expand(b, s, d), xk)
+        xk = torch.where(keep[:, :, slot, None], xl, 0).to(x.dtype)
+        buf.scatter_add_(1, idx[:, :, slot, None].expand(bl, s, d), xk)
 
     # Expert FFN (SwiGLU) over slots: (B, E, C, D) x (E, D, F)
-    h = buf.reshape(b, e, c, d)
+    h = blocks.rows(buf.reshape(bl, e, c, d))
     hg = einsum("becd,edf->becf", h, params["experts_gate"])
     hu = einsum("becd,edf->becf", h, params["experts_up"])
     hf = F.silu(hg) * hu
-    out_buf = einsum("becf,efd->becd", hf, params["experts_down"]
-                     ).reshape(b, e * c, d)
+    # each rank's rows of every expert's slots (DTensor may have split
+    # the experts over the model axis, unevenly: 60 over 16)
+    out_buf = blocks.local(einsum("becf,efd->becd", hf,
+                                  params["experts_down"])).reshape(
+                                      bl, e * c, d)
 
     # Combine: gather each token's slot back, weighted by its gate.
-    out = torch.zeros_like(x)
+    out = torch.zeros_like(xl)
     for slot in range(k):
         got = torch.gather(out_buf, 1,
-                           idx[:, :, slot, None].expand(b, s, d))
+                           idx[:, :, slot, None].expand(bl, s, d))
         w = (gate_vals[:, :, slot] * keep[:, :, slot])[..., None]
         out = out + got * w.to(out.dtype)
+    out = blocks.rows(out)
 
     if "shared_gate" in params:
         sh, sgate = _shared(params, x)

@@ -62,6 +62,18 @@ callers:
   keeps its blocks: each rank's partial scores are summed by one
   all-reduce).
 
+Where DTensor has no sharding at all for an op, or a loop of small ops
+would crawl as DTensor ops, the model runs that stretch on each rank's
+own blocks, wrapped back afterwards (:class:`LocalBlocks`): the MoE
+routing, capacity dispatch, combine and load-balance loss
+(``models/moe.py``: ``scatter_add_``, and the dense decode path's gates),
+the mLSTM and sLSTM cells with their gates and norms (``models/xlstm.py``:
+``log_sigmoid``, 4 heads over a 16-way model axis, the sLSTM's
+per-token loop) and the causal conv (``models/layers.py``: ``F.pad``
+does not plan on torch 2.11).  :func:`grad_like` hands a view that merges
+heads its gradient in its own layout (whisper-small's 12 heads over a
+16-way model axis).
+
 A prefill of sharded params makes its cache sharded by
 :func:`cache_specs` (:func:`cache_full`), and a block's output is
 placed like its input (:func:`placed_like`) before the residual add —
@@ -91,8 +103,8 @@ __all__ = ["P", "NamedSharding", "param_spec", "param_specs", "zero1_spec",
            "cache_full", "mesh_axes_of", "row_sharding", "split_rows",
            "to_placements", "distribute_tree", "set_activation_mesh",
            "shard_activations", "replicate_dims", "split_dim",
-           "placed_like", "on_local_heads", "local_copies",
-           "embedding_lookup"]
+           "placed_like", "grad_like", "on_local_heads", "local_copies",
+           "LocalBlocks", "embedding_lookup"]
 
 
 class P(tuple):
@@ -419,17 +431,47 @@ def placed_like(x, ref) -> torch.Tensor:
     return x.redistribute(ref.device_mesh, pl)
 
 
-# the local blocks on_local_heads hands its fn, by the number of ranks
-# that hold each alike (its mesh axes that replicate them)
+class _GradLike(torch.autograd.Function):
+    """The identity; its gradient redistributed to the layout the tensor
+    had going forward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pl = tuple(Replicate() if isinstance(p, Partial) else p
+                   for p in ctx.placements)
+        if isinstance(grad, DTensor) and tuple(grad.placements) != pl:
+            grad = grad.redistribute(ctx.mesh, pl)
+        return grad
+
+
+def grad_like(x) -> torch.Tensor:
+    """``x``, whose gradient comes back in ``x`` 's own layout (a pending
+    sum read as ``Replicate``): where ``x`` is a view that merges a dim
+    DTensor cannot split again as it arrives — a merged (heads, head_dim)
+    whose gradient comes split over more model ranks than the heads
+    divide —, the view's backward then runs on that layout.  A plain
+    tensor is returned as it is."""
+    return _GradLike.apply(x) if isinstance(x, DTensor) else x
+
+
+# the local blocks on_local_heads and LocalBlocks hand to plain code, by
+# the number of ranks that hold each alike (its mesh axes that replicate
+# them)
 _LOCAL_COPIES = WeakIdKeyDictionary()
 
 
-def local_copies(t: torch.Tensor) -> int:
+def local_copies(t: torch.Tensor, default=1):
     """How many ranks hold the local block ``t`` alike, when
-    :func:`on_local_heads` handed it to its ``fn``; 1 for any other
-    tensor.  ``launch/hlo_analysis.CostMode`` reads it to tell the work
-    other ranks repeat from a rank's own share."""
-    return _LOCAL_COPIES.get(t, 1)
+    :func:`on_local_heads` or :class:`LocalBlocks` handed it to plain
+    code; ``default`` for any other tensor.  ``launch/hlo_analysis.CostMode``
+    reads it to tell the work other ranks repeat from a rank's own
+    share."""
+    return _LOCAL_COPIES.get(t, default)
 
 
 def on_local_heads(fn, q, k, v) -> torch.Tensor:
@@ -446,15 +488,21 @@ def on_local_heads(fn, q, k, v) -> torch.Tensor:
     A cache sharded on the head dim (``cache_specs`` shards it where the
     kv heads do not divide the model axis) keeps its blocks: a q
     replicated where k and v shard the head dim takes its own block of
-    it (nothing sent), and ``fn`` gets ``score_reduce`` — the sum of the
+    it (nothing sent; a q split on its heads there is resplit on the
+    head dim, and a pending sum of q's reduced onto k's layout: one
+    collective of the step's queries), and ``fn`` gets
+    ``score_reduce`` — the sum of the
     partial scores over those mesh axes, one all-reduce of the (B, H, Sq,
     Skv) scores — and ``head_dim``, the whole head dim for the scale.
     Its output block is gathered back to q's layout."""
+    def head_dim_split(p):
+        return isinstance(p, Shard) and p.dim % k.ndim == 3
     if (tuple(k.placements) == tuple(v.placements)
             and tuple(q.placements) != tuple(k.placements)
-            and all(pq == pk or (isinstance(pq, Replicate)
-                                 and isinstance(pk, Shard)
-                                 and pk.dim % k.ndim == 3)
+            and any(head_dim_split(pk) for pk in k.placements)
+            and all(pq == pk or isinstance(pq, (Replicate, Partial)) or (
+                head_dim_split(pk) and isinstance(pq, Shard)
+                and pq.dim % q.ndim == 2)
                     for pq, pk in zip(q.placements, k.placements))):
         q0, q = q, q.redistribute(q.device_mesh, k.placements)
     else:
@@ -496,15 +544,129 @@ def on_local_heads(fn, q, k, v) -> torch.Tensor:
     local = [t.to_local() for t in (q, k, v)]
     copies = math.prod(mesh.size(j) for j, p in enumerate(q.placements)
                        if isinstance(p, Replicate))
-    if copies > 1:
-        for t in local:
-            _LOCAL_COPIES[t] = copies
+    for t in local:
+        _LOCAL_COPIES[t] = copies
     out = fn(*local, **extra).contiguous()
     out = DTensor.from_local(out, q.device_mesh, q.placements,
                              run_check=False, shape=q.shape,
                              stride=torch.empty(q.shape,
                                                 device="meta").stride())
     return placed_like(out, q0)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    return torch.empty(tuple(shape), device="meta").stride()
+
+
+class LocalBlocks:
+    """Each rank's own blocks around a stretch of plain-tensor code, for
+    ops DTensor has no sharding for (the MoE dispatch's ``scatter_add_``,
+    the xLSTM gates' ``log_sigmoid``) or that would be too slow as
+    DTensor ops (the sLSTM's per-token loop).  ``ref`` is the stretch's
+    input activation, batch first: the mesh axes that split its batch
+    dim split the rows of every block; the other axes split ``heads``
+    where they divide it (those of a tensor's ``head_dim``), and hold
+    the blocks alike otherwise.
+
+    - :meth:`local` — an activation's block in that layout
+      (redistributed to it first: a pending sum reduced, a head dim
+      gathered or split), registered with the ranks holding it alike
+      (:func:`local_copies`);
+    - :meth:`param` — a param's block, whole but for its heads; its
+      gradient a partial sum over the row axes;
+    - :meth:`rows` — a block of plain code's output wrapped back as a
+      DTensor in that layout;
+    - :meth:`mean` — a mean over dims that include the batch: the
+      blocks' sums added over the row axes.
+
+    On plain tensors (``ref`` not a DTensor) every method returns its
+    input unchanged (:meth:`mean` is ``t.mean(dims)``), so the
+    unsharded path runs the same ops."""
+
+    def __init__(self, ref, heads: int = 0):
+        self.mesh = ref.device_mesh if isinstance(ref, DTensor) else None
+        if self.mesh is None:
+            return
+        self.row_axes = [j for j, p in enumerate(ref.placements)
+                         if isinstance(p, Shard) and p.dim % ref.ndim == 0]
+        other = [j for j in range(self.mesh.ndim) if j not in self.row_axes]
+        ways = math.prod(self.mesh.size(j) for j in other)
+        split = heads > 0 and ways > 1 and heads % ways == 0
+        self.head_axes = other if split else []
+
+    def _layout(self, head_dim, rows: bool = True) -> List:
+        out = []
+        for j in range(self.mesh.ndim):
+            if rows and j in self.row_axes:
+                out.append(Shard(0))
+            elif j in self.head_axes and head_dim is not None:
+                out.append(Shard(head_dim))
+            else:
+                out.append(Replicate())
+        return out
+
+    def local(self, t, head_dim=None) -> torch.Tensor:
+        """``t`` 's block: rows split as ``ref`` 's, the heads at
+        ``head_dim`` split where the other axes divide them, gathered
+        otherwise."""
+        if self.mesh is None:
+            return t
+        pl = self._layout(head_dim)
+        if list(t.placements) != pl:
+            t = t.redistribute(self.mesh, pl)
+        out = t.to_local()
+        _LOCAL_COPIES[out] = math.prod(
+            self.mesh.size(j) for j, p in enumerate(pl)
+            if isinstance(p, Replicate))
+        return out
+
+    def param(self, p, head_dim=None) -> torch.Tensor:
+        """A param's block: whole (gathered where sharded) but for its
+        heads at ``head_dim``, split as :meth:`local` splits them.  Each
+        rank's gradient of it is a partial sum over the row axes."""
+        if self.mesh is None:
+            return p
+        pl = self._layout(head_dim, rows=False)
+        if list(p.placements) != pl:
+            p = p.redistribute(self.mesh, pl)
+        return p.to_local(grad_placements=[
+            Partial() if j in self.row_axes else pl[j]
+            for j in range(self.mesh.ndim)])
+
+    def rows(self, t, head_dim=None) -> torch.Tensor:
+        """A block of plain code's output (batch first) as a DTensor in
+        the layout of :meth:`local`."""
+        if self.mesh is None:
+            return t
+        pl = self._layout(head_dim)
+        shape = list(t.shape)
+        for j, p in enumerate(pl):
+            if isinstance(p, Shard):
+                shape[p.dim] *= self.mesh.size(j)
+        return DTensor.from_local(t.contiguous(), self.mesh, pl,
+                                  run_check=False, shape=tuple(shape),
+                                  stride=_contiguous_stride(shape))
+
+    def mean(self, t, dims: Tuple[int, ...]) -> torch.Tensor:
+        """``t.mean(dims)`` over every rank's rows: on a block, its sum
+        over ``dims`` (0, the batch, among them) added over the row axes
+        (one all-reduce) and divided by the global count, replicated."""
+        if self.mesh is None:
+            return t.mean(dim=dims)
+        if 0 not in [d % t.ndim for d in dims]:
+            raise ValueError(f"LocalBlocks.mean over {dims}: the batch "
+                             f"dim 0 must be among them")
+        total = t.sum(dim=dims)
+        count = math.prod(t.shape[d] for d in dims) * math.prod(
+            self.mesh.size(j) for j in self.row_axes)
+        total = DTensor.from_local(
+            total, self.mesh, [Partial() if j in self.row_axes
+                               else Replicate()
+                               for j in range(self.mesh.ndim)],
+            run_check=False, shape=tuple(total.shape),
+            stride=_contiguous_stride(total.shape))
+        return total.redistribute(self.mesh,
+                                  [Replicate()] * self.mesh.ndim) / count
 
 
 class _VocabLookup(torch.autograd.Function):

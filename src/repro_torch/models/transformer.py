@@ -237,7 +237,7 @@ def _mlstm_blk(p, x, cfg: ArchConfig, mode, cache):
     if mode != "train":
         (c, n, m), conv = new
         _store(cache, C=c, n=n, m=m, conv=conv)
-    return x + out
+    return x + SH.placed_like(out, x)
 
 
 def _slstm_blk(p, x, cfg: ArchConfig, mode, cache):
@@ -248,7 +248,7 @@ def _slstm_blk(p, x, cfg: ArchConfig, mode, cache):
     out, (c, n, m, hh) = XL.slstm_block(p, h, cfg.n_heads, state)
     if mode != "train":
         _store(cache, c=c, n=n, m=m, h=hh)
-    return x + out
+    return x + SH.placed_like(out, x)
 
 
 def _mlp_slot(p, x, cfg: ArchConfig):
@@ -299,15 +299,21 @@ def stack_groups(trees: list):
     return torch.stack(trees)
 
 
-def unstack_groups(tree, n: int) -> list:
+def unstack_groups(tree, n: int, gathered=None) -> list:
     """The ``n`` per-group trees of views of a stacked tree (the inverse
     of :func:`stack_groups`), one ``unbind`` a leaf.  A DTensor leaf
     sharded on the group axis (the cache specs shard the first dim equal
-    to the batch, which may be that axis) is gathered on it first."""
+    to the batch, which may be that axis) is gathered on it first; the
+    views are then of that copy, and ``(leaf, copy)`` is appended to the
+    list ``gathered``, so a caller that writes the views can write the
+    copy back."""
     if isinstance(tree, dict):
-        parts = {k: unstack_groups(v, n) for k, v in tree.items()}
+        parts = {k: unstack_groups(v, n, gathered) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(SH.replicate_dims(tree, [0]).unbind(0))
+    whole = SH.replicate_dims(tree, [0])
+    if whole is not tree and gathered is not None:
+        gathered.append((tree, whole))
+    return list(whole.unbind(0))
 
 
 def remat_call(cfg: ArchConfig, train: bool, fn, *args):
@@ -373,7 +379,11 @@ def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
     train, aux, g = mode == "train", 0.0, cfg.n_groups()
     names = [f"b{i}" for i in range(len(cfg.pattern))]
     gps = {n: unstack_groups(params["blocks"][n], g) for n in names}
-    gcs = None if train else {n: unstack_groups(cache["blocks"][n], g)
+    # cache leaves sharded on the group axis are written through copies
+    # gathered on it, and written back below
+    gathered = []
+    gcs = None if train else {n: unstack_groups(cache["blocks"][n], g,
+                                                gathered)
                               for n in names}
 
     def group(xx, aux_, gp, gc):       # the JAX package's scanned body
@@ -393,6 +403,8 @@ def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
                             {n: gps[n][gi] for n in names},
                             None if train else {n: gcs[n][gi]
                                                 for n in names})
+    for leaf, whole in gathered:
+        leaf.copy_(whole)
     for i, lt in enumerate(cfg.tail):
         x, a = block_apply(lt, params[f"tail{i}"], x, cfg, mode, positions,
                            pos, None if train else cache[f"tail{i}"])

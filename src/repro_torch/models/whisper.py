@@ -133,7 +133,11 @@ def _mha(p, x, kv_x, cfg, *, causal, prefix="", cache=None, pos=None,
         # on DTensors each rank attends over its own heads
         out = SH.on_local_heads(attend, q, k, v) \
             if isinstance(q, DTensor) else attend(q, k, v)
-    return L.matmul(out.reshape(b, s, cfg.q_dim), p[prefix + "wo"]), (k, v)
+    # the merged heads' gradient comes back split over the model axis on
+    # q_dim, which 12 heads do not divide 16 ways: grad_like returns it
+    # in the merge's own layout first
+    return L.matmul(SH.grad_like(out.reshape(b, s, cfg.q_dim)),
+                    p[prefix + "wo"]), (k, v)
 
 
 def _mlp(lp, xx):

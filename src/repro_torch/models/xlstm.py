@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import sharding as SH
 from .layers import (causal_conv, causal_conv_step, dense_init, einsum,
                      group_norm, init_causal_conv, matmul)
 
@@ -154,21 +155,28 @@ def slstm_scan(params: dict, x: torch.Tensor, h0=None):
     step."""
     b, s, d = x.shape
     heads, hd = params["s_rz"].shape[0], params["s_rz"].shape[1]
-    w_in = [matmul(x, params[n]).reshape(b, s, heads, hd)
+    # on DTensors the recurrence runs on each rank's rows and heads as
+    # plain tensors (sharding.LocalBlocks), one region for all the steps
+    blocks = SH.LocalBlocks(x, heads=heads)
+    w_in = [blocks.local(SH.split_dim(matmul(x, params[n]), -1,
+                                      (heads, hd)), 2)
             for n in ("s_wz", "s_wi", "s_wf", "s_wo")]
     w_in = torch.stack(w_in, dim=2)                       # (B,S,4,H,hd)
-    r_all = torch.cat([params[n] for n in ("s_rz", "s_ri", "s_rf", "s_ro")],
+    r_all = torch.cat([blocks.param(params[n], 0)
+                       for n in ("s_rz", "s_ri", "s_rf", "s_ro")],
                       dim=-1)                             # (H, hd, 4 hd)
+    bl, hl = w_in.shape[0], w_in.shape[3]
     if h0 is None:
-        z0 = torch.zeros((b, heads, hd), dtype=torch.float32,
-                         device=x.device)
+        # made from w_in, so a rank's cost counter reads them as its
+        # blocks (sharding.local_copies)
+        z0 = w_in.new_zeros((bl, hl, hd), dtype=torch.float32)
         c, n, m = z0, z0, z0 + M_INIT
-        h = torch.zeros((b, heads, hd), dtype=x.dtype, device=x.device)
+        h = w_in.new_zeros((bl, hl, hd), dtype=x.dtype)
     else:
-        c, n, m, h = h0
+        c, n, m, h = (blocks.local(t, 1) for t in h0)
     hs = []
     for t in range(s):
-        r = einsum("bhd,hde->bhe", h, r_all).reshape(b, heads, 4, hd)
+        r = einsum("bhd,hde->bhe", h, r_all).reshape(bl, hl, 4, hd)
         pre = (w_in[:, t].transpose(1, 2) + r).float()       # (B,H,4,hd)
         zt = torch.tanh(pre[:, :, 0])
         it = pre[:, :, 1]
@@ -183,8 +191,9 @@ def slstm_scan(params: dict, x: torch.Tensor, h0=None):
         h32 = ot * (c / torch.clamp_min(n, 1e-6))
         h = h32.to(x.dtype)
         hs.append(h32)
-    out = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    return out, (c, n, m, h)
+    out = blocks.rows(torch.stack(hs, dim=1).to(x.dtype).reshape(bl, s, -1),
+                      2)
+    return out, tuple(blocks.rows(t, 1) for t in (c, n, m, h))
 
 
 # --------------------------------------------------------------------------
@@ -220,34 +229,46 @@ def mlstm_block(params: dict, x: torch.Tensor, n_heads: int,
     di = xm.shape[-1]
     hd = di // n_heads
     conv = {"conv_w": params["conv_w"]}
+    # on DTensors the cell, its gates and its norm run on each rank's
+    # rows and heads as plain tensors (sharding.LocalBlocks; the heads
+    # gathered where they do not split over the other mesh axes)
+    blocks = SH.LocalBlocks(x, heads=n_heads)
+
+    def heads(t):
+        return SH.split_dim(t, -1, (n_heads, hd))
 
     if mode == "decode":
         xc, conv_state = causal_conv_step(conv, xm[:, 0], state[1])
         xc = F.silu(xc)
-        q = matmul(xc, params["m_wq"]).reshape(b, n_heads, hd)
-        k = matmul(xc, params["m_wk"]).reshape(b, n_heads, hd)
-        v = matmul(xm[:, 0], params["m_wv"]).reshape(b, n_heads, hd)
-        h, cell = mlstm_step(q, k, v, matmul(xc, params["m_wi"]),
-                             matmul(xc, params["m_wf"]), state[0])
+        q = heads(matmul(xc, params["m_wq"]))
+        k = heads(matmul(xc, params["m_wk"]))
+        v = heads(matmul(xm[:, 0], params["m_wv"]))
+        h, cell = mlstm_step(
+            *(blocks.local(t, 1) for t in (q, k, v, matmul(
+                xc, params["m_wi"]), matmul(xc, params["m_wf"]))),
+            tuple(blocks.local(t, 1) for t in state[0]))
         h = h[:, None]                                    # (B,1,H,hd)
-        new_state = (cell, conv_state)
+        new_state = (tuple(blocks.rows(t, 1) for t in cell), conv_state)
     else:
         xc = F.silu(causal_conv(conv, xm))
-        q = matmul(xc, params["m_wq"]).reshape(b, s, n_heads, hd)
-        k = matmul(xc, params["m_wk"]).reshape(b, s, n_heads, hd)
-        v = matmul(xm, params["m_wv"]).reshape(b, s, n_heads, hd)
+        q = heads(matmul(xc, params["m_wq"]))
+        k = heads(matmul(xc, params["m_wk"]))
+        v = heads(matmul(xm, params["m_wv"]))
         ig, fg = matmul(xc, params["m_wi"]), matmul(xc, params["m_wf"])
+        args = [blocks.local(t, 2) for t in (q, k, v, ig, fg)]
         if mode == "prefill":
-            h, cell = mlstm_chunkwise(q, k, v, ig, fg, chunk=chunk,
-                                      return_state=True)
+            h, cell = mlstm_chunkwise(*args, chunk=chunk, return_state=True)
             width = params["conv_w"].shape[0]
-            new_state = (cell, xm[:, -(width - 1):])
+            new_state = (tuple(blocks.rows(t, 1) for t in cell),
+                         xm[:, -(width - 1):])
         else:
-            h = mlstm_chunkwise(q, k, v, ig, fg, chunk=chunk)
+            h = mlstm_chunkwise(*args, chunk=chunk)
             new_state = None
-    h = group_norm(h.to(x.dtype), 1.0, n_heads)
-    h = (h * params["m_gn"].reshape(n_heads, hd)).to(x.dtype)
-    h = h.reshape(b, -1, di)
+    # the heads merged on the blocks: a DTensor view of di split 16 ways
+    # as 4 heads has no sharding (its gradient would need one)
+    m_gn = blocks.param(SH.split_dim(params["m_gn"], 0, (n_heads, hd)), 0)
+    h = (group_norm(h.to(x.dtype), 1.0, n_heads) * m_gn).to(x.dtype)
+    h = blocks.rows(h.reshape(h.shape[0], h.shape[1], -1), 2)
     out = matmul(h * F.silu(z[:, :h.shape[1]]), params["m_down"])
     return out, new_state
 
@@ -279,8 +300,11 @@ def slstm_block(params: dict, x: torch.Tensor, n_heads: int, state=None):
     and decode compute alike."""
     b, s, d = x.shape
     h, carry = slstm_scan(params, x, h0=state)
-    h = group_norm(h.reshape(b, s, n_heads, d // n_heads), 1.0,
-                   n_heads).reshape(b, s, d)
+    # the per-head norm on each rank's rows and heads
+    blocks = SH.LocalBlocks(x, heads=n_heads)
+    h = blocks.local(SH.split_dim(h, -1, (n_heads, d // n_heads)), 2)
+    h = blocks.rows(group_norm(h, 1.0, n_heads).reshape(
+        h.shape[0], s, -1), 2)
     h = h * params["s_gn"]
     ff = matmul(F.gelu(matmul(h, params["s_up_gate"]), approximate="tanh")
                 * matmul(h, params["s_up"]), params["s_down"])

@@ -31,16 +31,24 @@ def _tensors(tree):
     return tree_map(torch.as_tensor, tree)
 
 
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
 def sharded_train_step(rank, world, arch, reduced_kw, replace_kw,
                        mesh_shape, params_np, batches, stream_kw, lr,
-                       out_path):
+                       out_path, leaf="wq"):
     """``batches`` steps of ``make_train_step`` (a list of token arrays,
     or with ``stream_kw`` a count of ``make_batch_iterator(sharding=)``
     batches of a ``TokenStream``) with params placed by ``param_specs``
     on a ``("data", "model")`` mesh of ``mesh_shape``; rank 0 writes the
     params and moments to ``out_path`` and returns each step's loss and
     gradient norm, the first batch's loss under ``no_grad`` before the
-    step (attention on the flash path) and the placements seen."""
+    step (attention on the flash path) and the placements seen (of the
+    batch and of the first group's ``leaf``, a path under
+    ``params["blocks"]["b0"]``, and of its first moment)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import get_config
@@ -78,13 +86,14 @@ def sharded_train_step(rank, world, arch, reduced_kw, replace_kw,
         nograd = bundle.loss_fn(params, feed[0])[0]
     losses, norms = [], []
     placements = {"batch": str(feed[0]["tokens"].placements),
-                  "wq": str(params["blocks"]["b0"]["wq"].placements)}
+                  "wq": str(_leaf(params["blocks"]["b0"], leaf)
+                            .placements)}
     for batch in feed:
         params, opt, m = step(params, opt, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     SH.set_activation_mesh(None)
-    placements["m_wq"] = str(opt.m["blocks"]["b0"]["wq"].placements)
+    placements["m_wq"] = str(_leaf(opt.m["blocks"]["b0"], leaf).placements)
     flat = {}
     for name, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
         _flat(name, tree, flat)
@@ -441,3 +450,50 @@ def sharded_decode(rank, world, arch, reduced_kw, params_np, tokens, steps):
         out["diff"] = max(out["diff"], float(
             (lg_s.full_tensor() - lg_p).abs().max()))
     return out
+
+
+def sharded_prefill_decode(rank, world, arch, reduced_kw, params_np, tokens,
+                           mesh_shape=(2, 2), device="cpu"):
+    """A prefill of ``tokens`` and one greedy decode step with params
+    placed by ``param_specs`` on a ``("data", "model")`` mesh on
+    ``device`` (the cache made sharded by the cache specs); returns both
+    steps' logits gathered whole, the two greedy tokens, the placements
+    of the first group's cache leaves and the flash kernel's launches in
+    the prefill (none on the CPU, whose flash path is plain)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import sharding as SH
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced(**reduced_kw)
+    bundle = get_model(cfg)
+    mesh = make_test_mesh(tuple(mesh_shape), device=device)
+    axes = SH.mesh_axes_of(mesh)
+    params = tree_map(lambda t: t.to(device), _tensors(params_np))
+    params = SH.distribute_tree(params, SH.param_specs(params, axes,
+                                                       cfg.fsdp), mesh)
+
+    def placed(tok):
+        return {"tokens": SH.distribute_tree(
+            tok, SH.batch_spec(tuple(tok.shape), axes), mesh)}
+    tok = torch.as_tensor(tokens, device=device)
+    with torch.no_grad(), implicit_replication():
+        FK.reset_launch_counts()
+        lg, cache = bundle.prefill(params, placed(tok),
+                                   max_len=tok.shape[1] + 1)
+        launches = FK.launch_counts()
+        first = lg.full_tensor()
+        nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
+        placements = {k: str(v.placements)
+                      for k, v in sorted(cache["blocks"]["b0"].items())}
+        lg, cache = bundle.decode_step(params, cache, placed(nxt))
+        second = lg.full_tensor()
+    return {"prefill": first.tolist(), "decode": second.tolist(),
+            "tokens": [nxt[:, 0].tolist(),
+                       second[:, -1].argmax(-1).tolist()],
+            "cache": placements, "launches": launches}

@@ -1930,3 +1930,66 @@ def test_dryrun_prefill_on_fake_cuda_tensors(cuda):
     share = rec["loop_aware"]["flops"] - rec["replicated"]["flops"]
     assert share * 256 == dense_step_flops(get_config("starcoder2-3b"),
                                            SHAPES["prefill_32k"])
+
+
+# -- the MoE and xLSTM families on a DeviceMesh -------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-350m"])
+def test_sharded_family_prefill_decode_on_card(cuda, tmp_path, arch):
+    """Reduced qwen2-moe-a2.7b and xlstm-350m (float32, TF32 off) on a
+    (2, 2) mesh of 4 ranks on the card (the staged gloo group): a sharded
+    prefill and one greedy decode step against the unsharded ones in
+    this process on the same card — logits at rtol 1e-4, atol 1e-5
+    (xlstm 3e-4, the whole-model tolerance of the CPU tests), both
+    tokens exactly; qwen2-moe's prefill one float32 flash call a layer
+    on each rank's 2 of its 4 heads, each with its pre-pass, xLSTM
+    none."""
+    import _torch_dist_ranks as R
+    from _torch_dist import run_ranks
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=256)
+    cfg = get_config(arch).reduced(**kw)
+    bundle = get_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+    params_np = tree_map(lambda t: t.numpy(), params)
+    tokens = np.random.default_rng(11).integers(0, 256, (4, 16)).astype(
+        np.int32)
+    p1 = tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        lp, cache = bundle.prefill(p1, {"tokens": torch.as_tensor(
+            tokens, device=cuda)}, max_len=17)
+        t0 = lp[:, -1].argmax(-1).to(torch.int32)
+        ld, _ = bundle.decode_step(p1, cache, {"tokens": t0[:, None]})
+    got = run_ranks(R.sharded_prefill_decode, 4, tmp_path, arch, kw,
+                    params_np, tokens, (2, 2), "cuda", device="cuda")
+    atol = 3e-4 if arch == "xlstm-350m" else 1e-5
+    for key, want in (("prefill", lp), ("decode", ld)):
+        np.testing.assert_allclose(np.asarray(got[key], np.float32),
+                                   want.cpu().numpy(), rtol=1e-4,
+                                   atol=atol, err_msg=key)
+    assert got["tokens"] == [t0.tolist(), ld[:, -1].argmax(-1).tolist()]
+    calls = 2 if arch == "qwen2-moe-a2.7b" else 0
+    assert got["launches"] == {"flash_attention_hopper": calls,
+                               "flash_split_kv_hopper": calls}
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen2-moe-a2.7b", "decode_32k"),
+                                        ("xlstm-350m", "long_500k")])
+def test_family_dryrun_cell_on_fake_cuda_tensors(cuda, arch, shape):
+    """A MoE and an xLSTM cell on the fake (16, 16) world, every tensor a
+    fake CUDA one: no kernel launched, ``memory_allocated`` unchanged,
+    and the rank's share (FLOPs less ``replicated.flops``) times 256 the
+    FLOPs of the same step traced on one fake device with no mesh."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    before = _settled_memory_allocated()
+    _reset_all_launch_counts()
+    rec = dryrun.lower_cell(arch, shape, False)
+    one = dryrun.unsharded_flops(get_config(arch), SHAPES[shape])
+    assert not any(_all_launch_counts().values())
+    assert torch.cuda.memory_allocated() == before
+    share = rec["loop_aware"]["flops"] - rec["replicated"]["flops"]
+    assert share * 256 == pytest.approx(one["flops"], rel=1e-9)

@@ -90,6 +90,7 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import serve as S
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import sharding as SH
 from repro_torch.models.zoo import cache_specs_for, input_specs
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -382,23 +383,51 @@ def _spec_bytes(tree, specs, mesh_axes) -> int:
     return total
 
 
+def _reference_arguments(jcfg, sh, axes) -> int:
+    """Rank 0's argument bytes of a cell counted from the JAX package's
+    shapes and partition specs: params, the batch, a decode cell's
+    cache (less its int32 ``pos``, a Python int in the port) and a train
+    cell's two float32 moments by ``zero1_spec``."""
+    jb = jget_model(jcfg)
+    params = jax.eval_shape(jb.init, jax.random.PRNGKey(0))
+    pspecs = JSH.param_specs(params, axes, jcfg.fsdp)
+    batch = jinput_specs(jcfg, sh)
+    total = (_spec_bytes(params, pspecs, axes)
+             + _spec_bytes(batch, {k: JSH.batch_spec(tuple(v.shape), axes)
+                                   for k, v in batch.items()}, axes))
+    if sh.kind == "decode":
+        cache = jax.eval_shape(lambda: jb.init_cache(sh.global_batch,
+                                                     sh.seq_len))
+        cache = {k: v for k, v in cache.items() if k != "pos"}
+        total += _spec_bytes(cache, JSH.cache_specs(cache, axes,
+                                                    sh.global_batch), axes)
+    elif sh.kind == "train":
+        moments = jax.tree_util.tree_map(
+            lambda p: jax.ShapeDtypeStruct(p.shape, jnp.float32), params)
+        mspecs = jax.tree_util.tree_map(
+            lambda p, sp: JSH.zero1_spec(sp, tuple(p.shape), axes), params,
+            pspecs, is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec))
+        total += 2 * _spec_bytes(moments, mspecs, axes)
+    return total
+
+
+def _share_identity(rec, cfg, sh):
+    """``(loop_aware.flops - replicated.flops) x n_devices`` equals the
+    FLOPs of the same step traced on one fake device with no mesh, at
+    relative 1e-9: no work lost, none counted twice."""
+    one = DR.unsharded_flops(cfg, sh, device="cpu")
+    share = rec["loop_aware"]["flops"] - rec["replicated"]["flops"]
+    assert one["flops"] > 0
+    assert share * rec["n_devices"] == pytest.approx(one["flops"], rel=1e-9)
+    return one
+
+
 def test_dryrun_production_decode_argument_bytes():
     got = DR.lower_cell("gemma2-2b", "decode_32k", False, device="cpu")
     axes = {"data": 16, "model": 16}
-    jcfg = jget_config("gemma2-2b")
-    jb = jget_model(jcfg)
     sh = SHAPES["decode_32k"]
-    params = jax.eval_shape(jb.init, jax.random.PRNGKey(0))
-    cache = jax.eval_shape(lambda: jb.init_cache(sh.global_batch,
-                                                 sh.seq_len))
-    cache = {k: v for k, v in cache.items() if k != "pos"}
-    batch = jinput_specs(jcfg, sh)
-    want = (_spec_bytes(params, JSH.param_specs(params, axes, jcfg.fsdp),
-                        axes)
-            + _spec_bytes(cache, JSH.cache_specs(cache, axes,
-                                                 sh.global_batch), axes)
-            + _spec_bytes(batch, {k: JSH.batch_spec(tuple(v.shape), axes)
-                                  for k, v in batch.items()}, axes))
+    want = _reference_arguments(jget_config("gemma2-2b"), sh, axes)
     assert got["memory"]["argument_bytes"] == want
     assert got["mesh"] == "16x16" and got["n_devices"] == 256
     assert got["cost"]["flops_per_device_naive"] > 0
@@ -410,16 +439,54 @@ def test_dryrun_production_decode_argument_bytes():
         == dense_step_flops(get_config("gemma2-2b"), sh)
 
 
-@pytest.mark.parametrize("arch,missing", [
-    ("qwen2-moe-a2.7b", "scatter_add_"), ("grok-1-314b", "scatter_add_"),
-    ("xlstm-350m", "log_sigmoid_forward")])
-def test_dryrun_refuses_the_families_dtensor_cannot_run(arch, missing):
-    """The MoE and xLSTM steps do not run on DTensors yet: ``lower_cell``
-    refuses them before it starts a fake world, naming the op DTensor
-    has no rule for."""
-    with pytest.raises(NotImplementedError, match=missing):
-        DR.lower_cell(arch, "decode_32k", False, device="cpu")
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-moe-a2.7b", "decode_32k"), ("grok-1-314b", "decode_32k"),
+    ("xlstm-350m", "decode_32k"), ("xlstm-350m", "long_500k")])
+def test_dryrun_moe_and_xlstm_production_cells(arch, shape):
+    """The MoE and xLSTM families on the fake (16, 16) world (each
+    rank's routing, gates and cells on its own blocks,
+    ``sharding.LocalBlocks``): ``argument_bytes`` the JAX package's
+    specs' count, the share identity, no flash call in a decode step."""
+    got = DR.lower_cell(arch, shape, False, device="cpu")
+    sh = SHAPES[shape]
+    assert got["memory"]["argument_bytes"] == _reference_arguments(
+        jget_config(arch), sh, {"data": 16, "model": 16})
+    assert got["n_devices"] == 256 and got["kind"] == "decode"
+    _share_identity(got, get_config(arch), sh)
+    assert got["flash_attention"]["calls"] == 0
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("arch,kind,mesh_name", [
+    (arch, kind, mesh) for arch in ("qwen2-moe-a2.7b", "xlstm-350m")
+    for kind, mesh in (("train", "2x2"), ("prefill", "2x2"),
+                       ("prefill", "2x2x2"))])
+def test_dryrun_moe_and_xlstm_small_world(arch, kind, mesh_name):
+    """The reduced MoE and xLSTM configs' train step on a fake (2, 2)
+    mesh and prefill on (2, 2) and (2, 2, 2), in seconds: the capacity
+    path's dispatch, combine and aux loss, the chunkwise mLSTM and the
+    sLSTM's per-token loop, each on a rank's own blocks.  ``argument_bytes`` is
+    the JAX package's specs' count, and the share identity holds, the
+    train step's backward included."""
+    shape_, axes = MESHES[mesh_name]
+    # bf16, microbatch 2 and remat, as the tiny dense cell; xlstm-350m
+    # cut to 2 layers, one mLSTM and one sLSTM block
+    kw = dict(dtype="bfloat16", microbatch=2, remat=True)
+    if arch == "xlstm-350m":
+        kw.update(n_layers=2, pattern=("m", "s"))
+    cfg = dataclasses.replace(get_config(arch).reduced(**TINY), **kw)
+    jcfg = dataclasses.replace(jget_config(arch).reduced(**TINY), **kw)
+    sh = ShapeConfig(f"tiny_{kind}", 32, 8, kind)
+    with DR.fake_world(math.prod(shape_)):
+        mesh = make_test_mesh(shape_, axes, device="cpu")
+        got = DR.trace_cell(cfg, sh.name, sh, mesh, device="cpu")
+    # the reference's int32 AdamW step is not counted on either side
+    assert got["memory"]["argument_bytes"] == _reference_arguments(
+        jcfg, sh, SH.mesh_axes_of(mesh))
+    _share_identity(got, cfg, sh)
+    # the flash op takes CUDA tensors only: a CPU trace runs its plain
+    # version (chip_smoke.py phase 16b counts the op on fake CUDA ones)
+    assert got["flash_attention"]["calls"] == 0
 
 
 def test_dryrun_cli_writes_a_record(tmp_path):
