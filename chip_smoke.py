@@ -313,14 +313,21 @@ card) — phase by phase:
      ``argument_bytes`` equal to the sharding specs' count, the
      prefills' flash op 30 (starcoder2-3b) and 24 (qwen2-moe-a2.7b) calls
      at the flop formula; the same step traced on one fake device with
-     no mesh (``dryrun.unsharded_flops``), and a prefill's or decode's
-     share (FLOPs less ``replicated.flops``) times the ranks equal to
-     its FLOPs at relative 1e-9 (a train cell's ratio printed); per cell
+     no mesh (``dryrun.unsharded_flops``), and each cell's share (FLOPs
+     less ``replicated.flops``) times the ranks equal to its FLOPs at
+     relative 1e-9; per cell the counted loops (``while_loops``: a
+     loop's body traced until two trips count alike, the rest added),
      the trace seconds, FLOPs, HBM bytes, collectives and memory per
      device.  The cells: starcoder2-3b train_4k (also on (2, 16, 16)),
      prefill_32k and decode_32k, gemma2-2b decode_32k, qwen2-moe-a2.7b
      prefill_32k and decode_32k, grok-1-314b decode_32k, xlstm-350m
-     decode_32k and long_500k.
+     decode_32k, long_500k, prefill_32k and train_4k (also on (2, 16,
+     16)); not grok-1-314b train_4k, whose sharded step torch 2.11's
+     DTensor cannot plan (``DRYRUN_CELLS``); starcoder2-3b
+     prefill_32k and train_4k and xlstm-350m long_500k are also traced
+     with every loop run whole and held to their loop-aware records
+     (FLOPs, replicated FLOPs, HBM and collective bytes at relative
+     1e-9, temp bytes at 5%).
  17. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
@@ -3364,23 +3371,46 @@ DRYRUN_CELLS = [("starcoder2-3b", "train_4k", False),
                 ("qwen2-moe-a2.7b", "decode_32k", False),
                 ("grok-1-314b", "decode_32k", False),
                 ("xlstm-350m", "decode_32k", False),
-                ("xlstm-350m", "long_500k", False)]
+                ("xlstm-350m", "long_500k", False),
+                ("xlstm-350m", "prefill_32k", False),
+                ("xlstm-350m", "train_4k", False),
+                ("xlstm-350m", "train_4k", True)]
+# not here: grok-1-314b train_4k. On the card's torch 2.11 DTensor plans
+# the experts' down projection (moe.py, "becf,efd->becd") as a local
+# view of a (e, b c, f) merge the local strides do not allow, and the
+# step raises; the CPU sweep (tools/dryrun_sweep.py, torch 2.13) traces
+# both meshes (ROADMAP Queue 3)
+# cells also traced with every loop run whole (dryrun.lower_cell(
+# whole_loops=True)), in processes of their own, each held to its
+# loop-aware record: FLOPs, replicated FLOPs, HBM bytes and collective
+# bytes by kind at DRYRUN_LOOP_REL, temp bytes (a peak) at
+# DRYRUN_LOOP_TEMP_REL, as tests/test_torch_launch.py holds them
+DRYRUN_WHOLE = [("starcoder2-3b", "prefill_32k", False),
+                ("xlstm-350m", "long_500k", False),
+                ("starcoder2-3b", "train_4k", False)]
+DRYRUN_LOOP_REL = 1e-9
+DRYRUN_LOOP_TEMP_REL = 0.05
 DRYRUN_TIMEOUT = 600
-# a prefill or decode cell's share of the work times its ranks against
-# the same step traced on one fake device with no mesh
+# a cell's share of the work times its ranks against the same step
+# traced on one fake device with no mesh
 DRYRUN_SHARE_REL = 1e-9
 
 
-def _dryrun_tag(arch: str, shape: str, multi_pod: bool) -> str:
-    return f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+def _dryrun_tag(arch: str, shape: str, multi_pod: bool,
+                whole: bool = False) -> str:
+    return (f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
+            + ("__whole" if whole else ""))
 
 
-def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str) -> None:
+def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str,
+                 whole: bool = False) -> None:
     """One 16b cell in a process of its own: ``dryrun.lower_cell`` on
     fake CUDA tensors, with this process's kernel launches and
     ``torch.cuda.memory_allocated()`` around it; the record and the
-    readings go to ``work/<tag>.json``, a traceback to ``<tag>.err``."""
-    tag = _dryrun_tag(arch, shape, multi_pod)
+    readings go to ``work/<tag>.json``, a traceback to ``<tag>.err``.
+    With ``whole`` the cell's loops run every trip, and no unsharded
+    trace follows."""
+    tag = _dryrun_tag(arch, shape, multi_pod, whole)
     try:
         import torch
         sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3391,13 +3421,16 @@ def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str) -> None:
         torch.cuda.memory._record_memory_history(max_entries=1000)
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        rec = DR.lower_cell(arch, shape, multi_pod, device="cuda")
+        rec = DR.lower_cell(arch, shape, multi_pod, device="cuda",
+                            whole_loops=whole)
         wall = time.perf_counter() - t0
-        # the same step on one fake device with no mesh
+        # the same step on one fake device with no mesh (a multi-pod
+        # cell reads its (16, 16) twin's: no mesh, the same trace)
         from repro_torch.configs import SHAPES, get_config
         t0 = time.perf_counter()
-        one = DR.unsharded_flops(get_config(arch), SHAPES[shape],
-                                 device="cuda")
+        twin = multi_pod and (arch, shape, False) in DRYRUN_CELLS
+        one = None if whole or twin else DR.unsharded_flops(
+            get_config(arch), SHAPES[shape], device="cuda")
         res = {"record": rec, "wall_s": wall, "unsharded": one,
                "unsharded_s": time.perf_counter() - t0,
                "launches": launched(), "allocated_before": before,
@@ -3525,10 +3558,15 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     heads do not split; a prefill or decode cell's share of the work
     (``loop_aware.flops`` less ``replicated.flops``) times its ranks the
     FLOPs of the same step traced on one fake device with no mesh
-    (``dryrun.unsharded_flops``) at ``DRYRUN_SHARE_REL``, and for a dense
-    decoder also the step's analytic count (``_dense_step_flops``) over
-    its ranks; a train cell's ratio printed; each record written
-    under ``build/chip_smoke_dryrun``.
+    (``dryrun.unsharded_flops``) at ``DRYRUN_SHARE_REL`` in every cell,
+    train cells included, and for a dense decoder's prefill or decode
+    also the step's analytic count (``_dense_step_flops``) over its
+    ranks; each cell's counted loops and trace seconds printed; the
+    ``DRYRUN_WHOLE`` cells also traced with every loop run whole, in
+    processes of their own started first, and held to their loop-aware
+    records at ``DRYRUN_LOOP_REL`` (temp bytes at
+    ``DRYRUN_LOOP_TEMP_REL``); each record written under
+    ``build/chip_smoke_dryrun``.
     Returns the readings and the serve CLI's flash launches for the
     kernel JSON."""
     import contextlib
@@ -3603,8 +3641,12 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     ctx = mp.get_context("spawn")
-    procs = {cell: ctx.Process(target=_dryrun_cell, args=(*cell, work))
-             for cell in DRYRUN_CELLS}
+    # the whole traces first: the longest
+    runs = [cell + (True,) for cell in DRYRUN_WHOLE] + [
+        cell + (False,) for cell in DRYRUN_CELLS]
+    procs = {run: ctx.Process(target=_dryrun_cell,
+                              args=(*run[:3], work, run[3]))
+             for run in runs}
     for p in procs.values():
         p.start()
     codes = _mm_join(list(procs.values()),
@@ -3676,32 +3718,38 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
         elif fl["calls"]:
             failures.append(f"{tag}: flash op called {fl}")
         # the share times the ranks over the unsharded trace's FLOPs: 1
-        # where no work was lost and none counted twice (held on prefill
-        # and decode cells; a reading of the train cells, whose DTensor
-        # plan also repeats work it does not mark)
+        # where no work was lost and none counted twice, the loops
+        # counted alike in both
+        if res["unsharded"] is None:
+            with open(os.path.join(work, _dryrun_tag(
+                    arch, shape_name, False) + ".json")) as f:
+                twin = json.load(f)
+            res["unsharded"] = twin["unsharded"]
+            res["unsharded_s"] = None
         ratio = share * rec["n_devices"] / res["unsharded"]["flops"]
-        if shape.kind != "train":
-            if abs(ratio - 1.0) > DRYRUN_SHARE_REL:
-                failures.append(f"{tag}: share x {rec['n_devices']} ranks "
-                                f"over the unsharded step's FLOPs "
-                                f"{ratio!r}")
-            if cfg_c.family == "dense":
-                want_share = (_dense_step_flops(cfg_c, shape)
-                              / rec["n_devices"])
-                if share != want_share:
-                    failures.append(f"{tag}: FLOPs less replicated {share},"
-                                    f" the step's analytic count a device "
-                                    f"{want_share}")
+        if abs(ratio - 1.0) > DRYRUN_SHARE_REL:
+            failures.append(f"{tag}: share x {rec['n_devices']} ranks "
+                            f"over the unsharded step's FLOPs {ratio!r}")
+        dense_held = cfg_c.family == "dense" and shape.kind != "train"
+        if dense_held:
+            want_share = _dense_step_flops(cfg_c, shape) / rec["n_devices"]
+            if share != want_share:
+                failures.append(f"{tag}: FLOPs less replicated {share}, "
+                                f"the step's analytic count a device "
+                                f"{want_share}")
         coll = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
                          la["collective_bytes"].items() if v)
         held = (f"; x {rec['n_devices']} ranks over the unsharded step's "
-                f"{res['unsharded']['flops']:.4e}: {ratio!r}"
-                + ("" if shape.kind == "train" else
-                   f", held at {DRYRUN_SHARE_REL}"
-                   + (", and the analytic count" if cfg_c.family == "dense"
-                      else "")))
-        print(f"  {tag}: traced in {rec['lower_s']} s ({res['wall_s']:.1f} "
-              f"s in its process; unsharded {res['unsharded_s']:.1f} s); "
+                f"{res['unsharded']['flops']:.4e}: {ratio!r}, held at "
+                f"{DRYRUN_SHARE_REL}"
+                + (", and the analytic count" if dense_held else ""))
+        loops = ", ".join(f"{n} x {t}" for n, t in la["while_loops"])
+        print(f"  {tag}: loops [{loops}] (trip-blind "
+              f"{rec['cost']['flops_per_device_naive']:.4e} FLOPs); "
+              f"traced in {rec['lower_s']} s ({res['wall_s']:.1f} "
+              f"s in its process; unsharded "
+              + ("the 16 x 16 cell's" if res["unsharded_s"] is None
+                 else f"{res['unsharded_s']:.1f} s") + "); "
               f"{la['flops']:.4e} FLOPs ("
               f"{rep['flops']:.4e} repeated by other ranks, the rank's "
               f"share {share:.4e}{held}), "
@@ -3720,10 +3768,51 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
                       "unsharded_flops": res["unsharded"]["flops"],
                       "unsharded_s": res["unsharded_s"],
                       "share_ratio": ratio,
+                      "while_loops": la["while_loops"],
                       "flops": la["flops"], "replicated_flops": rep["flops"],
                       "hbm_bytes": la["hbm_bytes"],
                       "collective_bytes": la["collective_bytes"],
                       "memory": mem, "flash_attention": fl}
+    # the loop-aware records against the same cells traced whole
+    for cell in DRYRUN_WHOLE:
+        tag = _dryrun_tag(*cell)
+        with open(os.path.join(work, _dryrun_tag(*cell, True)
+                               + ".json")) as f:
+            res = json.load(f)
+        rec, got = res["record"], cells[tag]
+        with open(os.path.join(work, _dryrun_tag(*cell, True)
+                               + ".record.json"), "w") as f:
+            json.dump(rec, f, indent=2)
+        la = rec["loop_aware"]
+        if res["launches"] or res["allocated_after"]:
+            failures.append(f"{tag} whole: launches {res['launches']}, "
+                            f"allocated {res['allocated_after']}")
+        pairs = [("flops", got["flops"], la["flops"]),
+                 ("replicated", got["replicated_flops"],
+                  rec["replicated"]["flops"]),
+                 ("hbm_bytes", got["hbm_bytes"], la["hbm_bytes"])] + [
+            (k, got["collective_bytes"][k], la["collective_bytes"][k])
+            for k in la["collective_bytes"]]
+        off = [(k, a, w) for k, a, w in pairs
+               if abs(a - w) > DRYRUN_LOOP_REL * abs(w)]
+        temp_a, temp_w = got["memory"]["temp_bytes"], \
+            rec["memory"]["temp_bytes"]
+        if abs(temp_a - temp_w) > DRYRUN_LOOP_TEMP_REL * temp_w:
+            off.append(("temp_bytes", temp_a, temp_w))
+        if la["while_loops"] or off:
+            failures.append(f"{tag}: loop-aware against whole {off}, "
+                            f"whole loops {la['while_loops']}")
+        print(f"  {tag} traced whole (every loop every trip): "
+              f"{rec['lower_s']} s against {got['seconds']} s loop-aware; "
+              f"FLOPs {la['flops']:.6e}, replicated "
+              f"{rec['replicated']['flops']:.6e}, HBM bytes "
+              f"{la['hbm_bytes']:.6e}, collectives equal at "
+              f"{DRYRUN_LOOP_REL}; temp {temp_w} against {temp_a} "
+              f"({temp_a / temp_w - 1:+.2e}, held at "
+              f"{DRYRUN_LOOP_TEMP_REL})", flush=True)
+        got["whole"] = {"seconds": rec["lower_s"], "flops": la["flops"],
+                        "hbm_bytes": la["hbm_bytes"],
+                        "temp_bytes": temp_w}
     if failures:
         raise AssertionError("16b:\n" + "\n".join(failures))
     seconds = time.perf_counter() - t_phase

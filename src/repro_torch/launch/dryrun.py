@@ -22,30 +22,42 @@ on the card and no kernel launches: the flash kernel's op runs its fake
 implementation.  The step — ``make_train_step`` (whose in-place update
 is the counterpart of donation), ``bundle.prefill`` under ``no_grad`` or
 ``bundle.decode_step`` — runs once inside a ``MemTracker`` and a
-:class:`repro_torch.launch.hlo_analysis.CostMode`.
+:class:`repro_torch.launch.hlo_analysis.CostMode`.  The step's scanned
+loops (pattern groups, microbatches, the sLSTM's steps, the mLSTM's
+chunks, whisper's layers, chunked attention) are counted as the
+reference's analysis counts a ``while``: a body times its trips, the
+body traced only until two trips count alike (``hlo_analysis``'s module
+docstring) — so xlstm-350m's 32768-step prefill traces two sLSTM steps
+a layer, not all of them.
 
 The record keeps the reference's keys.  ``memory.argument_bytes`` is
 rank 0's local shard bytes of params, moments, batch and cache;
 ``output_bytes`` those of the step's results, the tensors it wrote in
-place among them; ``temp_bytes`` the tracker's peak less the arguments.
-``cost`` and ``loop_aware`` both come from the cost mode (eager PyTorch
-has no loop-blind analysis to set beside a loop-aware one), and
-``collectives_naive`` gives its collective bytes in the reference's
-layout.  Two keys have no counterpart there: ``replicated``, the FLOPs
-of ``loop_aware.flops`` that other ranks repeat (the port's DTensor
-plan, e.g. attention over all heads on every model rank where the heads
-do not split; ``CostMode.replicated_flops``), by op — ``flops`` less
-them is the rank's share of the step's work, the count a roofline share
-reads — and ``flash_attention``, the calls and FLOPs of the flash
-kernel's op.  Every cell of ``configs.cell_applicable`` traces: the
-MoE routing and the xLSTM cells run on each rank's own blocks
+place among them; ``temp_bytes`` the tracker's peak less the arguments,
+the skipped trips' leftovers made for it.  ``loop_aware`` is the
+loop-aware count, its ``while_loops`` each counted loop's ``(name,
+trips)``; ``cost`` (``flops_per_device_naive``,
+``bytes_per_device_naive``) and ``collectives_naive`` the trip-blind one
+— each counted loop's body once, as XLA's own analysis reads a
+``while``.  ``whole_loops`` (:func:`trace_cell`, :func:`lower_cell`)
+runs every loop whole instead: the comparison trace, with no loops
+listed and both counts alike; ``cfg.scan_layers`` False unrolls the
+group loops alone, as the reference's flag does.  Two keys have no
+counterpart there: ``replicated``, the FLOPs of ``loop_aware.flops``
+that other ranks repeat (the port's DTensor plan, e.g. attention over
+all heads on every model rank where the heads do not split;
+``CostMode.replicated_flops``), by op — ``flops`` less them is the
+rank's share of the step's work, the count a roofline share reads — and
+``flash_attention``, the calls and FLOPs of the flash kernel's op.
+Every cell of ``configs.cell_applicable`` traces: the MoE routing and
+the xLSTM cells run on each rank's own blocks
 (``models/sharding.LocalBlocks``).  :func:`unsharded_flops` traces the
-same step on one fake device with no mesh: ``flops`` less
-``replicated.flops``, times the ranks, is that count.  Two values have
-no counterpart and are ``null``: ``compile_s`` (nothing is compiled) and
-``memory.code_bytes`` (no executable); no HLO file is written.
-Records go to ``artifacts/dryrun_torch`` by default, beside, never
-over, the JAX package's.
+same step on one fake device with no mesh, its loops counted alike:
+``flops`` less ``replicated.flops``, times the ranks, is that count.
+Two values have no counterpart and are ``null``: ``compile_s`` (nothing
+is compiled) and ``memory.code_bytes`` (no executable); no HLO file is
+written.  Records go to ``artifacts/dryrun_torch`` by default, beside,
+never over, the JAX package's.
 """
 
 from __future__ import annotations
@@ -135,15 +147,22 @@ def _zeros_like_meta(tree, device):
                     if isinstance(t, torch.Tensor) else t, tree)
 
 
+def _live_bytes(tracker) -> int:
+    return sum(snap["Total"] for snap in
+               tracker.get_tracker_snapshot("current").values())
+
+
 def trace_cell(cfg: ArchConfig, shape_name: str, shape: ShapeConfig, mesh,
-               donate: bool = True,
-               device=DEFAULT_DEVICE) -> Dict[str, Any]:
+               donate: bool = True, device=DEFAULT_DEVICE,
+               whole_loops: bool = False) -> Dict[str, Any]:
     """The record of one cell (module docstring) on ``mesh`` (a
     ``DeviceMesh`` over the current default process group, this process
     its rank 0); every tensor a fake one on ``device``.  With ``donate``
     False the step runs on copies of the params and moments (train) or
     the cache (decode), made inside the trace, so its arguments stay as
-    they were — the counterpart of jitting without ``donate_argnums``."""
+    they were — the counterpart of jitting without ``donate_argnums``.
+    With ``whole_loops`` every counted loop runs every trip
+    (``CostMode(whole_loops=True)``): the comparison trace."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     dev = resolve_device(device)
@@ -178,7 +197,9 @@ def trace_cell(cfg: ArchConfig, shape_name: str, shape: ShapeConfig, mesh,
             tracker.track_external(*(t for t in tree_leaves(args)
                                      if isinstance(t, torch.Tensor)))
             t0 = time.perf_counter()
-            with tracker, hlo_analysis.CostMode() as cost:
+            with tracker, hlo_analysis.CostMode(
+                    whole_loops=whole_loops,
+                    live_bytes=lambda: _live_bytes(tracker)) as cost:
                 out = _step(bundle, shape, args, donate)
             t_lower = time.perf_counter() - t0
             out_bytes = local_bytes(out)
@@ -193,9 +214,8 @@ def trace_cell(cfg: ArchConfig, shape_name: str, shape: ShapeConfig, mesh,
     finally:
         SH.set_activation_mesh(None)
 
-    summary = cost.summary.to_dict()
-    coll = dict(summary["collective_bytes"],
-                count=summary["collective_count"])
+    summary, naive = cost.summary.to_dict(), cost.naive
+    coll = dict(naive.collective_bytes, count=naive.collective_count)
     return {
         "arch": cfg.name, "shape": shape_name,
         "mesh": "x".join(map(str, mesh.shape)),
@@ -210,8 +230,8 @@ def trace_cell(cfg: ArchConfig, shape_name: str, shape: ShapeConfig, mesh,
             "code_bytes": None,
         },
         "cost": {
-            "flops_per_device_naive": float(summary["flops"]),
-            "bytes_per_device_naive": float(summary["hbm_bytes"]),
+            "flops_per_device_naive": float(naive.flops),
+            "bytes_per_device_naive": float(naive.hbm_bytes),
         },
         "loop_aware": summary,
         "collectives_naive": coll,
@@ -225,8 +245,9 @@ def unsharded_flops(cfg: ArchConfig, shape: ShapeConfig,
     """The cell's step traced on one fake device with no mesh (plain
     fake tensors, no process group): its FLOPs, and the flash op's calls
     and FLOPs, under a :class:`~repro_torch.launch.hlo_analysis.CostMode`
-    — the count a sharded record's share (``loop_aware.flops`` less
-    ``replicated.flops``) times its ranks is held to."""
+    counting loops as :func:`trace_cell` does — the count a sharded
+    record's share (``loop_aware.flops`` less ``replicated.flops``) times
+    its ranks is held to."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     dev = resolve_device(device)
     bundle = get_model(cfg)
@@ -270,16 +291,16 @@ def _step(bundle, shape: ShapeConfig, args: Dict[str, Any], donate: bool):
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
-               donate: bool = True,
-               device=DEFAULT_DEVICE) -> Dict[str, Any]:
+               donate: bool = True, device=DEFAULT_DEVICE,
+               whole_loops: bool = False) -> Dict[str, Any]:
     """The record of ``arch`` x ``shape_name`` on the production mesh:
     (16, 16) over 256 fake ranks, (2, 16, 16) over 512 with
-    ``multi_pod``."""
+    ``multi_pod``; ``whole_loops`` as :func:`trace_cell`."""
     cfg, shape = get_config(arch), SHAPES[shape_name]
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
         return trace_cell(cfg, shape_name, shape, mesh, donate=donate,
-                          device=device)
+                          device=device, whole_loops=whole_loops)
 
 
 def main(argv=None) -> None:

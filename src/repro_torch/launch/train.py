@@ -27,6 +27,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import DEFAULT_DEVICE
+from ..loops import scan
 from ..models.sharding import placed_like
 from ..models.zoo import ModelBundle
 from ..optim.adamw import (AdamWState, adamw_init, adamw_update_,
@@ -108,10 +109,9 @@ def make_train_step(bundle: ModelBundle,
                 # left (Partial over the data axis for a replicated
                 # param); placed_like reduces it to its param's placements
                 # — the data-parallel all-reduce (a no-op on plain tensors)
-                gsum, lsum = None, 0.0
-                for m in range(k):
-                    loss_m, g = grads_of(live, params,
-                                         {n: x[m] for n, x in mbatch.items()})
+                def accumulate(carry, mb):
+                    gsum, lsum = carry
+                    loss_m, g = grads_of(live, params, mb)
                     if gsum is None:
                         # zeros_like: a DTensor gradient's sum keeps its
                         # layout, so partial sums over the data axis add
@@ -123,7 +123,12 @@ def make_train_step(bundle: ModelBundle,
                     for a, gg in zip(gsum, g):
                         a.add_(gg)    # gg promoted element by element
                     del g
-                    lsum = lsum + loss_m
+                    return (gsum, lsum + loss_m), None
+
+                (gsum, lsum), _ = scan(
+                    "train.microbatches", accumulate, (None, 0.0),
+                    [{n: x[m] for n, x in mbatch.items()}
+                     for m in range(k)])
                 grads = [placed_like(a, p).div_(k)
                          for a, p in zip(gsum, leaves)]
                 loss = lsum / k

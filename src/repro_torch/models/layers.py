@@ -43,6 +43,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention
+from ..loops import scan
 from .sharding import LocalBlocks, on_local_heads
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm",
@@ -211,16 +212,19 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     over the kv chunks with a running max, denominator and float32
     accumulator, so no more than (q_chunk x kv_chunk) scores a head
     exist at once — the JAX package's ``chunked_attention`` (its
-    ``lax.map`` / ``lax.scan`` become Python loops), which autograd
-    differentiates.  Both sequences are padded to whole chunks; padded
-    keys are masked, padded queries dropped.  The PV product runs in
-    float32, as the JAX package keeps it.
+    ``lax.map`` / ``lax.scan`` become Python loops,
+    :func:`repro_torch.loops.scan`), which autograd differentiates.
+    Both sequences are padded to whole chunks; padded keys are masked,
+    padded queries dropped.  The PV product runs in float32, as the JAX
+    package keeps it.
 
     A kv chunk that the causal or window mask hides from every query of
-    the q chunk is skipped: in the JAX package's scan it scales the
-    running values by exactly 1 (or, before the first visible chunk,
-    leaves values that the first visible one multiplies by exactly 0),
-    so skipping it changes no bit of the output."""
+    the q chunk is skipped (the kv loop runs over the visible chunks
+    only, so each of its trips does the same work): in the JAX
+    package's scan it scales the running values by exactly 1 (or,
+    before the first visible chunk, leaves values that the first visible
+    one multiplies by exactly 0), so skipping it changes no bit of the
+    output."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -231,9 +235,14 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     vp = F.pad(v, (0, 0, 0, 0, 0, kpad))
     nq, nk = qp.shape[1] // q_chunk, kp.shape[1] // kv_chunk
     dev = q.device
-    outs = []
-    for qi in range(nq):
-        q0 = qi * q_chunk
+
+    def visible(q0, k0):
+        if causal and k0 > q0 + q_chunk - 1:
+            return False
+        return not (window and window > 0
+                    and k0 + kv_chunk - 1 <= q0 - window)
+
+    def q_step(_, q0):
         qb32 = qp[:, q0:q0 + q_chunk].reshape(
             b, q_chunk, kv, g, hd).float() * scale
         q_pos = q0 + torch.arange(q_chunk, device=dev)
@@ -243,12 +252,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                           device=dev)
         acc = torch.zeros((b, kv, g, q_chunk, hd), dtype=torch.float32,
                           device=dev)
-        for ki in range(nk):
-            k0 = ki * kv_chunk
-            if causal and k0 > q0 + q_chunk - 1:
-                continue
-            if window and window > 0 and k0 + kv_chunk - 1 <= q0 - window:
-                continue
+
+        def kv_step(carry, k0):
+            m, den, acc = carry
             kb = kp[:, k0:k0 + kv_chunk].float()
             vb = vp[:, k0:k0 + kv_chunk]
             s = _softcap(torch.einsum("bqkgd,bskd->bkgqs", qb32, kb),
@@ -265,10 +271,17 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
             p = torch.exp(s - m_new[..., None])
             den = den * alpha + p.sum(dim=-1)
             pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb.float())
-            acc = acc * alpha[..., None] + pv
-            m = m_new
+            return (m_new, den, acc * alpha[..., None] + pv), None
+
+        (m, den, acc), _ = scan(
+            "layers.attention_kv_chunks", kv_step, (m, den, acc),
+            [k0 for k0 in range(0, nk * kv_chunk, kv_chunk)
+             if visible(q0, k0)])
         out = acc / torch.clamp(den, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))       # (B, cq, KV, G, hd)
+        return None, out.permute(0, 3, 1, 2, 4)       # (B, cq, KV, G, hd)
+
+    _, outs = scan("layers.attention_q_chunks", q_step, None,
+                   range(0, nq * q_chunk, q_chunk))
     out = torch.cat(outs, dim=1).reshape(b, nq * q_chunk, h, hd)
     return out[:, :sq].to(q.dtype)
 

@@ -10,8 +10,10 @@ is ``(G, d, q_dim)``), and the unscanned tail blocks (recurrentgemma's
 two ``rec`` layers) sit under ``tail0``, ``tail1``, so weights map 1:1
 (:func:`repro_torch.convert.model_params_from_jax`).  Where the JAX
 package scans the groups with ``lax.scan``, the port loops over them in
-Python, each group reading views of the stacked leaves (one ``unbind``
-a leaf, so a backward pass stacks each leaf's gradient once).  With
+Python (:func:`repro_torch.loops.scan`; ``cfg.scan_layers`` False
+unrolls them, as the JAX package does), each group reading views of the
+stacked leaves (one ``unbind`` a leaf, so a backward pass stacks each
+leaf's gradient once).  With
 ``cfg.remat``, a training forward under autograd runs each pattern group
 under ``torch.utils.checkpoint`` — the counterpart of the JAX package's
 ``jax.checkpoint(body)`` — so the backward recomputes a group's
@@ -40,6 +42,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..loops import scan
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -398,11 +401,14 @@ def _stack_apply(params, x, cfg: ArchConfig, mode: str, positions, pos,
             aux_ = aux_ + a
         return xx, aux_
 
-    for gi in range(g):
-        x, aux = remat_call(cfg, train, group, x, aux,
-                            {n: gps[n][gi] for n in names},
-                            None if train else {n: gcs[n][gi]
-                                                for n in names})
+    def step(carry, xg):
+        return remat_call(cfg, train, group, *carry, *xg), None
+
+    (x, aux), _ = scan(
+        "transformer.groups", step, (x, aux),
+        [({n: gps[n][gi] for n in names},
+          None if train else {n: gcs[n][gi] for n in names})
+         for gi in range(g)], unroll=not cfg.scan_layers)
     for leaf, whole in gathered:
         leaf.copy_(whole)
     for i, lt in enumerate(cfg.tail):

@@ -7,7 +7,8 @@ sides, RMSNorm throughout.  Encoder: bidirectional MHA + GELU MLP.
 Decoder: causal self-attention + cross-attention + GELU MLP, with a
 self-KV cache and the cross K/V computed once at prefill.  Both stacks'
 layers are stacked on a leading layer axis, as the JAX package scans
-them; the port loops over them in Python, and with ``cfg.remat`` a
+them; the port loops over them in Python (:func:`repro_torch.loops.scan`;
+``cfg.scan_layers`` False unrolls them), and with ``cfg.remat`` a
 training forward runs each encoder and decoder layer under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` of
 both scanned bodies).
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
+from ..loops import scan
 from . import layers as L
 from . import sharding as SH
 from .transformer import param_dtype, remat_call, stack_groups, \
@@ -155,8 +157,11 @@ def encode(params, embeds, cfg: ArchConfig) -> torch.Tensor:
     x = embeds.to(param_dtype(cfg))
     x = x + sinusoid(torch.arange(x.shape[1], device=x.device),
                      cfg.d_model).to(x.dtype)
-    for lp in unstack_groups(params["enc"], cfg.enc_layers):
-        x = remat_call(cfg, True, _enc_layer, x, lp, cfg)
+    x, _ = scan("whisper.encoder_layers",
+                lambda xx, lp: (remat_call(cfg, True, _enc_layer, xx, lp,
+                                           cfg), None),
+                x, unstack_groups(params["enc"], cfg.enc_layers),
+                unroll=not cfg.scan_layers)
     return L.rms_norm(x, params["norm_enc"])
 
 
@@ -180,8 +185,11 @@ def _dec_layer(x, lp, enc_out, cfg):
 def decode_train(params, tokens, enc_out, cfg: ArchConfig) -> torch.Tensor:
     x = _embed_tokens(params, tokens, torch.arange(tokens.shape[1],
                                                    device=tokens.device), cfg)
-    for lp in unstack_groups(params["dec"], cfg.n_layers):
-        x = remat_call(cfg, True, _dec_layer, x, lp, enc_out, cfg)
+    x, _ = scan("whisper.decoder_layers",
+                lambda xx, lp: (remat_call(cfg, True, _dec_layer, xx, lp,
+                                           enc_out, cfg), None),
+                x, unstack_groups(params["dec"], cfg.n_layers),
+                unroll=not cfg.scan_layers)
     return _head(params, x)
 
 
@@ -226,7 +234,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
                        if isinstance(enc_out, DTensor) else None)
     x = _embed_tokens(params, tokens, torch.arange(s, device=tokens.device),
                       cfg)
-    for i, lp in enumerate(unstack_groups(params["dec"], cfg.n_layers)):
+    def layer(x, il):
+        i, lp = il
         h = L.rms_norm(x, lp["norm_in"])
         a, (k, v) = _mha(lp, h, h, cfg, causal=True)
         cache["self_k"][i, :, :s] = k
@@ -238,7 +247,11 @@ def prefill(params, batch, cfg: ArchConfig, max_len: Optional[int] = None):
         xv.copy_(_heads(cfg, L.matmul(enc_out, lp["xwv"]), b))
         x = x + _mha(lp, h, None, cfg, causal=False, prefix="x",
                      cache=(xk, xv))[0]
-        x = _mlp(lp, x)
+        return _mlp(lp, x), None
+
+    x, _ = scan("whisper.prefill_layers", layer, x,
+                enumerate(unstack_groups(params["dec"], cfg.n_layers)),
+                unroll=not cfg.scan_layers)
     cache["pos"] = s
     return _head(params, x[:, -1:]), cache
 
@@ -255,7 +268,8 @@ def decode_step(params, cache, batch_t, cfg: ArchConfig):
     b, pos = tokens.shape[0], int(cache["pos"])
     x = _embed_tokens(params, tokens, torch.full(
         (b, 1), pos, dtype=torch.int32, device=tokens.device), cfg)
-    for i, lp in enumerate(unstack_groups(params["dec"], cfg.n_layers)):
+    def layer(x, il):
+        i, lp = il
         h = L.rms_norm(x, lp["norm_in"])
         x = x + _mha(lp, h, h, cfg, causal=False,
                      cache=(cache["self_k"][i], cache["self_v"][i]),
@@ -263,7 +277,11 @@ def decode_step(params, cache, batch_t, cfg: ArchConfig):
         h = L.rms_norm(x, lp["norm_x"])
         x = x + _mha(lp, h, None, cfg, causal=False, prefix="x",
                      cache=(cache["cross_k"][i], cache["cross_v"][i]))[0]
-        x = _mlp(lp, x)
+        return _mlp(lp, x), None
+
+    x, _ = scan("whisper.decode_layers", layer, x,
+                enumerate(unstack_groups(params["dec"], cfg.n_layers)),
+                unroll=not cfg.scan_layers)
     new_cache = dict(cache, pos=pos + 1)
     cache["pos"] = None
     return _head(params, x), new_cache

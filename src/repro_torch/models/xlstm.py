@@ -9,11 +9,13 @@ normalizer is ``max(|q . n|, exp(-m))``):
   tests' oracle;
 - :func:`mlstm_chunkwise`: quadratic within chunks of 256 and the
   ``(C, n, m)`` state carried between them — a Python loop over the
-  S / 256 chunks, where the JAX package runs ``lax.scan``;
+  S / 256 chunks (:func:`repro_torch.loops.scan`), where the JAX package
+  runs ``lax.scan``;
 - :func:`mlstm_step`: the recurrent decode update.
 
 The sLSTM (scalar memory, per-head recurrent weights) is sequential: a
-Python loop over time, as the JAX package's ``lax.scan``.  A prefill
+Python loop over time (:func:`~repro_torch.loops.scan`), as the JAX
+package's ``lax.scan``.  A prefill
 therefore launches one step's ops per prompt token per sLSTM layer;
 :func:`slstm_scan` fuses the four recurrent products into one einsum a
 step to keep that count down.
@@ -26,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..loops import scan
 from . import sharding as SH
 from .layers import (causal_conv, causal_conv_step, dense_init, einsum,
                      group_norm, init_causal_conv, matmul)
@@ -85,8 +88,9 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int = 256,
     C = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=q.device)
     n = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
     m_run = torch.full((b, h), M_INIT, dtype=torch.float32, device=q.device)
-    outs = []
-    for j in range(n_chunks):
+
+    def chunk_step(carry, j):
+        C, n, m_run = carry
         qb, kb, vb, ib = qc[:, j], kc[:, j], vc[:, j], ic[:, j]
         bcum = torch.cumsum(fc[:, j], dim=1)           # (B,L,H) in-chunk
         log_d = bcum[:, :, None] - bcum[:, None, :] + ib[:, None]
@@ -105,7 +109,7 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int = 256,
                 + w_state[..., None] * n[:, None])
         denom = torch.maximum(
             torch.einsum("blhd,blhd->blh", nvec, qb).abs(), torch.exp(-m_t))
-        outs.append(num / denom[..., None])
+        out = num / denom[..., None]
 
         # state update to end of chunk
         b_last = bcum[:, -1]                                   # (B,H)
@@ -118,7 +122,10 @@ def mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: int = 256,
         C = (w_old[..., None, None] * C
              + torch.einsum("blhd,blhe->bhde", w_new[..., None] * kb, vb))
         n = w_old[..., None] * n + torch.einsum("blh,blhd->bhd", w_new, kb)
-        m_run = m_next
+        return (C, n, m_next), out
+
+    (C, n, m_run), outs = scan("xlstm.mlstm_chunks", chunk_step,
+                               (C, n, m_run), range(n_chunks))
     out = torch.cat(outs, dim=1)[:, :s]
     if return_state:
         return out, (C, n, m_run)
@@ -174,8 +181,9 @@ def slstm_scan(params: dict, x: torch.Tensor, h0=None):
         h = w_in.new_zeros((bl, hl, hd), dtype=x.dtype)
     else:
         c, n, m, h = (blocks.local(t, 1) for t in h0)
-    hs = []
-    for t in range(s):
+
+    def time_step(carry, t):
+        c, n, m, h = carry
         r = einsum("bhd,hde->bhe", h, r_all).reshape(bl, hl, 4, hd)
         pre = (w_in[:, t].transpose(1, 2) + r).float()       # (B,H,4,hd)
         zt = torch.tanh(pre[:, :, 0])
@@ -187,10 +195,11 @@ def slstm_scan(params: dict, x: torch.Tensor, h0=None):
         fp = torch.exp(ft + m - m_new)
         c = fp * c + ip * zt
         n = fp * n + ip
-        m = m_new
         h32 = ot * (c / torch.clamp_min(n, 1e-6))
-        h = h32.to(x.dtype)
-        hs.append(h32)
+        return (c, n, m_new, h32.to(x.dtype)), h32
+
+    (c, n, m, h), hs = scan("xlstm.slstm_steps", time_step, (c, n, m, h),
+                            range(s))
     out = blocks.rows(torch.stack(hs, dim=1).to(x.dtype).reshape(bl, s, -1),
                       2)
     return out, tuple(blocks.rows(t, 1) for t in (c, n, m, h))

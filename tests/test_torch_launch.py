@@ -90,8 +90,10 @@ from repro_torch.launch import dryrun as DR
 from repro_torch.launch import hlo_analysis as H
 from repro_torch.launch import serve as S
 from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import get_model
 from repro_torch.models import sharding as SH
 from repro_torch.models.zoo import cache_specs_for, input_specs
+from repro_torch.tree import tree_leaves
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TINY = dict(n_layers=2, d_model=64, n_heads=4, d_ff=128, vocab=512)
@@ -343,6 +345,11 @@ def test_dryrun_tiny_cell_matches_reference(reference_records, shape_name,
     # rank's share is the reference's count exactly
     assert got["loop_aware"]["flops"] - got["replicated"]["flops"] \
         == want["loop_aware"]["flops"]
+    # the loops, by trips: the train step's 2 microbatches, and no loop
+    # over the one pattern group (XLA inlines a while of one trip, and
+    # the port's counted loop of one trip is a plain one)
+    assert sorted(t for _, t in got["loop_aware"]["while_loops"]) \
+        == sorted(t for _, t in want["loop_aware"]["while_loops"])
 
 
 def test_dryrun_without_donation_copies_the_cache():
@@ -431,7 +438,10 @@ def test_dryrun_production_decode_argument_bytes():
     assert got["memory"]["argument_bytes"] == want
     assert got["mesh"] == "16x16" and got["n_devices"] == 256
     assert got["cost"]["flops_per_device_naive"] > 0
-    assert got["loop_aware"]["while_loops"] == []
+    # the decode step's loop over the 13 pattern groups, counted from two
+    assert got["loop_aware"]["while_loops"] == [("transformer.groups", 13)]
+    assert got["cost"]["flops_per_device_naive"] \
+        < got["loop_aware"]["flops"]
     # every product split over the 256 ranks: the count a device is the
     # step's analytic count over 256, and nothing is repeated
     assert got["replicated"]["flops"] == 0
@@ -487,6 +497,98 @@ def test_dryrun_moe_and_xlstm_small_world(arch, kind, mesh_name):
     # the flash op takes CUDA tensors only: a CPU trace runs its plain
     # version (chip_smoke.py phase 16b counts the op on fake CUDA ones)
     assert got["flash_attention"]["calls"] == 0
+
+
+# -- loop-aware counting ------------------------------------------------------
+
+def test_scanned_equals_unrolled_analysis():
+    """The port of ``tests/test_roofline.py``'s "core guarantee of the
+    loop-aware analyzer": on the same reduced starcoder2-3b, the gradient
+    of the loss counted with its 6 pattern groups as a counted loop
+    (``scan_layers=True``: 3 trips traced, the rest added, the backward
+    pass's too) and unrolled (``scan_layers=False``) reads the same FLOPs
+    and HBM bytes — exactly, where the reference's analyses agree within
+    0.9–1.15."""
+    base = get_config("starcoder2-3b").reduced(
+        n_layers=6, d_model=64, n_heads=4, d_ff=128, vocab=256)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, (4, 32)).astype(np.int32))
+    got = {}
+    for scan in (True, False):
+        cfg = dataclasses.replace(base, scan_layers=scan)
+        bundle = get_model(cfg)
+        params = bundle.init(torch.Generator().manual_seed(0), device="cpu")
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        with H.CostMode() as mode:
+            loss, _ = bundle.loss_fn(params, {"tokens": tokens})
+            torch.autograd.grad(loss, leaves)
+        got[scan] = mode
+    scanned, unrolled = got[True].summary, got[False].summary
+    assert scanned.flops == unrolled.flops > 0
+    assert scanned.hbm_bytes == unrolled.hbm_bytes
+    assert scanned.while_loops == [("transformer.groups", 6)]
+    assert unrolled.while_loops == []
+    # trip-blind, as XLA's own analysis: the scanned body counted once
+    assert got[True].naive.flops < scanned.flops
+    assert got[False].naive.flops == unrolled.flops
+
+
+# the five families at a few layers on the fake (2, 2) world: enough
+# pattern groups (and microbatches) that the counted loops skip trips
+FAMILIES = {
+    "dense": ("starcoder2-3b", dict(n_layers=6)),
+    "moe": ("qwen2-moe-a2.7b", dict(n_layers=6)),
+    "rglru": ("recurrentgemma-2b", dict(n_layers=14)),
+    "xlstm": ("xlstm-350m", dict(n_layers=6, pattern=("m", "s"))),
+    "whisper": ("whisper-small", dict(n_layers=4, enc_layers=4)),
+}
+LOOP_REL = 1e-9         # loop-aware against whole: FLOPs, bytes
+LOOP_TEMP_REL = 0.05    # and temp bytes (a peak, module docstring)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_loop_aware_trace_equals_whole_trace(family, kind):
+    """A cell traced with its loops counted (a body times its trips)
+    against the same cell with every loop run whole
+    (``trace_cell(whole_loops=True)``): FLOPs, replicated FLOPs, HBM
+    bytes and collective bytes by kind at ``LOOP_REL``, temp bytes at
+    ``LOOP_TEMP_REL``, argument and output bytes equal — the train
+    step's backward pass, remat's recompute and the microbatch loop's
+    in-body gradients included."""
+    arch, kw = FAMILIES[family]
+    cfg = dataclasses.replace(
+        get_config(arch).reduced(**dict(TINY, **kw)), dtype="bfloat16",
+        microbatch=4, remat=True)
+    sh = ShapeConfig(f"tiny_{kind}", 16, 8, kind)
+    recs = {}
+    for whole in (False, True):
+        with DR.fake_world(4):
+            mesh = make_test_mesh(*MESHES["2x2"], device="cpu")
+            recs[whole] = DR.trace_cell(cfg, sh.name, sh, mesh,
+                                        device="cpu", whole_loops=whole)
+    got, want = recs[False], recs[True]
+    la, lw = got["loop_aware"], want["loop_aware"]
+    assert la["flops"] == pytest.approx(lw["flops"], rel=LOOP_REL)
+    assert got["replicated"]["flops"] == pytest.approx(
+        want["replicated"]["flops"], rel=LOOP_REL, abs=0)
+    assert la["hbm_bytes"] == pytest.approx(lw["hbm_bytes"], rel=LOOP_REL)
+    for op in H.COLLECTIVES:
+        assert la["collective_bytes"][op] == pytest.approx(
+            lw["collective_bytes"][op], rel=LOOP_REL, abs=0), op
+    assert got["memory"]["temp_bytes"] == pytest.approx(
+        want["memory"]["temp_bytes"], rel=LOOP_TEMP_REL)
+    for k in ("argument_bytes", "output_bytes"):
+        assert got["memory"][k] == want["memory"][k], k
+    # the group loop skipped trips; the whole trace lists no loop
+    trips = dict(la["while_loops"])
+    groups = trips.get("transformer.groups") or trips.get(
+        "whisper.decode_layers" if kind == "decode"
+        else "whisper.encoder_layers")
+    assert groups >= 4 and lw["while_loops"] == []
+    if kind == "train":
+        assert trips["train.microbatches"] == 4
+    assert got["cost"]["flops_per_device_naive"] < la["flops"]
 
 
 def test_dryrun_cli_writes_a_record(tmp_path):
