@@ -9,7 +9,8 @@ its SigQuant form Fig-9q (the mask a block-circulant layer, calibrated,
 served and streamed int-routed), the FFT, phased-FIR and
 flash-attention entry points, a dense LM (starcoder2-3b) served and
 co-served with Fig 9, the other model families (MoE, RG-LRU hybrid,
-xLSTM, Whisper) served, and starcoder2-3b trained at full width,
+xLSTM, Whisper) served, starcoder2-3b and each other family trained
+at full width,
 Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
 fault-tolerance paths, the multi-device models (a pipelined
 forward, a sharded train step, the compressed all-reduce and an elastic
@@ -308,32 +309,63 @@ card) — phase by phase:
      tokens equal to ``ServingEngine.serve`` on the same weights, tok/s
      printed; (b) the dry-run (``launch/dryrun.py`` ``lower_cell``) of
      ``DRYRUN_CELLS`` on fake CUDA tensors over a fake 256 / 512-rank
-     process group, one ``spawn``ed process a cell, all started before
-     (a): no launch, no card memory but FakeTensorMode's own probe,
+     process group, one ``spawn``ed process a cell, all started after
+     (a) at a lower priority and read after phase 17, which runs
+     meanwhile: no launch, no card memory but FakeTensorMode's own probe,
      ``argument_bytes`` equal to the sharding specs' count, the
      prefills' flash op 30 (starcoder2-3b) and 24 (qwen2-moe-a2.7b) calls
      at the flop formula; the same step traced on one fake device with
-     no mesh (``dryrun.unsharded_flops``), and each cell's share (FLOPs
+     no mesh (``dryrun.unsharded_flops``; a train cell's in a process of
+     its own), and each cell's share (FLOPs
      less ``replicated.flops``) times the ranks equal to its FLOPs at
      relative 1e-9; per cell the counted loops (``while_loops``: a
      loop's body traced until two trips count alike, the rest added),
      the trace seconds, FLOPs, HBM bytes, collectives and memory per
-     device.  The cells: starcoder2-3b train_4k (also on (2, 16, 16)),
-     prefill_32k and decode_32k, gemma2-2b decode_32k, qwen2-moe-a2.7b
-     prefill_32k and decode_32k, grok-1-314b decode_32k, xlstm-350m
-     decode_32k, long_500k, prefill_32k and train_4k (also on (2, 16,
-     16)); not grok-1-314b train_4k, whose sharded step torch 2.11's
-     DTensor cannot plan (``DRYRUN_CELLS``); starcoder2-3b
+     device.  The 15 cells (``DRYRUN_CELLS``): starcoder2-3b train_4k
+     (also on (2, 16, 16)), prefill_32k and decode_32k, gemma2-2b
+     decode_32k, qwen2-moe-a2.7b prefill_32k and decode_32k,
+     grok-1-314b decode_32k and train_4k (also on (2, 16, 16); its
+     FLOPs and replicated FLOPs a device also held to the CPU sweep's,
+     ``DRYRUN_SWEEP_FLOPS``), xlstm-350m decode_32k, long_500k,
+     prefill_32k and train_4k (also on (2, 16, 16)); starcoder2-3b
      prefill_32k and train_4k and xlstm-350m long_500k are also traced
      with every loop run whole and held to their loop-aware records
      (FLOPs, replicated FLOPs, HBM and collective bytes at relative
      1e-9, temp bytes at 5%).
- 17. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 17. family train (``family_train_phase``, callable alone after
+     ``kernels.build()``): phase 13 (a)-(b) for each other family at
+     full width, bf16, random weights drawn on the card from ``--seed``,
+     the config's microbatch and remat, one model at a time
+     (``FAMILY_TRAIN``): qwen2-moe-a2.7b (cut to 4 of its 24 layers, 8 x
+     2048), recurrentgemma-2b (uncut, 4 x 2048: the local layers' window
+     full, the rows halved beside 16b's processes' card contexts),
+     xlstm-350m (cut to 8 of its 24 layers, 8 x 128: its sLSTM is a
+     Python loop over time) and whisper-small (uncut, 8 x 448 decoder
+     tokens over 1500 seeded encoder frames).  For each: (a) 10 steps
+     (xlstm-350m 24) through
+     ``make_batch_iterator`` -> ``make_train_step``
+     (``cosine_schedule(3e-4, 3, steps)``) -> ``TrainLoop``, every loss
+     and gradient norm finite, no kernel launched in any step, the mean
+     of the last 3 losses under the first 3's minus 0.3, (MoE) the
+     routed slots each step dropped at the shipped capacity factor; (b)
+     the held-out loss at the final params on one microbatch's rows
+     under ``torch.no_grad()`` (exactly one ``flash_attention_hopper``
+     launch a full-length attention layer: 4 / 8 / 0 / 24) within
+     relative 1e-2 of the same loss with autograd recording (the direct
+     route, no launch); (c) smoke readings: init seconds, parameter
+     bytes, p50 step and tokens/s, one step's busy share, launches and
+     time by kind of kernel (``torch.profiler``), peak memory.  Then (d)
+     ``python -m repro_torch.launch.train --arch xlstm-350m --steps 50
+     --seq 128 --batch 8`` (``train.main``) on the card: its ``loss a
+     -> b`` line with b below a, no launch, its two checkpoints written
+     under ``build/`` and removed; the phase's seconds printed beside
+     its 300 s budget.
+ 18. kernels: the kernel JSON of all ten kernels; the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
-     ``train``, phase 15's pipelined forward under ``mesh_models`` and
-     phase 16a's serve CLI under ``launchers`` (their launches added to
-     the row's).
+     ``train``, phase 17's under ``family_train``, phase 15's pipelined
+     forward under ``mesh_models`` and phase 16a's serve CLI under
+     ``launchers`` (those two's launches added to the row's).
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -1900,6 +1932,392 @@ def _lm_train(torch, np, seed: int, smi: str) -> dict:
                    "one flash call a layer"}
 
 
+# Phase 17: every other model family trained at full width on the card,
+# phase 13 (a)-(b) for each, one model at a time, then the train CLI.
+# (arch, source, layers kept (None: uncut), batch, seq, steps).  State is
+# 16 B a param (bf16 param and gradient, float32 accumulator and two
+# moments): qwen2-moe-a2.7b uncut is 14.3e9 params, ~229 GB, so it keeps
+# 4 of its 24 layers (2.91e9, ~46.5 GB); recurrentgemma-2b uncut is
+# 3.55e9, ~56.8 GB, at the local layers' full 2048 window: 8 rows peak
+# at 66.2-67.3 GB on an H100, which would leave under 4 GB of the card
+# beside the 13.8 GB of 16b's processes' contexts (they trace
+# meanwhile), so it takes 4 rows.
+# xlstm-350m's sLSTM is a Python loop over time (~25 ops a step, 3
+# layers, forward, remat and backward, 4 microbatches): on an H100 a step
+# of 8 x 128 took 6.9 s in ~0.2M kernels, and its loss fell by 0.3 only
+# once the schedule's summed learning rate passed ~3e-3 (8 x 512 fell
+# 0.11 in 10 steps, 8 x 64 0.20 in 24, noisier), ~24 steps, ~166 s at 24
+# layers; so it keeps one pattern group, 8 layers (7 mLSTM, 1 sLSTM; 2.35
+# s a step).  whisper-small's decoder takes its own 448-token context
+# over 1500 encoder frames.  grok-1-314b is not trained here: one layer
+# alone is 4.92e9 params; the dry-run's two train_4k cells hold its step
+# (16b).
+FAMILY_TRAIN = [
+    ("qwen2-moe-a2.7b", "src/repro/configs/qwen2_moe_a2_7b.py", 4, 8, 2048,
+     10),
+    ("recurrentgemma-2b", "src/repro/configs/recurrentgemma_2b.py", None, 4,
+     2048, 10),
+    ("xlstm-350m", "src/repro/configs/xlstm_350m.py", 8, 8, 128, 24),
+    ("whisper-small", "src/repro/configs/whisper_small.py", None, 8, 448,
+     10),
+]
+FAMILY_TRAIN_LR = (3e-4, 3)        # cosine_schedule(base, warmup, steps)
+FAMILY_TRAIN_EDGE = 3              # last-3 mean under first-3 minus the drop
+FAMILY_TRAIN_PROFILE_STEP = 6      # the step traced by torch.profiler
+FAMILY_TRAIN_BUDGET_S = 300        # the phase's own seconds, CLI included,
+#                                    printed beside them (the script's
+#                                    1200 s is the limit)
+# the train CLI's docstring arguments (a reduced config, as the JAX
+# package's CLI trains)
+TRAIN_CLI = ["--arch", "xlstm-350m", "--steps", "50", "--seq", "128",
+             "--batch", "8"]
+
+
+class EncDecStream:
+    """A Whisper batch a step: ``TokenStream`` 's decoder tokens and seeded
+    unit-normal encoder frames, ``{"tokens": (B, S), "embeds": (B,
+    enc_seq, d_model)}`` (float32; the encoder casts them to the weight
+    dtype), each a pure function of ``(seed, step)``."""
+
+    def __init__(self, tokens, enc_seq: int, d_model: int, seed: int):
+        self.tokens, self.enc_seq, self.d_model = tokens, enc_seq, d_model
+        self.seed = seed
+
+    def batch_at(self, step: int) -> dict:
+        import numpy as np
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, 11]))
+        tokens = self.tokens.batch_at(step)
+        return {"tokens": tokens, "embeds": rng.standard_normal(
+            (tokens.shape[0], self.enc_seq, self.d_model)).astype(
+                np.float32)}
+
+
+def family_stream(cfg, batch: int, seq: int, seed: int):
+    """The batches a family trains on: token ids from ``TokenStream``,
+    with encoder frames beside them for an encoder-decoder."""
+    from repro_torch.data import TokenStream
+    tokens = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                         seed=seed)
+    if cfg.input_kind == "encdec":
+        return EncDecStream(tokens, cfg.enc_seq, cfg.d_model, seed)
+    return tokens
+
+
+def family_train_run(torch, np, cfg, batch: int, seq: int, steps: int,
+                     seed: int, device: str, ck_dir: str,
+                     profile_step=None) -> dict:
+    """Phase 17's per-model body, on ``device`` (the CPU tests run it at
+    ``reduced()`` width): params drawn from ``seed`` on the device,
+    ``make_batch_iterator(family_stream(...))`` -> ``make_train_step(
+    cosine_schedule(FAMILY_TRAIN_LR..., steps))`` -> ``TrainLoop`` for
+    ``steps`` steps.  Returns the final params and moments, the losses,
+    gradient norms and learning rates, each step's seconds and launches,
+    the first batch's keys and shapes, the MoE slots each step dropped
+    (``(dropped, routed)``, forward passes only: remat's recompute
+    routes the same slots again), the init seconds and, with
+    ``profile_step``, a ``torch.profiler`` trace of that step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.runtime import TrainLoop
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params, opt = init_train_state(bundle, gen, device=device)
+    sync()
+    init_s = time.perf_counter() - t0
+    stream = family_stream(cfg, batch, seq, seed)
+    step = make_train_step(bundle, cosine_schedule(*FAMILY_TRAIN_LR, steps))
+    out = {"step_s": [], "launches": [], "grad_norms": [], "lrs": [],
+           "drops": [], "init_s": init_s, "prof": None}
+    drops, plan = [], moe_mod.dispatch_plan
+
+    def counted_plan(*a, **kw):
+        pos, keep = plan(*a, **kw)
+        if torch._C._current_autograd_node() is None:
+            drops.append(((~keep).sum(), keep.numel()))
+        return pos, keep
+
+    def counted_step(p, o, b):
+        """The train step, timed, its launches and MoE drops read, one
+        step traced."""
+        if "batch_keys" not in out:
+            out["batch_keys"] = {k: tuple(v.shape) for k, v in b.items()}
+        reset_all_launch_counts()
+        drops.clear()
+        sync()
+        t1 = time.perf_counter()
+        if len(out["step_s"]) == profile_step:
+            # the device's activity only: the host ops' events of an
+            # xlstm-350m step (~0.2M kernels) take minutes to tabulate
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = step(p, o, b)
+                sync()
+            out["prof"] = prof
+        else:
+            res = step(p, o, b)
+        sync()
+        out["step_s"].append(time.perf_counter() - t1)
+        out["launches"].append(launched())
+        out["grad_norms"].append(float(res[2]["grad_norm"]))
+        out["lrs"].append(res[2]["lr"])
+        out["drops"].append((int(sum(int(d) for d, _ in drops)),
+                             sum(n for _, n in drops)))
+        return res
+
+    loop = TrainLoop(counted_step,
+                     lambda s: make_batch_iterator(stream, start_step=s,
+                                                   device=device),
+                     Checkpointer(ck_dir), ckpt_every=10 ** 9)
+    moe_mod.dispatch_plan = counted_plan
+    try:
+        res = loop.run(params, opt, n_steps=steps)
+    finally:
+        moe_mod.dispatch_plan = plan
+    out.update(bundle=bundle, stream=stream, params=res["params"],
+               opt=res["opt_state"], history=res["history"])
+    return out
+
+
+def train_family(torch, np, spec, seed: int, smi: str) -> dict:
+    """Phase 17 for one config of ``FAMILY_TRAIN``: (a) its steps, read,
+    then checked; (c) smoke readings; (b) the held-out loss on the flash
+    kernel against the direct route.  Returns its ``family_train`` entry
+    of the flash row."""
+    import dataclasses
+    import gc
+    import shutil
+    from torch.autograd import DeviceType
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_leaves, tree_map
+    arch, src, depth, batch, seq, steps = spec
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    n_flash = full_length_attention_calls(cfg)
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke_family_train", arch)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    run = family_train_run(torch, np, cfg, batch, seq, steps, seed, "cuda",
+                           ck_dir, FAMILY_TRAIN_PROFILE_STEP)
+    train_s = time.perf_counter() - t_start
+    peak = torch.cuda.max_memory_allocated()
+    params, opt, bundle = run["params"], run["opt"], run["bundle"]
+    hist, gnorms = run["history"], run["grad_norms"]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    e = FAMILY_TRAIN_EDGE
+    first, last = float(np.mean(hist[:e])), float(np.mean(hist[-e:]))
+    steady = sorted(run["step_s"][1:])
+    p50 = steady[len(steady) // 2] * 1e3
+    tok_s = batch * seq / p50 * 1e3
+    print(f"(a) {arch} ({src}): {cfg.n_layers} layers"
+          + (f" (cut from {get_config(arch).n_layers})" if depth else "")
+          + (f" + encoder {cfg.enc_layers}" if cfg.enc_layers else "")
+          + f", d {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; {n_params}"
+          f" params, {p_bytes} B; microbatch {cfg.microbatch}, remat "
+          f"{cfg.remat}; batch {batch} x {seq} {run['batch_keys']}; "
+          f"cosine_schedule{FAMILY_TRAIN_LR + (steps,)}; init "
+          f"{run['init_s']:.2f} s", flush=True)
+    print("    losses " + " ".join(f"{x:.4f}" for x in hist))
+    print("    grad norms " + " ".join(f"{x:.4f}" for x in gnorms))
+    print(f"(a) {steps} steps in {train_s:.1f} s with the init: first "
+          f"step {run['step_s'][0] * 1e3:.1f} ms, p50 of the rest "
+          f"{p50:.1f} ms ({tok_s:.0f} tokens/s); launches a step "
+          f"{[c or 0 for c in run['launches']]}; loss first-{e} "
+          f"{first:.4f} -> last-{e} {last:.4f} (falls {first - last:.4f},"
+          f" limit {TRAIN_DROP})"
+          + (f"; routed slots dropped a step at capacity factor "
+             f"{cfg.capacity_factor}: "
+             + ", ".join(f"{d}/{n}" for d, n in run["drops"])
+             if cfg.n_experts else "")
+          + f"; peak memory {peak} B; {smi}", flush=True)
+    if len(hist) != steps or opt.step != steps:
+        raise AssertionError(f"{arch}: {len(hist)} losses, optimizer step "
+                             f"{opt.step}; want {steps}")
+    if not all(np.isfinite(hist)) or not all(np.isfinite(gnorms)):
+        raise AssertionError(f"{arch}: a loss or gradient norm is not "
+                             f"finite")
+    if any(run["launches"]):
+        raise AssertionError(f"{arch}: a training step launched kernels")
+    if cfg.input_kind == "encdec" and "embeds" not in run["batch_keys"]:
+        raise AssertionError(f"{arch}: its batches hold no embeds")
+    if not last < first - TRAIN_DROP:
+        raise AssertionError(f"{arch}: the loss did not fall by "
+                             f"{TRAIN_DROP}")
+    prof = run.pop("prof")
+    by_name = [(ev.self_device_time_total, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy_us = sum(t for t, _, _ in by_name)
+    launches = sum(c for _, c, _ in by_name)
+    prof_ms = run["step_s"][FAMILY_TRAIN_PROFILE_STEP] * 1e3
+    kinds = kernel_kinds(by_name)
+    del prof
+    if busy_us:
+        print(f"(c) smoke readings, not metrics: profile of step "
+              f"{FAMILY_TRAIN_PROFILE_STEP}: device busy "
+              f"{busy_us / 1e3:.1f} ms of {prof_ms:.1f} ms wall (traced; "
+              f"{100 * busy_us / 1e3 / prof_ms:.1f}% busy; "
+              f"{100 * busy_us / 1e3 / p50:.1f}% of the p50 step), "
+              f"{launches} kernels and copies; by kind: " + "; ".join(
+                  f"{kind} {ms:.1f} ms" for kind, ms in kinds.items()),
+              flush=True)
+    else:
+        print("(c) profile: the profiler recorded no device time; busy "
+              "share not measured", flush=True)
+
+    # (b) held-out loss at the final params, one microbatch's rows (the
+    # direct route's activations for the whole batch would not fit beside
+    # recurrentgemma-2b's 256000-row logits): flash route vs direct route
+    del opt, run["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = batch // cfg.microbatch
+    raw = family_stream(cfg, batch, seq, seed).batch_at(10 ** 6)
+    if isinstance(raw, np.ndarray):
+        raw = {"tokens": raw}
+    held = {k: torch.as_tensor(v[:rows], device="cuda")
+            for k, v in raw.items()}
+    reset_all_launch_counts()
+    with torch.no_grad():
+        flash_loss = float(bundle.loss_fn(params, held)[0])
+    torch.cuda.synchronize()
+    flash_counts = launched()
+    reset_all_launch_counts()
+    live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    it = iter(live)
+    direct_loss = float(bundle.loss_fn(tree_map(lambda _: next(it), params),
+                                       held)[0].detach())
+    torch.cuda.synchronize()
+    direct_counts = launched()
+    del live
+    rel = abs(flash_loss - direct_loss) / abs(direct_loss)
+    print(f"(b) held-out loss (step 10**6, {rows} x {seq}) at the final "
+          f"params: flash route (no_grad) {flash_loss:.6f}, launches "
+          f"{flash_counts or 0} ({n_flash} full-length attention layers); "
+          f"direct route (grad recorded) {direct_loss:.6f}, launches "
+          f"{direct_counts or 0}; relative difference {rel:.3e} (limit "
+          f"{ROUTE_REL}); {time.perf_counter() - t_start:.1f} s for the "
+          f"model", flush=True)
+    want = {"flash_attention_hopper": n_flash} if n_flash else {}
+    if flash_counts != want:
+        raise AssertionError(f"{arch}: held-out loss under no_grad launched "
+                             f"{flash_counts}, not {want}")
+    if direct_counts or not rel < ROUTE_REL:
+        raise AssertionError(f"{arch}: the two attention routes disagree")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    return {"config": arch, "source": src, "depth": cfg.n_layers,
+            "depth_cut_from": get_config(arch).n_layers if depth else None,
+            "batch": batch, "seq": seq, "steps": steps,
+            "n_params": n_params, "param_bytes": p_bytes,
+            "init_s": run["init_s"], "launches_per_step": 0,
+            "held_out_launches": flash_counts.get("flash_attention_hopper",
+                                                  0),
+            "held_out_rel_diff": rel, "step_p50_ms": p50,
+            "tokens_per_s": tok_s,
+            "busy_share": busy_us / 1e3 / p50 if busy_us else None,
+            "device_launches_per_step": launches if busy_us else None,
+            "kernel_kinds_ms": kinds if busy_us else None,
+            "peak_bytes": peak, "loss_first3": first, "loss_last3": last,
+            "dropped_slots": run["drops"] if cfg.n_experts else None,
+            "seconds": time.perf_counter() - t_start}
+
+
+def train_cli_on_card(torch) -> dict:
+    """(d) ``python -m repro_torch.launch.train`` at its docstring's
+    arguments (``TRAIN_CLI``) on the card, ``train.main`` in this
+    process: its ``loss a -> b`` line with b below a, no kernel launch,
+    its checkpoints of steps 25 and 50 written under ``build/`` and
+    removed."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from repro_torch.launch import train as train_cli
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke_train_cli")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    argv = TRAIN_CLI + ["--device", "cuda", "--ckpt-dir", ck_dir]
+    reset_all_launch_counts()
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    counts = launched()
+    text = buf.getvalue().strip()
+    saved = sorted(os.listdir(ck_dir))
+    print(f"(d) python -m repro_torch.launch.train {' '.join(argv)}: "
+          f"{cli_s:.1f} s, launches {counts or 0}, checkpoints {saved}; "
+          f"its output: {text}", flush=True)
+    m = re.fullmatch(r"loss (\S+) -> (\S+) over (\d+) steps",
+                     text.splitlines()[-1])
+    if m is None or not float(m.group(2)) < float(m.group(1)):
+        raise AssertionError(f"the train CLI's loss did not fall: {text!r}")
+    if counts:
+        raise AssertionError(f"the train CLI launched {counts}")
+    if saved != ["step_000025", "step_000050"]:
+        raise AssertionError(f"the train CLI wrote {saved} under {ck_dir}")
+    shutil.rmtree(ck_dir)
+    return {"argv": argv, "seconds": cli_s, "output": text}
+
+
+def family_train_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 17: ``FAMILY_TRAIN`` trained one model at a time
+    (``train_family``), then (d) the train CLI on the card
+    (``train_cli_on_card``); the phase's seconds printed beside its
+    budget.  Returns the flash row's ``family_train`` entry."""
+    import gc
+    import shutil
+    import signal
+    # TrainLoop installs a SIGTERM handler (preemption); the script keeps
+    # its own for the other phases
+    sigterm = signal.getsignal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"card memory at the phase's start: {free} of {total} B free, "
+          f"{torch.cuda.memory_allocated()} B allocated by this process "
+          f"(16b's processes hold their contexts)", flush=True)
+    try:
+        models = []
+        for spec in FAMILY_TRAIN:
+            models.append(train_family(torch, np, spec, seed, smi))
+            gc.collect()
+            torch.cuda.empty_cache()
+        cli = train_cli_on_card(torch)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_family_train"),
+                  ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    print(f"phase 17: {phase_s:.1f} s (its budget "
+          f"{FAMILY_TRAIN_BUDGET_S} s): "
+          + ", ".join(f"{r['config']} {r['seconds']:.1f} s" for r in models)
+          + f", the CLI {cli['seconds']:.1f} s", flush=True)
+    return {"launches": sum(r["held_out_launches"] for r in models),
+            "models": models, "phase_s": phase_s, "cli": cli,
+            "per": "the held-out losses under no_grad, one flash call a "
+                   "full-length attention layer; the training steps and "
+                   "the train CLI launch no kernel"}
+
+
 # Phase 14: SigMesh — Fig 9 served and streamed over a 4-shard mesh.  On
 # one card the 4 logical shards wrap onto the one device (SignalMesh spans
 # it, as the JAX package's mesh spans one jax device): a meshed wave is
@@ -2655,6 +3073,17 @@ def _mm_rank_checkpoint(torch, dist, seed: int, work: str) -> dict:
             "placements": {k: str(back[k].placements) for k in tree}}
 
 
+def _release_shared(torch, tree: dict) -> None:
+    """Drop a rank's references to the parent's tensors (received through
+    CUDA IPC) while CUDA still runs: freed at interpreter exit, they are
+    never reported back, and the parent holds them (its IPC limbo) to
+    its own end."""
+    tree.clear()
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+
+
 def _mm_rank(rank: int, world: int, init: str, work: str, seed: int,
              ref: dict) -> None:
     """One of the 4 ranks of phase 15 (b-d and 15a's staged probe);
@@ -2706,6 +3135,7 @@ def _mm_rank(rank: int, world: int, init: str, work: str, seed: int,
         res["staged_totals"] = staged_gloo.staged_totals()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
+        _release_shared(torch, ref)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -2976,6 +3406,7 @@ def _mm_family_rank(rank: int, world: int, init: str, work: str, seed: int,
             torch.cuda.empty_cache()
         with open(os.path.join(work, f"family{rank}.json"), "w") as f:
             json.dump(res, f)
+        _release_shared(torch, refs)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -3034,6 +3465,8 @@ def mesh_families(torch, seed: int, work: str, ctx) -> tuple:
                        ("loss", "grad_norm", "tokens")}
                 for arch in MM_FAMILIES}
     del fshared
+    # tensors sent to the ranks stay in CUDA IPC's limbo until collected
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     if any(c != 0 for c in codes):
         errs = []
@@ -3218,6 +3651,7 @@ def mesh_models_phase(torch, np, seed: int, smi: str) -> dict:
     codes = _mm_join(procs, time.monotonic() + MM_TIMEOUT)
     ranks_s = time.perf_counter() - t0
     del shared                        # the ranks are gone: free the card
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     if any(c != 0 for c in codes):
         errs = []
@@ -3370,16 +3804,13 @@ DRYRUN_CELLS = [("starcoder2-3b", "train_4k", False),
                 ("qwen2-moe-a2.7b", "prefill_32k", False),
                 ("qwen2-moe-a2.7b", "decode_32k", False),
                 ("grok-1-314b", "decode_32k", False),
+                ("grok-1-314b", "train_4k", False),
+                ("grok-1-314b", "train_4k", True),
                 ("xlstm-350m", "decode_32k", False),
                 ("xlstm-350m", "long_500k", False),
                 ("xlstm-350m", "prefill_32k", False),
                 ("xlstm-350m", "train_4k", False),
                 ("xlstm-350m", "train_4k", True)]
-# not here: grok-1-314b train_4k. On the card's torch 2.11 DTensor plans
-# the experts' down projection (moe.py, "becf,efd->becd") as a local
-# view of a (e, b c, f) merge the local strides do not allow, and the
-# step raises; the CPU sweep (tools/dryrun_sweep.py, torch 2.13) traces
-# both meshes (ROADMAP Queue 3)
 # cells also traced with every loop run whole (dryrun.lower_cell(
 # whole_loops=True)), in processes of their own, each held to its
 # loop-aware record: FLOPs, replicated FLOPs, HBM bytes and collective
@@ -3394,42 +3825,72 @@ DRYRUN_TIMEOUT = 600
 # a cell's share of the work times its ranks against the same step
 # traced on one fake device with no mesh
 DRYRUN_SHARE_REL = 1e-9
+# (FLOPs, replicated FLOPs) a device of the CPU sweep (tools/dryrun_sweep.py
+# on torch 2.13) that the card's trace must give at DRYRUN_SHARE_REL:
+# grok-1-314b's train step, whose expert FFN torch 2.11's DTensor plans
+# only expert-major
+DRYRUN_SWEEP_FLOPS = {
+    ("grok-1-314b", "train_4k", False): (4648666442760192.0,
+                                         1198295875584000.0),
+    ("grok-1-314b", "train_4k", True): (4648666442760192.0,
+                                        2923481159172096.0),
+}
 
 
 def _dryrun_tag(arch: str, shape: str, multi_pod: bool,
-                whole: bool = False) -> str:
+                mode: str = "record") -> str:
     return (f"{arch}__{shape}__{'2x16x16' if multi_pod else '16x16'}"
-            + ("__whole" if whole else ""))
+            + ("" if mode == "record" else f"__{mode}"))
+
+
+def _unsharded_apart(shape: str) -> bool:
+    """A train cell's unsharded trace runs in a process of its own (the
+    longest cells' two traces in parallel); a prefill's or a decode's
+    follows its record in the record's process."""
+    return shape == "train_4k"
 
 
 def _dryrun_cell(arch: str, shape: str, multi_pod: bool, work: str,
-                 whole: bool = False) -> None:
-    """One 16b cell in a process of its own: ``dryrun.lower_cell`` on
-    fake CUDA tensors, with this process's kernel launches and
-    ``torch.cuda.memory_allocated()`` around it; the record and the
-    readings go to ``work/<tag>.json``, a traceback to ``<tag>.err``.
-    With ``whole`` the cell's loops run every trip, and no unsharded
-    trace follows."""
-    tag = _dryrun_tag(arch, shape, multi_pod, whole)
+                 mode: str = "record") -> None:
+    """One 16b trace in a process of its own, on fake CUDA tensors, with
+    this process's kernel launches and ``torch.cuda.memory_allocated()``
+    around it; the readings go to ``work/<tag>.json``, a traceback to
+    ``<tag>.err``.  ``mode``: ``"record"`` — ``dryrun.lower_cell``, then
+    (unless a multi-pod twin or ``_unsharded_apart``) the same step on
+    one fake device with no mesh; ``"whole"`` — ``lower_cell`` with
+    every loop run whole, no unsharded trace; ``"unsharded"`` — that
+    unsharded trace alone."""
+    tag = _dryrun_tag(arch, shape, multi_pod, mode)
+    # the host's cores go first to the parent, which runs phase 17 on the
+    # card meanwhile
+    os.nice(19)
     try:
         import torch
+        torch.set_num_threads(1)
         sys.path.insert(0, os.path.join(ROOT, "src"))
+        from repro_torch.configs import SHAPES, get_config
         from repro_torch.launch import dryrun as DR
         torch.cuda.init()
+        # this process's card context now, while the card has room: the
+        # parent starts phase 17 once every cell is ready
+        torch.empty(1, device="cuda")
+        open(os.path.join(work, tag + ".ready"), "w").close()
         reset_all_launch_counts()
         # where any card memory is allocated, with its Python stack
         torch.cuda.memory._record_memory_history(max_entries=1000)
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        rec = DR.lower_cell(arch, shape, multi_pod, device="cuda",
-                            whole_loops=whole)
+        rec = None if mode == "unsharded" else DR.lower_cell(
+            arch, shape, multi_pod, device="cuda",
+            whole_loops=mode == "whole")
         wall = time.perf_counter() - t0
         # the same step on one fake device with no mesh (a multi-pod
         # cell reads its (16, 16) twin's: no mesh, the same trace)
-        from repro_torch.configs import SHAPES, get_config
         t0 = time.perf_counter()
         twin = multi_pod and (arch, shape, False) in DRYRUN_CELLS
-        one = None if whole or twin else DR.unsharded_flops(
+        skip = mode == "whole" or (mode == "record" and (
+            twin or _unsharded_apart(shape)))
+        one = None if skip else DR.unsharded_flops(
             get_config(arch), SHAPES[shape], device="cuda")
         res = {"record": rec, "wall_s": wall, "unsharded": one,
                "unsharded_s": time.perf_counter() - t0,
@@ -3536,7 +3997,7 @@ def _dense_step_flops(cfg, shape) -> int:
     return total
 
 
-def launchers_phase(torch, np, seed: int, smi: str) -> dict:
+def launchers_phase(torch, np, seed: int, smi: str, during=None) -> dict:
     """Phase 16.  (a) ``python -m repro_torch.launch.serve --arch
     gemma2-2b --no-reduced`` (``serve.main``) in this process, once in
     bf16 and once with ``--quant-bits 8``: 6 requests at batch 4,
@@ -3558,17 +4019,23 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     heads do not split; a prefill or decode cell's share of the work
     (``loop_aware.flops`` less ``replicated.flops``) times its ranks the
     FLOPs of the same step traced on one fake device with no mesh
-    (``dryrun.unsharded_flops``) at ``DRYRUN_SHARE_REL`` in every cell,
+    (``dryrun.unsharded_flops``; a train cell's in a process of its own,
+    ``_unsharded_apart``) at ``DRYRUN_SHARE_REL`` in every cell,
     train cells included, and for a dense decoder's prefill or decode
     also the step's analytic count (``_dense_step_flops``) over its
-    ranks; each cell's counted loops and trace seconds printed; the
+    ranks, and the ``DRYRUN_SWEEP_FLOPS`` cells' FLOPs and replicated
+    FLOPs the CPU sweep's; each cell's counted loops and trace seconds
+    printed; the
     ``DRYRUN_WHOLE`` cells also traced with every loop run whole, in
     processes of their own started first, and held to their loop-aware
     records at ``DRYRUN_LOOP_REL`` (temp bytes at
     ``DRYRUN_LOOP_TEMP_REL``); each record written under
-    ``build/chip_smoke_dryrun``.
-    Returns the readings and the serve CLI's flash launches for the
-    kernel JSON."""
+    ``build/chip_smoke_dryrun``.  The cells' processes run at a lower
+    priority (``os.nice``) while ``during()``, if given, runs in this
+    process (the script's phase 17: its training is the card's, theirs
+    the host's); their records are read after it.
+    Returns the readings, the serve CLI's flash launches for the kernel
+    JSON and ``during()`` 's result."""
     import contextlib
     import io
     import re
@@ -3642,15 +4109,27 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     os.makedirs(work)
     ctx = mp.get_context("spawn")
     # the whole traces first: the longest
-    runs = [cell + (True,) for cell in DRYRUN_WHOLE] + [
-        cell + (False,) for cell in DRYRUN_CELLS]
+    runs = [cell + ("whole",) for cell in DRYRUN_WHOLE] + [
+        cell + ("record",) for cell in DRYRUN_CELLS] + [
+        cell + ("unsharded",) for cell in DRYRUN_CELLS
+        if not cell[2] and _unsharded_apart(cell[1])]
     procs = {run: ctx.Process(target=_dryrun_cell,
                               args=(*run[:3], work, run[3]))
              for run in runs}
     for p in procs.values():
         p.start()
-    codes = _mm_join(list(procs.values()),
-                     time.monotonic() + DRYRUN_TIMEOUT)
+    deadline = time.monotonic() + DRYRUN_TIMEOUT
+    t_ready = time.perf_counter()
+    while time.monotonic() < deadline and not all(
+            os.path.exists(os.path.join(work, _dryrun_tag(*run) + ".ready"))
+            or p.exitcode is not None for run, p in procs.items()):
+        time.sleep(0.2)
+    free, total = torch.cuda.mem_get_info()
+    print(f"16b: {len(procs)} processes hold their card contexts after "
+          f"{time.perf_counter() - t_ready:.1f} s; the card has {free} of "
+          f"{total} B free", flush=True)
+    during_out = during() if during is not None else None
+    codes = _mm_join(list(procs.values()), deadline)
     errs = []
     for cell, code in zip(procs, codes):
         path = os.path.join(work, _dryrun_tag(*cell) + ".err")
@@ -3721,15 +4200,26 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
         # where no work was lost and none counted twice, the loops
         # counted alike in both
         if res["unsharded"] is None:
+            apart = _unsharded_apart(shape_name)
             with open(os.path.join(work, _dryrun_tag(
-                    arch, shape_name, False) + ".json")) as f:
-                twin = json.load(f)
-            res["unsharded"] = twin["unsharded"]
-            res["unsharded_s"] = None
+                    arch, shape_name, False,
+                    "unsharded" if apart else "record") + ".json")) as f:
+                one = json.load(f)
+            if one["launches"] or one["allocated_after"]:
+                failures.append(f"{tag} unsharded: launches "
+                                f"{one['launches']}, allocated "
+                                f"{one['allocated_after']}")
+            res["unsharded"] = one["unsharded"]
+            res["unsharded_s"] = None if multi_pod else one["unsharded_s"]
         ratio = share * rec["n_devices"] / res["unsharded"]["flops"]
         if abs(ratio - 1.0) > DRYRUN_SHARE_REL:
             failures.append(f"{tag}: share x {rec['n_devices']} ranks "
                             f"over the unsharded step's FLOPs {ratio!r}")
+        sweep = DRYRUN_SWEEP_FLOPS.get((arch, shape_name, multi_pod))
+        if sweep and any(abs(g - w) > DRYRUN_SHARE_REL * w for g, w in zip(
+                (la["flops"], rep["flops"]), sweep)):
+            failures.append(f"{tag}: FLOPs {la['flops']!r}, replicated "
+                            f"{rep['flops']!r}; the CPU sweep's {sweep}")
         dense_held = cfg_c.family == "dense" and shape.kind != "train"
         if dense_held:
             want_share = _dense_step_flops(cfg_c, shape) / rec["n_devices"]
@@ -3742,14 +4232,18 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
         held = (f"; x {rec['n_devices']} ranks over the unsharded step's "
                 f"{res['unsharded']['flops']:.4e}: {ratio!r}, held at "
                 f"{DRYRUN_SHARE_REL}"
-                + (", and the analytic count" if dense_held else ""))
+                + (", and the analytic count" if dense_held else "")
+                + (", and the CPU sweep's FLOPs and replicated FLOPs"
+                   if sweep else ""))
         loops = ", ".join(f"{n} x {t}" for n, t in la["while_loops"])
         print(f"  {tag}: loops [{loops}] (trip-blind "
               f"{rec['cost']['flops_per_device_naive']:.4e} FLOPs); "
               f"traced in {rec['lower_s']} s ({res['wall_s']:.1f} "
               f"s in its process; unsharded "
               + ("the 16 x 16 cell's" if res["unsharded_s"] is None
-                 else f"{res['unsharded_s']:.1f} s") + "); "
+                 else f"{res['unsharded_s']:.1f} s"
+                 + (" in a process of its own"
+                    if _unsharded_apart(shape_name) else "")) + "); "
               f"{la['flops']:.4e} FLOPs ("
               f"{rep['flops']:.4e} repeated by other ranks, the rank's "
               f"share {share:.4e}{held}), "
@@ -3776,11 +4270,11 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     # the loop-aware records against the same cells traced whole
     for cell in DRYRUN_WHOLE:
         tag = _dryrun_tag(*cell)
-        with open(os.path.join(work, _dryrun_tag(*cell, True)
+        with open(os.path.join(work, _dryrun_tag(*cell, "whole")
                                + ".json")) as f:
             res = json.load(f)
         rec, got = res["record"], cells[tag]
-        with open(os.path.join(work, _dryrun_tag(*cell, True)
+        with open(os.path.join(work, _dryrun_tag(*cell, "whole")
                                + ".record.json"), "w") as f:
             json.dump(rec, f, indent=2)
         la = rec["loop_aware"]
@@ -3816,9 +4310,11 @@ def launchers_phase(torch, np, seed: int, smi: str) -> dict:
     if failures:
         raise AssertionError("16b:\n" + "\n".join(failures))
     seconds = time.perf_counter() - t_phase
-    print(f"phase 16: {seconds:.1f} s", flush=True)
+    print(f"phase 16: {seconds:.1f} s"
+          + (" (phase 17 ran within it)" if during is not None else ""),
+          flush=True)
     return {"flash_launches": flash_launches, "serve": serve_rows,
-            "dryrun": cells, "seconds": seconds}
+            "dryrun": cells, "seconds": seconds, "during": during_out}
 
 
 def main() -> int:
@@ -5600,12 +6096,20 @@ def main() -> int:
     phase("15 mesh models")
     mm = mesh_models_phase(torch, np, args.seed, smi)
 
-    # -- 16. launchers: the serve CLI and the dry-run ---------------------
+    # -- 16. launchers: the serve CLI and the dry-run, whose cells trace
+    # on the host while 17 trains the other families on the card ----------
     phase("16 launchers")
-    ln = launchers_phase(torch, np, args.seed, smi)
 
-    # -- 17. kernel list ----------------------------------------------------
-    phase("17 kernels")
+    def phase17():
+        phase("17 family train")
+        out = family_train_phase(torch, np, args.seed, smi)
+        phase("16b dry-run records")
+        return out
+    ln = launchers_phase(torch, np, args.seed, smi, during=phase17)
+    family_train = ln["during"]
+
+    # -- 18. kernel list ----------------------------------------------------
+    phase("18 kernels")
     launches = {**serve_counts, **{
                     "shuffle_gemm_grouped_blocks":
                     grouped_counts["shuffle_gemm_grouped_blocks"],
@@ -5654,6 +6158,9 @@ def main() -> int:
     # loss
     rows["flash_attention_hopper"]["families"] = families
     rows["flash_attention_hopper"]["train"] = train_row
+    # phase 17: the other families trained, one launch a full-length
+    # attention layer in each held-out loss
+    rows["flash_attention_hopper"]["family_train"] = family_train
     # phase 15b's pipelined forward: one launch a stage a microbatch, in
     # each rank
     rows["flash_attention_hopper"]["mesh_models"] = {
@@ -5704,7 +6211,8 @@ def main() -> int:
                                  "launches_per_call", "launch_floor_ms",
                                  "stream", "per_row", "mesh",
                                  "entry_point",
-                                 "families", "train", "mesh_models",
+                                 "families", "train", "family_train",
+                                 "mesh_models",
                                  "launchers",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},

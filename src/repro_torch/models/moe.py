@@ -3,11 +3,12 @@ scatter dispatch into an expert buffer, SwiGLU experts and an optional
 sigmoid-gated shared expert — the port's counterpart of the JAX
 package's ``models/moe.py``.
 
-Shapes: x (B, S, D) -> buffer (B, E, C, D) with per-sequence capacity
+Shapes: x (B, S, D) -> buffer (E, B, C, D) with per-sequence capacity
 ``C = max(8, min(ceil(top_k * S / E * capacity_factor), S * top_k))``;
-overflow slots drop (GShard).  A call of at most 4 positions (a decode
-step) takes the dense path instead: every expert computed, combined with
-the top-k gates.  The expert GEMMs are batched ``torch.matmul`` /
+overflow slots drop (GShard).  The JAX package's buffer is batch-major,
+(B, E, C, D): the same slots and the same products, in another order.
+A call of at most 4 positions (a decode step) takes the dense path
+instead: every expert computed, combined with the top-k gates.  The expert GEMMs are batched ``torch.matmul`` /
 ``einsum`` (cuBLAS on the card), as the JAX package computes them in
 XLA outside any Pallas kernel.
 
@@ -162,30 +163,43 @@ def moe_forward(params: dict, x: torch.Tensor, *, n_experts: int,
     aux = e * torch.sum(me * ce)
 
     pos, keep = dispatch_plan(expert_idx, e, c)
-    # overflow slots land on slot C - 1 as zeros (and weigh 0 below)
-    idx = expert_idx * c + torch.clamp_max(pos, c - 1)     # (B, S, k)
+    # The slot buffer is expert-major, (E, B, C, D): slot p of row r's
+    # expert x is flat row (x * B + r) * C + p.  The expert GEMMs then
+    # merge (B, C) as a view of a contiguous block, which DTensor's plan
+    # of the down projection needs on torch 2.11 (a batch-major block's
+    # merge is not a view there).  Overflow slots land on slot C - 1 as
+    # zeros (and weigh 0 below).
+    row = torch.arange(bl, device=x.device)[:, None, None]
+    idx = (expert_idx * bl + row) * c \
+        + torch.clamp_max(pos, c - 1)                     # (B, S, k)
 
-    buf = torch.zeros((bl, e * c, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e * bl * c, d), dtype=x.dtype, device=x.device)
     for slot in range(k):
         xk = torch.where(keep[:, :, slot, None], xl, 0).to(x.dtype)
-        buf.scatter_add_(1, idx[:, :, slot, None].expand(bl, s, d), xk)
+        buf.scatter_add_(0, idx[:, :, slot].reshape(bl * s, 1).expand(
+            bl * s, d), xk.reshape(bl * s, d))
 
-    # Expert FFN (SwiGLU) over slots: (B, E, C, D) x (E, D, F)
-    h = blocks.rows(buf.reshape(bl, e, c, d))
-    hg = einsum("becd,edf->becf", h, params["experts_gate"])
-    hu = einsum("becd,edf->becf", h, params["experts_up"])
+    # Expert FFN (SwiGLU) over slots: (E, B, C, D) x (E, D, F); under
+    # autograd the experts' d is read whole (sharding.gathered_for_grad:
+    # fsdp splits it over data)
+    h = blocks.rows(buf.reshape(e, bl, c, d), row_dim=1)
+    hg = einsum("ebcd,edf->ebcf", h,
+                SH.gathered_for_grad(params["experts_gate"], [-2]))
+    hu = einsum("ebcd,edf->ebcf", h,
+                SH.gathered_for_grad(params["experts_up"], [-2]))
     hf = F.silu(hg) * hu
     # each rank's rows of every expert's slots (DTensor may have split
     # the experts over the model axis, unevenly: 60 over 16)
-    out_buf = blocks.local(einsum("becf,efd->becd", hf,
-                                  params["experts_down"])).reshape(
-                                      bl, e * c, d)
+    out_buf = blocks.local(einsum(
+        "ebcf,efd->ebcd", hf, SH.gathered_for_grad(params["experts_down"],
+                                                   [-1])),
+        row_dim=1).reshape(e * bl * c, d)
 
     # Combine: gather each token's slot back, weighted by its gate.
     out = torch.zeros_like(xl)
     for slot in range(k):
-        got = torch.gather(out_buf, 1,
-                           idx[:, :, slot, None].expand(bl, s, d))
+        got = torch.gather(out_buf, 0, idx[:, :, slot].reshape(
+            bl * s, 1).expand(bl * s, d)).reshape(bl, s, d)
         w = (gate_vals[:, :, slot] * keep[:, :, slot])[..., None]
         out = out + got * w.to(out.dtype)
     out = blocks.rows(out)

@@ -102,7 +102,8 @@ __all__ = ["P", "NamedSharding", "param_spec", "param_specs", "zero1_spec",
            "batch_axes", "batch_spec", "cache_spec", "cache_specs",
            "cache_full", "mesh_axes_of", "row_sharding", "split_rows",
            "to_placements", "distribute_tree", "set_activation_mesh",
-           "shard_activations", "replicate_dims", "split_dim",
+           "shard_activations", "replicate_dims", "gathered_for_grad",
+           "split_dim",
            "placed_like", "grad_like", "on_local_heads", "local_copies",
            "LocalBlocks", "embedding_lookup"]
 
@@ -401,6 +402,19 @@ def replicate_dims(x, dims) -> torch.Tensor:
     return x.redistribute(x.device_mesh, pl)
 
 
+def gathered_for_grad(w, dims) -> torch.Tensor:
+    """A weight as a product under autograd reads it: with ``dims``
+    gathered (:func:`replicate_dims`), so each rank multiplies its own
+    rows by whole columns of the weight, and the weight's gradient is a
+    partial sum reduced once to its layout.  Where fsdp splits a
+    weight's contracted dim over data (grok-1-314b's experts and head),
+    DTensor otherwise plans a backward that depends on the torch
+    version: torch 2.11 computes the down projection's and the head's
+    gradients whole on every rank, torch 2.13 gathers the rows instead.
+    Without a gradient (prefill, decode) ``w`` is returned as it is."""
+    return replicate_dims(w, dims) if torch.is_grad_enabled() else w
+
+
 def split_dim(x, dim: int, sizes: Tuple[int, ...]) -> torch.Tensor:
     """``x`` with dim ``dim`` viewed as ``sizes`` (their product its
     size).  A DTensor whose ``dim`` is sharded over mesh axes of a total
@@ -579,6 +593,10 @@ class LocalBlocks:
     - :meth:`mean` — a mean over dims that include the batch: the
       blocks' sums added over the row axes.
 
+    A block whose batch dim is not its first (the MoE's expert-major slot
+    buffer, ``(E, B, C, D)``) names it: ``local(t, row_dim=1)``,
+    ``rows(t, row_dim=1)``.
+
     On plain tensors (``ref`` not a DTensor) every method returns its
     input unchanged (:meth:`mean` is ``t.mean(dims)``), so the
     unsharded path runs the same ops."""
@@ -594,24 +612,25 @@ class LocalBlocks:
         split = heads > 0 and ways > 1 and heads % ways == 0
         self.head_axes = other if split else []
 
-    def _layout(self, head_dim, rows: bool = True) -> List:
+    def _layout(self, head_dim, rows: bool = True,
+                row_dim: int = 0) -> List:
         out = []
         for j in range(self.mesh.ndim):
             if rows and j in self.row_axes:
-                out.append(Shard(0))
+                out.append(Shard(row_dim))
             elif j in self.head_axes and head_dim is not None:
                 out.append(Shard(head_dim))
             else:
                 out.append(Replicate())
         return out
 
-    def local(self, t, head_dim=None) -> torch.Tensor:
-        """``t`` 's block: rows split as ``ref`` 's, the heads at
-        ``head_dim`` split where the other axes divide them, gathered
-        otherwise."""
+    def local(self, t, head_dim=None, *, row_dim: int = 0) -> torch.Tensor:
+        """``t`` 's block: rows (dim ``row_dim``) split as ``ref`` 's,
+        the heads at ``head_dim`` split where the other axes divide them,
+        gathered otherwise."""
         if self.mesh is None:
             return t
-        pl = self._layout(head_dim)
+        pl = self._layout(head_dim, row_dim=row_dim)
         if list(t.placements) != pl:
             t = t.redistribute(self.mesh, pl)
         out = t.to_local()
@@ -633,12 +652,12 @@ class LocalBlocks:
             Partial() if j in self.row_axes else pl[j]
             for j in range(self.mesh.ndim)])
 
-    def rows(self, t, head_dim=None) -> torch.Tensor:
-        """A block of plain code's output (batch first) as a DTensor in
-        the layout of :meth:`local`."""
+    def rows(self, t, head_dim=None, *, row_dim: int = 0) -> torch.Tensor:
+        """A block of plain code's output (its batch dim ``row_dim``) as
+        a DTensor in the layout of :meth:`local`."""
         if self.mesh is None:
             return t
-        pl = self._layout(head_dim)
+        pl = self._layout(head_dim, row_dim=row_dim)
         shape = list(t.shape)
         for j, p in enumerate(pl):
             if isinstance(p, Shard):

@@ -367,7 +367,8 @@ def _embed_in(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig):
 
 def _head_out(params, x, cfg: ArchConfig):
     x = L.rms_norm(x, params["norm_f"])
-    logits = L.matmul(x, params["head"]).float()
+    # under autograd the head's d is read whole (fsdp splits it over data)
+    logits = L.matmul(x, SH.gathered_for_grad(params["head"], [0])).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

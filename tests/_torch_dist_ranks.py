@@ -1,6 +1,6 @@
 """Rank bodies of the port's multi-rank tests, run by
 ``_torch_dist.run_ranks`` (``tests/test_torch_distributed.py``,
-``tests/test_torch_compression.py``).  Each is ``fn(rank, world, ...)``
+``tests/test_torch_compression.py``, ``tests/test_torch_moe.py``).  Each is ``fn(rank, world, ...)``
 in a gloo rank on the CPU and imports PyTorch and the port only, so a
 rank starts without JAX; the tests compute the JAX package's results in
 their own process and compare.  Arrays cross as numpy; a large result is
@@ -497,3 +497,94 @@ def sharded_prefill_decode(rank, world, arch, reduced_kw, params_np, tokens,
             "tokens": [nxt[:, 0].tolist(),
                        second[:, -1].argmax(-1).tolist()],
             "cache": placements, "launches": launches}
+
+
+def moe_expert_layout(rank, world, arch, mesh_shapes, x_np):
+    """The MoE capacity path of ``arch``'s ``reduced()`` layer with the
+    config's own ``fsdp`` (float32, params from a seeded
+    ``torch.Generator``) on a ``("data", "model")`` mesh of each of
+    ``mesh_shapes``, the batch split over the data axis: for each mesh,
+    the down projection's equation, its first operand's global and local
+    shapes, whether the local block is contiguous and its ``(b, c)``
+    merge a view of the same storage, the placements of the expert
+    weights and of the LM head as their products read them, and the
+    output's and the aux loss's largest difference from the same layer
+    on plain tensors."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe, transformer
+    from repro_torch.models import sharding as SH
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full.reduced(), fsdp=full.fsdp)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                          cfg.n_shared_experts, cfg.shared_ff, torch.float32)
+    params["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, torch.float32)
+    params["norm_f"] = torch.zeros(cfg.d_model)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    x = torch.as_tensor(x_np)
+    want, want_aux = moe.moe_forward(params, x, **kw)
+    real, real_mm, calls = moe.einsum, L.matmul, []
+
+    def spy(eq, *ops):
+        calls.append((eq, ops[0], ops[1]))
+        return real(eq, *ops)
+
+    def spy_mm(a, b):
+        calls.append(("head", a, b))
+        return real_mm(a, b)
+
+    def placements(t):
+        """``"S<dim>"`` a shard, ``"R"`` a replica, ``"P"`` a pending
+        sum, by mesh axis."""
+        if not isinstance(t, DTensor):
+            return None
+        return [f"S{p.dim}" if isinstance(p, Shard) else
+                "R" if isinstance(p, Replicate) else "P"
+                for p in t.placements]
+    out = []
+    for shape in mesh_shapes:
+        mesh = make_test_mesh(tuple(shape), device="cpu")
+        axes = SH.mesh_axes_of(mesh)
+        if cfg.fsdp:
+            SH.set_activation_mesh(mesh)
+        placed = SH.distribute_tree(
+            params, SH.param_specs(params, axes, cfg.fsdp), mesh)
+        xd = distribute_tensor(x, mesh, [
+            Shard(0) if n == "data" else Replicate()
+            for n in mesh.mesh_dim_names])
+        calls.clear()
+        moe.einsum, L.matmul = spy, spy_mm
+        try:
+            got, aux = moe.moe_forward(placed, xd, **kw)
+            transformer._head_out(placed, xd, cfg)
+        finally:
+            moe.einsum, L.matmul = real, real_mm
+            SH.set_activation_mesh(None)
+        eq, op, _ = calls[2]
+        local = op.to_local() if isinstance(op, DTensor) else op
+        try:
+            merged = local.view(local.shape[0], -1, local.shape[-1])
+            shares = merged.untyped_storage().data_ptr() \
+                == local.untyped_storage().data_ptr()
+        except RuntimeError:           # the strides allow no such view
+            shares = False
+        out.append({
+            "mesh": list(shape), "equation": eq,
+            "global_shape": list(op.shape), "local_shape": list(local.shape),
+            "contiguous": local.is_contiguous(),
+            "merge_shares_storage": shares,
+            "params_placed": {k: placements(placed[k]) for k in (
+                "experts_gate", "experts_up", "experts_down", "head")},
+            "weights_read": [placements(w) for _, _, w in calls],
+            "out_err": float((got.full_tensor() - want).abs().max()),
+            "aux_err": float(abs(float(aux.full_tensor()
+                                       if isinstance(aux, DTensor) else aux)
+                                 - float(want_aux)))})
+    return {"n_experts": cfg.n_experts, "meshes": out}

@@ -47,6 +47,8 @@ The one-launch ``fft_hopper`` equals its plain version bit for bit; the
 phased FIR kernel, unrolled or generic, its plain version at 1e-5.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1977,12 +1979,16 @@ def test_sharded_family_prefill_decode_on_card(cuda, tmp_path, arch):
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen2-moe-a2.7b", "decode_32k"),
-                                        ("xlstm-350m", "long_500k")])
+                                        ("xlstm-350m", "long_500k"),
+                                        ("grok-1-314b", "train_4k")])
 def test_family_dryrun_cell_on_fake_cuda_tensors(cuda, arch, shape):
     """A MoE and an xLSTM cell on the fake (16, 16) world, every tensor a
     fake CUDA one: no kernel launched, ``memory_allocated`` unchanged,
     and the rank's share (FLOPs less ``replicated.flops``) times 256 the
-    FLOPs of the same step traced on one fake device with no mesh."""
+    FLOPs of the same step traced on one fake device with no mesh.
+    grok-1-314b's train step runs its expert FFN expert-major, the layout
+    whose (B, C) merge DTensor can plan as a local view on the card's
+    torch."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun
     before = _settled_memory_allocated()
@@ -1993,3 +1999,37 @@ def test_family_dryrun_cell_on_fake_cuda_tensors(cuda, arch, shape):
     assert torch.cuda.memory_allocated() == before
     share = rec["loop_aware"]["flops"] - rec["replicated"]["flops"]
     assert share * 256 == pytest.approx(one["flops"], rel=1e-9)
+
+
+def test_full_width_moe_train_step_on_card(cuda):
+    """One ``make_train_step`` step of qwen2-moe-a2.7b at full width cut
+    to one layer (bf16, 60 experts top-4 and a shared expert, vocab
+    151936; the config's microbatch 4 and remat) on 8 x 2048
+    ``TokenStream`` tokens, the capacity path's expert FFN expert-major
+    under autograd: loss and gradient norm finite, every moment finite,
+    no kernel launched."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=1)
+    bundle = get_model(cfg)
+    params, opt = init_train_state(
+        bundle, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    tokens = TokenStream(vocab=cfg.vocab, seq_len=2048, global_batch=8,
+                         seed=0).batch_at(0)
+    step = make_train_step(bundle, cosine_schedule(3e-4, 3, 10))
+    _reset_all_launch_counts()
+    _, opt, metrics = step(params, opt, {"tokens": torch.as_tensor(
+        tokens, device=cuda)})
+    torch.cuda.synchronize()
+    assert not any(_all_launch_counts().values())
+    assert opt.step == 1
+    assert math.isfinite(float(metrics["loss"]))
+    assert math.isfinite(float(metrics["grad_norm"]))
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(opt.m))
+    del params, opt
+    torch.cuda.empty_cache()

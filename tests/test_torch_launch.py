@@ -470,20 +470,26 @@ def test_dryrun_moe_and_xlstm_production_cells(arch, shape):
 @pytest.mark.parametrize("arch,kind,mesh_name", [
     (arch, kind, mesh) for arch in ("qwen2-moe-a2.7b", "xlstm-350m")
     for kind, mesh in (("train", "2x2"), ("prefill", "2x2"),
-                       ("prefill", "2x2x2"))])
+                       ("prefill", "2x2x2"))] + [
+    ("grok-1-314b", "train", "2x2")])
 def test_dryrun_moe_and_xlstm_small_world(arch, kind, mesh_name):
     """The reduced MoE and xLSTM configs' train step on a fake (2, 2)
     mesh and prefill on (2, 2) and (2, 2, 2), in seconds: the capacity
     path's dispatch, combine and aux loss, the chunkwise mLSTM and the
     sLSTM's per-token loop, each on a rank's own blocks.  ``argument_bytes`` is
     the JAX package's specs' count, and the share identity holds, the
-    train step's backward included."""
+    train step's backward included.  grok-1-314b's train step keeps its
+    ``fsdp`` specs (the experts' d split over data, d_ff over model): the
+    cell torch 2.11's DTensor could not plan while the expert FFN ran
+    batch-major."""
     shape_, axes = MESHES[mesh_name]
     # bf16, microbatch 2 and remat, as the tiny dense cell; xlstm-350m
     # cut to 2 layers, one mLSTM and one sLSTM block
     kw = dict(dtype="bfloat16", microbatch=2, remat=True)
     if arch == "xlstm-350m":
         kw.update(n_layers=2, pattern=("m", "s"))
+    if arch == "grok-1-314b":
+        kw.update(fsdp=True)
     cfg = dataclasses.replace(get_config(arch).reduced(**TINY), **kw)
     jcfg = dataclasses.replace(jget_config(arch).reduced(**TINY), **kw)
     sh = ShapeConfig(f"tiny_{kind}", 32, 8, kind)

@@ -22,11 +22,17 @@ seeds, configs at ``reduced()`` size in float32:
     optimizer state and metrics match the JAX package's
     ``make_train_step`` at rtol 1e-4, atol 1e-5, and the loss falls;
   * the in-place AdamW is ``torch.equal`` to ``adamw_update`` on float32
-    and bfloat16 trees and writes into the given storage.
+    and bfloat16 trees and writes into the given storage;
+  * ``chip_smoke.py`` phase 17's per-model body (``family_train_run``)
+    for its four families at ``reduced()`` width on the CPU, 3 steps:
+    finite losses and gradient norms, no launch, the batches it trains on
+    (Whisper's ``embeds`` beside the tokens).
 """
 
 import dataclasses
 import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -452,3 +458,48 @@ def test_inplace_adamw_equals_functional(dtype):
             assert torch.equal(st.v[k], ref_s.v[k]), k
     assert _ptrs((p, st)) == ptrs
     assert isinstance(st, AdamWState)
+
+
+FAMILY_TRAIN_ARCHS = ["qwen2-moe-a2.7b", "recurrentgemma-2b", "xlstm-350m",
+                      "whisper-small"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_TRAIN_ARCHS)
+def test_family_train_body_on_the_cpu(arch, tmp_path):
+    """``chip_smoke.py`` phase 17 trains these four families at full width
+    on the card; its per-model body — ``make_batch_iterator`` over
+    ``family_stream`` -> ``make_train_step`` -> ``TrainLoop`` — runs here
+    at ``reduced()`` width (microbatch 2, remat; xlstm-350m at 2 layers)
+    for 3 steps: every loss
+    and gradient norm finite, the learning rates the schedule's, no
+    kernel launch, the batch keys and shapes each family trains on, and
+    the MoE's routed slots counted once a forward pass."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as CS
+    assert FAMILY_TRAIN_ARCHS == [spec[0] for spec in CS.FAMILY_TRAIN]
+    # xlstm-350m cut to one mLSTM and one sLSTM block: each mLSTM block
+    # pads a call to its 256-position chunk, seconds a step on the CPU
+    depth = dict(n_layers=2, pattern=("m", "s")) if arch == "xlstm-350m" \
+        else {}
+    cfg = dataclasses.replace(tconfigs.get_config(arch).reduced(),
+                              microbatch=2, remat=True, **depth)
+    b, s, steps = 4, 24, 3
+    run = CS.family_train_run(torch, np, cfg, b, s, steps, 0, "cpu",
+                              str(tmp_path / "ck"))
+    assert len(run["history"]) == steps and run["opt"].step == steps
+    assert np.all(np.isfinite(run["history"]))
+    assert np.all(np.isfinite(run["grad_norms"]))
+    lr = cosine_schedule(*CS.FAMILY_TRAIN_LR, steps)
+    assert run["lrs"] == [lr(i) for i in range(steps)]
+    assert run["launches"] == [{}] * steps
+    want = {"tokens": (b, s)}
+    if cfg.input_kind == "encdec":
+        want["embeds"] = (b, cfg.enc_seq, cfg.d_model)
+    assert run["batch_keys"] == want
+    if cfg.n_experts:
+        # one capacity-path call a layer a microbatch, counted in the
+        # forward pass only (remat routes each microbatch again)
+        routed = cfg.n_layers * b * s * cfg.top_k
+        assert [n for _, n in run["drops"]] == [routed] * steps
+    else:
+        assert run["drops"] == [(0, 0)] * steps

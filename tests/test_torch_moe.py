@@ -7,6 +7,11 @@ says otherwise):
     ``capacity_factor=1.25`` where slots really drop: the output, the
     aux loss, the routing (``expert_idx`` exactly) and each slot's
     position and kept/dropped mask exactly;
+  * the capacity path's expert FFN expert-major: the down projection's
+    operand ``(E, B, C, F)`` with a contiguous block whose ``(B, C)``
+    merge is a view, on plain tensors and on 2 gloo ranks with
+    grok-1-314b's specs (``fsdp``) at ``reduced()`` width, where DTensor
+    plans that merge as a local view;
   * the dense path of a call of at most 4 positions (a decode step);
   * ``capacity`` over a grid;
   * qwen2-moe-a2.7b (shared expert) and grok-1-314b (softcaps, scaled
@@ -21,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_ranks as R
 from _model_parity import check_generate, check_model, close
+from _torch_dist import run_ranks
 from repro.models import moe as jmoe
 from repro_torch.convert import model_params_from_jax
 from repro_torch.models import moe
@@ -84,6 +91,74 @@ def test_moe_forward_capacity_path_matches_reference(cf, drops):
     print(f"capacity_factor {cf}: C {c}, dropped slots "
           f"{int((~jkeep).sum())} of {jkeep.size}, smallest top-{k} "
           f"probability margin {_min_margin(probs, k):.3e}")
+
+
+def test_expert_ffn_is_expert_major(monkeypatch):
+    """The three expert GEMMs run on an expert-major slot buffer, (E, B,
+    C, D), and the down projection's operand is a contiguous (E, B, C,
+    F) block, so the (B, C) merge its product needs is a view of the same
+    storage (on torch 2.11 DTensor plans that merge as a local ``view``,
+    which a batch-major block refuses); the output is the reference's."""
+    e, k, b, s = 8, 2, 3, 64
+    jp, tp = _layer(7, e=e)
+    x = _x(8, b, s)
+    calls = []
+    real = moe.einsum
+
+    def spy(eq, *ops):
+        calls.append((eq, ops[0]))
+        return real(eq, *ops)
+    monkeypatch.setattr(moe, "einsum", spy)
+    got, _ = moe.moe_forward(tp, torch.as_tensor(x), n_experts=e, top_k=k,
+                             capacity_factor=1.25)
+    want, _ = jmoe.moe_forward(jp, jnp.asarray(x), n_experts=e, top_k=k,
+                               capacity_factor=1.25)
+    close(got, want)
+    c = moe.capacity(s, e, k, 1.25)
+    assert [eq for eq, _ in calls] == ["ebcd,edf->ebcf"] * 2 \
+        + ["ebcf,efd->ebcd"]
+    for _, op in calls:
+        assert tuple(op.shape[:3]) == (e, b, c) and op.is_contiguous()
+    op = calls[-1][1]
+    merged = op.view(e, b * c, op.shape[-1])
+    assert merged.untyped_storage().data_ptr() \
+        == op.untyped_storage().data_ptr()
+
+
+def test_expert_ffn_is_expert_major_on_a_mesh(tmp_path):
+    """grok-1-314b's MoE layer at ``reduced()`` width with its ``fsdp``
+    specs on 2 gloo ranks, as (2, 1) (the batch and the experts' d split
+    over data) and (1, 2) (the experts' d_ff over model): each rank's
+    block of the down projection's operand is expert-major and
+    contiguous, its (B, C) merge a view, and the output and aux loss
+    those of the layer on plain tensors.  The experts' d and the LM
+    head's, split over data by fsdp, are gathered before their products
+    (each rank's rows times whole-d weights split over the model axis):
+    the plan torch 2.11's DTensor would otherwise replace by one that
+    repeats the down projection's and the head's backward on every
+    rank."""
+    x = _x(9, 4, 40, d=64)
+    got = run_ranks(R.moe_expert_layout, 2, tmp_path, "grok-1-314b",
+                    [(2, 1), (1, 2)], x)
+    e = got["n_experts"]
+    for m in got["meshes"]:
+        assert m["equation"] == "ebcf,efd->ebcd", m
+        assert m["global_shape"][:2] == [e, 4], m
+        assert m["contiguous"] and m["merge_shares_storage"], m
+        assert m["out_err"] < 1e-5 and m["aux_err"] < 1e-6, m
+    # (2, 1): fsdp splits d over data (the experts' dim 1 or 2, the head's
+    # dim 0); the products read it whole
+    split = got["meshes"][0]
+    assert split["params_placed"] == {
+        "experts_gate": ["S1", "R"], "experts_up": ["S1", "R"],
+        "experts_down": ["S2", "R"], "head": ["S0", "R"]}
+    assert split["weights_read"] == [["R", "R"]] * 4
+    # (1, 2): d_ff and the vocab split over model stay split
+    assert got["meshes"][1]["weights_read"] == [
+        ["R", "S2"], ["R", "S2"], ["R", "S1"], ["R", "S1"]]
+    assert [m["local_shape"][1] for m in got["meshes"]] == [2, 4]
+    assert got["meshes"][1]["local_shape"][-1] \
+        == got["meshes"][1]["global_shape"][-1] // 2
 
 
 @pytest.mark.parametrize("s", [1, 4])
