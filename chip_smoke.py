@@ -14,8 +14,11 @@ at full width,
 Fig 9 served and streamed over a 4-shard mesh (SigMesh) with its
 fault-tolerance paths, the multi-device models (a pipelined
 forward, a sharded train step, the compressed all-reduce and an elastic
-checkpoint) on 4 gloo ranks sharing the card, and the launchers (the
-serve CLI at full width, the dry-run on fake CUDA tensors), with random
+checkpoint) on 4 gloo ranks sharing the card, the launchers (the
+serve CLI at full width, the dry-run on fake CUDA tensors), and the
+paper's own signal workloads at their published sizes (FFT 128-1024, FIR
+256 x {20, 40, 80} and 8-phase, the 2-D DCT of 32, the DWT, a 1024-point
+audio front end) offline, trained, served and streamed, with random
 weights and inputs drawn from ``--seed`` (by numpy; the LM's weights by a ``torch.Generator`` on the
 card) — phase by phase:
 
@@ -365,7 +368,49 @@ card) — phase by phase:
      ``entry_point``, phase 12's under ``families``, phase 13's under
      ``train``, phase 17's under ``family_train``, phase 15's pipelined
      forward under ``mesh_models`` and phase 16a's serve CLI under
-     ``launchers`` (those two's launches added to the row's).
+     ``launchers`` (those two's launches added to the row's); the three
+     shuffle-GEMM rows, ``fft_stages_hopper`` and ``fir_conv_hopper``
+     carry phase 19's under ``paper_suite`` (its launches added to the
+     rows').  Phase 19 runs after phase 16, before this list.
+ 19. paper suite (``paper_suite_phase``, callable alone after
+     ``kernels.build()``): the workloads of ``configs/sigdla_paper.py``
+     as ``paper_suite`` builds them — fft128 / 256 / 512 / 1024,
+     fft_ifft1024, fir256_20 / 40 / 80 and fir256_80_phased (taps from
+     ``--seed``), dct2_32 (rows of 32; the 2-D transform of a block two
+     calls with a transpose between), dwt_haar / dwt_db2 at 1024, at
+     4096 rows (dct2_32 4096 blocks, 131072 rows), and front1024 (a
+     learnable FIR of 80 taps -> STFT 1024 / 512 -> one-sided magnitude
+     -> 64 mels at 16 kHz over 16384 samples, 64 rows): (a) each at fuse
+     0, 1 and 2 on ``hopper`` against ``reference`` on the same card
+     tensors (rtol 1e-4, atol 1e-4 x max|want|); each chain bit for bit
+     its sub-steps launched one at a time, fft1024's and front1024's in
+     bfloat16 too (against the plain version at 2e-2, the same form);
+     (b) exactly ``SUITE_LAUNCHES`` a forward (fuse 0: a grouped launch a
+     butterfly; fuse 1, 2: one chain a stage) and each chain's shared
+     memory ``SUITE_SHARED_BYTES`` (16,768 to 156,240 bytes a block);
+     (c) front1024's ``value_and_grad`` wrt the FIR taps and the mel
+     weights (the mel's squared error against a seeded target over the
+     target's power) on ``hopper`` against ``reference`` (rtol 1e-4,
+     atol 1e-5), launching ``SUITE_TRAIN_LAUNCHES``, then 6 AdamW steps
+     lower the held-out loss; (d) one ``SignalService`` holding the suite
+     answers 64 requests spread over its graphs (the FIRs and front1024
+     at uneven lengths), each equal to the offline compile at its true
+     length at (a)'s limits, the window's launches printed; (e)
+     ``StreamingRunner`` takes fir256_80 in chunks of 100, 37 and 119
+     against the offline compile (atol 1e-5) and refuses front1024 (an
+     STFT with no iSTFT), as the JAX package's does; (f) smoke readings:
+     each kernel call of a fuse-2 forward timed (CUDA-graph replays)
+     beside its bound, its plain version, one PyTorch call computing the
+     same function where there is one (``torch.fft.fft``, a causal
+     ``F.conv1d``, and ``torch.matmul`` on ``x.view(B, rows, t)`` where a
+     call's rows gather ``x`` in order without overlap: dct2_32,
+     dwt_haar, front1024's mel; each held to the kernel's result; db2's
+     windows overlap and wrap, so it has none) and, for a wide call (t >=
+     32), the sequential body on the same operands; ``fft_hopper`` at
+     128-1024 points and ``fir_conv`` at 256 x {20, 40, 80} taps in 8
+     phases on 4096 rows through phase 6's readings
+     (``fft_entry_reading``, ``fir_entry_reading``); (g) the
+     phase's seconds against its 180 s budget.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -4317,6 +4362,652 @@ def launchers_phase(torch, np, seed: int, smi: str, during=None) -> dict:
             "dryrun": cells, "seconds": seconds, "during": during_out}
 
 
+# -- phase 19: the paper's own signal workloads on the card ----------------
+# The workloads of src/repro/configs/sigdla_paper.py (Table I, Fig 7, Fig 8,
+# Fig 10) at the paper's sizes, as SignalGraphs compiled on the hopper
+# backend: the FFT at 128-1024 points (one chain of log2 n butterflies, one
+# tile a row; above 48 KB of shared memory the chain launch needs the
+# opt-in), FFT -> iFFT at 1024, the FIR of 256 samples with 20, 40 and 80
+# taps (80 taps also in 8 phases: the wide rows of shuffle_gemm_blocks), the
+# DCT-II of 32 (t 32, the wide path's first t; the 2-D transform of a 32 x
+# 32 block is two calls with a transpose between them), the Haar and db2
+# DWT of 1024, and front1024: the 1024-point audio front end (a learnable
+# FIR of 80 taps, STFT frame 1024 hop 512, one-sided magnitude, 64 mels at
+# 16 kHz) over 1.02 s of samples.  Batches: 4096 rows (4096 DCT blocks,
+# 131072 rows of 32), front1024 64.
+SUITE_FFT_N = (128, 256, 512, 1024)
+SUITE_FIR_TAPS = (20, 40, 80)
+SUITE_BATCH, SUITE_FRONT_BATCH = 4096, 64
+SUITE_REL = 1e-4            # rtol, and atol as this times max|want|: an
+#                             n-point FFT's outputs grow as sqrt(n)
+SUITE_BF16 = ("fft1024", "front1024")       # chains also run in bfloat16
+SUITE_BF16_REL = 2e-2
+SUITE_GRAD_TOL = (1e-4, 1e-5)               # Fig 9's (phase 7)
+SUITE_TRAIN_STEPS, SUITE_TRAIN_LR = 6, 1e-2
+SUITE_REQUESTS, SUITE_SERVE_BATCH = 64, 8
+SUITE_STREAM_ROWS = 8
+SUITE_STREAM = {"fir256_80": (100, 37), "front1024": (5000, 1234)}
+SUITE_STREAM_REFUSED = {"front1024": "stft and istft must appear together"}
+SUITE_STREAM_ATOL = 1e-5                    # Fig 9's streamed ``out``
+SUITE_BUDGET_S = 180
+# Dynamic shared memory of each chain launch (kernels/shuffle_gemm/chain.py
+# shared_bytes): one tile a batch row, one block a tile.
+SUITE_SHARED_BYTES = {"fft128": 16768, "fft256": 35264, "fft512": 74256,
+                      "fft1024": 156240, "fft_ifft1024": 156240,
+                      "front1024": 156240}
+
+
+def _suite_launches(blocks: int = 0, grouped: int = 0, chain: int = 0):
+    return {"shuffle_gemm_blocks": blocks,
+            "shuffle_gemm_grouped_blocks": grouped,
+            "shuffle_gemm_chain": chain}
+
+
+# Launches of one forward of each suite workload on hopper, at fuse 0, 1
+# and 2: at fuse 0 the butterflies' standalone gathers split every run, so
+# each butterfly is one grouped launch; at fuse 1 and 2 a stage's
+# butterflies are one chain segment (one launch).  Each fused_gemm route is
+# one shuffle_gemm_blocks launch (dct2_32: two calls, rows then columns).
+SUITE_LAUNCHES = {
+    **{f"fft{n}": (_suite_launches(grouped=n.bit_length() - 1),
+                   _suite_launches(chain=1), _suite_launches(chain=1))
+       for n in SUITE_FFT_N},
+    "fft_ifft1024": (_suite_launches(grouped=20), _suite_launches(chain=2),
+                     _suite_launches(chain=2)),
+    **{f"fir256_{t}": (_suite_launches(blocks=1),) * 3
+       for t in SUITE_FIR_TAPS},
+    "fir256_80_phased": (_suite_launches(blocks=1),) * 3,
+    "dct2_32": (_suite_launches(blocks=2),) * 3,
+    "dwt_haar": (_suite_launches(blocks=1),) * 3,
+    "dwt_db2": (_suite_launches(blocks=1),) * 3,
+    "front1024": (_suite_launches(blocks=2, grouped=10),
+                  _suite_launches(blocks=2, chain=1),
+                  _suite_launches(blocks=2, chain=1)),
+}
+# front1024's value_and_grad (wrt the FIR taps and the mel weights) at fuse
+# 2: the forward's 2 + 1, then the backward's 3 + 1: the mel GEMM's
+# transposed GEMM (rows 31, t 64, n_out 513: its input depends on the taps)
+# and its width-1 adjoint reduction (no chain to fold it into), the STFT
+# chain's backward list (10 transposed butterflies, the width-1 adjoints
+# folded) as one chain, and the framing adjoint (frames overlap by the hop:
+# width 2); the FIR's and the mel's d_w are einsums (no kernel).
+SUITE_TRAIN_LAUNCHES = _suite_launches(blocks=5, chain=2)
+
+
+def paper_suite(SignalGraph, seed: int = 0) -> dict:
+    """The paper's signal workloads as graphs of ``SignalGraph`` (either
+    package's class): ``{name: (graph, length, batch on the card)}``, the
+    names the workload keys of ``configs/sigdla_paper.py``.  FIR taps come
+    from ``seed`` (numpy); each graph's output is ``y``, front1024's
+    ``mel``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    suite = {}
+
+    def graph(name, build, length, batch=SUITE_BATCH, out="y"):
+        g = SignalGraph(name)
+        build(g)
+        g.outputs(out)
+        suite[name] = (g, length, batch)
+
+    for n in SUITE_FFT_N:
+        graph(f"fft{n}", lambda g: g.fft("y", "input"), n)
+    graph("fft_ifft1024", lambda g: (g.fft("f", "input"), g.ifft("y", "f")),
+          1024)
+    for t in SUITE_FIR_TAPS:
+        taps = rng.standard_normal(t) / np.sqrt(t)
+        graph(f"fir256_{t}", lambda g: g.fir("y", "input", taps=taps), 256)
+    taps = rng.standard_normal(80) / np.sqrt(80)
+    graph("fir256_80_phased",
+          lambda g: g.fir("y", "input", taps=taps, phases=8), 256)
+    graph("dct2_32", lambda g: g.dct("y", "input"), 32)
+    for w in ("haar", "db2"):
+        graph(f"dwt_{w}", lambda g: g.dwt("y", "input", wavelet=w), 1024)
+    front = rng.standard_normal(80) / np.sqrt(80)
+
+    def front1024(g):
+        g.fir("front", "input", taps=front)
+        g.stft("spec", "front", frame=1024, hop=512)
+        g.magnitude("mag", "spec", onesided=True)
+        g.mel_filterbank("mel", "mag", sr=16_000, n_mels=64)
+    graph("front1024", front1024, 16384, SUITE_FRONT_BATCH, out="mel")
+    return suite
+
+
+def suite_input(np, rng, name: str, length: int, batch: int):
+    """A float32 standard-normal input of a suite workload: ``(batch,
+    length)``, dct2_32's ``(batch, 32, 32)`` blocks."""
+    shape = (batch, length, length) if name == "dct2_32" else (batch, length)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def suite_forward(name: str, compiled, x, params=None) -> dict:
+    """One forward of a suite workload through ``compiled`` (either
+    package's): the graph's outputs; dct2_32 takes ``(blocks, 32, 32)``
+    and returns the 2-D DCT-II of each block, the graph over rows, then
+    over the columns."""
+    if name != "dct2_32":
+        return compiled(x, params)
+    b, n, _ = x.shape
+    y = compiled(x.reshape(b * n, n), params)["y"].reshape(b, n, n)
+    y = compiled(y.swapaxes(1, 2).reshape(b * n, n), params)["y"]
+    return {"y": y.reshape(b, n, n).swapaxes(1, 2)}
+
+
+def suite_close(torch, label: str, got, want, rel: float) -> float:
+    """Max abs error of ``got`` against ``want`` (same shape, finite),
+    held at rtol ``rel`` and atol ``rel * max|want|``."""
+    got, want = got.detach(), want.detach()
+    if got.is_floating_point():
+        got, want = got.float(), want.float()
+    if tuple(got.shape) != tuple(want.shape) \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} (want "
+                             f"{tuple(want.shape)}) or non-finite values")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rel, atol=rel * scale):
+        raise AssertionError(f"{label}: max abs err {err:.3e} beyond rtol "
+                             f"{rel}, atol {rel} x {scale:.3e}")
+    return err
+
+
+def _fir_conv1d(torch, x, taps):
+    """The causal FIR ``y[n] = sum_k taps[k] x[n - k]`` as one
+    ``F.conv1d`` (flipped taps, the left pad outside)."""
+    import torch.nn.functional as F
+    xin = F.pad(x[:, None], (taps.numel() - 1, 0))
+    w = taps.flip(0)[None, None]
+    return lambda: F.conv1d(xin, w)[:, 0]
+
+
+def fft_entry_reading(torch, z) -> tuple:
+    """One ``fft_hopper`` call on the complex64 rows ``z`` (phases 6 and
+    19): its one launch checked and its result held against
+    ``torch.fft.fft`` (rtol = atol = 2e-3), then its ``fft_stages_hopper``
+    call held against the plain version (1e-4) and timed beside its bound
+    and ``torch.fft.fft`` on ``z``.  Returns (the call's arguments, the
+    bound as ``bound`` gives it, the reading)."""
+    from repro_torch.kernels.fft_stage import (fft_hopper, fft_stages_hopper,
+                                               ref_fft_stages_hopper)
+    from repro_torch.kernels.fft_stage import kernel as fft_kernel
+    with torch.no_grad():
+        fft_kernel.reset_launch_counts()
+        y = fft_hopper(z)
+        torch.cuda.synchronize()
+        counts = fft_kernel.launch_counts()
+        lib_y = torch.fft.fft(z)
+    if counts != {"fft_stages_hopper": 1}:
+        raise AssertionError(f"fft_hopper over {z.shape[-1]} points "
+                             f"launched {counts}")
+    torch.testing.assert_close(y, lib_y, rtol=2e-3, atol=2e-3)
+    (_, a), = record_calls(torch, lambda: fft_hopper(z),
+                           "repro_torch.kernels.fft_stage.ops",
+                           ("fft_stages_hopper",))
+    with torch.no_grad():
+        got, want = fft_stages_hopper(**a), ref_fft_stages_hopper(**a)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        k_ms = device_ms(torch, lambda: fft_stages_hopper(**a))
+        p_ms = device_ms(torch, lambda: ref_fft_stages_hopper(**a))
+        l_ms = device_ms(torch, lambda: torch.fft.fft(z))
+    b_, n2 = a["x"].shape
+    n_st = len(a["nb"])
+    # one read and one write of the frames, the indices, the scatter and
+    # the twiddles; 8 flops an element a stage
+    b = bound(2 * 4 * b_ * n2 + 4 * (a["idx"].numel() + a["scatter"].numel()
+                                     + a["tw"].numel()),
+              8 * b_ * n2 * n_st, FP32_FLOP_PER_S)
+    return a, b, {
+        "n": z.shape[-1], "rows": b_, "stages": n_st, "launches": counts,
+        "max_abs_err": err, "library_err": float((y - lib_y).abs().max()),
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+        "bound_by": "bytes" if b[1] >= b[2] else "operations",
+        "library_ms": l_ms, "library": "torch.fft.fft"}
+
+
+def fir_entry_reading(torch, x, h, phases: int = 8) -> tuple:
+    """One ``fir_conv`` call on the float32 rows ``x`` with taps ``h`` in
+    ``phases`` phases (phases 6 and 19): its one launch checked and its
+    result held against the causal ``F.conv1d`` (rtol = atol = 1e-4), then
+    its ``fir_conv_hopper`` call held against the plain version (1e-4) and
+    timed beside its bound and that ``F.conv1d``.  Returns (the call's
+    arguments, the bound as ``bound`` gives it, the reading)."""
+    from repro_torch.kernels.fir_conv import (fir_conv, fir_conv_hopper,
+                                              ref_fir_conv_hopper)
+    from repro_torch.kernels.fir_conv import kernel as fir_kernel
+    conv = _fir_conv1d(torch, x, h)
+    with torch.no_grad():
+        fir_kernel.reset_launch_counts()
+        y = fir_conv(x, h, phases=phases)
+        torch.cuda.synchronize()
+        counts = fir_kernel.launch_counts()
+        lib_y = conv()
+    if counts != {"fir_conv_hopper": 1}:
+        raise AssertionError(f"fir_conv {h.numel()} taps launched {counts}")
+    torch.testing.assert_close(y, lib_y, rtol=1e-4, atol=1e-4)
+    (_, a), = record_calls(torch, lambda: fir_conv(x, h, phases=phases),
+                           "repro_torch.kernels.fir_conv.ops",
+                           ("fir_conv_hopper",))
+    with torch.no_grad():
+        got, want = fir_conv_hopper(**a), ref_fir_conv_hopper(**a)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        k_ms = device_ms(torch, lambda: fir_conv_hopper(**a))
+        p_ms = device_ms(torch, lambda: ref_fir_conv_hopper(**a))
+        l_ms = device_ms(torch, conv)
+    (b_, n), (m, win), p_ = a["x"].shape, a["idx"].shape, \
+        a["wbank"].shape[1]
+    # the input, the window table, the tap bank and the output once each;
+    # 2 flops a multiply-add
+    b = bound(4 * (b_ * n + m * win + win * p_ + b_ * m * p_),
+              2 * b_ * m * win * p_, FP32_FLOP_PER_S)
+    return a, b, {
+        "taps": h.numel(), "phases": p_, "rows": b_, "windows": m,
+        "window": win, "launches": counts, "max_abs_err": err,
+        "library_err": float((y - lib_y).abs().max()), "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b[0],
+        "bound_by": "bytes" if b[1] >= b[2] else "operations",
+        "library_ms": l_ms, "library": "causal F.conv1d"}
+
+
+def matmul_form(torch, a: dict):
+    """The one ``torch.matmul`` a ``shuffle_gemm_blocks`` call ``a`` is
+    where its rows gather ``x`` in order, without overlap, PAD or scale
+    (dct2_32, dwt_haar, a mel bank): ``x.view(B, rows, t) @ w``, as a
+    function of no arguments; else None."""
+    x, idx, w = a["x"], a["idx"], a["w"]
+    rows, t = idx.shape
+    if a.get("scale") is not None or w.ndim != 2 or x.shape[1] != rows * t \
+            or not torch.equal(idx.flatten(), torch.arange(
+                rows * t, dtype=idx.dtype, device=idx.device)):
+        return None
+    xr = x.view(x.shape[0], rows, t)
+    return lambda: torch.matmul(xr, w)
+
+
+def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
+    """Phase 19: the paper suite (``paper_suite``) on the card through
+    the graph's entry points, each result held against the ``reference``
+    backend on the same card tensors; callable alone after
+    ``kernels.build()``.  Returns the kernel JSON's ``paper_suite``
+    entries and launch counts."""
+    from repro_torch.kernels.shuffle_gemm import (
+        launch_counts, ref_shuffle_gemm_blocks,
+        ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
+        shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
+        shuffle_gemm_steps)
+    from repro_torch.kernels.shuffle_gemm.kernel import ref_chain
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.serving import SignalRequest, SignalService
+    from repro_torch.signal import SignalGraph, StreamingRunner
+
+    t_phase = time.perf_counter()
+    suite = paper_suite(SignalGraph, seed)
+    rng = np.random.default_rng(seed + 19)
+    xs = {name: torch.as_tensor(suite_input(np, rng, name, length, batch),
+                                device="cuda")
+          for name, (_, length, batch) in suite.items()}
+    kern = {"shuffle_gemm_blocks": (shuffle_gemm_blocks,
+                                    ref_shuffle_gemm_blocks),
+            "shuffle_gemm_grouped_blocks": (shuffle_gemm_grouped_blocks,
+                                            ref_shuffle_gemm_grouped_blocks),
+            "shuffle_gemm_chain": (shuffle_gemm_chain, ref_chain)}
+    made = _suite_launches()             # the phase's main-path launches
+
+    def add(counts):
+        for k, v in counts.items():
+            made[k] += v
+
+    # -- a/b. offline at fuse 0, 1, 2 against reference; launches; chains
+    compiled, calls_of = {}, {}
+    for name, (g, length, batch) in suite.items():
+        x, errs = xs[name], []
+        for fuse in (0, 1, 2):
+            h = g.compile(length, fuse=fuse, backend="hopper", device="cuda")
+            r = g.compile(length, fuse=fuse, backend="reference",
+                          device="cuda")
+            with torch.no_grad():
+                reset_launch_counts()
+                got = suite_forward(name, h, x)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                want = suite_forward(name, r, x)
+            if counts != SUITE_LAUNCHES[name][fuse]:
+                raise AssertionError(f"{name} fuse {fuse} launched {counts}, "
+                                     f"not {SUITE_LAUNCHES[name][fuse]}")
+            add(counts)
+            errs += [suite_close(torch, f"{name} fuse {fuse} {k}", got[k],
+                                 want[k], SUITE_REL) for k in want]
+        compiled[name] = (h, r)
+        calls = calls_of[name] = record_calls(
+            torch, lambda: suite_forward(name, h, x))
+        chains = []
+        for kname, a in calls:
+            if kname != "shuffle_gemm_chain":
+                continue
+            rep = a["segment"].report()
+            if rep["shared_bytes"] != SUITE_SHARED_BYTES[name]:
+                raise AssertionError(f"{name} chain {rep}: shared bytes not "
+                                     f"{SUITE_SHARED_BYTES[name]}")
+            with torch.no_grad():
+                got = shuffle_gemm_chain(**a)
+                if not torch.equal(got, shuffle_gemm_steps(**a)):
+                    raise AssertionError(f"{name} chain is not its "
+                                         f"sub-steps launched one at a time")
+                text = (f"chain of {len(rep['steps'])} ({rep['tiles']} tiles "
+                        f"of {rep['tile_floats']} floats a row, "
+                        f"{rep['shared_bytes']} B shared) bit for bit its "
+                        f"sub-steps")
+                if name in SUITE_BF16:
+                    a16 = dict(a, x=a["x"].to(torch.bfloat16),
+                               ws=[w.to(torch.bfloat16) for w in a["ws"]])
+                    got = shuffle_gemm_chain(**a16)
+                    if not torch.equal(got, shuffle_gemm_steps(**a16)):
+                        raise AssertionError(f"{name} bfloat16 chain is not "
+                                             f"its sub-steps")
+                    err = suite_close(torch, f"{name} bfloat16 chain", got,
+                                      ref_chain(**a16), SUITE_BF16_REL)
+                    text += (f", bfloat16 too (max abs err {err:.3e} against "
+                             f"the plain version, rel {SUITE_BF16_REL})")
+            chains.append(text)
+        print(f"{name}: length {length}, input {tuple(x.shape)}; hopper vs "
+              f"reference at fuse 0/1/2 max abs err {max(errs):.3e}; "
+              f"launches {[SUITE_LAUNCHES[name][f] for f in (0, 1, 2)]}"
+              + "".join(f"; {c}" for c in chains), flush=True)
+
+    # -- f. readings: each kernel call of a fuse-2 forward, timed beside
+    # its bound, its plain version and (FFT, FIR, DCT, Haar DWT, mel) one
+    # PyTorch call
+    print(f"readings (smoke, not metrics; CUDA-graph replays) on {smi}:",
+          flush=True)
+    readings = {n: [] for n in kern}
+    for name, calls in calls_of.items():
+        x = xs[name]
+        for kname, a in calls:
+            k_fn, p_fn = kern[kname]
+            with torch.no_grad():
+                err = suite_close(torch, f"{name} {kname}", k_fn(**a),
+                                  p_fn(**a), SUITE_REL)
+                k_ms = device_ms(torch, lambda: k_fn(**a))
+                p_ms = device_ms(torch, lambda: p_fn(**a))
+            nbytes, flops = (chain_cost if kname == "shuffle_gemm_chain"
+                             else call_cost)(a)
+            b = bound(nbytes, flops, FP32_FLOP_PER_S)
+            d = describe(kname, a)
+            # the one PyTorch call computing the same function, held
+            # against the kernel's result
+            lib, lib_name, lib_want = None, None, None
+            mm = (matmul_form(torch, a) if kname == "shuffle_gemm_blocks"
+                  else None)
+            if name in ("fft128", "fft256", "fft512", "fft1024"):
+                lib, lib_name = (lambda: torch.fft.fft(x)), "torch.fft.fft"
+                lib_want = compiled[name][0](x)["y"]
+            elif kname == "shuffle_gemm_blocks" and (
+                    name.startswith("fir256") or d["n_out"] == 1
+                    and name == "front1024"):
+                stage = "front" if name == "front1024" else "y"
+                taps = torch.as_tensor(suite[name][0].stages[stage].params[
+                    "taps"].astype(np.float32), device="cuda")
+                lib, lib_name = _fir_conv1d(torch, x, taps), "causal F.conv1d"
+                with torch.no_grad():
+                    lib_want = k_fn(**a).reshape(x.shape)
+            elif mm is not None:
+                # dct2_32 (the DCT matrix), dwt_haar (the Haar pair),
+                # front1024's mel bank: rows in order, no overlap
+                lib = mm
+                lib_name = "torch.matmul (x.view(B, rows, t) @ w)"
+                with torch.no_grad():
+                    lib_want = k_fn(**a)
+            if lib is not None:
+                with torch.no_grad():
+                    suite_close(torch, f"{name} {lib_name}", lib(), lib_want,
+                                SUITE_REL)
+            lib_ms = None if lib is None else device_ms(torch, lib)
+            # a wide call (t >= 32) also on the sequential body: the
+            # grouped kernel with one group computes the same function
+            seq_ms = None
+            if kname == "shuffle_gemm_blocks" and d["t"] >= 32:
+                ga = dict(x=a["x"], idx=a["idx"], pad_vals=a["pad_vals"],
+                          w=a["w"][None], reps=1, groups=1, nb=d["rows"],
+                          scale=a["scale"])
+                with torch.no_grad():
+                    suite_close(torch, f"{name} sequential body",
+                                shuffle_gemm_grouped_blocks(**ga),
+                                k_fn(**a).reshape(a["x"].shape[0], -1),
+                                SUITE_REL)
+                    seq_ms = device_ms(
+                        torch, lambda: shuffle_gemm_grouped_blocks(**ga))
+            entry = {"workload": name, "max_abs_err": err, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b[0],
+                     "bound_by": "bytes" if b[1] >= b[2] else "operations",
+                     "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
+                     "library": lib_name, "sequential_ms": seq_ms,
+                     "shape": {k: v for k, v in d.items()
+                               if k != "sub_steps"}}
+            readings[kname].append(entry)
+            shape = (f"{d['steps']} sub-steps, {d['tiles']} tiles of "
+                     f"{d['tile_floats']}" if kname == "shuffle_gemm_chain"
+                     else f"B {a['x'].shape[0]} rows {d['rows']} t {d['t']} "
+                          f"n_out {d['n_out']}")
+            print(f"  {name:16s} {kname:27s} {shape} | err {err:.2e} | "
+                  f"kernel {k_ms * 1e3:9.2f} us  plain {p_ms * 1e3:9.2f} us  "
+                  f"bound {b[0] * 1e3:8.3f} us ({nbytes} B, {flops} flop)"
+                  + ("" if lib_ms is None else
+                     f"  {lib_name} {lib_ms * 1e3:9.2f} us")
+                  + ("" if seq_ms is None else
+                     f"  sequential body {seq_ms * 1e3:9.2f} us"), flush=True)
+
+    # -- f. the entry points of phase 6 at the paper's sizes
+    entry = {"fft_stages_hopper": [], "fir_conv_hopper": []}
+    for n in SUITE_FFT_N:
+        z = torch.as_tensor(
+            (rng.standard_normal((SUITE_BATCH, n))
+             + 1j * rng.standard_normal((SUITE_BATCH, n))).astype(
+                np.complex64), device="cuda")
+        _, _, rd = fft_entry_reading(torch, z)
+        entry["fft_stages_hopper"].append(rd)
+        print(f"  fft_hopper n {n:4d} x {rd['rows']} rows, one launch of "
+              f"{rd['stages']} stages | err {rd['max_abs_err']:.2e} vs "
+              f"plain, {rd['library_err']:.2e} vs torch.fft.fft | kernel "
+              f"{rd['ms'] * 1e3:8.2f} us  plain {rd['plain_ms'] * 1e3:8.2f} "
+              f"us  bound {rd['bound_ms'] * 1e3:7.3f} us  torch.fft.fft "
+              f"{rd['library_ms'] * 1e3:8.2f} us", flush=True)
+    xf = xs["fir256_20"]
+    for t in SUITE_FIR_TAPS:
+        h = torch.as_tensor(suite[f"fir256_{t}"][0].stages["y"].params[
+            "taps"].astype(np.float32), device="cuda")
+        _, _, rd = fir_entry_reading(torch, xf, h)
+        entry["fir_conv_hopper"].append(rd)
+        print(f"  fir_conv 256 x {t} taps, {rd['phases']} phases, "
+              f"{rd['rows']} rows (M {rd['windows']} L {rd['window']}) | err "
+              f"{rd['max_abs_err']:.2e} vs plain, {rd['library_err']:.2e} vs "
+              f"F.conv1d | kernel {rd['ms'] * 1e3:8.2f} us  plain "
+              f"{rd['plain_ms'] * 1e3:8.2f} us  bound "
+              f"{rd['bound_ms'] * 1e3:7.3f} us  F.conv1d "
+              f"{rd['library_ms'] * 1e3:8.2f} us", flush=True)
+    entry_counts = {k: len(v) for k, v in entry.items()}
+
+    # -- c. training: front1024's FIR taps and mel weights toward a seeded
+    # target (the same graph with other taps), gradients on hopper against
+    # reference, then AdamW
+    g, length, batch = suite["front1024"]
+    h, r = compiled["front1024"]
+    params = {k: {f: torch.as_tensor(np.asarray(v, np.float32),
+                                     device="cuda") for f, v in d.items()}
+              for k, d in h.init_params().items()}
+    teacher = {**params, "front": {"taps": torch.as_tensor(
+        (rng.standard_normal(80) / np.sqrt(80)).astype(np.float32),
+        device="cuda")}}
+    batches = [torch.as_tensor(suite_input(np, rng, "front1024", length,
+                                           batch), device="cuda")
+               for _ in range(SUITE_TRAIN_STEPS + 1)]
+    with torch.no_grad():
+        targets = [r(xb, teacher)["mel"] for xb in batches]
+
+    def loss_fn(outs, target):
+        return torch.mean((outs["mel"] - target) ** 2) \
+            / torch.mean(target ** 2)
+
+    wrt = ("front", "mel")
+    vag_h = h.value_and_grad(loss_fn, wrt=wrt)
+    vag_r = r.value_and_grad(loss_fn, wrt=wrt)
+    reset_launch_counts()
+    loss_h, grads_h = vag_h(params, batches[0], targets[0])
+    torch.cuda.synchronize()
+    train_counts = launch_counts()
+    add(train_counts)
+    backward = {k: v - SUITE_LAUNCHES["front1024"][2][k]
+                for k, v in train_counts.items()}
+    loss_r, grads_r = vag_r(params, batches[0], targets[0])
+    leaves = [("loss", loss_h, loss_r),
+              ("front.taps", grads_h["front"]["taps"],
+               grads_r["front"]["taps"]),
+              ("mel.weights", grads_h["mel"]["weights"],
+               grads_r["mel"]["weights"])]
+    for label, a_, b_ in leaves:
+        if not bool(torch.isfinite(a_).all()) or (
+                label != "loss" and not float(a_.abs().max()) > 0):
+            raise AssertionError(f"front1024 {label}: non-finite or zero")
+        torch.testing.assert_close(a_, b_, rtol=SUITE_GRAD_TOL[0],
+                                   atol=SUITE_GRAD_TOL[1])
+    print(f"front1024 value_and_grad (batch {batch}): loss "
+          f"{float(loss_h):.6f}; "
+          + ", ".join(f"{lb} {tuple(a_.shape)} max abs err "
+                      f"{float((a_ - b_).abs().max()):.3e}"
+                      for lb, a_, b_ in leaves)
+          + f" (rtol {SUITE_GRAD_TOL[0]}, atol {SUITE_GRAD_TOL[1]}); "
+          f"launches {train_counts}, the backward's {backward}", flush=True)
+    if train_counts != SUITE_TRAIN_LAUNCHES:
+        raise AssertionError(f"front1024 value_and_grad launched "
+                             f"{train_counts}, not {SUITE_TRAIN_LAUNCHES}")
+    trained = {k: params[k] for k in wrt}
+    opt = adamw_init(trained)
+    held_out = (batches[-1], targets[-1])
+    eval_before = float(vag_h(params, *held_out)[0])
+    losses = []
+    reset_launch_counts()
+    for i in range(SUITE_TRAIN_STEPS):
+        loss, grads = vag_h({**params, **trained}, batches[i], targets[i])
+        trained, opt, _ = adamw_update(grads, opt, trained,
+                                       lr=SUITE_TRAIN_LR, weight_decay=0.0)
+        losses.append(float(loss))
+    add(launch_counts())
+    eval_after = float(vag_h({**params, **trained}, *held_out)[0])
+    print(f"front1024 {SUITE_TRAIN_STEPS} AdamW steps (lr "
+          f"{SUITE_TRAIN_LR}): losses {[round(v, 6) for v in losses]}; "
+          f"held-out loss {eval_before:.6f} -> {eval_after:.6f}", flush=True)
+    if not all(np.isfinite(losses)) or not eval_after < eval_before:
+        raise AssertionError("front1024 training did not lower the "
+                             "held-out loss")
+
+    # -- d. serving: the suite in one SignalService, 64 requests over its
+    # graphs; the FIR graphs and front1024 at uneven lengths (bucketed and
+    # masked), the others at their own length (fft, dct and dwt are not
+    # local in time: exact-length groups)
+    svc = SignalService(batch_size=SUITE_SERVE_BATCH, backend="hopper",
+                        device="cuda")
+    for name, (g, _, _) in suite.items():
+        svc.register(name, g)
+    names = list(suite)
+    requests = []
+    for i in range(SUITE_REQUESTS):
+        name = names[i % len(names)]
+        length = suite[name][1]
+        if name == "front1024":
+            length = int(rng.integers(1024, length + 1))
+        elif name in ("fir256_20", "fir256_40", "fir256_80"):
+            length = int(rng.integers(1, length + 1))
+        elif name == "fir256_80_phased":
+            length = 8 * int(rng.integers(1, length // 8 + 1))
+        requests.append(SignalRequest(
+            rid=i, graph=name,
+            samples=rng.standard_normal(length).astype(np.float32)))
+    for req in requests:
+        svc.submit(req)
+    reset_launch_counts()
+    t_serve, served, waves = time.perf_counter(), {}, 0
+    while svc.pending():
+        served.update(svc.step())
+        waves += 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    serve_counts = launch_counts()
+    add(serve_counts)
+    worst = 0.0
+    with torch.no_grad():
+        for req in requests:
+            name, length = req.graph, req.samples.shape[0]
+            off = suite[name][0].compile(length, fuse=2, backend="hopper",
+                                         device="cuda")(
+                torch.as_tensor(req.samples[None], device="cuda"))
+            for k, want in off.items():
+                got = torch.as_tensor(served[req.rid][k])
+                worst = max(worst, suite_close(
+                    torch, f"served {name} rid {req.rid} ({length}) {k}",
+                    got, want[0].cpu(), SUITE_REL))
+    if sorted(served) != list(range(SUITE_REQUESTS)):
+        raise AssertionError(f"served {sorted(served)}")
+    print(f"served {SUITE_REQUESTS} requests over {len(names)} graphs in "
+          f"{waves} steps, {serve_s:.3f} s (smoke reading); stats "
+          f"{svc.stats}; launches {serve_counts}; every result == the "
+          f"offline compile at its true length, max abs err {worst:.3e}",
+          flush=True)
+
+    # -- e. streaming: 3 uneven chunks against the offline compile
+    streamed = {}
+    for name, (first, second) in SUITE_STREAM.items():
+        g, length, _ = suite[name]
+        x = xs[name][:SUITE_STREAM_ROWS]
+        try:
+            runner = StreamingRunner(g, backend="hopper", device="cuda")
+        except ValueError as e:
+            if SUITE_STREAM_REFUSED.get(name) != str(e):
+                raise
+            streamed[name] = f"refused: {e}"
+            print(f"{name}: StreamingRunner refuses it, as the JAX "
+                  f"package's does: {e}", flush=True)
+            continue
+        if name in SUITE_STREAM_REFUSED:
+            raise AssertionError(f"{name} streamed; expected the refusal "
+                                 f"{SUITE_STREAM_REFUSED[name]!r}")
+        cuts = (0, first, first + second, length)
+        reset_launch_counts()
+        with torch.no_grad():
+            outs = [runner.process(x[:, a:b_])
+                    for a, b_ in zip(cuts, cuts[1:])] + [runner.flush()]
+            got = torch.cat([o.get("y", x[:, :0]) if isinstance(o, dict)
+                             else o for o in outs], dim=-1)
+            want = compiled[name][0](x)["y"]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add(counts)
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=0.0,
+                                   atol=SUITE_STREAM_ATOL)
+        streamed[name] = {"chunks": [b_ - a for a, b_ in
+                                     zip(cuts, cuts[1:])],
+                          "max_abs_err": err, "launches": counts}
+        print(f"{name}: streamed in chunks {streamed[name]['chunks']} == "
+              f"offline, max abs err {err:.3e} (atol {SUITE_STREAM_ATOL}); "
+              f"launches {counts}", flush=True)
+
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 19: {seconds:.1f} s (its budget {SUITE_BUDGET_S} s); "
+          f"main-path launches {made}, entry points {entry_counts}; "
+          f"{smi}", flush=True)
+    return {"launches": made, "entry_launches": entry_counts,
+            "readings": readings, "entry": entry, "seconds": seconds,
+            "train": {"losses": losses, "eval_before": eval_before,
+                      "eval_after": eval_after, "launches": train_counts,
+                      "backward": backward},
+            "serve": {"launches": serve_counts, "max_abs_err": worst,
+                      "seconds": serve_s},
+            "stream": streamed}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4863,51 +5554,26 @@ def main() -> int:
     phase("6 entry points")
     import torch.nn.functional as F
     from repro_torch.kernels.fft_stage import (
-        fft_hopper, fft_stage_hopper, fft_stages_hopper, ref_fft_stage_hopper,
-        ref_fft_stages_hopper)
-    from repro_torch.kernels.fft_stage import kernel as fft_kernel
+        fft_stage_hopper, fft_stages_hopper, ref_fft_stage_hopper)
     from repro_torch.kernels.fft_stage import ops as fft_ops
-    from repro_torch.kernels.fir_conv import (fir_conv, fir_conv_hopper,
-                                              ref_fir_conv_hopper)
-    from repro_torch.kernels.fir_conv import kernel as fir_kernel
+    from repro_torch.kernels.fir_conv import fir_conv_hopper
     from repro_torch.signal.graph import hann_window
     n_frames = 1 + (LENGTH - 256) // 128
     frames = np.stack([x_np[:, f * 128:f * 128 + 256]
                        for f in range(n_frames)], axis=1) * hann_window(256)
     z = torch.as_tensor(frames.reshape(-1, 256).astype(np.complex64),
                         device="cuda")
-    with torch.no_grad():
-        fft_kernel.reset_launch_counts()
-        y_fft = fft_hopper(z)
-        torch.cuda.synchronize()
-        fft_counts = fft_kernel.launch_counts()
-    if fft_counts != {"fft_stages_hopper": 1}:
-        raise AssertionError(f"fft_hopper over 256 points launched "
-                             f"{fft_counts}")
-    torch.testing.assert_close(y_fft, torch.fft.fft(z), rtol=2e-3, atol=2e-3)
+    a, b, rd = fft_entry_reading(torch, z)
+    fft_counts = rd["launches"]
     print(f"fft_hopper {tuple(z.shape)} complex64 vs torch.fft.fft: max abs "
-          f"err {float((y_fft - torch.fft.fft(z)).abs().max()):.3e} "
-          f"(rtol = atol = 2e-3); launches {fft_counts}")
-    (_, a), = record_calls(torch, lambda: fft_hopper(z),
-                           "repro_torch.kernels.fft_stage.ops",
-                           ("fft_stages_hopper",))
-    n_st = len(a["nb"])
+          f"err {rd['library_err']:.3e} (rtol = atol = 2e-3); launches "
+          f"{fft_counts}")
+    n_st, err, k_ms, p_ms = rd["stages"], rd["max_abs_err"], rd["ms"], \
+        rd["plain_ms"]
+    b_, n2 = a["x"].shape
     rows["fft_stages_hopper"] = new_row(
         1, f"one fft_hopper call on the {z.shape[0]} Fig-9 STFT frames of "
            f"256: its {n_st} stages and the final scatter in one launch")
-    with torch.no_grad():
-        got, want = fft_stages_hopper(**a), ref_fft_stages_hopper(**a)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-        k_ms = device_ms(torch, lambda: fft_stages_hopper(**a))
-        p_ms = device_ms(torch, lambda: ref_fft_stages_hopper(**a))
-    b_, n2 = a["x"].shape
-    # one read and one write of the frames, the indices, the scatter and
-    # the twiddles; 8 flops an element a stage
-    b = bound(2 * 4 * b_ * n2 + 4 * (a["idx"].numel() + a["scatter"].numel()
-                                     + a["tw"].numel()),
-              8 * b_ * n2 * n_st, FP32_FLOP_PER_S)
     add_call(rows["fft_stages_hopper"], err, k_ms, p_ms, b)
     print(f"fft_stages_hopper {n_st} stages + scatter, one launch | "
           f"max_abs_err {err:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.2f} us  "
@@ -4951,7 +5617,7 @@ def main() -> int:
           f"{single['ms'] * 1e3:.2f} us, plain {single['plain_ms'] * 1e3:.2f} "
           f"us, summed per-stage bound {single['bound_ms'] * 1e3:.3f} us")
     rows["fft_stages_hopper"].update(
-        library_ms=device_ms(torch, lambda: torch.fft.fft(z)),
+        library_ms=rd["library_ms"],
         library="torch.fft.fft over the same frames (the whole FFT)",
         single_stage={k: single[k] for k in (
             "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "per")})
@@ -4961,57 +5627,36 @@ def main() -> int:
 
     h = torch.as_tensor((np.hanning(9) / np.hanning(9).sum())
                         .astype(np.float32), device="cuda")
-    with torch.no_grad():
-        fir_kernel.reset_launch_counts()
-        y_fir = fir_conv(x, h, phases=8)
-        torch.cuda.synchronize()
-        fir_counts = fir_kernel.launch_counts()
-        conv = F.conv1d(F.pad(x[:, None], (8, 0)), h.flip(0)[None, None])[:, 0]
-    if fir_counts != {"fir_conv_hopper": 1}:
-        raise AssertionError(f"fir_conv launched {fir_counts}")
-    torch.testing.assert_close(y_fir, conv, rtol=1e-4, atol=1e-4)
+    a, b, rd = fir_entry_reading(torch, x, h)
+    fir_counts = rd["launches"]
     print(f"fir_conv {tuple(x.shape)} 9 taps 8 phases vs causal F.conv1d: "
-          f"max abs err {float((y_fir - conv).abs().max()):.3e} "
-          f"(rtol = atol = 1e-4)")
-    fir_calls = record_calls(torch, lambda: fir_conv(x, h, phases=8),
-                             "repro_torch.kernels.fir_conv.ops",
-                             ("fir_conv_hopper",))
+          f"max abs err {rd['library_err']:.3e} (rtol = atol = 1e-4)")
     rows["fir_conv_hopper"] = new_row(
         1, f"one fir_conv call on the ({BATCH}, {LENGTH}) input, 9 taps, "
            f"8 phases")
     with torch.no_grad():
-        (_, a), = fir_calls
-        got, want = fir_conv_hopper(**a), ref_fir_conv_hopper(**a)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         # in turns with the copy probe, the launch floor (probe, kernel,
         # kernel, probe)
         turns = [device_ms(torch, f) for f in (
             probe, lambda: fir_conv_hopper(**a), lambda: fir_conv_hopper(**a),
             probe)]
-        k_ms, floor_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-        p_ms = device_ms(torch, lambda: ref_fir_conv_hopper(**a))
-        (b_, n), (m, win), p_ = a["x"].shape, a["idx"].shape, \
-            a["wbank"].shape[1]
-        b = bound(4 * (b_ * n + m * win + win * p_ + b_ * m * p_),
-                  2 * b_ * m * win * p_, FP32_FLOP_PER_S)
-        add_call(rows["fir_conv_hopper"], err, k_ms, p_ms, b)
-        rows["fir_conv_hopper"]["launch_floor_ms"] = floor_ms
-        xin = F.pad(x[:, None], (8, 0))
-        w_conv = h.flip(0)[None, None]
-        rows["fir_conv_hopper"].update(
-            library_ms=device_ms(torch, lambda: F.conv1d(xin, w_conv)),
-            library="causal F.conv1d (flipped taps, left pad) on the same "
-                    "input, without the pad")
-        print(f"fir_conv_hopper M {m} L {win} P {p_} | max_abs_err "
-              f"{err:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.3f} us  plain "
-              f"{p_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us  library "
-              f"{rows['fir_conv_hopper']['library_ms'] * 1e3:8.3f} us | "
-              f"launch floor (the copy probe) {floor_ms * 1e3:.3f} us; in "
-              f"turns probe/kernel/kernel/probe: "
-              + ", ".join(f"{t * 1e3:.3f}" for t in turns) + " us",
-              flush=True)
+    k_ms, floor_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    m, win, p_ = rd["windows"], rd["window"], rd["phases"]
+    add_call(rows["fir_conv_hopper"], rd["max_abs_err"], k_ms,
+             rd["plain_ms"], b)
+    rows["fir_conv_hopper"]["launch_floor_ms"] = floor_ms
+    rows["fir_conv_hopper"].update(
+        library_ms=rd["library_ms"],
+        library="causal F.conv1d (flipped taps, left pad) on the same "
+                "input, without the pad")
+    print(f"fir_conv_hopper M {m} L {win} P {p_} | max_abs_err "
+          f"{rd['max_abs_err']:.3e} (tol 1e-4) | kernel {k_ms * 1e3:8.3f} us"
+          f"  plain {rd['plain_ms'] * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} "
+          f"us  library {rows['fir_conv_hopper']['library_ms'] * 1e3:8.3f} "
+          f"us | launch floor (the copy probe) {floor_ms * 1e3:.3f} us; in "
+          f"turns probe/kernel/kernel/probe: "
+          + ", ".join(f"{t * 1e3:.3f}" for t in turns) + " us",
+          flush=True)
 
     # -- 7. train: Fig 9 through value_and_grad, then AdamW -----------------
     phase("7 train")
@@ -6108,6 +6753,10 @@ def main() -> int:
     ln = launchers_phase(torch, np, args.seed, smi, during=phase17)
     family_train = ln["during"]
 
+    # -- 19. paper suite: the paper's signal workloads at their sizes -------
+    phase("19 paper suite")
+    suite = paper_suite_phase(torch, np, args.seed, smi)
+
     # -- 18. kernel list ----------------------------------------------------
     phase("18 kernels")
     launches = {**serve_counts, **{
@@ -6193,6 +6842,26 @@ def main() -> int:
     rows["shuffle_gemm_chain_hopper"]["per"] += (
         " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
         "one launch each on shuffle_gemm_grouped_blocks")
+    # phase 19's paper suite: each kernel call of its fuse-2 forwards (and
+    # the entry points at the paper's sizes) under paper_suite, its
+    # main-path launches added to the row's
+    for name, kname in (("shuffle_gemm_blocks", "shuffle_gemm_blocks"),
+                        ("shuffle_gemm_grouped_blocks",
+                         "shuffle_gemm_grouped_blocks"),
+                        ("shuffle_gemm_chain_hopper", "shuffle_gemm_chain")):
+        rows[name]["paper_suite"] = {
+            "launches": suite["launches"][kname],
+            "calls": suite["readings"][kname],
+            "per": "the paper suite's forwards at fuse 0/1/2, front1024's "
+                   "value_and_grad and AdamW steps, the served window and "
+                   "the streamed FIR; calls: each call of a fuse-2 forward"}
+        launches[name] += suite["launches"][kname]
+    for name in ("fft_stages_hopper", "fir_conv_hopper"):
+        rows[name]["paper_suite"] = {
+            "launches": suite["entry_launches"][name],
+            "calls": suite["entry"][name],
+            "per": "the entry point at the paper's sizes, 4096 rows"}
+        launches[name] += suite["entry_launches"][name]
     kernels = []
     for name in TPU_KERNELS:
         r = rows[name]
@@ -6213,7 +6882,7 @@ def main() -> int:
                                  "entry_point",
                                  "families", "train", "family_train",
                                  "mesh_models",
-                                 "launchers",
+                                 "launchers", "paper_suite",
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })

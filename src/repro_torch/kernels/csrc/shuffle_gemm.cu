@@ -75,6 +75,14 @@
 //    12.8 us, the staging a chain of short dependent steps per thread
 //    (tools/chain_ablation.py times the parts).
 //
+// Bodies 1 and 2 take batch row b on grid row b.  A batch past the grid's
+// y extent (65535: the 2-D DCT-32 of 4096 blocks is one call on 131072
+// rows) runs the bodies' layered instance (kLayered): b = z * gridDim.y +
+// y, the grid's z layers holding the rest, one launch, each block still
+// one batch row.  Smaller batches run the instance without the layer
+// arithmetic or its bound check, which cost short calls up to 11%
+// (tools/blocks_timing.py).
+//
 // float32 and bfloat16 are accepted; every body accumulates in float32 and
 // stores in the input type.  The times above are device times on an NVIDIA
 // H100 80GB HBM3 at 700 W from chip_smoke.py; PERF.md §6 has them all.
@@ -108,6 +116,7 @@ constexpr int kWideThreads = 256;
 constexpr int kMaxSub = 32;         // steps of one chain launch
 constexpr int kChainThreads = 512;
 constexpr int kSharedBytes = 227 * 1024;   // a block's opt-in maximum
+constexpr int kMaxGridY = 65535;           // the grid's y extent
 
 __host__ __device__ __forceinline__ int align16(int n) {
   return (n + 15) / 16 * 16;
@@ -170,22 +179,40 @@ __device__ __forceinline__ void gather_in(__nv_bfloat16* dst,
   *dst = *src;
 }
 
+// The batch row of this block: grid rows (y) first, then grid layers (z)
+// in the layered instance.
+template <bool kLayered>
+__device__ __forceinline__ int64_t batch_row() {
+  return kLayered ? static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y
+                  : static_cast<int64_t>(blockIdx.y);
+}
+
+// The grid's (x, y, z) for `batch` rows: one layer of `batch` grid rows up
+// to kMaxGridY, else as few layers as hold them, filled evenly (at most
+// z - 1 idle grid rows).
+__host__ __forceinline__ dim3 batch_grid(int64_t x, int batch) {
+  const int z = (batch + kMaxGridY - 1) / kMaxGridY;
+  const int y = (batch + z - 1) / z;
+  return dim3(static_cast<unsigned>(x), static_cast<unsigned>(y),
+              static_cast<unsigned>(z));
+}
+
 // ---------------------------------------------------------------------------
 // 1. Sequential body: one thread per output element
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kLayered>
 __global__ void __launch_bounds__(kThreads)
 shuffle_gemm_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
                     const T* __restrict__ pad, const T* __restrict__ scale,
-                    const T* __restrict__ w, T* __restrict__ out, int n_in,
-                    int rows, int t, int n_out, int groups, int nb,
+                    const T* __restrict__ w, T* __restrict__ out, int batch,
+                    int n_in, int rows, int t, int n_out, int groups, int nb,
                     int64_t w_stride) {
   const int64_t per_batch = static_cast<int64_t>(rows) * n_out;
   const int64_t e =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= per_batch) return;
-  const int64_t b = blockIdx.y;
+  const int64_t b = batch_row<kLayered>();
+  if (e >= per_batch || (kLayered && b >= batch)) return;
   const int r = static_cast<int>(e / n_out);
   const int o = static_cast<int>(e - static_cast<int64_t>(r) * n_out);
   const int g = (r / nb) % groups;
@@ -208,13 +235,14 @@ int launch(const void* x, const void* idx, const void* pad, const void* scale,
            int n_out, int groups, int nb, int64_t w_stride,
            cudaStream_t stream) {
   const int64_t per_batch = static_cast<int64_t>(rows) * n_out;
-  const dim3 grid(static_cast<unsigned>((per_batch + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(batch));
-  shuffle_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid = batch_grid((per_batch + kThreads - 1) / kThreads, batch);
+  auto* body = grid.z > 1 ? shuffle_gemm_kernel<T, true>
+                          : shuffle_gemm_kernel<T, false>;
+  body<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(idx),
       static_cast<const T*>(pad), static_cast<const T*>(scale),
-      static_cast<const T*>(w), static_cast<T*>(out), n_in, rows, t, n_out,
-      groups, nb, w_stride);
+      static_cast<const T*>(w), static_cast<T*>(out), batch, n_in, rows, t,
+      n_out, groups, nb, w_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -239,12 +267,12 @@ __host__ __forceinline__ size_t wide_shared_bytes(int t, int n_out, int rpc,
          (scaled ? align16(static_cast<int>(rows)) : 0);
 }
 
-template <typename T>
+template <typename T, bool kLayered>
 __global__ void __launch_bounds__(kWideThreads)
 wide_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
             const T* __restrict__ pad, const T* __restrict__ scale,
-            const T* __restrict__ w, T* __restrict__ out, int n_in, int rows,
-            int t, int n_out, int rpc, int64_t w_stride) {
+            const T* __restrict__ w, T* __restrict__ out, int batch,
+            int n_in, int rows, int t, int n_out, int rpc, int64_t w_stride) {
   extern __shared__ int4 smem[];
   char* base = reinterpret_cast<char*>(smem);
   T* const ws = reinterpret_cast<T*>(base);                 // (t, n_out)
@@ -252,7 +280,8 @@ wide_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
       base + align16(static_cast<int>(sizeof(T)) * t * n_out));
   T* const ss = gs + align16(static_cast<int>(sizeof(T)) * rpc * t) /
                          static_cast<int>(sizeof(T));       // (rpc, t)
-  const int64_t b = blockIdx.y;
+  const int64_t b = batch_row<kLayered>();
+  if (kLayered && b >= batch) return;  // the whole block: no barrier skipped
   const int r0 = blockIdx.x * rpc;
   const int nr = rows - r0 < rpc ? rows - r0 : rpc;
   const int64_t row0 = static_cast<int64_t>(r0) * t;
@@ -309,21 +338,25 @@ int launch_blocks(const void* x, const void* idx, const void* pad,
                      1, rows, w_stride, stream);
   static bool configured = false;     // once, before any graph capture
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(
+        wide_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSharedBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          wide_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kSharedBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   int threads = rpc * n_out * kLanes;
   threads = threads < kWideThreads ? (threads + 31) / 32 * 32 : kWideThreads;
-  const dim3 grid(static_cast<unsigned>((rows + rpc - 1) / rpc),
-                  static_cast<unsigned>(batch));
-  wide_kernel<T><<<grid, threads, smem, stream>>>(
+  const dim3 grid = batch_grid((rows + rpc - 1) / rpc, batch);
+  auto* body = grid.z > 1 ? wide_kernel<T, true> : wide_kernel<T, false>;
+  body<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(idx),
       static_cast<const T*>(pad), static_cast<const T*>(scale),
-      static_cast<const T*>(w), static_cast<T*>(out), n_in, rows, t, n_out,
-      rpc, w_stride);
+      static_cast<const T*>(w), static_cast<T*>(out), batch, n_in, rows, t,
+      n_out, rpc, w_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

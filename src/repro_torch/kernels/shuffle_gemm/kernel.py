@@ -44,7 +44,7 @@ __all__ = ["shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
            "ref_chain", "launch_counts", "reset_launch_counts"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535
+_MAX_BATCH = 2 ** 31 - 1          # the C entries take the batch as an int
 
 
 def _check(x, idx, pad_vals, w, scale, w_rank):
@@ -68,8 +68,8 @@ def _check(x, idx, pad_vals, w, scale, w_rank):
     if w.shape[-2] != idx.shape[1]:
         raise ValueError(f"w contracts over {w.shape[-2]}, rows hold "
                          f"{idx.shape[1]} elements")
-    if x.shape[0] > _MAX_GRID_Y:
-        raise ValueError(f"batch {x.shape[0]} exceeds {_MAX_GRID_Y}")
+    if x.shape[0] > _MAX_BATCH:
+        raise ValueError(f"batch {x.shape[0]} exceeds {_MAX_BATCH}")
 
 
 def _launch(entry, x, idx, pad_vals, w, scale, out, *ints):

@@ -70,6 +70,8 @@ from repro_torch.pipelines import speech_enhancement as tse
 from repro_torch.serving import SignalRequest, SignalService
 from repro_torch.signal import HopperBackend, PrecisionPolicy, SignalGraph
 
+from _chip_smoke_module import chip_smoke
+
 pytestmark = pytest.mark.gpu
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -2033,3 +2035,126 @@ def test_full_width_moe_train_step_on_card(cuda):
     assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(opt.m))
     del params, opt
     torch.cuda.empty_cache()
+
+
+# -- the paper's signal workloads (chip_smoke.py phase 19) --------------------
+
+@pytest.mark.parametrize("t,n_out,grouped,per_row", [
+    (4, 2, False, False), (32, 32, False, False),
+    (4, 2, True, False), (32, 32, True, False),
+    (4, 2, False, True), (32, 32, False, True),
+])
+def test_kernels_take_a_batch_past_the_grid_y_extent(cuda, t, n_out,
+                                                     grouped, per_row):
+    """70000 batch rows, past the 65535 of a grid's y extent (the 2-D
+    DCT of 4096 blocks of 32 x 32 is a call on 131072 rows): one launch,
+    its grid's z layers taking the rest, on the sequential body (t 4, and every
+    grouped call) and the wide one (t 32 = kWideT), with one ``w`` for
+    every batch row or (``per_row``) a ``w`` of each batch row's own,
+    against the plain version."""
+    batch, n_in = 70000, 64
+    rng = np.random.default_rng(t)
+    rows, groups = (4, 2) if grouped else (3, 0)
+    a = _case(rng, cuda, "float32", rows, t, n_out, groups, n_in, True,
+              True)
+    a["x"] = torch.as_tensor(rng.standard_normal((batch, n_in)),
+                             dtype=torch.float32, device=cuda)
+    if per_row:
+        a["w"] = torch.as_tensor(rng.standard_normal((batch, t, n_out)),
+                                 dtype=torch.float32, device=cuda)
+    fn, ref = ((shuffle_gemm_grouped_blocks, ref_shuffle_gemm_grouped_blocks)
+               if grouped else (shuffle_gemm_blocks, ref_shuffle_gemm_blocks))
+    kw = dict(reps=1, groups=2, nb=2) if grouped else {}
+    before = fn.launches
+    got = fn(**a, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, ref(**a, **kw), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,t,n_out,n_in", [
+    (256, 40, 1, 256), (256, 80, 1, 256),     # fir256_40, fir256_80
+    (32, 87, 8, 256),                          # fir256_80_phased
+    (1, 32, 32, 32),                           # dct2_32: t is kWideT
+    (31, 513, 64, 15903),                      # front1024's mel: 2 passes
+    (31, 64, 513, 1984),                       # its transposed GEMM: 17
+])
+def test_blocks_kernel_at_paper_suite_shapes(cuda, dt, rows, t, n_out,
+                                             n_in):
+    """The wide body at the paper suite's calls, 64 batch rows, against
+    the plain version at rtol TOL and atol TOL, in float32 atol TOL x
+    max|want|: an output is a sum of t unit-normal products, of size
+    sqrt(t), summed in another order (K split over 8 lanes) than the plain
+    matmul's, which at t 513 is beyond an absolute 1e-5 in float32."""
+    a = _case(np.random.default_rng(rows * t), cuda, dt, rows, t, n_out, 0,
+              n_in, False, False)
+    a["x"] = torch.as_tensor(np.random.default_rng(n_in).standard_normal(
+        (64, n_in)), device=cuda).to(TDT[dt])
+    got = shuffle_gemm_blocks(**a).float()
+    want = ref_shuffle_gemm_blocks(**a).float()
+    scale = float(want.abs().max()) if dt == "float32" else 1.0
+    torch.testing.assert_close(got, want, rtol=TOL[dt], atol=TOL[dt] * scale)
+
+
+def test_paper_suite_graphs_on_card(cuda):
+    """Every graph of ``chip_smoke.paper_suite`` at 4 batch rows (dct2_32:
+    4 blocks) on hopper at fuse 0, 1 and 2 against reference on the card
+    (rtol 1e-4, atol 1e-4 x max|want|), with exactly phase 19's
+    ``SUITE_LAUNCHES``; the chains of fft512, fft1024 and front1024 hold
+    74,256 and 156,240 bytes of shared memory a block."""
+    cs = chip_smoke()
+    suite = cs.paper_suite(SignalGraph, 0)
+    rng = np.random.default_rng(0)
+    for name, (g, length, _) in suite.items():
+        x = torch.as_tensor(cs.suite_input(np, rng, name, length, 4),
+                            device=cuda)
+        for fuse in (0, 1, 2):
+            h = g.compile(length, fuse=fuse, backend="hopper", device=cuda)
+            r = g.compile(length, fuse=fuse, backend="reference",
+                          device=cuda)
+            with torch.no_grad():
+                reset_launch_counts()
+                got = cs.suite_forward(name, h, x)
+                torch.cuda.synchronize()
+                assert launch_counts() == cs.SUITE_LAUNCHES[name][fuse], \
+                    (name, fuse)
+                want = cs.suite_forward(name, r, x)
+            for k in want:
+                cs.suite_close(torch, f"{name} fuse {fuse} {k}", got[k],
+                               want[k], cs.SUITE_REL)
+        for rep in h.chain_report():
+            for seg in rep["segments"]:
+                assert seg["shared_bytes"] == cs.SUITE_SHARED_BYTES[name]
+
+
+def test_paper_suite_front_end_gradients_on_card(cuda):
+    """front1024's ``value_and_grad`` wrt its FIR taps and mel weights on
+    hopper (the 10-step chain's backward as one chain, the mel's
+    transposed GEMM at n_out 513) against reference on the card at rtol
+    1e-4, atol 1e-5, launching ``SUITE_TRAIN_LAUNCHES``."""
+    cs = chip_smoke()
+    g, length, _ = cs.paper_suite(SignalGraph, 0)["front1024"]
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(cs.suite_input(np, rng, "front1024", length, 2),
+                        device=cuda)
+    h = g.compile(length, fuse=2, backend="hopper", device=cuda)
+    r = g.compile(length, fuse=2, backend="reference", device=cuda)
+    params = {k: {f: torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+                  for f, v in d.items()} for k, d in h.init_params().items()}
+    target = torch.as_tensor(rng.standard_normal((2, 31, 64)),
+                             dtype=torch.float32, device=cuda)
+
+    def loss_fn(outs, tgt):
+        return torch.mean((outs["mel"] - tgt) ** 2)
+    reset_launch_counts()
+    loss_h, g_h = h.value_and_grad(loss_fn, wrt=("front", "mel"))(
+        params, x, target)
+    torch.cuda.synchronize()
+    assert launch_counts() == cs.SUITE_TRAIN_LAUNCHES
+    loss_r, g_r = r.value_and_grad(loss_fn, wrt=("front", "mel"))(
+        params, x, target)
+    torch.testing.assert_close(loss_h, loss_r, rtol=1e-4, atol=1e-5)
+    for k, f in (("front", "taps"), ("mel", "weights")):
+        torch.testing.assert_close(g_h[k][f], g_r[k][f], rtol=1e-4,
+                                   atol=1e-5)
