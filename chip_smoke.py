@@ -387,7 +387,7 @@ card) — phase by phase:
      bfloat16 too (against the plain version at 2e-2, the same form);
      (b) exactly ``SUITE_LAUNCHES`` a forward (fuse 0: a grouped launch a
      butterfly; fuse 1, 2: one chain a stage) and each chain's shared
-     memory ``SUITE_SHARED_BYTES`` (16,768 to 156,240 bytes a block);
+     memory ``SUITE_SHARED_BYTES`` (80,368 to 205,552 bytes a block);
      (c) front1024's ``value_and_grad`` wrt the FIR taps and the mel
      weights (the mel's squared error against a seeded target over the
      target's power) on ``hopper`` against ``reference`` (rtol 1e-4,
@@ -405,8 +405,9 @@ card) — phase by phase:
      ``F.conv1d``, and ``torch.matmul`` on ``x.view(B, rows, t)`` where a
      call's rows gather ``x`` in order without overlap: dct2_32,
      dwt_haar, front1024's mel; each held to the kernel's result; db2's
-     windows overlap and wrap, so it has none) and, for a wide call (t >=
-     32), the sequential body on the same operands; ``fft_hopper`` at
+     windows overlap and wrap, so it has none), the bytes its blocks
+     stage into shared memory and, for a call of t >= 32, the sequential
+     body on the same operands; ``fft_hopper`` at
      128-1024 points and ``fir_conv`` at 256 x {20, 40, 80} taps in 8
      phases on 4096 rows through phase 6's readings
      (``fft_entry_reading``, ``fir_entry_reading``); (g) the
@@ -4368,9 +4369,9 @@ def launchers_phase(torch, np, seed: int, smi: str, during=None) -> dict:
 # backend: the FFT at 128-1024 points (one chain of log2 n butterflies, one
 # tile a row; above 48 KB of shared memory the chain launch needs the
 # opt-in), FFT -> iFFT at 1024, the FIR of 256 samples with 20, 40 and 80
-# taps (80 taps also in 8 phases: the wide rows of shuffle_gemm_blocks), the
-# DCT-II of 32 (t 32, the wide path's first t; the 2-D transform of a 32 x
-# 32 block is two calls with a transpose between them), the Haar and db2
+# taps (80 taps also in 8 phases), the DCT-II of 32 (t 32, the first t of
+# eight partial sums; the 2-D transform of a 32 x 32 block is two calls
+# with a transpose between them), the Haar and db2
 # DWT of 1024, and front1024: the 1024-point audio front end (a learnable
 # FIR of 80 taps, STFT frame 1024 hop 512, one-sided magnitude, 64 mels at
 # 16 kHz) over 1.02 s of samples.  Batches: 4096 rows (4096 DCT blocks,
@@ -4390,11 +4391,14 @@ SUITE_STREAM = {"fir256_80": (100, 37), "front1024": (5000, 1234)}
 SUITE_STREAM_REFUSED = {"front1024": "stft and istft must appear together"}
 SUITE_STREAM_ATOL = 1e-5                    # Fig 9's streamed ``out``
 SUITE_BUDGET_S = 180
-# Dynamic shared memory of each chain launch (kernels/shuffle_gemm/chain.py
-# shared_bytes): one tile a batch row, one block a tile.
-SUITE_SHARED_BYTES = {"fft128": 16768, "fft256": 35264, "fft512": 74256,
-                      "fft1024": 156240, "fft_ifft1024": 156240,
-                      "front1024": 156240}
+# Dynamic shared memory of a block of each chain launch at its segment's
+# slots (kernels/shuffle_gemm/chain.py shared_bytes): one tile a batch row
+# (front1024: 31), a block holding up to 2048 rows of tiles at once —
+# fft128 32 slots, fft256 16, fft512 8, fft1024 and front1024 4 — beside
+# the tables and operands it stages once (fft1024: 140,016 B).
+SUITE_SHARED_BYTES = {"fft128": 80368, "fft256": 96832, "fft512": 131744,
+                      "fft1024": 205552, "fft_ifft1024": 205552,
+                      "front1024": 205552}
 
 
 def _suite_launches(blocks: int = 0, grouped: int = 0, chain: int = 0):
@@ -4639,6 +4643,7 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
         ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
         shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
         shuffle_gemm_steps)
+    from repro_torch.kernels.shuffle_gemm import kernel as sg_kernel
     from repro_torch.kernels.shuffle_gemm.kernel import ref_chain
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.serving import SignalRequest, SignalService
@@ -4729,8 +4734,10 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
         for kname, a in calls:
             k_fn, p_fn = kern[kname]
             with torch.no_grad():
-                err = suite_close(torch, f"{name} {kname}", k_fn(**a),
-                                  p_fn(**a), SUITE_REL)
+                got = k_fn(**a)
+                launch = dict(sg_kernel.last_launch)
+                err = suite_close(torch, f"{name} {kname}", got, p_fn(**a),
+                                  SUITE_REL)
                 k_ms = device_ms(torch, lambda: k_fn(**a))
                 p_ms = device_ms(torch, lambda: p_fn(**a))
             nbytes, flops = (chain_cost if kname == "shuffle_gemm_chain"
@@ -4766,8 +4773,8 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                     suite_close(torch, f"{name} {lib_name}", lib(), lib_want,
                                 SUITE_REL)
             lib_ms = None if lib is None else device_ms(torch, lib)
-            # a wide call (t >= 32) also on the sequential body: the
-            # grouped kernel with one group computes the same function
+            # a call of t >= 32 also on the sequential body: the grouped
+            # kernel with one group computes the same function
             seq_ms = None
             if kname == "shuffle_gemm_blocks" and d["t"] >= 32:
                 ga = dict(x=a["x"], idx=a["idx"], pad_vals=a["pad_vals"],
@@ -4785,6 +4792,8 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                      "bound_by": "bytes" if b[1] >= b[2] else "operations",
                      "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
                      "library": lib_name, "sequential_ms": seq_ms,
+                     "body": launch["body"], "grid": launch.get("grid"),
+                     "staged_bytes": launch["staged_bytes"],
                      "shape": {k: v for k, v in d.items()
                                if k != "sub_steps"}}
             readings[kname].append(entry)
@@ -4798,7 +4807,9 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                   + ("" if lib_ms is None else
                      f"  {lib_name} {lib_ms * 1e3:9.2f} us")
                   + ("" if seq_ms is None else
-                     f"  sequential body {seq_ms * 1e3:9.2f} us"), flush=True)
+                     f"  sequential body {seq_ms * 1e3:9.2f} us")
+                  + f" | {launch['body']}, {launch['staged_bytes']} B into "
+                    f"shared memory", flush=True)
 
     # -- f. the entry points of phase 6 at the paper's sizes
     entry = {"fft_stages_hopper": [], "fir_conv_hopper": []}
@@ -5043,6 +5054,7 @@ def main() -> int:
         ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
         shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
         shuffle_gemm_steps)
+    from repro_torch.kernels.shuffle_gemm import kernel as sg_kernel
     from repro_torch.kernels.shuffle_gemm.kernel import chain_steps, ref_chain
     t0 = time.perf_counter()
     lib = K.build()
@@ -5134,7 +5146,9 @@ def main() -> int:
         printed and added to ``row``; returns the kernel's time."""
         kern, plain = wrappers[name]
         with torch.no_grad():
-            got, want = kern(**a), plain(**a)
+            got = kern(**a)
+            staged = sg_kernel.last_launch["staged_bytes"]
+            want = plain(**a)
             torch.cuda.synchronize()
             err = check_close(name, a, got, want, "float32")
             k_ms = device_ms(torch, lambda: kern(**a))
@@ -5155,7 +5169,8 @@ def main() -> int:
         print(f"{label}{name:28s} {shape} | max_abs_err {err:.3e} | kernel "
               f"{k_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  wrapper "
               f"{w_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us "
-              f"({nbytes} B, {flops} flop)", flush=True)
+              f"({nbytes} B, {flops} flop); {staged} B into shared memory "
+              f"({sg_kernel.last_launch['body']})", flush=True)
         return k_ms
 
     def check_chain(a, row=None, grouped_row=None, label=""):

@@ -59,7 +59,7 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 # ctypes signatures of the exported C functions.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "repro_shuffle_gemm_blocks": (_P,) * 6 + (_I,) * 6 + (_P, _P, _I, _P),
     "repro_shuffle_gemm_grouped_blocks": (_P,) * 6 + (_I,) * 8 + (_P,),
     "repro_shuffle_gemm_chain": (_P, _P) + (_I,) * 3 + (_P, _P, _I, _P),
     "repro_copy_f32": (_P, _P, _I, _P),

@@ -19,12 +19,22 @@ per chain, where that is possible.
 chunks of ``rows / tiles * n_out`` values).  It is *valid* when every
 sub-step after the first reads, in each row of chunk k, only positions
 of chunk k of the sub-step before it (PAD entries read nothing).  A
-block of the kernel then runs one tile (or a few) of one batch row from
-start to end with no value from another block; the first sub-step may
-read anywhere in the segment's input, which lies in device memory.
-The tiling kept is the valid one with the most tiles: the smallest
-buffers and the most blocks.  For the Fig-9 STFT (frame 256, 31 frames
-a batch row) that is 31 tiles of 512 floats, one a frame.
+block of the kernel then runs a tile of a batch row from start to end
+with no value from another block; the first sub-step may read anywhere
+in the segment's input, which lies in device memory.  The tiling kept
+is the valid one with the most tiles: the smallest buffers and the most
+blocks.  For the Fig-9 STFT (frame 256, 31 frames a batch row) that is
+31 tiles of 512 floats, one a frame; an FFT's butterflies read across
+the whole transform, one tile a batch row.
+
+**Slots.**  The kernel's blocks are persistent: each stages the shared
+tables and every operand once, then walks the launch's (batch row,
+tile) pairs ``tiles_per_cta`` at a time — its *slots*, each with its
+own buffers and own tables.  :func:`_tiles_per_cta` gives a block as
+many slots as hold :data:`MAX_BLOCK_ROWS` rows of the widest sub-step
+within shared memory; the launch uses fewer where the batch is small
+(enough blocks for the SMs), which changes no value: every tile is
+computed alone.
 
 **Segments.**  :func:`segment_chain` cuts a list greedily: a segment
 grows by one sub-step while its best tiling's per-block shared memory
@@ -41,18 +51,21 @@ same (``periodic``; every frame of an STFT does the same butterflies)
 one tile's copy serves all of them.
 
 **Layout.**  :func:`chain_layout` places everything a block holds in
-shared memory; the kernel takes its offsets as given.  The tables of
-every sub-step after the first are packed on the host, in that layout,
-into two device buffers: the periodic sub-steps' (one copy, read by
-every block) and the others' (one slice a block).  A block stages each
-buffer by one contiguous copy, and each operand by one more: a few long
-runs of 16-byte copies, where a copy a table row made the staging a
-chain of short dependent steps per thread.
+shared memory: a fixed region staged once (descriptors, the periodic
+tables, the operands), then per slot its own tables, its share of two
+buffers and its (batch row, tile) entry; the kernel takes the offsets as
+given and places the slots' regions after the fixed one for the slots
+it uses.  The tables of every sub-step after the first are packed on
+the host, in that layout, into two device buffers: the periodic
+sub-steps' (one copy, read by every block) and the others' (one row a
+tile).  A block stages each by contiguous 16-byte copies, and each
+operand by one more run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -61,17 +74,43 @@ import numpy as np
 from ...core.fabric import PAD, ShufflePlan
 
 __all__ = ["SubStep", "ChainSegment", "ChainLayout", "segment_chain",
-           "best_tiles", "chain_layout", "shared_bytes", "SHARED_BYTES",
-           "MAX_SUBSTEPS", "MIN_BLOCK_ROWS"]
+           "best_tiles", "chain_layout", "shared_bytes", "swizzle",
+           "w_perm", "SHARED_BYTES", "MAX_SUBSTEPS", "MAX_BLOCK_ROWS",
+           "MAX_SLOTS"]
 
 SHARED_BYTES = 227 * 1024     # a block's opt-in shared memory on sm_90
 MAX_SUBSTEPS = 32             # kMaxSub in csrc/shuffle_gemm.cu
-MIN_BLOCK_ROWS = 128          # rows a block takes before it takes more tiles
-STEP_BYTES = 72               # sizeof(Step) in csrc/shuffle_gemm.cu
+MAX_BLOCK_ROWS = 2048         # rows a block's slots hold at most (4 a
+#                               thread at its 512 threads)
+MAX_SLOTS = 64                # slots a block (at most its threads)
+STEP_BYTES = 88               # sizeof(Step) in csrc/shuffle_gemm.cu
 
 
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def swizzle(p):
+    """Where the kernel keeps buffered position ``p`` of a tile whose
+    output it swizzles: the 16-byte chunk ``p >> 2`` xor'ed in its low
+    three bits with bits 5-7 of ``p`` (inside each aligned 32-float
+    block; a float4 stays whole, a pair (2i, 2i + 1) stays a pair).  PAD
+    (negative) entries stay as they are."""
+    p = np.asarray(p)
+    return np.where(p >= 0, p ^ (((p >> 5) & 7) << 2), p)
+
+
+def w_perm(step: "SubStep", elem_bytes: int = 4, first: bool = False
+           ) -> bool:
+    """Whether the kernel stages a later butterfly's operand (float32, t
+    4, n_out 4, several groups, fewer than 8 rows a group) with group g's
+    16-byte chunk kk at ``kk ^ ((g >> 1) & 3)``: the 8 rows of a
+    quarter-warp then read their groups' chunks from distinct banks,
+    where the plain layout puts them on two.  Rows of 8 or more a group
+    read one group's chunks together (a broadcast) and keep the plain
+    layout's constant offsets."""
+    return (not first and elem_bytes == 4 and step.t == 4
+            and step.n_out == 4 and step.groups > 1 and step.nb < 8)
 
 
 @dataclasses.dataclass(eq=False)
@@ -172,77 +211,94 @@ def _rebased(steps: Sequence[SubStep], tiles: int):
 @dataclasses.dataclass(frozen=True)
 class ChainLayout:
     """Where the chain kernel's block keeps what it holds in shared
-    memory, in bytes: the sub-steps' descriptors at 0, two float32
-    buffers of ``buf_floats`` at ``off_buf``, the periodic sub-steps'
-    tables (``shared``: offset, bytes) and the others' for the block's
-    tiles (``own``), then the operands; per sub-step ``(idx, pad, scale,
-    w)`` offsets (-1 where it has none; sub-step 0 reads its own from
-    device memory).  Every offset is a multiple of 16."""
-    off_buf: int
-    buf_floats: int
+    memory, in bytes.  The fixed region, staged once a block: the
+    sub-steps' descriptors at 0, the periodic sub-steps' tables
+    (``shared``: offset, bytes), the operands; ``fixed`` bytes in all.
+    Then, per slot, from ``fixed`` on: its own tables (``own_bytes``, the
+    other sub-steps' tables for one tile) and its share of two float32
+    buffers (``buf_floats`` a slot: a tile of the largest buffered
+    output); for ``slots`` slots ``total`` bytes.  Per sub-step ``(idx,
+    pad, scale, w)`` offsets (-1 where it has none; sub-step 0 reads its
+    own from device memory): from 0 for a periodic sub-step's tables and
+    every operand, from the slot's own tables for the others' tables;
+    ``perms``, per operand :func:`w_perm`.  Every offset is a multiple
+    of 16."""
     shared: Tuple[int, int]
-    own: Tuple[int, int]
     steps: Tuple[Tuple[int, int, int, int], ...]
+    fixed: int
+    own_bytes: int
+    buf_floats: int
+    slots: int
     total: int
+    perms: Tuple[bool, ...] = ()
 
 
-def chain_layout(steps: Sequence[SubStep], tiles: int, tiles_per_cta: int,
+def _slot_bytes(fixed: int, own_bytes: int, buf_floats: int,
+                slots: int) -> int:
+    """Bytes of a block with ``slots`` slots (the kernel's own sum)."""
+    return fixed + slots * own_bytes + 2 * _align16(4 * slots * buf_floats)
+
+
+def chain_layout(steps: Sequence[SubStep], tiles: int, slots: int,
                  periodic: Sequence[bool], elem_bytes: int = 4
                  ) -> ChainLayout:
     """The shared-memory layout of one block (see :class:`ChainLayout`):
-    descriptors (:data:`STEP_BYTES` each); two buffers of the block's
-    tiles of the largest buffered output (every sub-step's but the
-    last); then per sub-step after the first, periodic ones first, its
-    index table, its PAD values when it has a PAD entry and its scale
-    when it has one (``elem_bytes`` a value; one tile's rows when
-    periodic, the block's tiles' rows else); then each operand.  Each
-    region is rounded up to 16 bytes."""
+    descriptors (:data:`STEP_BYTES` each); the periodic sub-steps'
+    tables, then each operand; then the slots' regions.  A sub-step's
+    tables: its index table, its PAD values when it has a PAD entry and
+    its scale when it has one (``elem_bytes`` a value), for one tile's
+    rows.  Each region is rounded up to 16 bytes."""
     off = _align16(STEP_BYTES * len(steps))
-    off_buf = off
-    buf = tiles_per_cta * max((s.n_elems // tiles for s in steps[:-1]),
-                              default=0)
-    off += 2 * _align16(4 * buf)
     offs = [[-1, -1, -1, -1] for _ in steps]
-    regions = []
-    for own in (False, True):
-        start = off
-        for i, s in enumerate(steps[1:], 1):
-            if periodic[i] == own:
-                continue
-            n = s.rows // tiles * (tiles_per_cta if own else 1) * s.t
-            offs[i][0] = off
-            off += _align16(4 * n)
-            if s.has_pad:
-                offs[i][1] = off
-                off += _align16(elem_bytes * n)
-            if s.diag is not None:
-                offs[i][2] = off
-                off += _align16(elem_bytes * n)
-        regions.append((start, off - start))
+
+    def tables(i, s, at):
+        n = s.rows // tiles * s.t
+        offs[i][0] = at
+        at += _align16(4 * n)
+        if s.has_pad:
+            offs[i][1] = at
+            at += _align16(elem_bytes * n)
+        if s.diag is not None:
+            offs[i][2] = at
+            at += _align16(elem_bytes * n)
+        return at
+
+    start = off
+    for i, s in enumerate(steps[1:], 1):
+        if periodic[i]:
+            off = tables(i, s, off)
+    shared = (start, off - start)
+    perms = tuple(w_perm(s, elem_bytes, i == 0)
+                  for i, s in enumerate(steps))
     for i, s in enumerate(steps[1:], 1):
         offs[i][3] = off
         off += _align16(elem_bytes * s.groups * s.t * s.n_out)
-    return ChainLayout(off_buf, buf, regions[0], regions[1],
-                       tuple(tuple(o) for o in offs), off)
+    own = 0
+    for i, s in enumerate(steps[1:], 1):
+        if not periodic[i]:
+            own = tables(i, s, own)
+    buf = max((s.n_elems // tiles for s in steps[:-1]), default=0)
+    return ChainLayout(shared, tuple(tuple(o) for o in offs), off, own, buf,
+                       slots, _slot_bytes(off, own, buf, slots), perms)
 
 
 def shared_bytes(steps: Sequence[SubStep], tiles: int, tiles_per_cta: int,
                  periodic: Sequence[bool], elem_bytes: int = 4) -> int:
-    """Dynamic shared memory of one block of the chain kernel
-    (:func:`chain_layout`)."""
+    """Dynamic shared memory of one block of the chain kernel with
+    ``tiles_per_cta`` slots (:func:`chain_layout`)."""
     return chain_layout(steps, tiles, tiles_per_cta, periodic,
                         elem_bytes).total
 
 
 @dataclasses.dataclass(eq=False)
 class ChainSegment:
-    """Sub-steps run by one launch: ``tiles`` tiles a batch row,
-    ``tiles_per_cta`` of them a block (a divisor of ``tiles``), per
-    sub-step whether one tile's tables serve all (``periodic``; then
-    only the first tile's rows go to the card), and per sub-step its
-    ``(idx, pads, scale)`` in the kernel's form, every tile's rows, as
-    numpy arrays.  A segment of one sub-step runs on the per-step
-    kernels."""
+    """Sub-steps run by one launch: ``tiles`` tiles a batch row, at most
+    ``tiles_per_cta`` of them in a block at once (its slots, over the
+    launch's flat list of (batch row, tile) pairs), per sub-step whether
+    one tile's tables serve all (``periodic``; then only the first tile's
+    rows go to the card), and per sub-step its ``(idx, pads, scale)`` in
+    the kernel's form, every tile's rows, as numpy arrays.  A segment of
+    one sub-step runs on the per-step kernels."""
     steps: Tuple[SubStep, ...]
     tiles: int
     tiles_per_cta: int
@@ -259,14 +315,64 @@ class ChainSegment:
                 else "shuffle_gemm_grouped_blocks")
 
     @property
-    def threads(self) -> int:
-        """Threads a block: one a row of the block's tiles of the median
-        sub-step (wider sub-steps loop; a block of more warps pays more
-        at each sub-step's barrier), in whole warps, 32 to 512 (at least
-        one a sub-step: each copies one descriptor)."""
+    def slot_rows(self) -> int:
+        """Rows a tile of the median sub-step: a block takes one thread a
+        row of its slots' tiles of it (wider sub-steps loop; a block of
+        more warps pays more at each sub-step's barrier), in whole warps,
+        32 to 512, at least one a sub-step (each copies one
+        descriptor)."""
         rows = sorted(s.rows // self.tiles for s in self.steps)
-        rows = rows[len(rows) // 2] * self.tiles_per_cta
-        return min(512, max(32, -(-rows // 32) * 32))
+        return rows[len(rows) // 2]
+
+    def row_spans(self, i: int):
+        """Sub-step ``i``'s plain ``(rows, t)`` table as
+        :class:`~repro_torch.kernels.shuffle_gemm.tiling.RowSpans` (the
+        staged blocks body's spans), built once."""
+        from .tiling import RowSpans
+        key = ("spans", i)
+        hit = self._device.get(key)
+        if hit is None:
+            s = self.steps[i]
+            hit = self._device[key] = RowSpans(
+                s.idx, np.asarray(s.plan.pad_values).reshape(s.rows, s.t),
+                None if s.diag is None else
+                np.asarray(s.diag).reshape(s.rows, s.t))
+        return hit
+
+    @functools.cached_property
+    def swz(self) -> Tuple[bool, ...]:
+        """Per sub-step whether the kernel swizzles its buffered output
+        (:func:`swizzle`): every sub-step but the last whose tile holds a
+        whole number of 32-float blocks."""
+        return tuple(i + 1 < len(self.steps)
+                     and (s.n_elems // self.tiles) % 32 == 0
+                     for i, s in enumerate(self.steps))
+
+    @functools.cached_property
+    def pairs(self) -> Tuple[bool, ...]:
+        """Per sub-step whether every row of a butterfly (t 4, n_out 4)
+        after the first reads two pairs ``(i, i + 1)``, ``i`` even, of the
+        buffer (no PAD): the kernel then gathers them by two 8-byte
+        loads."""
+        out = [False]
+        for s, (idx, _, _) in zip(self.steps[1:], self.tables[1:]):
+            idx = np.asarray(idx)
+            out.append(bool(
+                s.t == 4 and s.n_out == 4 and (idx[:, [0, 2]] >= 0).all()
+                and (idx[:, [0, 2]] % 2 == 0).all()
+                and (idx[:, [1, 3]] == idx[:, [0, 2]] + 1).all()))
+        return tuple(out)
+
+    @functools.cached_property
+    def zero_pads0(self) -> bool:
+        """Whether every PAD value of the first sub-step (times its scale,
+        finite there) is 0: the kernel then reads no PAD table for it."""
+        idx, pads, scale = self.tables[0]
+        at = np.asarray(idx) < 0
+        v = np.asarray(pads, np.float64)[at]
+        if scale is not None:
+            v = v * np.asarray(scale, np.float64)[at]
+        return bool(np.isfinite(v).all() and (v == 0).all())
 
     def report(self) -> dict:
         return {"steps": [s.name for s in self.steps],
@@ -285,8 +391,10 @@ class ChainSegment:
         scale)`` (``scale`` None without a diag); ``shared``, the
         periodic sub-steps' tables packed in the :func:`chain_layout`
         order (uint8); ``own``, the other sub-steps' tables, one packed
-        row a block's tiles (uint8, ``(tiles / tiles_per_cta, bytes)``);
-        and ``layout``.  ``plain`` is per sub-step the ``(rows, t)``
+        row a tile (uint8, ``(tiles, own_bytes)``); and ``layout``.  A
+        sub-step's indices into a swizzled output (:attr:`swz`) are
+        packed swizzled.
+        ``plain`` is per sub-step the ``(rows, t)``
         ``(idx, pads, scale)`` of the per-step kernels."""
         import torch
         key = (str(torch.device(device)), dtype)
@@ -303,12 +411,14 @@ class ChainSegment:
             lay = chain_layout(self.steps, self.tiles, self.tiles_per_cta,
                                self.periodic,
                                torch.empty((), dtype=dtype).element_size())
-            tpc = self.tiles_per_cta
             shared = np.zeros(lay.shared[1], np.uint8)
-            own = np.zeros((self.tiles // tpc, lay.own[1]), np.uint8)
+            own = np.zeros((self.tiles, lay.own_bytes), np.uint8)
             for i, s in enumerate(self.steps[1:], 1):
-                rows = s.rows // self.tiles * (1 if self.periodic[i] else tpc)
-                for off, a, dt in zip(lay.steps[i][:3], self.tables[i],
+                rows = s.rows // self.tiles
+                idx, pads, scale = self.tables[i]
+                if self.swz[i - 1]:            # as the step before wrote
+                    idx = swizzle(idx)
+                for off, a, dt in zip(lay.steps[i][:3], (idx, pads, scale),
                                       (torch.int32, dtype, dtype)):
                     if off < 0:
                         continue
@@ -317,10 +427,8 @@ class ChainSegment:
                         o = off - lay.shared[0]
                         shared[o:o + b.size] = b
                         continue
-                    for q in range(self.tiles // tpc):
-                        b = raw(a[q * rows:(q + 1) * rows], dt)
-                        o = off - lay.own[0]
-                        own[q, o:o + b.size] = b
+                    b = raw(a, dt).reshape(self.tiles, -1)
+                    own[:, off:off + b.shape[1]] = b
             idx, pads, scale = self.tables[0]
             kern = {"first": (put(idx, torch.int32), put(pads, dtype),
                               put(scale, dtype)),
@@ -337,14 +445,15 @@ class ChainSegment:
 
 
 def _tiles_per_cta(steps, tiles, periodic) -> int:
-    """The fewest tiles a block (a divisor of ``tiles``) that give it
-    :data:`MIN_BLOCK_ROWS` rows of its widest sub-step, within shared
-    memory."""
+    """Slots a block: as many tiles as hold :data:`MAX_BLOCK_ROWS` rows
+    of the widest sub-step (at most :data:`MAX_SLOTS`, at least one),
+    within shared memory."""
     rows = max(s.rows // tiles for s in steps)
-    divisors = [d for d in range(1, tiles + 1) if tiles % d == 0]
-    fit = [d for d in divisors
-           if shared_bytes(steps, tiles, d, periodic) <= SHARED_BYTES]
-    return next((d for d in fit if d * rows >= MIN_BLOCK_ROWS), fit[-1])
+    slots = max(1, min(MAX_SLOTS, MAX_BLOCK_ROWS // rows))
+    while slots > 1 and shared_bytes(steps, tiles, slots,
+                                     periodic) > SHARED_BYTES:
+        slots -= 1
+    return slots
 
 
 def _segment(steps: Sequence[SubStep]) -> ChainSegment:

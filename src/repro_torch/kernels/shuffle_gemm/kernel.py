@@ -22,7 +22,9 @@ the CPU, and for a tensor on the card checks device, type, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
 current stream and raises if the launch reports an error.  It counts its
 launches in its ``launches`` attribute, a plain integer incremented once
-per kernel launch and nowhere else.
+per kernel launch and nowhere else.  After each launch :data:`last_launch`
+holds what it ran: the body, its grid and the bytes it staged into
+shared memory.
 
 Indices must lie in ``[-1, n_in)`` (-1 = PAD); the kernel does not
 bounds-check them.  ``ops.py`` validates every plan once before its
@@ -38,13 +40,24 @@ import torch
 
 from .ref import (ref_shuffle_gemm_blocks, ref_shuffle_gemm_chain,
                   ref_shuffle_gemm_grouped_blocks)
+from .tiling import RUN, RowSpans, staged_tiling
 
 __all__ = ["shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
            "shuffle_gemm_chain", "shuffle_gemm_steps", "chain_steps",
-           "ref_chain", "launch_counts", "reset_launch_counts"]
+           "ref_chain", "launch_counts", "reset_launch_counts",
+           "last_launch"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 2 ** 31 - 1          # the C entries take the batch as an int
+_LAUNCH_INTS = 3                  # ints a chain launch writes after its dims
+_STAGED_DIMS = 20                 # kStagedDims in csrc/shuffle_gemm.cu
+_BLOCKS_INTS = 4                  # ints a blocks launch writes after them
+
+# The last launch of any wrapper here: ``kernel``, ``body`` (``staged``,
+# ``sequential``, ``wide``, ``grouped`` or ``chain``), ``grid``, ``smem``
+# (bytes a block) and ``staged_bytes``: what its blocks copy into shared
+# memory from device memory in all (operands, tables, inputs).
+last_launch: dict = {}
 
 
 def _check(x, idx, pad_vals, w, scale, w_rank):
@@ -79,16 +92,41 @@ def _launch(entry, x, idx, pad_vals, w, scale, out, *ints):
            w.data_ptr(), out.data_ptr(), *ints, _DTYPE_CODES[x.dtype])
 
 
+def blocks_tiling(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                  scale: Optional[torch.Tensor] = None,
+                  spans: Optional[RowSpans] = None):
+    """The staged body's tiling of a ``shuffle_gemm_blocks`` call on
+    these arguments, or None where it runs on another body (the launch
+    picks the wide one for a per-row operand at t >= 32 where it fits,
+    else the sequential one).  It reads the call's shapes, type, scale
+    and spans, never its batch."""
+    if w.ndim != 2:
+        return None
+    (r, t), n_out = idx.shape, w.shape[-1]
+    return staged_tiling(r, t, n_out, x.element_size(), scale is not None,
+                         spans)
+
+
+# the bodies a blocks launch reports in its dims' last int
+_BODIES = ("sequential", "wide", "staged")
+
+
 def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
                         pad_vals: torch.Tensor, w: torch.Tensor,
-                        scale: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        scale: Optional[torch.Tensor] = None,
+                        spans: Optional[RowSpans] = None) -> torch.Tensor:
     """x: (B, n_in); idx/pad_vals[/scale]: (R, t); w: (t, n_out), shared
     by every batch row, or (B, t, n_out), batch row b against w[b] ->
     (B, R, n_out).  Replaces ``repro.kernels.shuffle_gemm.kernel.
     shuffle_gemm_blocks`` (its per-row form: the JAX package's ``vmap``
-    over that kernel); rows need no padding to a block multiple.  Row b
-    of a per-row call is bit for bit the shared call on w[b]."""
+    over that kernel); rows need no padding to a block multiple.
+    ``spans``, the :class:`~repro_torch.kernels.shuffle_gemm.tiling.
+    RowSpans` of the numpy table ``idx`` was made from, lets a shared
+    operand's call stage each row tile's span of ``x``
+    (:func:`blocks_tiling`).  Every output's sum runs in an order set by
+    ``t`` alone, so row b of a per-row call is bit for bit the shared
+    call on w[b], and a row's result does not depend on the batch it sits
+    in."""
     if x.device.type == "cpu":
         return ref_shuffle_gemm_blocks(x, idx, pad_vals, w, scale)
     _check(x, idx, pad_vals, w, scale, w_rank=(2, 3))
@@ -98,11 +136,45 @@ def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
                          f"for a batch of {b}")
     out = torch.empty((b, r, n_out), dtype=x.dtype, device=x.device)
     if out.numel():
+        tiling = blocks_tiling(x, idx, w, scale, spans)
+        layout = tiling.dims() if tiling is not None else (0,) * _STAGED_DIMS
+        dims = (ctypes.c_int * (_STAGED_DIMS + _BLOCKS_INTS))(*layout)
+        span_t = (spans.on(tiling.rt, x.device)
+                  if tiling is not None and tiling.affine is None else None)
         _launch("repro_shuffle_gemm_blocks",
                 x, idx, pad_vals, w, scale, out, b, n_in, r, t, n_out,
-                t * n_out if w.ndim == 3 else 0)
+                t * n_out if w.ndim == 3 else 0,
+                None if span_t is None else span_t.data_ptr(), dims)
         shuffle_gemm_blocks.launches += 1
+        _record_blocks(tiling, dims[_STAGED_DIMS:], spans, x, idx, w, scale)
     return out
+
+
+def _record_blocks(tiling, launched, spans, x, idx, w, scale) -> None:
+    """:data:`last_launch` of a ``shuffle_gemm_blocks`` launch, from the
+    ints it reported: its grid, its rows a block (wide body) or batch rows
+    a block (staged), its body."""
+    (b, _), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
+    es = x.element_size()
+    gx, gy, per, body = launched
+    entry = {"kernel": "shuffle_gemm_blocks", "body": _BODIES[body],
+             "grid": (gx, gy), "staged_bytes": 0}
+    if body == 2:
+        # each block: the operand and its tile's tables; each batch row:
+        # every tile's span of x
+        table = t * ((4 if tiling.mode != RUN else 0)
+                     + es * ((tiling.off_pad >= 0)
+                             + (tiling.off_scale >= 0)))
+        entry.update(smem=tiling.total, staged_bytes=int(
+            gy * (gx * t * n_out * es + r * table)
+            + b * spans.staged(tiling.rt) * es))
+    elif body == 1:
+        # each block: its batch row's operand and its rows' gathered
+        # values (and scales)
+        entry["staged_bytes"] = int(gx * gy * (t * n_out + per * t * (
+            2 if scale is not None else 1)) * es)
+    last_launch.clear()
+    last_launch.update(entry)
 
 
 def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
@@ -129,6 +201,9 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
                 x, idx, pad_vals, w, scale, out, b, n_in, reps, groups, nb,
                 t, n_out)
         shuffle_gemm_grouped_blocks.launches += 1
+        last_launch.clear()
+        last_launch.update(kernel="shuffle_gemm_grouped_blocks",
+                           body="grouped", staged_bytes=0)
     return out
 
 
@@ -142,19 +217,21 @@ def chain_steps(segment, ws: Sequence[torch.Tensor], device, dtype):
             for s, (idx, pads, scale), w in zip(segment.steps, plain, ws)]
 
 
-def ref_chain(x: torch.Tensor, segment,
-              ws: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The plain version of :func:`shuffle_gemm_chain`, on its
-    arguments."""
+def ref_chain(x: torch.Tensor, segment, ws: Sequence[torch.Tensor],
+              slots: int = 0) -> torch.Tensor:
+    """The plain version of :func:`shuffle_gemm_chain`, on its arguments
+    (``slots``, the kernel's tiles a block, changes no value)."""
     return ref_shuffle_gemm_chain(x, chain_steps(segment, ws, x.device,
                                                  x.dtype))
 
 
 def shuffle_gemm_steps(x: torch.Tensor, segment,
-                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
+                       ws: Sequence[torch.Tensor],
+                       slots: int = 0) -> torch.Tensor:
     """The segment's sub-steps launched one at a time through
     :func:`shuffle_gemm_grouped_blocks` (whose body the chain kernel's
-    arithmetic repeats at every ``t``)."""
+    arithmetic repeats at every ``t``), on :func:`shuffle_gemm_chain`'s
+    arguments (``slots`` has no use here)."""
     for idx, pads, w, reps, groups, nb, scale in chain_steps(
             segment, ws, x.device, x.dtype):
         x = shuffle_gemm_grouped_blocks(x, idx, pads, w, reps, groups, nb,
@@ -163,10 +240,14 @@ def shuffle_gemm_steps(x: torch.Tensor, segment,
 
 
 def chain_launch_args(x: torch.Tensor, segment,
-                      ws: Sequence[torch.Tensor]) -> tuple:
+                      ws: Sequence[torch.Tensor], slots: int = 0) -> tuple:
     """Check a chain call on the card and allocate its output: ``(out,
     args)`` with ``args`` the arguments of the C entry
-    ``repro_shuffle_gemm_chain`` before the stream."""
+    ``repro_shuffle_gemm_chain`` before the stream (its ``dims`` array
+    holds, after the launch, the blocks, tiles a block and shared bytes a
+    block it ran).  ``slots`` sets the tiles a block holds at once, at
+    most the segment's ``tiles_per_cta`` (0: the launch picks, from the
+    batch and the card's SMs)."""
     from .. import check_operands
     from .chain import MAX_SUBSTEPS
     steps = segment.steps
@@ -188,41 +269,72 @@ def chain_launch_args(x: torch.Tensor, segment,
     (b, n_in), first = x.shape, steps[0]
     if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
         raise ValueError(f"{first.name} reads past a length-{n_in} input")
-    if b * segment.tiles // segment.tiles_per_cta >= 2 ** 31:
-        raise ValueError(f"batch {b} x {segment.tiles} tiles is too many "
-                         f"blocks")
+    if not 0 <= slots <= segment.tiles_per_cta:
+        raise ValueError(f"slots {slots} outside 0..{segment.tiles_per_cta}")
     kern, _ = segment.device_tables(x.device, x.dtype)
-    lay = kern["layout"]
     last = steps[-1]
     out = torch.empty((b, last.rows * last.n_out), dtype=x.dtype,
                       device=x.device)
     ptrs = (ctypes.c_void_p * (len(steps) + 5))(*[
         None if a is None or not a.numel() else a.data_ptr()
         for a in (*kern["first"], *ws, kern["shared"], kern["own"])])
-    dims = (ctypes.c_int * (10 + 10 * len(steps)))(
-        segment.tiles, segment.tiles_per_cta, segment.threads, lay.off_buf,
-        lay.buf_floats, *lay.shared, *lay.own, lay.total,
-        *[v for s, per, offs in zip(steps, segment.periodic, lay.steps)
-          for v in (s.rows, s.t, s.n_out, s.groups, s.nb, int(per), *offs)])
+    static = _chain_dims(segment, kern["layout"])
+    dims = (ctypes.c_int * (len(static) + _LAUNCH_INTS))(*static)
+    dims[8] = slots
     return out, (x.data_ptr(), out.data_ptr(), b, n_in, len(steps), ptrs,
                  dims, _DTYPE_CODES[x.dtype])
 
 
+def _chain_dims(segment, lay) -> tuple:
+    """The C entry's dims of ``segment`` in layout ``lay`` (its slots
+    used, dims[8], 0), built once a segment and layout."""
+    key = ("dims", id(lay))
+    hit = segment._device.get(key)
+    if hit is None or hit[0] is not lay:
+        static = (
+            segment.tiles, segment.tiles_per_cta, segment.slot_rows,
+            *lay.shared, lay.own_bytes, lay.buf_floats, lay.fixed, 0,
+            int(segment.zero_pads0),
+            *[v for s, per, offs, perm, pair, swz in zip(
+                segment.steps, segment.periodic, lay.steps, lay.perms,
+                segment.pairs, segment.swz)
+              for v in (s.rows, s.t, s.n_out, s.groups, s.nb, int(per),
+                        *offs, int(perm), int(pair), int(swz))])
+        hit = segment._device[key] = (lay, static)
+    return hit[1]
+
+
 def shuffle_gemm_chain(x: torch.Tensor, segment,
-                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
+                       ws: Sequence[torch.Tensor],
+                       slots: int = 0) -> torch.Tensor:
     """x: (B, n_in); ``segment`` a
     :class:`~repro_torch.kernels.shuffle_gemm.chain.ChainSegment` of S
     sub-steps; ``ws[s]``: sub-step s's ``(groups, t, n_out)`` operand ->
     (B, rows * n_out of the last sub-step), flat, in one launch: every
-    sub-step after the first runs tile by tile in shared memory.  Bit for
-    bit :func:`shuffle_gemm_steps` on the same arguments."""
+    sub-step after the first runs tile by tile in shared memory, each
+    block staging the shared tables and the operands once for all the
+    tiles it walks.  ``slots``: tiles a block holds at once (0: the
+    launch picks).  Bit for bit :func:`shuffle_gemm_steps` on the same
+    arguments, whatever the slots."""
     if x.device.type == "cpu":
         return ref_chain(x, segment, ws)
-    out, args = chain_launch_args(x, segment, ws)
+    out, args = chain_launch_args(x, segment, ws, slots)
     if out.numel():
         from .. import launch
         launch("repro_shuffle_gemm_chain", x.device, *args)
         shuffle_gemm_chain.launches += 1
+        blocks, used, smem = args[6][-_LAUNCH_INTS:]
+        lay = segment.device_tables(x.device, x.dtype)[0]["layout"]
+        operands = sum(s.groups * s.t * s.n_out for s in segment.steps[1:])
+        # the blocks stage the shared tables and operands once each, the
+        # tiles their own tables
+        last_launch.clear()
+        last_launch.update(
+            kernel="shuffle_gemm_chain", body="chain", grid=(blocks,),
+            slots=used, smem=smem,
+            staged_bytes=blocks * (lay.shared[1]
+                                   + operands * x.element_size())
+            + x.shape[0] * segment.tiles * lay.own_bytes)
     return out
 
 

@@ -22,6 +22,7 @@ import torch
 
 from ...core.fabric import PAD, ShufflePlan, device_constant
 from .chain import segment_chain
+from .tiling import RowSpans
 from .kernel import (shuffle_gemm_blocks, shuffle_gemm_chain,
                      shuffle_gemm_grouped_blocks)
 from .vjp import ShuffleGemmChainFn, ShuffleGemmFn
@@ -32,10 +33,13 @@ __all__ = ["plan_blocks", "shuffle_gemm", "shuffle_gemm_grouped",
 
 def plan_blocks(plan: ShufflePlan, diag, rows: int, dtype, device):
     """A flat plan (+ optional diag scale) as the kernels' ``(rows, t)``
-    row-major blocks on ``device``: ``(t, idx, pads, scale, max_index)``
-    with ``idx`` int32, ``pads``/``scale`` in ``dtype`` (``scale`` None
-    without a diag) and ``max_index`` the largest source index read.
-    Built once per (rows, device, dtype, diag) and kept on the plan."""
+    row-major blocks on ``device``: ``(t, idx, pads, scale, max_index,
+    spans)`` with ``idx`` int32, ``pads``/``scale`` in ``dtype``
+    (``scale`` None without a diag), ``max_index`` the largest source
+    index read and ``spans`` the table's row-tile spans
+    (:class:`~repro_torch.kernels.shuffle_gemm.tiling.RowSpans`, from the
+    numpy plan).  Built once per (rows, device, dtype, diag) and kept on
+    the plan."""
     if rows <= 0 or plan.n_out % rows:
         raise ValueError(f"plan of {plan.n_out} elements does not split "
                          f"into {rows} rows")
@@ -55,21 +59,25 @@ def plan_blocks(plan: ShufflePlan, diag, rows: int, dtype, device):
         np.asarray(diag).reshape(rows, t), device=device).to(dtype)
     blocks = (t, idx.contiguous(), pads.contiguous(),
               None if scale is None else scale.contiguous(),
-              int(gi.max()) if gi.size else -1)
+              int(gi.max()) if gi.size else -1,
+              RowSpans(gi.reshape(rows, t),
+                       np.asarray(plan.pad_values).reshape(rows, t),
+                       None if diag is None else
+                       np.asarray(diag).reshape(rows, t)))
     cache[key] = (diag, blocks)
     return blocks
 
 
 def _prepare(x: torch.Tensor, plan, diag, rows, w):
-    t, idx, pads, scale, max_index = plan_blocks(plan, diag, rows, x.dtype,
-                                                 x.device)
+    t, idx, pads, scale, max_index, spans = plan_blocks(plan, diag, rows,
+                                                        x.dtype, x.device)
     n_in = x.shape[-1]
     if max_index >= n_in:
         raise ValueError(f"plan reads index {max_index} of a length-{n_in} "
                          f"input")
     xb = x.reshape(-1, n_in).contiguous()
     w = device_constant(w, x.device, x.dtype).contiguous()
-    return xb, (t, idx, pads, scale), w
+    return xb, (t, idx, pads, scale, spans), w
 
 
 def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
@@ -95,8 +103,8 @@ def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
                              f"with B = {w.shape[0]}; got {tuple(x.shape)}")
         from .. import forward_only
         forward_only("per-row shuffle_gemm_blocks", x, w)
-        t, idx, pads, scale, max_index = plan_blocks(plan, diag, rows,
-                                                     x.dtype, x.device)
+        t, idx, pads, scale, max_index, _ = plan_blocks(plan, diag, rows,
+                                                        x.dtype, x.device)
         if max_index >= x.shape[-1]:
             raise ValueError(f"plan reads index {max_index} of a "
                              f"length-{x.shape[-1]} input")
@@ -159,7 +167,8 @@ def run_segments(xb: torch.Tensor, segments, ws) -> torch.Tensor:
         (s,), ((idx, pads, scale),) = seg.steps, seg.device_tables(
             xb.device, xb.dtype)[1]
         if s.groups == 1:
-            xb = shuffle_gemm_blocks(xb, idx, pads, w[0][0], scale)
+            xb = shuffle_gemm_blocks(xb, idx, pads, w[0][0], scale,
+                                     seg.row_spans(0))
             xb = xb.reshape(xb.shape[0], -1)
         else:
             xb = shuffle_gemm_grouped_blocks(xb, idx, pads, w[0], s.reps,

@@ -50,6 +50,7 @@ import torch
 from ...core.fabric import ShufflePlan
 from .kernel import shuffle_gemm_blocks, shuffle_gemm_grouped_blocks
 from .ref import gather_rows
+from .tiling import RowSpans
 
 __all__ = ["ShuffleGemmFn", "ShuffleGemmChainFn", "VJP_CACHE_BACKEND",
            "adjoint_lowering", "backward_chain"]
@@ -64,10 +65,12 @@ VJP_CACHE_BACKEND = "hopper:vjp"
 def _identity_blocks(rows: int, t: int, dtype, device: str):
     """Blocks of the identity gather over a flat ``(rows * t)`` stream —
     feeds each kernel row its own slice; routes the cotangent into the
-    transposed GEMM.  Built once per shape, type and device."""
+    transposed GEMM — with their row-tile spans.  Built once per shape,
+    type and device."""
     idx = torch.arange(rows * t, dtype=torch.int32,
                        device=device).reshape(rows, t)
-    return idx, torch.zeros((rows, t), dtype=dtype, device=device)
+    spans = RowSpans(np.arange(rows * t).reshape(rows, t))
+    return idx, torch.zeros((rows, t), dtype=dtype, device=device), spans
 
 
 def _digest(plan: ShufflePlan, diag, n_in: int) -> tuple:
@@ -92,10 +95,10 @@ def _digest(plan: ShufflePlan, diag, n_in: int) -> tuple:
 
 def adjoint_lowering(plan: ShufflePlan, n_in: int, diag, dtype, device):
     """Kernel-ready blocks of the adjoint program of one forward gather
-    on ``device``: ``(idx, pads, scale, ones)`` such that gathering the
-    flat cotangent through ``(idx, pads, scale)`` and contracting each
-    of the ``n_in`` rows against ``ones`` (an ``(m, 1)`` operand) yields
-    ``d_x`` — the two steps of
+    on ``device``: ``(idx, pads, scale, ones, spans)`` such that
+    gathering the flat cotangent through ``(idx, pads, scale)`` (row-tile
+    spans ``spans``) and contracting each of the ``n_in`` rows against
+    ``ones`` (an ``(m, 1)`` operand) yields ``d_x`` — the two steps of
     :func:`repro_torch.core.exec_ir.adjoint_gather_steps`, lowered as
     the backend lowers any forward group.  Cached through the plan cache
     under :data:`VJP_CACHE_BACKEND`, so repeated ``value_and_grad``
@@ -106,10 +109,10 @@ def adjoint_lowering(plan: ShufflePlan, n_in: int, diag, dtype, device):
 
     def build():
         gather, reduce_ = adjoint_gather_steps("vjp", plan, n_in, diag)
-        _, idx, pads, scale, _ = plan_blocks(gather.plan, gather.diag,
-                                             n_in, dtype, device)
+        _, idx, pads, scale, _, spans = plan_blocks(
+            gather.plan, gather.diag, n_in, dtype, device)
         ones = torch.ones((reduce_.cin, 1), dtype=dtype, device=device)
-        return idx, pads, scale, ones
+        return idx, pads, scale, ones, spans
 
     key = (*_digest(plan, diag, n_in), str(torch.device(device)), dtype)
     return plan_cache_get("vjp_adjoint", key, build,
@@ -120,15 +123,15 @@ def _adjoint_dx(dg_flat: torch.Tensor, plan: ShufflePlan, n_in: int,
                 diag) -> torch.Tensor:
     """The cached adjoint lowering on a flat cotangent:
     ``(B, rows * t) -> (B, n_in)``."""
-    aidx, apads, ascale, ones = adjoint_lowering(plan, n_in, diag,
-                                                 dg_flat.dtype,
-                                                 dg_flat.device)
-    return shuffle_gemm_blocks(dg_flat, aidx, apads, ones, ascale)[..., 0]
+    aidx, apads, ascale, ones, spans = adjoint_lowering(
+        plan, n_in, diag, dg_flat.dtype, dg_flat.device)
+    return shuffle_gemm_blocks(dg_flat, aidx, apads, ones, ascale,
+                               spans)[..., 0]
 
 
 class ShuffleGemmFn(torch.autograd.Function):
     """A shuffle-GEMM kernel with its backward on the same kernels.
-    ``xb``: (B, n_in); ``blocks`` is ``(t, idx, pads, scale)`` of
+    ``xb``: (B, n_in); ``blocks`` is ``(t, idx, pads, scale, spans)`` of
     :func:`repro_torch.kernels.shuffle_gemm.ops.plan_blocks` for
     ``(plan, diag)``.  With ``dims`` None it runs
     ``shuffle_gemm_blocks``: ``w`` (t, n_out) -> (B, rows, n_out).  With
@@ -138,12 +141,12 @@ class ShuffleGemmFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xb, w, blocks, plan, diag, dims=None):
-        t, idx, pads, scale = blocks
+        t, idx, pads, scale, spans = blocks
         ctx.save_for_backward(xb, w)
         ctx.plan, ctx.diag, ctx.t, ctx.dims = plan, diag, t, dims
         ctx.idx, ctx.pads, ctx.scale = idx, pads, scale
         if dims is None:
-            return shuffle_gemm_blocks(xb, idx, pads, w, scale)
+            return shuffle_gemm_blocks(xb, idx, pads, w, scale, spans)
         return shuffle_gemm_grouped_blocks(xb, idx, pads, w, *dims, scale)
 
     @staticmethod
@@ -158,10 +161,11 @@ class ShuffleGemmFn(torch.autograd.Function):
             # the transposed GEMM: identity gather, each group's operand
             # transposed; row r of the result holds dg[r, :] (length t),
             # the plan-flat layout.
-            iidx, ipads = _identity_blocks(rows, n_out, dy.dtype,
-                                            str(dy.device))
+            iidx, ipads, ispans = _identity_blocks(rows, n_out, dy.dtype,
+                                                   str(dy.device))
             if ctx.dims is None:
-                dg = shuffle_gemm_blocks(dy, iidx, ipads, w.t().contiguous())
+                dg = shuffle_gemm_blocks(dy, iidx, ipads, w.t().contiguous(),
+                                         spans=ispans)
             else:
                 dg = shuffle_gemm_grouped_blocks(
                     dy, iidx, ipads, w.transpose(1, 2).contiguous(), reps,
@@ -276,10 +280,11 @@ class ShuffleGemmChainFn(torch.autograd.Function):
             wl = [w.detach().requires_grad_(n) for w, n in zip(ws, need[2:])]
             y = x
             for s, w in zip(chain.steps, wl):
-                t, idx, pads, scale, _ = plan_blocks(s.plan, s.diag, s.rows,
-                                                     y.dtype, y.device)
-                y = ShuffleGemmFn.apply(y, w, (t, idx, pads, scale), s.plan,
-                                        s.diag, (s.reps, s.groups, s.nb))
+                t, idx, pads, scale, _, spans = plan_blocks(
+                    s.plan, s.diag, s.rows, y.dtype, y.device)
+                y = ShuffleGemmFn.apply(y, w, (t, idx, pads, scale, spans),
+                                        s.plan, s.diag,
+                                        (s.reps, s.groups, s.nb))
             leaves = [v for v in (x, *wl) if v.requires_grad]
             grads = iter(torch.autograd.grad(y, leaves, dy))
         return ((next(grads) if need[0] else None, None)

@@ -42,7 +42,7 @@ from repro_torch.kernels.shuffle_gemm import (
     ShuffleGemmChain, ref_shuffle_gemm_chain, ref_shuffle_gemm_grouped_blocks,
     run_chain, shuffle_gemm_chain, shuffle_gemm_grouped)
 from repro_torch.kernels.shuffle_gemm.chain import (
-    SHARED_BYTES, SubStep, best_tiles, segment_chain, shared_bytes)
+    SHARED_BYTES, SubStep, best_tiles, segment_chain, shared_bytes, swizzle)
 from repro_torch.kernels.shuffle_gemm.kernel import chain_steps, ref_chain
 from repro_torch.kernels.shuffle_gemm.vjp import backward_chain
 from repro_torch.pipelines import speech_enhancement as tse
@@ -79,7 +79,9 @@ def test_fig9_forward_chains_are_one_segment_of_8(fig9):
         assert seg["steps"] == c["steps"]
         # 31 frames a batch row: 124 tiles of 512 floats at batch 4
         assert seg["tiles"] * BATCH == 124 and seg["tile_floats"] == 512
-        assert seg["tiles_per_cta"] == 1
+        # up to 16 tiles (2048 rows) a block at once; the launch takes
+        # fewer where the batch is small
+        assert seg["tiles_per_cta"] == 16
         assert seg["periodic"] == [False] + [True] * 7
         assert seg["shared_bytes"] <= SHARED_BYTES
     # the per-step routes stay the JAX package's
@@ -157,7 +159,7 @@ def test_small_random_chain_is_one_tile_a_batch_row():
              for i in range(3)]
     (seg,) = segment_chain(steps)
     assert seg.launch == "shuffle_gemm_chain" and seg.tiles == 1
-    assert seg.threads == 256
+    assert seg.slot_rows == 256
 
 
 def test_segment_refuses_a_step_reading_past_its_input():
@@ -288,9 +290,11 @@ def test_periodic_tables_are_stored_once():
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_packed_tables_hold_every_later_sub_steps_tables(dt):
     """The two packed buffers the kernel stages, read back at the layout's
-    offsets: each later sub-step's rebased indices, PAD values and scales
-    (one tile's rows where periodic, each block's tiles' rows else), every
-    region 16-byte aligned and inside the layout."""
+    offsets: each later sub-step's rebased indices (swizzled where the
+    sub-step before swizzles its output), PAD values and scales (one
+    tile's rows where periodic, in the fixed region; else one packed row
+    a tile, from the tile's own region), every region 16-byte aligned and
+    inside its region of the layout."""
     rng = np.random.default_rng(7)
     steps, _ = _random_chain(rng, tiles=8, rpt=32)
     es = torch.empty((), dtype=dt).element_size()
@@ -298,25 +302,72 @@ def test_packed_tables_hold_every_later_sub_steps_tables(dt):
         (seg,) = segment_chain(steps_)
         kern, _ = seg.device_tables("cpu", dt)
         lay = kern["layout"]
-        assert lay.total <= SHARED_BYTES and lay.off_buf % 16 == 0
-        groups = seg.tiles // seg.tiles_per_cta
+        assert lay.total <= SHARED_BYTES and lay.fixed % 16 == 0
+        assert lay.own_bytes % 16 == 0
         for i, s in enumerate(seg.steps[1:], 1):
             per = seg.periodic[i]
-            rows = s.rows // seg.tiles * (1 if per else seg.tiles_per_cta)
-            for off, arr, t_dt in zip(lay.steps[i][:3], seg.tables[i],
+            rows = s.rows // seg.tiles
+            idx, pads, scale = seg.tables[i]
+            # indices into a swizzled output are packed swizzled
+            tables = (swizzle(idx) if seg.swz[i - 1] else idx, pads, scale)
+            for off, arr, t_dt in zip(lay.steps[i][:3], tables,
                                       (torch.int32, dt, dt)):
                 if off < 0:
                     continue
-                assert off % 16 == 0 and off + rows * s.t * es <= lay.total
                 n = rows * s.t * torch.empty((), dtype=t_dt).element_size()
-                for q in range(1 if per else groups):
+                assert off % 16 == 0 and off + n <= (
+                    lay.fixed if per else lay.own_bytes)
+                for q in range(1 if per else seg.tiles):
                     buf = kern["shared"] if per else kern["own"][q]
-                    o = off - (lay.shared if per else lay.own)[0]
+                    o = off - lay.shared[0] if per else off
                     want = torch.as_tensor(np.ascontiguousarray(
                         arr[q * rows:(q + 1) * rows])).to(t_dt).ravel()
                     assert torch.equal(buf[o:o + n].view(t_dt), want)
-    # the random chain has several blocks of tiles, each with its own row
-    assert groups == 1 or kern["own"].shape[0] == groups
+    # the random chain's tables differ by tile: one own row each
+    (seg,) = segment_chain(steps)
+    kern, _ = seg.device_tables("cpu", dt)
+    assert kern["own"].shape == (seg.tiles, kern["layout"].own_bytes)
+
+
+def test_chain_layout_stages_tables_once_and_buffers_a_slot():
+    """The fixed region (descriptors, periodic tables, operands) is the
+    same for every slot count; each slot adds its own tables, its share
+    of the two buffers (a tile of the largest buffered output each) and
+    its 8-byte entry; the slots a segment takes hold at most
+    MAX_BLOCK_ROWS rows and fit SHARED_BYTES, as many as both allow."""
+    from repro_torch.kernels.shuffle_gemm.chain import (
+        MAX_BLOCK_ROWS, MAX_SLOTS, chain_layout)
+    rng = np.random.default_rng(9)
+    for steps in (_random_chain(rng, tiles=8, rpt=32)[0],
+                  _periodic_chain(rng),
+                  _random_chain(rng, tiles=40, rpt=4)[0]):
+        (seg,) = segment_chain(steps)
+        lays = [chain_layout(seg.steps, seg.tiles, k, seg.periodic)
+                for k in (1, 2, 5)]
+        assert len({(lay.fixed, lay.shared, lay.steps, lay.own_bytes,
+                     lay.buf_floats) for lay in lays}) == 1
+        lay = lays[0]
+        assert lay.buf_floats == max(s.n_elems // seg.tiles
+                                     for s in seg.steps[:-1])
+        for k, lk in zip((1, 2, 5), lays):
+            assert lk.total == (lay.fixed + k * lay.own_bytes
+                                + 2 * -(-4 * k * lay.buf_floats // 16) * 16)
+        operands = sum(-(-4 * s.groups * s.t * s.n_out // 16) * 16
+                       for s in seg.steps[1:])
+        assert lay.fixed == -(-88 * len(seg.steps) // 16) * 16 \
+            + lay.shared[1] + operands
+        assert not lay.perms[0] and all(
+            p == (s.t == s.n_out == 4 and s.groups > 1 and s.nb < 8)
+            for s, p in zip(seg.steps[1:], lay.perms[1:]))
+        rows = max(s.rows // seg.tiles for s in seg.steps)
+        slots = seg.tiles_per_cta
+        assert 1 <= slots <= MAX_SLOTS and slots * rows <= max(
+            rows, MAX_BLOCK_ROWS)
+        assert shared_bytes(seg.steps, seg.tiles, slots,
+                            seg.periodic) <= SHARED_BYTES
+        if slots < min(MAX_SLOTS, MAX_BLOCK_ROWS // rows):
+            assert shared_bytes(seg.steps, seg.tiles, slots + 1,
+                                seg.periodic) > SHARED_BYTES
 
 
 def test_chain_matches_jax_grouped_op_step_by_step():
@@ -390,3 +441,45 @@ def test_chain_gradients_equal_the_per_step_path(w_grad, make):
         folded = sum(kind == "w" for kind, _ in operands) \
             - sum(kind == "ones" for kind, _ in operands)
         assert folded == (2 if make is _permutation_chain else 0)
+
+
+def test_swizzle_keeps_float4s_and_pairs_and_spreads_the_butterflies():
+    """The buffer swizzle is its own inverse inside each aligned 32-float
+    block, keeps every float4 whole and every (even, even + 1) pair a
+    pair, and spreads a butterfly step's reads (row r: floats 8r, 8r + 1,
+    8r + 4, 8r + 5) from 4 banks a gather to 8, its pair loads to 8 of
+    the 16 8-byte bank pairs."""
+    p = np.arange(4096)
+    q = swizzle(p)
+    assert np.array_equal(swizzle(q), p)
+    assert np.array_equal(q // 32, p // 32)
+    assert np.array_equal(q[::4] % 4, np.zeros(1024))
+    assert np.array_equal(q.reshape(-1, 4), q[::4, None] + np.arange(4))
+    assert np.array_equal(q[1::2], q[::2] + 1)
+    assert np.array_equal(swizzle(np.array([-1, 5])), [-1, 5])
+    r = np.arange(32)
+    for c in (0, 1, 4, 5):
+        assert len(np.unique(((8 * r + c) % 32))) == 4
+        assert len(np.unique(swizzle(8 * r + c) % 32)) == 8
+    assert len(np.unique(swizzle(8 * r[:16]) // 2 % 16)) == 8
+
+
+def test_operand_permutation_spreads_a_quarter_warps_groups():
+    """A butterfly operand staged with group g's chunk kk at kk ^ ((g >>
+    1) & 3): for 8 consecutive groups (a quarter-warp's rows at one row a
+    group) each chunk read kk falls in 8 distinct 16-byte bank groups,
+    where the plain layout (chunk 4g + kk) gives 2; at 2 and 4 rows a
+    group, the quarter's distinct groups still read distinct bank groups;
+    the permutation stays inside each group's 64 bytes."""
+    g = np.arange(64)
+    for kk in range(4):
+        perm = 4 * g + (kk ^ ((g >> 1) & 3))
+        for q in range(0, 64, 8):
+            assert len(np.unique(perm[q:q + 8] % 8)) == 8
+            assert len(np.unique((4 * g + kk)[q:q + 8] % 8)) == 2
+        for nb in (2, 4):
+            rows = g[:8 // nb * nb]
+            gr = rows // nb
+            pos = 4 * gr + (kk ^ ((gr >> 1) & 3))
+            assert len(np.unique(pos % 8)) == len(np.unique(gr))
+        assert np.array_equal(np.sort(perm.reshape(-1)) // 4, g)

@@ -2158,3 +2158,168 @@ def test_paper_suite_front_end_gradients_on_card(cuda):
     for k, f in (("front", "taps"), ("mel", "weights")):
         torch.testing.assert_close(g_h[k][f], g_r[k][f], rtol=1e-4,
                                    atol=1e-5)
+
+
+# -- the staged blocks body and the persistent chain at the suite's calls ----
+
+def _suite_calls(cuda, batch, names=None, grad=False):
+    """The shuffle-GEMM calls of each paper-suite workload's fuse-2
+    forward (and, with ``grad``, front1024's value_and_grad) at ``batch``
+    rows (dct2_32: blocks), as the ops make them: ``[(workload, kernel
+    name, bound arguments)]``."""
+    cs = chip_smoke()
+    suite = cs.paper_suite(SignalGraph, 0)
+    rng = np.random.default_rng(30)
+    out = []
+    for name, (g, length, _) in suite.items():
+        if names is not None and name not in names:
+            continue
+        h = g.compile(length, fuse=2, backend="hopper", device=cuda)
+        x = torch.as_tensor(cs.suite_input(np, rng, name, length, batch),
+                            device=cuda)
+        out += [(name, k, a) for k, a in cs.record_calls(
+            torch, lambda: cs.suite_forward(name, h, x))]
+        if grad and name == "front1024":
+            params = {k: {f: torch.as_tensor(np.asarray(v, np.float32),
+                                             device=cuda)
+                          for f, v in d.items()}
+                      for k, d in h.init_params().items()}
+            vag = h.value_and_grad(lambda o, t: torch.mean(o["mel"] ** 2),
+                                   wrt=("front", "mel"))
+            out += [(name + " backward", k, a) for k, a in cs.record_calls(
+                torch, lambda: vag(params, x, None), grad=True)]
+    return out
+
+
+def _fig9_blocks_calls(cuda):
+    """Fig 9's shared-operand blocks calls of a batch-4 value_and_grad
+    step: the FIR taps and the mel forward, the framing adjoint."""
+    cs = chip_smoke()
+    rng = np.random.default_rng(0)
+    cnn = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=cuda)
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device=cuda)
+    c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend="hopper",
+                                               device=cuda)
+    params = dict(c.init_params())
+    params["mask"] = cnn
+    vag = c.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+    return [a for k, a in cs.record_calls(
+        torch, lambda: vag(params, x, x), grad=True)
+        if k == "shuffle_gemm_blocks"]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_staged_body_at_every_suite_and_fig9_call(cuda, dt):
+    """Every shared-operand shuffle_gemm_blocks call of the paper suite
+    (forward, front1024's backward) and of a Fig-9 value_and_grad step
+    takes the staged body, with its plan's spans, wherever
+    ``blocks_tiling`` gives it a tiling (an output a sum of at least
+    MIN_WORK products), the sequential one elsewhere (Fig 9's FIR and
+    framing adjoint, the DWTs) — and holds against the plain version at
+    rtol TOL and atol
+    TOL (float32: TOL x max|want|, sums of up to 513 products in another
+    order than the plain matmul's), on 70 batch rows (dct2_32: 70
+    blocks): several passes of a block and a ragged last one."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    from repro_torch.kernels.shuffle_gemm.tiling import MIN_WORK
+    calls = [a for _, k, a in _suite_calls(cuda, 70, grad=True)
+             if k == "shuffle_gemm_blocks"] + _fig9_blocks_calls(cuda)
+    assert len(calls) >= 14
+    staged = 0
+    for a in calls:
+        a = dict(a, **{k: a[k].to(TDT[dt]) for k in ("x", "pad_vals", "w")
+                       if k in a},
+                 scale=None if a["scale"] is None else a["scale"].to(TDT[dt]))
+        assert a["spans"] is not None and a["w"].ndim == 2
+        got = shuffle_gemm_blocks(**a)
+        torch.cuda.synchronize()
+        tiling = sgk.blocks_tiling(a["x"], a["idx"], a["w"], a["scale"],
+                                   a["spans"])
+        body = "staged" if tiling is not None else "sequential"
+        assert sgk.last_launch["body"] == body
+        (_, t), n_out = a["idx"].shape, a["w"].shape[-1]
+        assert (body == "staged") == (t * n_out >= MIN_WORK), (t, n_out)
+        staged += body == "staged"
+        want = ref_shuffle_gemm_blocks(
+            **{k: v for k, v in a.items() if k != "spans"}).float()
+        scale = float(want.abs().max()) if dt == "float32" else 1.0
+        torch.testing.assert_close(got.float(), want, rtol=TOL[dt],
+                                   atol=TOL[dt] * scale)
+    assert staged >= 10
+
+
+def _split_rows(fn, a, splits):
+    """``fn`` on ``a``'s batch rows cut at ``splits``, concatenated."""
+    x, cuts = a["x"], [0, *splits, a["x"].shape[0]]
+    return torch.cat([fn(**dict(a, x=x[s:e].contiguous()))
+                      for s, e in zip(cuts, cuts[1:])])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_staged_body_rows_do_not_depend_on_their_batch(cuda, dt):
+    """A shared-operand call on B batch rows equals, bit for bit, the same
+    rows run as calls of 1, 7 and B - 8 rows (each output computed alone:
+    what SigMesh's meshed calls rely on), and the per-row call on the
+    operand repeated (the sequential or wide body, summing in the same
+    order), at every suite call's shape."""
+    for name, k, a in _suite_calls(cuda, 40):
+        if k != "shuffle_gemm_blocks" or a["w"].ndim != 2:
+            continue
+        a = dict(a, x=a["x"].to(TDT[dt]), pad_vals=a["pad_vals"].to(TDT[dt]),
+                 w=a["w"].to(TDT[dt]),
+                 scale=None if a["scale"] is None else a["scale"].to(TDT[dt]))
+        got = shuffle_gemm_blocks(**a)
+        b = a["x"].shape[0]
+        assert torch.equal(got, _split_rows(shuffle_gemm_blocks, a,
+                                            (1, 8))), name
+        per_row = dict(a, w=a["w"].expand(b, *a["w"].shape).contiguous(),
+                       spans=None)
+        assert torch.equal(got, shuffle_gemm_blocks(**per_row)), name
+
+
+def _suite_chains(cuda, batch, names):
+    return [(n, a) for n, k, a in _suite_calls(cuda, batch, names)
+            if k == "shuffle_gemm_chain"]
+
+
+def test_chain_rows_do_not_depend_on_their_batch(cuda):
+    """The 128- and 1024-point FFT chains and front1024's STFT (31 tiles
+    a batch row) on B batch rows: bit for bit the same rows as calls of
+    1, 7 and B - 8 rows, whatever tiles a block holds at once (one, or
+    the segment's most), and bit for bit their sub-steps one launch each;
+    the 1024-point chain in bfloat16 too."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    chains = _suite_chains(cuda, 40, ("fft128", "fft1024", "front1024"))
+    assert [n for n, _ in chains] == ["fft128", "fft1024", "front1024"]
+    for name, a in chains:
+        for dt in ((torch.float32, torch.bfloat16) if name == "fft1024"
+                   else (torch.float32,)):
+            a = dict(a, x=a["x"].to(dt), ws=[w.to(dt) for w in a["ws"]])
+            got = sgk.shuffle_gemm_chain(**a)
+            assert torch.equal(got, _split_rows(sgk.shuffle_gemm_chain, a,
+                                                (1, 8))), name
+            for slots in (1, a["segment"].tiles_per_cta):
+                assert torch.equal(got, sgk.shuffle_gemm_chain(
+                    **dict(a, slots=slots))), (name, slots)
+                assert sgk.last_launch["slots"] == slots
+            assert torch.equal(got, sgk.shuffle_gemm_steps(
+                a["x"], a["segment"], a["ws"])), name
+
+
+def test_every_suite_chain_equals_its_steps_at_4096_rows(cuda):
+    """The FFT chains at 128-1024 points and FFT -> iFFT at 1024, at the
+    suite's 4096 batch rows: each launch bit for bit its sub-steps
+    through the grouped entry, within the float tolerance of the plain
+    version, its blocks each staging the tables and operands once."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    names = ("fft128", "fft256", "fft512", "fft1024", "fft_ifft1024")
+    chains = _suite_chains(cuda, 4096, names)
+    assert len(chains) == 6
+    for name, a in chains:
+        _assert_chain_exact(a["x"], a["segment"], a["ws"])
+        sgk.shuffle_gemm_chain(**a)
+        assert sgk.last_launch["grid"][0] <= 4096 // sgk.last_launch["slots"]

@@ -99,12 +99,12 @@ def test_suite_lowering_report_matches_pallas(name, fuse):
 # segments of each chain: (sub-steps, tiles a batch row, floats a tile,
 # tiles a block, dynamic shared memory of a block)
 CHAINS = {
-    "fft128": [(7, 1, 256, 1, 16768)],
-    "fft256": [(8, 1, 512, 1, 35264)],
-    "fft512": [(9, 1, 1024, 1, 74256)],
-    "fft1024": [(10, 1, 2048, 1, 156240)],
-    "fft_ifft1024": [(10, 1, 2048, 1, 156240)] * 2,
-    "front1024": [(10, 31, 2048, 1, 156240)],
+    "fft128": [(7, 1, 256, 32, 80368)],
+    "fft256": [(8, 1, 512, 16, 96832)],
+    "fft512": [(9, 1, 1024, 8, 131744)],
+    "fft1024": [(10, 1, 2048, 4, 205552)],
+    "fft_ifft1024": [(10, 1, 2048, 4, 205552)] * 2,
+    "front1024": [(10, 31, 2048, 4, 205552)],
 }
 
 

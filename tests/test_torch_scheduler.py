@@ -626,9 +626,9 @@ def test_fig9_per_row_launches_blocks_once_per_gemm(monkeypatch):
     (shared), as a one-graph wave does."""
     calls = []
 
-    def rec(x, idx, pads, w, scale=None):
+    def rec(x, idx, pads, w, scale=None, spans=None):
         calls.append(tuple(w.shape))
-        return shuffle_gemm_blocks(x, idx, pads, w, scale)
+        return shuffle_gemm_blocks(x, idx, pads, w, scale, spans)
     for mod in ("ops", "vjp"):
         monkeypatch.setattr(importlib.import_module(
             f"repro_torch.kernels.shuffle_gemm.{mod}"),

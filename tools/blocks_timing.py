@@ -1,42 +1,50 @@
 #!/usr/bin/env python3
-"""Device times of the two shuffle-GEMM block kernels at Fig 9's calls and
-the paper suite's, for one checkout, on one NVIDIA GPU.
+"""Device times, output digests and staged bytes of the shuffle-GEMM
+kernels at Fig 9's calls and the paper suite's, for one checkout, on one
+NVIDIA GPU.
 
 Builds the kernels of the checkout at ``--root`` (default: this one),
-holds each call of ``shuffle_gemm_blocks`` / ``shuffle_gemm_grouped_blocks``
-against its plain version (rtol 1e-5, atol 1e-5 x max|want|) and times it
-with CUDA-graph replays (``chip_smoke.device_ms``, the median of three).
-The calls, on seeded float32 operands:
+records the kernel calls that checkout's own ops make — as
+``chip_smoke.record_calls`` records them — and, for each, holds the
+kernel against its plain version (rtol 1e-4, atol 1e-4 x max|want|),
+times it with CUDA-graph replays (``chip_smoke.device_ms``, the median of
+three), and prints the first 16 hex digits of the SHA-1 of its output
+bytes and the bytes its blocks stage into shared memory from device
+memory (the checkout's ``kernel.last_launch`` where it has one; for a
+checkout before it, the wide body's blocks x (operand + gathered rows),
+the chain's blocks x (tables + operands) of its layout, 0 for the
+sequential body).  Float32 operands; the calls, on seeded inputs:
 
-  fig9_fir        Fig 9's FIR: batch 4, rows 4096, t 9, n_out 1, PAD at
-                  the causal edge (sequential body)
-  fig9_mel        Fig 9's mel: batch 4, rows 31, t 129, n_out 24 (wide)
-  fig9_per_row    the per-row FIR of an 8-row cross-graph wave: w (8, 9, 1)
-  fig9_stft_step  one grouped butterfly step of Fig 9's STFT: batch 4,
-                  3968 rows of t 4, n_out 4, 2 groups
-  fir256_80       batch 4096, rows 256, t 80, n_out 1 (wide)
-  fir256_80_phased  batch 4096, rows 32, t 87, n_out 8 (wide)
-  dwt_haar        batch 4096, rows 512, t 2, n_out 2 (sequential)
-  front1024_mel   batch 64, rows 31, t 513, n_out 64 (wide, 2 passes)
-  dct32_65535     batch 65535 (the grid's y extent), rows 1, t 32, n_out 32
-  dct32_131072    batch 131072 (the 2-D DCT of 4096 blocks): a kernel that
-                  takes at most 65535 batch rows refuses it
+  fig9      a batch-4 Fig-9 value_and_grad step (length 4096, mask CNN
+            (2, 12, 12, 1)): the FIR taps and the mel (shuffle_gemm_blocks),
+            the STFT and iSTFT chains and their backward chains, the STFT
+            framing's adjoint; the per-row FIR call of an 8-row
+            cross-graph wave (w (8, 9, 1)); one grouped butterfly step
+  suite     every kernel call of a fuse-2 forward of each
+            chip_smoke.paper_suite workload at its chip_smoke batch (4096
+            rows, 4096 DCT blocks: 131072 rows of 32, front1024 64): the
+            FIRs, DCT, DWT and front1024's FIR and mel on
+            shuffle_gemm_blocks, the FFT chains at 128-1024 points,
+            FFT -> iFFT and front1024's STFT on shuffle_gemm_chain
 
-To compare two commits on one card, unpack the other into a directory that
-``.gitignore`` lists and run both on the same card, in turns:
+Two checkouts on one card, in turns, also compare bit for bit (the
+digests):
 
     python3 tools/blocks_timing.py --root build/parent
     python3 tools/blocks_timing.py
     python3 tools/blocks_timing.py
     python3 tools/blocks_timing.py --root build/parent
 
-Prints the card's name and power limit, then one JSON line per run:
-``{"root": ..., "calls": {name: {"ms", "max_abs_err"} or {"refused"}}}``.
+``tools/chain_ablation.py`` times the chain kernel's parts.  Prints the
+card's name and power limit, a line a call, then one JSON line:
+``{"root": ..., "calls": {name: {"ms", "max_abs_err", "digest",
+"staged_bytes", "body"}}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -48,58 +56,102 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
-from chip_smoke import device_ms  # noqa: E402
+import chip_smoke as cs  # noqa: E402
+
+LENGTH, CH = 4096, (2, 12, 12, 1)
 
 
-def _causal_idx(rows: int, t: int) -> np.ndarray:
-    """Row r gathers x[r - k], k < t; PAD (-1) before the start."""
-    idx = np.arange(rows)[:, None] - np.arange(t)[None, :]
-    return np.where(idx < 0, -1, idx).astype(np.int32)
+def fig9_calls():
+    """``[(name, kernel, args)]`` of Fig 9's calls (see the docstring)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.pipelines import speech_enhancement as tse
+    rng = np.random.default_rng(0)
+    cnn = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device="cuda")
+    x = torch.as_tensor(rng.standard_normal((4, LENGTH)).astype(np.float32),
+                        device="cuda")
+    c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend="hopper",
+                                               device="cuda")
+    params = dict(c.init_params())
+    params["mask"] = cnn
+    vag = c.value_and_grad(tse.loss_fn, wrt=tse.TRAINABLE)
+    calls = cs.record_calls(torch, lambda: vag(params, x, x), grad=True)
+    out = [(f"fig9 {_shape(k, a)}", k, a) for k, a in calls]
+    fir = next(a for k, a in calls if k == "shuffle_gemm_blocks"
+               and tuple(a["idx"].shape) == (4096, 9))
+    w = torch.as_tensor(rng.standard_normal((8, 9, 1)).astype(np.float32),
+                        device="cuda")
+    per_row = {k: v for k, v in fir.items() if k != "spans"}
+    per_row.update(x=torch.as_tensor(rng.standard_normal((8, 4096)).astype(
+        np.float32), device="cuda"), w=w)
+    out.append(("fig9 per-row FIR w (8, 9, 1)", "shuffle_gemm_blocks",
+                per_row))
+    chain = next(a for k, a in calls if k == "shuffle_gemm_chain")
+    (idx, pads, w0, reps, groups, nb, scale), *_ = _chain_steps(chain)
+    out.append(("fig9 one grouped butterfly step",
+                "shuffle_gemm_grouped_blocks",
+                dict(x=chain["x"], idx=idx, pad_vals=pads, w=w0, reps=reps,
+                     groups=groups, nb=nb, scale=scale)))
+    return out
 
 
-def _phased_idx(rows: int, t: int, phases: int) -> np.ndarray:
-    """Window r ends at sample phases * r + phases - 1 and reaches t back;
-    PAD before the start."""
-    idx = (phases * np.arange(rows)[:, None] + phases - 1
-           - np.arange(t)[None, :])
-    return np.where(idx < 0, -1, idx).astype(np.int32)
+def _chain_steps(a):
+    from repro_torch.kernels.shuffle_gemm.kernel import chain_steps
+    return chain_steps(a["segment"], a["ws"], a["x"].device, a["x"].dtype)
 
 
-def _in_order(rows: int, t: int) -> np.ndarray:
-    return np.arange(rows * t, dtype=np.int32).reshape(rows, t)
+def suite_calls():
+    """``[(name, kernel, args)]`` of the paper suite's forward calls."""
+    from repro_torch.signal import SignalGraph
+    suite = cs.paper_suite(SignalGraph, 0)
+    rng = np.random.default_rng(19)
+    out = []
+    for name, (g, length, batch) in suite.items():
+        h = g.compile(length, fuse=2, backend="hopper", device="cuda")
+        x = torch.as_tensor(cs.suite_input(np, rng, name, length, batch),
+                            device="cuda")
+        out += [(f"{name} {_shape(k, a)}", k, a) for k, a in
+                cs.record_calls(torch, lambda: cs.suite_forward(name, h, x))]
+    return out
 
 
-# name: (batch, n_in, idx, n_out, per-row w, grouped (groups, nb) or None)
-CALLS = {
-    "fig9_fir": (4, 4096, _causal_idx(4096, 9), 1, False, None),
-    "fig9_mel": (4, 3999, _in_order(31, 129), 24, False, None),
-    "fig9_per_row": (8, 4096, _causal_idx(4096, 9), 1, True, None),
-    "fig9_stft_step": (4, 3968 * 4, _in_order(3968, 4), 4, False,
-                       (2, 1984)),
-    "fir256_80": (4096, 256, _causal_idx(256, 80), 1, False, None),
-    "fir256_80_phased": (4096, 256, _phased_idx(32, 87, 8), 8, False,
-                         None),
-    "dwt_haar": (4096, 1024, _in_order(512, 2), 2, False, None),
-    "front1024_mel": (64, 15903, _in_order(31, 513), 64, False, None),
-    "dct32_65535": (65535, 32, _in_order(1, 32), 32, False, None),
-    "dct32_131072": (131072, 32, _in_order(1, 32), 32, False, None),
-}
+def _shape(kernel: str, a: dict) -> str:
+    if kernel == "shuffle_gemm_chain":
+        seg = a["segment"]
+        return (f"chain of {len(seg.steps)}, {a['x'].shape[0]} x "
+                f"{seg.tiles} tiles")
+    (r, t), n_out = a["idx"].shape, a["w"].shape[-1]
+    return f"{a['x'].shape[0]} x ({r}, {t}, {n_out})"
 
 
-def operands(name: str, device: str) -> dict:
-    """The seeded float32 operands of call ``name`` on ``device``."""
-    batch, n_in, idx, n_out, per_row, grouped = CALLS[name]
-    rows, t = idx.shape
-    w_shape = ((grouped[0], t, n_out) if grouped else
-               (batch, t, n_out) if per_row else (t, n_out))
-    rng = np.random.default_rng(len(name))
-    a = {k: torch.as_tensor(v, device=device) for k, v in dict(
-        x=rng.standard_normal((batch, n_in), np.float32), idx=idx,
-        pad_vals=rng.standard_normal((rows, t), np.float32),
-        w=rng.standard_normal(w_shape, np.float32)).items()}
-    if grouped:
-        a.update(reps=1, groups=grouped[0], nb=grouped[1])
-    return a
+def parent_staged_bytes(kernel: str, a: dict) -> int:
+    """Bytes a call of a checkout without ``last_launch`` stages: the
+    wide body (t >= 32 where its staging fits) copies, a block of ``rpc``
+    rows of one batch row, the operand and the rows' gathered values
+    (and scales); the chain, a block of ``tiles_per_cta`` tiles of one
+    batch row, its layout's tables and every later operand; the
+    sequential body stages nothing."""
+    es = a["x"].element_size()
+    if kernel == "shuffle_gemm_chain":
+        seg, b = a["segment"], a["x"].shape[0]
+        kern, _ = seg.device_tables(a["x"].device, a["x"].dtype)
+        lay = kern["layout"]
+        blocks = b * seg.tiles // seg.tiles_per_cta
+        operands = sum(w.numel() for w in a["ws"][1:]) * es
+        return blocks * (lay.shared[1] + lay.own[1] + operands)
+    if kernel != "shuffle_gemm_blocks":
+        return 0
+    (b, _), (r, t), n_out = a["x"].shape, a["idx"].shape, a["w"].shape[-1]
+    rpc = max(1, min(r, 32 // n_out))
+    scaled = a.get("scale") is not None
+    smem = (-(-es * t * n_out // 16) * 16
+            + -(-rpc * t * es // 16) * 16 * (2 if scaled else 1))
+    if t < 32 or smem > 227 * 1024:
+        return 0
+    return b * -(-r // rpc) * t * n_out * es + b * r * t * es * (
+        2 if scaled else 1)
 
 
 def main() -> int:
@@ -113,34 +165,44 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
     from repro_torch import kernels
-    from repro_torch.kernels.shuffle_gemm import (
-        ref_shuffle_gemm_blocks, ref_shuffle_gemm_grouped_blocks,
-        shuffle_gemm_blocks, shuffle_gemm_grouped_blocks)
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    from repro_torch.kernels.shuffle_gemm.ref import (
+        ref_shuffle_gemm_blocks, ref_shuffle_gemm_grouped_blocks)
     kernels.build()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip(), flush=True)
+    fns = {"shuffle_gemm_blocks": (sgk.shuffle_gemm_blocks,
+                                   ref_shuffle_gemm_blocks),
+           "shuffle_gemm_grouped_blocks": (sgk.shuffle_gemm_grouped_blocks,
+                                           ref_shuffle_gemm_grouped_blocks),
+           "shuffle_gemm_chain": (sgk.shuffle_gemm_chain, sgk.ref_chain)}
     out = {}
-    for name in CALLS:
-        a = operands(name, "cuda")
-        fn, ref = ((shuffle_gemm_grouped_blocks,
-                    ref_shuffle_gemm_grouped_blocks) if "groups" in a
-                   else (shuffle_gemm_blocks, ref_shuffle_gemm_blocks))
-        try:
+    for name, kernel, a in fig9_calls() + suite_calls():
+        while name in out:
+            name += "'"
+        fn, ref = fns[kernel]
+        with torch.no_grad():
             got = fn(**a)
-        except ValueError as e:
-            out[name] = {"refused": str(e)}
-            continue
-        want = ref(**a)
-        torch.testing.assert_close(got, want, rtol=1e-5,
-                                   atol=1e-5 * float(want.abs().max()))
-        ms = statistics.median(device_ms(torch, lambda: fn(**a))
-                               for _ in range(3))
-        out[name] = {"ms": ms,
-                     "max_abs_err": float((got - want).abs().max())}
-        print(f"  {name:18s} {ms * 1e3:9.3f} us", flush=True)
+            torch.cuda.synchronize()
+            launch = dict(getattr(sgk, "last_launch", {}))
+            want = ref(**{k: v for k, v in a.items()
+                          if k not in ("spans", "slots")})
+            err = cs.suite_close(torch, name, got, want, 1e-4)
+            ms = statistics.median(cs.device_ms(torch, lambda: fn(**a))
+                                   for _ in range(3))
+        staged = (launch["staged_bytes"] if "staged_bytes" in launch
+                  else parent_staged_bytes(kernel, a))
+        digest = hashlib.sha1(got.contiguous().cpu().numpy().tobytes()
+                              ).hexdigest()[:16]
+        out[name] = {"ms": ms, "max_abs_err": err, "digest": digest,
+                     "staged_bytes": staged, "body": launch.get("body")}
+        print(f"  {name:48s} {ms * 1e3:9.3f} us  {digest}  into shared "
+              f"memory {staged:>12d} B  {launch.get('body') or ''}",
+              flush=True)
     print(json.dumps({"root": str(root), "calls": out}), flush=True)
     return 0
 

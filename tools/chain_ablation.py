@@ -4,18 +4,20 @@
 Builds ablated copies of ``src/repro_torch/kernels/csrc/shuffle_gemm.cu``
 (each with one part of the chain kernel's work taken out, so its output is
 no longer the chain's) and times the C entry ``repro_shuffle_gemm_chain``
-on the chains of a batch-4 Fig-9 ``value_and_grad`` step at length 4096:
+on the chains of a batch-4 Fig-9 ``value_and_grad`` step at length 4096 —
 the STFT's 8 butterflies (forward) and the iSTFT's backward list (8
 transposed GEMMs with the width-1 adjoint reductions folded in, and the
-last reduction), each a launch over 124 tiles of 512 floats.  Device times from
-CUDA-graph replays, as ``chip_smoke.py`` times its kernels.
+last reduction), each a launch over 124 tiles of 512 floats — and on the
+paper suite's 512- and 1024-point FFT chains at its 4096 batch rows (one
+tile of 1024 and 2048 floats a batch row).  Device times from CUDA-graph
+replays, as ``chip_smoke.py`` times its kernels; each call's blocks, tiles
+a block (slots) and the bytes its blocks stage into shared memory.
 
   full     the kernel as it ships
-  staged   returns once the first sub-step is computed and every later
-           sub-step's tables and operands have landed in shared memory
-  step0    returns once the first sub-step is computed (nothing staged)
-  tables   returns once every later sub-step's tables (the two packed
-           buffers) and operands have landed (no first sub-step)
+  staged   every group of tiles stops once its first sub-step is computed
+           and the later sub-steps' tables and operands have landed
+  step0    as staged, with nothing staged (the first sub-step alone)
+  tables   as staged, without the first sub-step (the staging alone)
   indices  as tables, without the operands
   empty    returns at once: the launch of its grid and its parameters
 
@@ -45,17 +47,17 @@ SOURCE = ROOT / "src/repro_torch/kernels/csrc/shuffle_gemm.cu"
 BUILD = ROOT / "build/chain_ablation"
 LENGTH, BATCH, CH = 4096, 4, (2, 12, 12, 1)
 KERNEL = ("chain_kernel(const T* __restrict__ x, T* __restrict__ out, "
-          "const Chain c) {\n")
+          "const Chain c,\n             const ChainSteps cs) {\n")
 TABLES = [("  if (c.shared_bytes)\n", "  if (false)\n"),
-          ("  if (c.own_bytes)\n", "  if (false)\n")]
+          ("    if (c.own_bytes)\n", "    if (false)\n")]
 OPERANDS = "  for (int s = 1 + warp; s < c.count; s += warps) {"
 NO_OPERANDS = (OPERANDS, OPERANDS.replace("int s = 1 + warp;",
                                           "int s = c.count;"))
-STEP0 = "  // step 0 from device memory while they land\n  {"
-NO_STEP0 = (STEP0, STEP0.replace("  {", "  if (c.count < 0) {"))
-RETURN = ("  copies_landed();\n\n  for (int s = 1; s < c.count; ++s) {",
-          "  copies_landed();\n  if (c.count > 0) return;\n\n"
-          "  for (int s = 1; s < c.count; ++s) {")
+STEP0 = "    // step 0 from device memory while the copies land\n    {"
+NO_STEP0 = (STEP0, STEP0.replace("    {", "    if (c.count < 0) {"))
+RETURN = ("    copies_landed();\n\n    for (int s = 1; s < c.count; ++s) {",
+          "    copies_landed();\n    if (c.count > 0) continue;\n\n"
+          "    for (int s = 1; s < c.count; ++s) {")
 ABLATIONS = {
     "full": [],
     "staged": [RETURN],
@@ -145,6 +147,27 @@ def fig9_chains():
     return {"STFT forward (8)": fwd, "iSTFT backward (9)": bwd}
 
 
+def suite_chains():
+    """The paper suite's 512- and 1024-point FFT chains at its 4096 batch
+    rows (``chip_smoke.paper_suite``, fuse 2): ``{label: (x, steps,
+    ws)}``."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.signal import SignalGraph
+    suite = cs.paper_suite(SignalGraph, 0)
+    rng = np.random.default_rng(19)
+    out = {}
+    for name in ("fft512", "fft1024"):
+        g, length, batch = suite[name]
+        h = g.compile(length, fuse=2, backend="hopper", device="cuda")
+        x = torch.as_tensor(cs.suite_input(np, rng, name, length, batch),
+                            device="cuda")
+        ((_, a),) = cs.record_calls(torch, lambda: h(x))
+        out[f"{name} ({len(a['segment'].steps)}), 4096 rows"] = (
+            a["x"], a["segment"].steps, a["ws"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chain_ablation: needs an NVIDIA GPU", file=sys.stderr)
@@ -159,7 +182,7 @@ def main() -> int:
         out = proc.communicate()[0].decode()
         if proc.returncode:
             raise RuntimeError(f"building {name} failed:\n{out}")
-    chains = fig9_chains()
+    chains = {**fig9_chains(), **suite_chains()}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -180,14 +203,25 @@ def main() -> int:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"CUDA error {err}")
-        return device_ms(call), seg
+        return device_ms(call), seg, args
 
-    print(f"{'variant':12s} " + "  ".join(f"{k:>20s}" for k in chains))
+    for label, call in chains.items():
+        _, seg, args = timed(libs["full"], *call)
+        blocks, slots, smem = args[6][-3:]
+        kern, _ = seg.device_tables(call[0].device, call[0].dtype)
+        lay = kern["layout"]
+        operands = sum(w.numel() * w.element_size() for w in call[2][1:])
+        staged = (blocks * (lay.shared[1] + operands)
+                  + call[0].shape[0] * seg.tiles * lay.own_bytes)
+        print(f"{label}: {blocks} blocks of {slots} tiles at once, "
+              f"{smem} B shared a block; {staged} B staged into shared "
+              f"memory", flush=True)
+    print(f"{'variant':12s} " + "  ".join(f"{k:>26s}" for k in chains))
     for name, fn in libs.items():
         row = [timed(fn, *call)[0] for call in chains.values()]
-        print(f"{name:12s} " + "  ".join(f"{t * 1e3:17.2f} us" for t in row),
+        print(f"{name:12s} " + "  ".join(f"{t * 1e3:23.2f} us" for t in row),
               flush=True)
-    for label, (x, steps, ws) in chains.items():
+    for label, (x, steps, ws) in list(chains.items())[:2]:    # Fig 9's
         prefix = []
         for s in range(2, len(steps) + 1):
             prefix.append(timed(libs["full"], x, steps[:s], ws[:s])[0])
