@@ -405,9 +405,8 @@ card) — phase by phase:
      ``F.conv1d``, and ``torch.matmul`` on ``x.view(B, rows, t)`` where a
      call's rows gather ``x`` in order without overlap: dct2_32,
      dwt_haar, front1024's mel; each held to the kernel's result; db2's
-     windows overlap and wrap, so it has none), the bytes its blocks
-     stage into shared memory and, for a call of t >= 32, the sequential
-     body on the same operands; ``fft_hopper`` at
+     windows overlap and wrap, so it has none) and, for a call of t >=
+     32, the sequential body on the same operands; ``fft_hopper`` at
      128-1024 points and ``fir_conv`` at 256 x {20, 40, 80} taps in 8
      phases on 4096 rows through phase 6's readings
      (``fft_entry_reading``, ``fir_entry_reading``); (g) the
@@ -636,6 +635,15 @@ SHUFFLE_MODULES = ("repro_torch.kernels.shuffle_gemm.vjp",
                    "repro_torch.kernels.shuffle_gemm.ops")
 SHUFFLE_NAMES = ("shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
                  "shuffle_gemm_chain")
+
+
+def plain_blocks(ref):
+    """``ref`` (``ref_shuffle_gemm_blocks``) on a recorded
+    ``shuffle_gemm_blocks`` call's arguments: the plan's row-tile spans,
+    which only the kernel reads, set aside."""
+    def plain(x, idx, pad_vals, w, scale=None, spans=None):
+        return ref(x, idx, pad_vals, w, scale)
+    return plain
 
 
 def record_calls(torch, forward, module=SHUFFLE_MODULES,
@@ -4643,7 +4651,6 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
         ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
         shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
         shuffle_gemm_steps)
-    from repro_torch.kernels.shuffle_gemm import kernel as sg_kernel
     from repro_torch.kernels.shuffle_gemm.kernel import ref_chain
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.serving import SignalRequest, SignalService
@@ -4656,7 +4663,7 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                                 device="cuda")
           for name, (_, length, batch) in suite.items()}
     kern = {"shuffle_gemm_blocks": (shuffle_gemm_blocks,
-                                    ref_shuffle_gemm_blocks),
+                                    plain_blocks(ref_shuffle_gemm_blocks)),
             "shuffle_gemm_grouped_blocks": (shuffle_gemm_grouped_blocks,
                                             ref_shuffle_gemm_grouped_blocks),
             "shuffle_gemm_chain": (shuffle_gemm_chain, ref_chain)}
@@ -4734,10 +4741,8 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
         for kname, a in calls:
             k_fn, p_fn = kern[kname]
             with torch.no_grad():
-                got = k_fn(**a)
-                launch = dict(sg_kernel.last_launch)
-                err = suite_close(torch, f"{name} {kname}", got, p_fn(**a),
-                                  SUITE_REL)
+                err = suite_close(torch, f"{name} {kname}", k_fn(**a),
+                                  p_fn(**a), SUITE_REL)
                 k_ms = device_ms(torch, lambda: k_fn(**a))
                 p_ms = device_ms(torch, lambda: p_fn(**a))
             nbytes, flops = (chain_cost if kname == "shuffle_gemm_chain"
@@ -4792,8 +4797,6 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                      "bound_by": "bytes" if b[1] >= b[2] else "operations",
                      "bytes": nbytes, "flops": flops, "library_ms": lib_ms,
                      "library": lib_name, "sequential_ms": seq_ms,
-                     "body": launch["body"], "grid": launch.get("grid"),
-                     "staged_bytes": launch["staged_bytes"],
                      "shape": {k: v for k, v in d.items()
                                if k != "sub_steps"}}
             readings[kname].append(entry)
@@ -4807,9 +4810,7 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
                   + ("" if lib_ms is None else
                      f"  {lib_name} {lib_ms * 1e3:9.2f} us")
                   + ("" if seq_ms is None else
-                     f"  sequential body {seq_ms * 1e3:9.2f} us")
-                  + f" | {launch['body']}, {launch['staged_bytes']} B into "
-                    f"shared memory", flush=True)
+                     f"  sequential body {seq_ms * 1e3:9.2f} us"), flush=True)
 
     # -- f. the entry points of phase 6 at the paper's sizes
     entry = {"fft_stages_hopper": [], "fir_conv_hopper": []}
@@ -5054,7 +5055,6 @@ def main() -> int:
         ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
         shuffle_gemm_blocks, shuffle_gemm_chain, shuffle_gemm_grouped_blocks,
         shuffle_gemm_steps)
-    from repro_torch.kernels.shuffle_gemm import kernel as sg_kernel
     from repro_torch.kernels.shuffle_gemm.kernel import chain_steps, ref_chain
     t0 = time.perf_counter()
     lib = K.build()
@@ -5119,8 +5119,8 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ----------------------------
     phase("2 kernels")
-    wrappers = {"shuffle_gemm_blocks": (shuffle_gemm_blocks,
-                                        ref_shuffle_gemm_blocks),
+    wrappers = {"shuffle_gemm_blocks": (shuffle_gemm_blocks, plain_blocks(
+                    ref_shuffle_gemm_blocks)),
                 "shuffle_gemm_grouped_blocks": (
                     shuffle_gemm_grouped_blocks,
                     ref_shuffle_gemm_grouped_blocks),
@@ -5146,9 +5146,7 @@ def main() -> int:
         printed and added to ``row``; returns the kernel's time."""
         kern, plain = wrappers[name]
         with torch.no_grad():
-            got = kern(**a)
-            staged = sg_kernel.last_launch["staged_bytes"]
-            want = plain(**a)
+            got, want = kern(**a), plain(**a)
             torch.cuda.synchronize()
             err = check_close(name, a, got, want, "float32")
             k_ms = device_ms(torch, lambda: kern(**a))
@@ -5169,8 +5167,7 @@ def main() -> int:
         print(f"{label}{name:28s} {shape} | max_abs_err {err:.3e} | kernel "
               f"{k_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  wrapper "
               f"{w_ms * 1e3:8.2f} us  bound {b[0] * 1e3:6.3f} us "
-              f"({nbytes} B, {flops} flop); {staged} B into shared memory "
-              f"({sg_kernel.last_launch['body']})", flush=True)
+              f"({nbytes} B, {flops} flop)", flush=True)
         return k_ms
 
     def check_chain(a, row=None, grouped_row=None, label=""):

@@ -653,7 +653,7 @@ staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
   }
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const int pb = a.bg * kNB;                      // batch rows a pass
-  const int passes = static_cast<int>((b_hi - b_lo + pb - 1) / pb);
+  const int passes = (static_cast<int>(b_hi - b_lo) + pb - 1) / pb;
   const int nch = a.row_bytes / 16;
 
   // w and the tile's tables, once for every batch row of the block, by
@@ -663,8 +663,11 @@ staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
     copy_xor(base, w, a.t * a.n_out * es, a.wshift, a.wxor);
   else
     copy_in(base, w, a.t * a.n_out * es);
-  if (a.mode != kRun)                  // a run needs each row's first index
+  if (a.mode != kRun)
     copy_rows(base + a.off_idx, idx + row0, nr, 4 * a.t, 4 * a.rs);
+  else                                 // a run: each row's first index
+    for (int r = threadIdx.x; r < nr; r += blockDim.x)
+      cp_async4(base + a.off_idx + 4 * r * a.rs, idx + row0 + r * a.t);
   if (a.off_pad >= 0)
     copy_rows(base + a.off_pad, pad + row0, nr, es * a.t, es * a.rs);
   if (a.off_scale >= 0)
@@ -724,9 +727,7 @@ staged_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
       const int32_t* const it = itab + s0;
       const T* const pt = ptab != nullptr ? ptab + s0 : nullptr;
       const T* const st = stab != nullptr ? stab + s0 : nullptr;
-      const int i0 =
-          a.mode == kRun ? __ldg(idx + row0 + static_cast<int64_t>(r) * a.t)
-                         : 0;
+      const int i0 = a.mode == kRun ? it[0] : 0;
       float sum[kNB][kNO];
 #define SUMS(MODE)                                                           \
   staged_sums<T, kNO, kNB, kLanes, kSplit, MODE>(                            \
@@ -1301,12 +1302,12 @@ bool region_ok(int off, int64_t bytes, int64_t total) {
 // dims of repro_shuffle_gemm_chain (chain.py chain_launch_args): tiles,
 // slots (the layout's), rows a slot (threads a block: one a row of the
 // median step), shared tables' offset and bytes, a tile's own table
-// bytes, floats a slot's buffer holds, the fixed region's end, slots used
-// (0: the launch picks), whether step 0's PAD values are all 0, then per
-// step rows, t, n_out, groups, nb, periodic, its idx, pad, scale and w
-// offsets, wperm, pairs and swz; then three ints the launch fills in:
-// blocks, slots used, shared bytes a block.
-constexpr int kChainDims = 10;
+// bytes, floats a slot's buffer holds, the fixed region's end, whether
+// step 0's PAD values are all 0, then per step rows, t, n_out, groups,
+// nb, periodic, its idx, pad, scale and w offsets, wperm, pairs and swz;
+// then three ints the launch fills in: blocks, slots used, shared bytes a
+// block.
+constexpr int kChainDims = 9;
 constexpr int kChainStepDims = 13;
 
 template <typename T>
@@ -1314,10 +1315,9 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
                  const void* const* ptrs, int* dims, cudaStream_t stream) {
   const int tiles = dims[0], slots = dims[1], slot_rows = dims[2];
   const int buf_floats = dims[6], fixed = dims[7];
-  int active = dims[8];
   if (count < 1 || count > kMaxSub || tiles < 1 || slots < 1 ||
       slot_rows < 1 || batch < 1 || buf_floats < 0 || fixed < 0 ||
-      active < 0 || active > slots || slots > kChainThreads)
+      slots > kChainThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   Chain c{};
   ChainSteps cs{};
@@ -1335,12 +1335,11 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
   c.off_shared = dims[3];
   c.shared_bytes = dims[4];
   c.own_bytes = dims[5];
-  c.pad0_zero = dims[9];
-  if (active == 0) {
-    // slots a block: enough blocks for two an SM, at most the layout's
-    const int64_t want = (c.total + 2LL * sm_count() - 1) / (2LL * sm_count());
-    active = want < 1 ? 1 : want > slots ? slots : static_cast<int>(want);
-  }
+  c.pad0_zero = dims[8];
+  // slots a block: enough blocks for two an SM, at most the layout's
+  const int64_t want = (c.total + 2LL * sm_count() - 1) / (2LL * sm_count());
+  const int active =
+      want < 1 ? 1 : want > slots ? slots : static_cast<int>(want);
   c.slots = active;
   const int es = static_cast<int>(sizeof(T));
   bool ok = c.idx0 != nullptr && c.pad0 != nullptr &&

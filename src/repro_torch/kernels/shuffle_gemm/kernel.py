@@ -22,9 +22,10 @@ the CPU, and for a tensor on the card checks device, type, shape and
 contiguity, allocates the output with ``torch.empty``, launches on the
 current stream and raises if the launch reports an error.  It counts its
 launches in its ``launches`` attribute, a plain integer incremented once
-per kernel launch and nowhere else.  After each launch :data:`last_launch`
-holds what it ran: the body, its grid and the bytes it staged into
-shared memory.
+per kernel launch and nowhere else.  :func:`blocks_launch_args` and
+:func:`chain_launch_args` give a launch's C arguments; the ``dims``
+array among them holds, after the launch, what it ran (body, grid,
+tiles a block).
 
 Indices must lie in ``[-1, n_in)`` (-1 = PAD); the kernel does not
 bounds-check them.  ``ops.py`` validates every plan once before its
@@ -40,24 +41,20 @@ import torch
 
 from .ref import (ref_shuffle_gemm_blocks, ref_shuffle_gemm_chain,
                   ref_shuffle_gemm_grouped_blocks)
-from .tiling import RUN, RowSpans, staged_tiling
+from .tiling import RowSpans, staged_tiling
 
 __all__ = ["shuffle_gemm_blocks", "shuffle_gemm_grouped_blocks",
            "shuffle_gemm_chain", "shuffle_gemm_steps", "chain_steps",
            "ref_chain", "launch_counts", "reset_launch_counts",
-           "last_launch"]
+           "blocks_launch_args", "chain_launch_args", "blocks_tiling",
+           "BODIES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 2 ** 31 - 1          # the C entries take the batch as an int
-_LAUNCH_INTS = 3                  # ints a chain launch writes after its dims
+_CHAIN_INTS = 3                   # ints a chain launch writes after its dims
 _STAGED_DIMS = 20                 # kStagedDims in csrc/shuffle_gemm.cu
 _BLOCKS_INTS = 4                  # ints a blocks launch writes after them
-
-# The last launch of any wrapper here: ``kernel``, ``body`` (``staged``,
-# ``sequential``, ``wide``, ``grouped`` or ``chain``), ``grid``, ``smem``
-# (bytes a block) and ``staged_bytes``: what its blocks copy into shared
-# memory from device memory in all (operands, tables, inputs).
-last_launch: dict = {}
+_BLOCKS_DIMS = ctypes.c_int * (_STAGED_DIMS + _BLOCKS_INTS)
 
 
 def _check(x, idx, pad_vals, w, scale, w_rank):
@@ -108,7 +105,39 @@ def blocks_tiling(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 
 
 # the bodies a blocks launch reports in its dims' last int
-_BODIES = ("sequential", "wide", "staged")
+BODIES = ("sequential", "wide", "staged")
+
+
+def blocks_launch_args(x: torch.Tensor, idx: torch.Tensor,
+                       pad_vals: torch.Tensor, w: torch.Tensor,
+                       scale: Optional[torch.Tensor] = None,
+                       spans: Optional[RowSpans] = None) -> tuple:
+    """Check a :func:`shuffle_gemm_blocks` call on the card and allocate
+    its output: ``(out, args)`` with ``args`` the arguments of the C entry
+    ``repro_shuffle_gemm_blocks`` before the stream.  Its ``dims`` array
+    (``args[13]``) holds the staged layout (:func:`blocks_tiling`) and,
+    after the launch, what the launch ran: its grid's x and y, the rows
+    (wide body) or batch rows (staged body) a block, and the body (an
+    index into :data:`BODIES`)."""
+    _check(x, idx, pad_vals, w, scale, w_rank=(2, 3))
+    (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
+    if w.ndim == 3 and w.shape[0] != b:
+        raise ValueError(f"w {tuple(w.shape)} holds {w.shape[0]} operands "
+                         f"for a batch of {b}")
+    out = torch.empty((b, r, n_out), dtype=x.dtype, device=x.device)
+    tiling = blocks_tiling(x, idx, w, scale, spans)
+    if tiling is None:
+        dims = _BLOCKS_DIMS()
+    else:
+        dims = _BLOCKS_DIMS.from_buffer_copy(tiling.launch_dims)
+    span_t = (spans.on(tiling.rt, x.device)
+              if tiling is not None and tiling.affine is None else None)
+    return out, (x.data_ptr(), idx.data_ptr(), pad_vals.data_ptr(),
+                 None if scale is None else scale.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), b, n_in, r, t, n_out,
+                 t * n_out if w.ndim == 3 else 0,
+                 None if span_t is None else span_t.data_ptr(), dims,
+                 _DTYPE_CODES[x.dtype])
 
 
 def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
@@ -129,52 +158,12 @@ def shuffle_gemm_blocks(x: torch.Tensor, idx: torch.Tensor,
     in."""
     if x.device.type == "cpu":
         return ref_shuffle_gemm_blocks(x, idx, pad_vals, w, scale)
-    _check(x, idx, pad_vals, w, scale, w_rank=(2, 3))
-    (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
-    if w.ndim == 3 and w.shape[0] != b:
-        raise ValueError(f"w {tuple(w.shape)} holds {w.shape[0]} operands "
-                         f"for a batch of {b}")
-    out = torch.empty((b, r, n_out), dtype=x.dtype, device=x.device)
+    out, args = blocks_launch_args(x, idx, pad_vals, w, scale, spans)
     if out.numel():
-        tiling = blocks_tiling(x, idx, w, scale, spans)
-        layout = tiling.dims() if tiling is not None else (0,) * _STAGED_DIMS
-        dims = (ctypes.c_int * (_STAGED_DIMS + _BLOCKS_INTS))(*layout)
-        span_t = (spans.on(tiling.rt, x.device)
-                  if tiling is not None and tiling.affine is None else None)
-        _launch("repro_shuffle_gemm_blocks",
-                x, idx, pad_vals, w, scale, out, b, n_in, r, t, n_out,
-                t * n_out if w.ndim == 3 else 0,
-                None if span_t is None else span_t.data_ptr(), dims)
+        from .. import launch
+        launch("repro_shuffle_gemm_blocks", x.device, *args)
         shuffle_gemm_blocks.launches += 1
-        _record_blocks(tiling, dims[_STAGED_DIMS:], spans, x, idx, w, scale)
     return out
-
-
-def _record_blocks(tiling, launched, spans, x, idx, w, scale) -> None:
-    """:data:`last_launch` of a ``shuffle_gemm_blocks`` launch, from the
-    ints it reported: its grid, its rows a block (wide body) or batch rows
-    a block (staged), its body."""
-    (b, _), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
-    es = x.element_size()
-    gx, gy, per, body = launched
-    entry = {"kernel": "shuffle_gemm_blocks", "body": _BODIES[body],
-             "grid": (gx, gy), "staged_bytes": 0}
-    if body == 2:
-        # each block: the operand and its tile's tables; each batch row:
-        # every tile's span of x
-        table = t * ((4 if tiling.mode != RUN else 0)
-                     + es * ((tiling.off_pad >= 0)
-                             + (tiling.off_scale >= 0)))
-        entry.update(smem=tiling.total, staged_bytes=int(
-            gy * (gx * t * n_out * es + r * table)
-            + b * spans.staged(tiling.rt) * es))
-    elif body == 1:
-        # each block: its batch row's operand and its rows' gathered
-        # values (and scales)
-        entry["staged_bytes"] = int(gx * gy * (t * n_out + per * t * (
-            2 if scale is not None else 1)) * es)
-    last_launch.clear()
-    last_launch.update(entry)
 
 
 def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
@@ -201,9 +190,6 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
                 x, idx, pad_vals, w, scale, out, b, n_in, reps, groups, nb,
                 t, n_out)
         shuffle_gemm_grouped_blocks.launches += 1
-        last_launch.clear()
-        last_launch.update(kernel="shuffle_gemm_grouped_blocks",
-                           body="grouped", staged_bytes=0)
     return out
 
 
@@ -217,21 +203,19 @@ def chain_steps(segment, ws: Sequence[torch.Tensor], device, dtype):
             for s, (idx, pads, scale), w in zip(segment.steps, plain, ws)]
 
 
-def ref_chain(x: torch.Tensor, segment, ws: Sequence[torch.Tensor],
-              slots: int = 0) -> torch.Tensor:
-    """The plain version of :func:`shuffle_gemm_chain`, on its arguments
-    (``slots``, the kernel's tiles a block, changes no value)."""
+def ref_chain(x: torch.Tensor, segment,
+              ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The plain version of :func:`shuffle_gemm_chain`, on its
+    arguments."""
     return ref_shuffle_gemm_chain(x, chain_steps(segment, ws, x.device,
                                                  x.dtype))
 
 
 def shuffle_gemm_steps(x: torch.Tensor, segment,
-                       ws: Sequence[torch.Tensor],
-                       slots: int = 0) -> torch.Tensor:
+                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
     """The segment's sub-steps launched one at a time through
     :func:`shuffle_gemm_grouped_blocks` (whose body the chain kernel's
-    arithmetic repeats at every ``t``), on :func:`shuffle_gemm_chain`'s
-    arguments (``slots`` has no use here)."""
+    arithmetic repeats at every ``t``)."""
     for idx, pads, w, reps, groups, nb, scale in chain_steps(
             segment, ws, x.device, x.dtype):
         x = shuffle_gemm_grouped_blocks(x, idx, pads, w, reps, groups, nb,
@@ -240,14 +224,14 @@ def shuffle_gemm_steps(x: torch.Tensor, segment,
 
 
 def chain_launch_args(x: torch.Tensor, segment,
-                      ws: Sequence[torch.Tensor], slots: int = 0) -> tuple:
+                      ws: Sequence[torch.Tensor]) -> tuple:
     """Check a chain call on the card and allocate its output: ``(out,
     args)`` with ``args`` the arguments of the C entry
-    ``repro_shuffle_gemm_chain`` before the stream (its ``dims`` array
-    holds, after the launch, the blocks, tiles a block and shared bytes a
-    block it ran).  ``slots`` sets the tiles a block holds at once, at
-    most the segment's ``tiles_per_cta`` (0: the launch picks, from the
-    batch and the card's SMs)."""
+    ``repro_shuffle_gemm_chain`` before the stream.  Its ``dims`` array
+    (``args[6]``) holds, after the launch, the blocks it ran, the tiles a
+    block holds at once (its slots, picked by the launch from the batch
+    and the card's SMs, at most the segment's ``tiles_per_cta``) and the
+    shared bytes a block."""
     from .. import check_operands
     from .chain import MAX_SUBSTEPS
     steps = segment.steps
@@ -269,8 +253,6 @@ def chain_launch_args(x: torch.Tensor, segment,
     (b, n_in), first = x.shape, steps[0]
     if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
         raise ValueError(f"{first.name} reads past a length-{n_in} input")
-    if not 0 <= slots <= segment.tiles_per_cta:
-        raise ValueError(f"slots {slots} outside 0..{segment.tiles_per_cta}")
     kern, _ = segment.device_tables(x.device, x.dtype)
     last = steps[-1]
     out = torch.empty((b, last.rows * last.n_out), dtype=x.dtype,
@@ -279,21 +261,20 @@ def chain_launch_args(x: torch.Tensor, segment,
         None if a is None or not a.numel() else a.data_ptr()
         for a in (*kern["first"], *ws, kern["shared"], kern["own"])])
     static = _chain_dims(segment, kern["layout"])
-    dims = (ctypes.c_int * (len(static) + _LAUNCH_INTS))(*static)
-    dims[8] = slots
+    dims = (ctypes.c_int * (len(static) + _CHAIN_INTS))(*static)
     return out, (x.data_ptr(), out.data_ptr(), b, n_in, len(steps), ptrs,
                  dims, _DTYPE_CODES[x.dtype])
 
 
 def _chain_dims(segment, lay) -> tuple:
-    """The C entry's dims of ``segment`` in layout ``lay`` (its slots
-    used, dims[8], 0), built once a segment and layout."""
+    """The C entry's dims of ``segment`` in layout ``lay``, built once a
+    segment and layout."""
     key = ("dims", id(lay))
     hit = segment._device.get(key)
     if hit is None or hit[0] is not lay:
         static = (
             segment.tiles, segment.tiles_per_cta, segment.slot_rows,
-            *lay.shared, lay.own_bytes, lay.buf_floats, lay.fixed, 0,
+            *lay.shared, lay.own_bytes, lay.buf_floats, lay.fixed,
             int(segment.zero_pads0),
             *[v for s, per, offs, perm, pair, swz in zip(
                 segment.steps, segment.periodic, lay.steps, lay.perms,
@@ -305,36 +286,22 @@ def _chain_dims(segment, lay) -> tuple:
 
 
 def shuffle_gemm_chain(x: torch.Tensor, segment,
-                       ws: Sequence[torch.Tensor],
-                       slots: int = 0) -> torch.Tensor:
+                       ws: Sequence[torch.Tensor]) -> torch.Tensor:
     """x: (B, n_in); ``segment`` a
     :class:`~repro_torch.kernels.shuffle_gemm.chain.ChainSegment` of S
     sub-steps; ``ws[s]``: sub-step s's ``(groups, t, n_out)`` operand ->
     (B, rows * n_out of the last sub-step), flat, in one launch: every
     sub-step after the first runs tile by tile in shared memory, each
     block staging the shared tables and the operands once for all the
-    tiles it walks.  ``slots``: tiles a block holds at once (0: the
-    launch picks).  Bit for bit :func:`shuffle_gemm_steps` on the same
-    arguments, whatever the slots."""
+    tiles it walks.  Bit for bit :func:`shuffle_gemm_steps` on the same
+    arguments."""
     if x.device.type == "cpu":
         return ref_chain(x, segment, ws)
-    out, args = chain_launch_args(x, segment, ws, slots)
+    out, args = chain_launch_args(x, segment, ws)
     if out.numel():
         from .. import launch
         launch("repro_shuffle_gemm_chain", x.device, *args)
         shuffle_gemm_chain.launches += 1
-        blocks, used, smem = args[6][-_LAUNCH_INTS:]
-        lay = segment.device_tables(x.device, x.dtype)[0]["layout"]
-        operands = sum(s.groups * s.t * s.n_out for s in segment.steps[1:])
-        # the blocks stage the shared tables and operands once each, the
-        # tiles their own tables
-        last_launch.clear()
-        last_launch.update(
-            kernel="shuffle_gemm_chain", body="chain", grid=(blocks,),
-            slots=used, smem=smem,
-            staged_bytes=blocks * (lay.shared[1]
-                                   + operands * x.element_size())
-            + x.shape[0] * segment.tiles * lay.own_bytes)
     return out
 
 

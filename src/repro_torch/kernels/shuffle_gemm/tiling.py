@@ -28,7 +28,9 @@ the eight partials sit in eight lanes, below it one thread keeps them.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -206,6 +208,14 @@ class StagedTiling:
                 self.off_idx, self.off_pad, self.off_scale, self.off_buf,
                 self.total, self.mode, *(self.affine or (0, 0, self.span)),
                 self.wxor)
+
+    @functools.cached_property
+    def launch_dims(self):
+        """:meth:`dims` as the C entry's ``int`` array, with room for the
+        four ints a launch writes after them; built once, each launch
+        takes a copy (``type(a).from_buffer_copy(a)``)."""
+        dims = self.dims()
+        return (ctypes.c_int * (len(dims) + 4))(*dims)
 
 
 def _layout(rows, t, n_out, elem_bytes, scaled, split, lanes, no, nb, rt,

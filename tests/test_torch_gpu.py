@@ -2224,6 +2224,7 @@ def test_staged_body_at_every_suite_and_fig9_call(cuda, dt):
     TOL (float32: TOL x max|want|, sums of up to 513 products in another
     order than the plain matmul's), on 70 batch rows (dct2_32: 70
     blocks): several passes of a block and a ragged last one."""
+    from repro_torch.kernels import launch
     from repro_torch.kernels.shuffle_gemm import kernel as sgk
     from repro_torch.kernels.shuffle_gemm.tiling import MIN_WORK
     calls = [a for _, k, a in _suite_calls(cuda, 70, grad=True)
@@ -2236,11 +2237,13 @@ def test_staged_body_at_every_suite_and_fig9_call(cuda, dt):
                  scale=None if a["scale"] is None else a["scale"].to(TDT[dt]))
         assert a["spans"] is not None and a["w"].ndim == 2
         got = shuffle_gemm_blocks(**a)
+        _, args = sgk.blocks_launch_args(**a)
+        launch("repro_shuffle_gemm_blocks", a["x"].device, *args)
         torch.cuda.synchronize()
         tiling = sgk.blocks_tiling(a["x"], a["idx"], a["w"], a["scale"],
                                    a["spans"])
         body = "staged" if tiling is not None else "sequential"
-        assert sgk.last_launch["body"] == body
+        assert sgk.BODIES[args[13][-1]] == body
         (_, t), n_out = a["idx"].shape, a["w"].shape[-1]
         assert (body == "staged") == (t * n_out >= MIN_WORK), (t, n_out)
         staged += body == "staged"
@@ -2286,14 +2289,26 @@ def _suite_chains(cuda, batch, names):
             if k == "shuffle_gemm_chain"]
 
 
+def _chain_launch(a):
+    """One launch of ``a``'s chain call: ``(blocks, slots)`` as the launch
+    reports them (slots: the tiles a block holds at once)."""
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    _, args = sgk.chain_launch_args(**a)
+    launch("repro_shuffle_gemm_chain", a["x"].device, *args)
+    torch.cuda.synchronize()
+    return args[6][-3], args[6][-2]
+
+
 def test_chain_rows_do_not_depend_on_their_batch(cuda):
     """The 128- and 1024-point FFT chains and front1024's STFT (31 tiles
-    a batch row) on B batch rows: bit for bit the same rows as calls of
-    1, 7 and B - 8 rows, whatever tiles a block holds at once (one, or
-    the segment's most), and bit for bit their sub-steps one launch each;
-    the 1024-point chain in bfloat16 too."""
+    a batch row) on 1000 batch rows: bit for bit the same rows as calls of
+    1, 7 and 992 rows — blocks of one tile at a time against blocks of
+    several (the slots the launch picks from the batch) — and bit for bit
+    their sub-steps one launch each; the 1024-point chain in bfloat16
+    too."""
     from repro_torch.kernels.shuffle_gemm import kernel as sgk
-    chains = _suite_chains(cuda, 40, ("fft128", "fft1024", "front1024"))
+    chains = _suite_chains(cuda, 1000, ("fft128", "fft1024", "front1024"))
     assert [n for n, _ in chains] == ["fft128", "fft1024", "front1024"]
     for name, a in chains:
         for dt in ((torch.float32, torch.bfloat16) if name == "fft1024"
@@ -2302,10 +2317,9 @@ def test_chain_rows_do_not_depend_on_their_batch(cuda):
             got = sgk.shuffle_gemm_chain(**a)
             assert torch.equal(got, _split_rows(sgk.shuffle_gemm_chain, a,
                                                 (1, 8))), name
-            for slots in (1, a["segment"].tiles_per_cta):
-                assert torch.equal(got, sgk.shuffle_gemm_chain(
-                    **dict(a, slots=slots))), (name, slots)
-                assert sgk.last_launch["slots"] == slots
+            slots = [_chain_launch(dict(a, x=a["x"][s:e].contiguous()))[1]
+                     for s, e in ((0, 1), (1, 8), (8, 1000))]
+            assert slots[0] == slots[1] == 1 < slots[2], (name, slots)
             assert torch.equal(got, sgk.shuffle_gemm_steps(
                 a["x"], a["segment"], a["ws"])), name
 
@@ -2315,11 +2329,10 @@ def test_every_suite_chain_equals_its_steps_at_4096_rows(cuda):
     suite's 4096 batch rows: each launch bit for bit its sub-steps
     through the grouped entry, within the float tolerance of the plain
     version, its blocks each staging the tables and operands once."""
-    from repro_torch.kernels.shuffle_gemm import kernel as sgk
     names = ("fft128", "fft256", "fft512", "fft1024", "fft_ifft1024")
     chains = _suite_chains(cuda, 4096, names)
     assert len(chains) == 6
     for name, a in chains:
         _assert_chain_exact(a["x"], a["segment"], a["ws"])
-        sgk.shuffle_gemm_chain(**a)
-        assert sgk.last_launch["grid"][0] <= 4096 // sgk.last_launch["slots"]
+        blocks, slots = _chain_launch(a)
+        assert blocks <= 4096 // slots

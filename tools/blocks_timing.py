@@ -8,12 +8,14 @@ records the kernel calls that checkout's own ops make — as
 ``chip_smoke.record_calls`` records them — and, for each, holds the
 kernel against its plain version (rtol 1e-4, atol 1e-4 x max|want|),
 times it with CUDA-graph replays (``chip_smoke.device_ms``, the median of
-three), and prints the first 16 hex digits of the SHA-1 of its output
-bytes and the bytes its blocks stage into shared memory from device
-memory (the checkout's ``kernel.last_launch`` where it has one; for a
-checkout before it, the wide body's blocks x (operand + gathered rows),
-the chain's blocks x (tables + operands) of its layout, 0 for the
-sequential body).  Float32 operands; the calls, on seeded inputs:
+three) and through its wrapper from the host (``chip_smoke.wall_ms``:
+launch overhead included), and prints the first 16 hex digits of the SHA-1 of its output
+bytes, the body its launch reports (a checkout whose launches report
+none: blank) and the bytes its blocks copy into shared memory from
+device memory.  Those bytes are computed, not measured: from the call's
+layout and the grid its launch reports (:func:`staged_bytes`; for a
+checkout whose launches report none, :func:`parent_staged_bytes`).
+Float32 operands; the calls, on seeded inputs:
 
   fig9      a batch-4 Fig-9 value_and_grad step (length 4096, mask CNN
             (2, 12, 12, 1)): the FIR taps and the mel (shuffle_gemm_blocks),
@@ -37,8 +39,8 @@ digests):
 
 ``tools/chain_ablation.py`` times the chain kernel's parts.  Prints the
 card's name and power limit, a line a call, then one JSON line:
-``{"root": ..., "calls": {name: {"ms", "max_abs_err", "digest",
-"staged_bytes", "body"}}}``.
+``{"root": ..., "calls": {name: {"ms", "wall_ms", "max_abs_err",
+"digest", "staged_bytes_computed", "body"}}}``.
 """
 
 from __future__ import annotations
@@ -126,13 +128,93 @@ def _shape(kernel: str, a: dict) -> str:
     return f"{a['x'].shape[0]} x ({r}, {t}, {n_out})"
 
 
+def launched(sgk, kernel: str, a: dict):
+    """What one launch of the call reports, through the checkout's
+    launch-args entries: ``(body, ints)`` — the body's name and the ints
+    its C entry wrote after the dims (blocks: grid x, grid y, rows or
+    batch rows a block, body; chain: blocks, slots, shared bytes a block)
+    — or ``(None, None)`` where the checkout's launches report nothing
+    (no ``blocks_launch_args``) or the kernel is the grouped one."""
+    from repro_torch import kernels
+    if not hasattr(sgk, "blocks_launch_args") \
+            or kernel == "shuffle_gemm_grouped_blocks":
+        return None, None
+    if kernel == "shuffle_gemm_blocks":
+        _, args = sgk.blocks_launch_args(**a)
+        kernels.launch("repro_shuffle_gemm_blocks", a["x"].device, *args)
+        ints = list(args[13][-4:])
+        return sgk.BODIES[ints[3]], ints
+    _, args = sgk.chain_launch_args(**a)
+    kernels.launch("repro_shuffle_gemm_chain", a["x"].device, *args)
+    return "chain", list(args[6][-3:])
+
+
+def span_chunk_bytes(a: dict, tiling) -> int:
+    """Bytes the staged body copies of ``x``: per batch row and tile, the
+    16-byte chunks from the one holding the tile's first staged element
+    to the one holding its last (the kernel's spans: the table's, or the
+    affine ``[max(0, hi - len), min(n_in, hi))``), at most a staged row's
+    chunks — as ``stage_rows`` copies them, at ``x``'s own address."""
+    x = a["x"]
+    (b, n_in), es = x.shape, x.element_size()
+    tiles = -(-a["idx"].shape[0] // tiling.rt)
+    if tiling.affine is None:
+        lo, hi = a["spans"].tiles(tiling.rt).astype(np.int64).T
+    else:
+        step, hi0, length = tiling.affine
+        top = hi0 + step * np.arange(tiles, dtype=np.int64)
+        lo, hi = np.maximum(0, top - length), np.minimum(n_in, top)
+    keep = hi > lo
+    row = x.data_ptr() + np.arange(b, dtype=np.int64)[:, None] * n_in * es
+    first, end = row + lo[keep] * es, row + hi[keep] * es
+    chunks = np.minimum((end + 15) // 16 - first // 16, tiling.row_bytes // 16)
+    return int(chunks.sum()) * 16
+
+
+def staged_bytes(sgk, kernel: str, a: dict, body, ints) -> int:
+    """Bytes a call's blocks copy into shared memory from device memory,
+    computed from its layout and the grid its launch reported: the
+    staged body's blocks each the operand and their tile's tables (a
+    run's first indices alone), each batch row's span of every tile
+    (:func:`span_chunk_bytes`); the wide body's blocks each its batch
+    row's operand, every batch row its rows' gathered values (and
+    scales); the chain's blocks each the shared tables and every later
+    operand, every (batch row, tile) pair its own tables; the sequential
+    and grouped bodies nothing.  A checkout whose launches report no
+    body: :func:`parent_staged_bytes`."""
+    if body is None:
+        return parent_staged_bytes(kernel, a)
+    x = a["x"]
+    b, es = x.shape[0], x.element_size()
+    if kernel == "shuffle_gemm_chain":
+        seg = a["segment"]
+        lay = seg.device_tables(x.device, x.dtype)[0]["layout"]
+        operands = sum(w.numel() for w in a["ws"][1:]) * es
+        return (ints[0] * (lay.shared[1] + operands)
+                + b * seg.tiles * lay.own_bytes)
+    (rows, t), n_out = a["idx"].shape, a["w"].shape[-1]
+    scaled = a.get("scale") is not None
+    if body == "sequential":
+        return 0
+    if body == "wide":
+        return (ints[0] * b * t * n_out * es
+                + b * rows * t * es * (2 if scaled else 1))
+    from repro_torch.kernels.shuffle_gemm.tiling import RUN
+    tl = sgk.blocks_tiling(x, a["idx"], a["w"], a.get("scale"),
+                           a.get("spans"))
+    per_row = (4 if tl.mode == RUN else 4 * t) + es * t * (
+        (tl.off_pad >= 0) + (tl.off_scale >= 0))
+    return (ints[0] * ints[1] * t * n_out * es + ints[1] * rows * per_row
+            + span_chunk_bytes(a, tl))
+
+
 def parent_staged_bytes(kernel: str, a: dict) -> int:
-    """Bytes a call of a checkout without ``last_launch`` stages: the
-    wide body (t >= 32 where its staging fits) copies, a block of ``rpc``
-    rows of one batch row, the operand and the rows' gathered values
-    (and scales); the chain, a block of ``tiles_per_cta`` tiles of one
-    batch row, its layout's tables and every later operand; the
-    sequential body stages nothing."""
+    """Bytes a call of a checkout whose launches report nothing stages
+    (computed): the wide body (t >= 32 where its staging fits) copies, a
+    block of ``rpc`` rows of one batch row, the operand and the rows'
+    gathered values (and scales); the chain, a block of
+    ``tiles_per_cta`` tiles of one batch row, its layout's tables and
+    every later operand; the sequential body stages nothing."""
     es = a["x"].element_size()
     if kernel == "shuffle_gemm_chain":
         seg, b = a["segment"], a["x"].shape[0]
@@ -187,22 +269,21 @@ def main() -> int:
         fn, ref = fns[kernel]
         with torch.no_grad():
             got = fn(**a)
-            torch.cuda.synchronize()
-            launch = dict(getattr(sgk, "last_launch", {}))
-            want = ref(**{k: v for k, v in a.items()
-                          if k not in ("spans", "slots")})
+            want = ref(**{k: v for k, v in a.items() if k != "spans"})
             err = cs.suite_close(torch, name, got, want, 1e-4)
             ms = statistics.median(cs.device_ms(torch, lambda: fn(**a))
                                    for _ in range(3))
-        staged = (launch["staged_bytes"] if "staged_bytes" in launch
-                  else parent_staged_bytes(kernel, a))
+            wall = cs.wall_ms(torch, lambda: fn(**a))
+            body, ints = launched(sgk, kernel, a)
+        staged = staged_bytes(sgk, kernel, a, body, ints)
         digest = hashlib.sha1(got.contiguous().cpu().numpy().tobytes()
                               ).hexdigest()[:16]
-        out[name] = {"ms": ms, "max_abs_err": err, "digest": digest,
-                     "staged_bytes": staged, "body": launch.get("body")}
-        print(f"  {name:48s} {ms * 1e3:9.3f} us  {digest}  into shared "
-              f"memory {staged:>12d} B  {launch.get('body') or ''}",
-              flush=True)
+        out[name] = {"ms": ms, "wall_ms": wall, "max_abs_err": err,
+                     "digest": digest, "staged_bytes_computed": staged,
+                     "body": body}
+        print(f"  {name:48s} {ms * 1e3:9.3f} us  wrapper {wall * 1e3:8.2f} "
+              f"us  {digest}  into shared memory (computed) {staged:>12d} B"
+              f"  {body or ''}", flush=True)
     print(json.dumps({"root": str(root), "calls": out}), flush=True)
     return 0
 

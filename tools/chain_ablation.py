@@ -215,7 +215,8 @@ def main() -> int:
                   + call[0].shape[0] * seg.tiles * lay.own_bytes)
         print(f"{label}: {blocks} blocks of {slots} tiles at once, "
               f"{smem} B shared a block; {staged} B staged into shared "
-              f"memory", flush=True)
+              f"memory (computed from the layout and the blocks)",
+              flush=True)
     print(f"{'variant':12s} " + "  ".join(f"{k:>26s}" for k in chains))
     for name, fn in libs.items():
         row = [timed(fn, *call)[0] for call in chains.values()]
