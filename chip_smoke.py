@@ -363,7 +363,8 @@ card) — phase by phase:
      -> b`` line with b below a, no launch, its two checkpoints written
      under ``build/`` and removed; the phase's seconds printed beside
      its 300 s budget.
- 18. kernels: the kernel JSON of all ten kernels; the flash row's numbers
+ 18. kernels: the kernel JSON of all ten kernels (phase 20's per-row
+     calls under ``per_row``); the flash row's numbers
      are the serving path's call (phase 11), phase 8's under
      ``entry_point``, phase 12's under ``families``, phase 13's under
      ``train``, phase 17's under ``family_train``, phase 15's pipelined
@@ -411,6 +412,25 @@ card) — phase by phase:
      phases on 4096 rows through phase 6's readings
      (``fft_entry_reading``, ``fir_entry_reading``); (g) the
      phase's seconds against its 180 s budget.
+ 20. per-row (``per_row_phase``; runs after phase 10): two tenants of one
+     graph with different params as one wave, each kernel launching once
+     with one operand a batch row: (a) Fig-9q at ``LENGTH`` under phase
+     5's policy, tenants from ``--seed`` and ``--seed`` + 1 (FIR taps and
+     circulant-mask weights), 8 requests alternating at ``batch_size=8``:
+     one wave, ``param_splits`` 0, one Fig-9q forward's launches with
+     every quantized GEMM on ``w (8, K, N)``, each row against its
+     tenant's offline compile (atol 1e-5), and the wave's wall time
+     against the same requests as two waves of one tenant, in turns;
+     (b) ``iir_biquad -> stft(256, 128, learnable window) -> istft`` at
+     ``LENGTH`` with two tenants' coefficients and windows: one wave, one
+     forward's launches, rows at atol 1e-5; (c) Fig 9's 16 butterflies at
+     batch 8 with one operand a batch row: each per-row chain and
+     grouped call bit for bit the shared call on each row's operands
+     and within 1e-5 of its plain version; the planes kernel at (3, 5)
+     and (8, 8) planes equal to its plain version; (d) each per-row
+     call's device time beside the shared call on the same shapes, its
+     bound and its plain version (the kernel JSON's ``per_row`` entries;
+     the waves' launches added to the rows').
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -755,20 +775,27 @@ def profile_forward(torch, forward, wall_ms_per_call: float,
     return round(sum(c for _, c, _ in by_name))
 
 
+def fig9q_mask_activation(v):
+    """Fig-9q's mask activation, ``sigmoid(v - 1)``: a module-level
+    function closing over nothing, so the program keeps a structural
+    fingerprint and two registrations of the graph can share a wave."""
+    import torch
+    return torch.sigmoid(v - 1.0)
+
+
 def fig9q_graph(length: int):
     """Fig-9q: the SigQuant form of Fig 9 (``tests/test_precision_
     calibration.py`` ``_fig9q(length, fir=True, mel=True)``) at Fig 9's
     own widths: 9 Hann taps, frame 256, hop 128, a block-circulant mask
     (block 4) in place of the CNN, and a 24-mel tap."""
     import numpy as np
-    import torch
     from repro_torch.signal import SignalGraph
     g = SignalGraph("fig9q")
     g.fir("front", "input", taps=np.hanning(9) / np.hanning(9).sum())
     g.stft("spec", "front", frame=256, hop=128)
     g.magnitude("mag", "spec", onesided=False)
     g.dnn_circulant("mask", "mag", 256, block=4,
-                    activation=lambda v: torch.sigmoid(v - 1.0))
+                    activation=fig9q_mask_activation)
     g.mul("enh", "spec", "mask")
     g.istft("out", "enh", hop=128, length=length)
     g.magnitude("m2", "enh", onesided=True)
@@ -5020,6 +5047,398 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
             "stream": streamed}
 
 
+# -- phase 20: cross-graph waves with one operand a batch row ---------------
+# Two tenants of one graph that registered different params are one wave:
+# every stage takes its rows' params, each kernel launching once for the
+# wave with one operand a batch row (the JAX package's vmap over stacked
+# params, src/repro/serving/signal_service.py _run_per_row_params).  (a)
+# Fig-9q (fig9q_graph) at LENGTH under phase 5's policy, tenants from seeds
+# seed and seed + 1 (FIR taps and circulant-mask weights about the
+# layer's own init, the scale the policy was calibrated at): every
+# int-routed step one launch of the per-row quantized GEMM, w (8, K, N);
+# (b) Fig 9's front end at its widths, iir_biquad -> stft(256, 128,
+# learnable window) -> istft, tenants with their own biquad coefficients
+# and windows; (c) the per-row grouped kernel and the per-row chain at
+# Fig 9's 16 butterflies (its STFT and iSTFT chains at batch 8, one
+# operand set a row), each row bit for bit the shared call on its row's
+# operands, and the planes kernel at plane counts no width gives; (d)
+# readings of each per-row call beside the shared call on the same shapes.
+PER_ROW_BATCH = 8
+PER_ROW_PLANES = ((3, 5), (8, 8))
+
+
+def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
+    """Phase 20 (see above).  ``ctx``: phase 5's ``policy``, the Fig-9
+    ``graph`` and its ``params``.  Returns the kernel JSON's ``per_row``
+    entries by kernel and the main-path ``launches`` of waves (a) and
+    (b)."""
+    from repro_torch.kernels import bitserial_mm as bsm
+    from repro_torch.kernels.shuffle_gemm import (
+        launch_counts, ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
+        shuffle_gemm_chain, shuffle_gemm_grouped_blocks)
+    from repro_torch.kernels.shuffle_gemm.kernel import chain_steps, ref_chain
+    from repro_torch.serving import SignalRequest, SignalService
+    from repro_torch.signal import HopperBackend, SignalGraph
+
+    t_phase = time.perf_counter()
+    B = PER_ROW_BATCH
+    policy, graph, params = ctx["policy"], ctx["graph"], ctx["params"]
+    qback = HopperBackend(precision=policy)
+    rng = np.random.default_rng(seed + 20)
+    made = {n: 0 for n in ("shuffle_gemm_blocks",
+                           "shuffle_gemm_grouped_blocks",
+                           "shuffle_gemm_chain",
+                           "bitserial_quant_matmul_hopper",
+                           "bitserial_matmul_planes")}
+    out = {}
+
+    def counts():
+        return {**launch_counts(), **bsm.launch_counts()}
+
+    def reset():
+        reset_launch_counts()
+        bsm.reset_launch_counts()
+
+    def wave(svc, reqs):
+        """Serve ``reqs`` as the main path: counts set to 0 just before,
+        read just after; (results, launches, batches, cross-graph
+        waves)."""
+        b0 = svc.stats["batches"]
+        c0 = svc.scheduler.stats["cross_graph_batches"]
+        reset()
+        got = svc.serve(reqs)
+        torch.cuda.synchronize()
+        n = counts()
+        return (got, n, svc.stats["batches"] - b0,
+                svc.scheduler.stats["cross_graph_batches"] - c0)
+
+    def hold_rows(what, got, offline, atol):
+        worst = 0.0
+        for i, want in offline.items():
+            for k, v in want.items():
+                g = got[i][k]
+                if g.shape != v.shape or not np.all(np.isfinite(g)):
+                    raise AssertionError(f"{what} row {i} {k}: shape "
+                                         f"{g.shape} vs {v.shape}")
+                d = float(np.abs(g - v).max())
+                if d > atol:
+                    raise AssertionError(f"{what} row {i} {k}: max abs err "
+                                         f"{d} beyond {atol}")
+                worst = max(worst, d)
+        return worst
+
+    # -- (a) Fig-9q, two tenants, one wave of the per-row int route
+    gq = fig9q_graph(LENGTH)
+    cq = gq.compile(LENGTH, fuse=2, backend=qback, device="cuda")
+    base = cq.init_params()
+    n_int = len(policy.widths)
+
+    def tenant(r):
+        p = {k: {kk: torch.as_tensor(np.asarray(vv, np.float32),
+                                     device="cuda") for kk, vv in v.items()}
+             for k, v in base.items()}
+        bw_ = np.asarray(base["mask"]["weights"], np.float32)
+        taps = (0.3 * r.standard_normal(9)).astype(np.float32)
+        taps[0] += 1.0
+        p["front"]["taps"] = torch.as_tensor(taps, device="cuda")
+        p["mask"]["weights"] = torch.as_tensor(
+            (bw_ + 0.5 * bw_.std() * r.standard_normal(bw_.shape))
+            .astype(np.float32), device="cuda")
+        return p
+    pq = [tenant(np.random.default_rng(seed + k)) for k in (0, 1)]
+    xq = [rng.standard_normal(LENGTH).astype(np.float32) for _ in range(B)]
+    svc_q = SignalService(batch_size=B, backend="hopper", precision=policy,
+                          device="cuda")
+    for name, p in zip("ab", pq):
+        svc_q.register(name, gq, params=p)
+
+    def reqs_q(base_rid, which="ab"):
+        return [SignalRequest(rid=base_rid + i, graph="ab"[i % 2],
+                              samples=xq[i]) for i in range(B)
+                if "ab"[i % 2] in which]
+    svc_q.serve(reqs_q(0))                   # compiles the bucket
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        reset()
+        cq(torch.as_tensor(np.stack(xq), device="cuda"), pq[0])
+        torch.cuda.synchronize()
+        one_forward = counts()
+    calls_q = []
+    orig_q = bsm.ops.bitserial_quant_matmul_hopper
+
+    def rec_q(h, w, aw, ww):
+        calls_q.append({"h": h.detach().clone(), "w": w.detach().clone(),
+                        "aw": aw, "ww": ww})
+        return orig_q(h, w, aw, ww)
+    bsm.ops.bitserial_quant_matmul_hopper = rec_q
+    try:
+        res_a, made_a, waves_a, cross_a = wave(svc_q, reqs_q(100))
+    finally:
+        bsm.ops.bitserial_quant_matmul_hopper = orig_q
+    if waves_a != 1 or cross_a != 1 or svc_q.stats["param_splits"] \
+            or made_a != one_forward \
+            or made_a["bitserial_quant_matmul_hopper"] != n_int \
+            or len(calls_q) != n_int \
+            or any(c["w"].ndim != 3 or c["w"].shape[0] != B
+                   for c in calls_q):
+        raise AssertionError(
+            f"(a) {waves_a} waves, {cross_a} cross-graph, param_splits "
+            f"{svc_q.stats['param_splits']}, launches {made_a} vs one "
+            f"forward's {one_forward}, quantized-GEMM operands "
+            f"{[tuple(c['w'].shape) for c in calls_q]}")
+    for k, v in made_a.items():
+        made[k] += v
+    with torch.no_grad():
+        off_a = {}
+        for i in range(B):
+            o = cq(torch.as_tensor(xq[i][None], device="cuda"), pq[i % 2])
+            off_a[100 + i] = {k: v[0].cpu().numpy() for k, v in o.items()}
+    err_a = hold_rows("(a) Fig-9q", res_a, off_a, 1e-5)
+    # the same wave split per tenant: two waves of 4, the parent's path
+    split_counts = None
+    for tag in ("a", "b"):
+        _, n, _, _ = wave(svc_q, reqs_q(200, tag))
+        split_counts = n if split_counts is None else {
+            k: split_counts[k] + n[k] for k in n}
+
+    def one_wave():
+        svc_q.serve(reqs_q(300))
+
+    def split_wave():
+        svc_q.serve(reqs_q(400, "a"))
+        svc_q.serve(reqs_q(500, "b"))
+    turns = [wall_ms(torch, f, iters=5)
+             for f in (one_wave, split_wave, split_wave, one_wave)]
+    wave_ms, split_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"(a) on {smi}: Fig-9q, {B} requests of {LENGTH} alternating two "
+          f"tenants: {waves_a} wave ({cross_a} cross-graph), param_splits "
+          f"{svc_q.stats['param_splits']}, launches {made_a} (one forward's: "
+          f"{one_forward}); quantized-GEMM operands "
+          f"{[tuple(c['w'].shape) for c in calls_q]}; rows vs each tenant's "
+          f"offline compile max abs err {err_a:.2e} (atol 1e-5); wall time "
+          f"(host clock with CUDA events, 5 waves, in turns one/split/split/"
+          f"one: {', '.join(f'{t:.3f}' for t in turns)} ms) one per-row "
+          f"wave {wave_ms:.3f} ms, split per tenant {split_ms:.3f} ms "
+          f"(launches {split_counts})", flush=True)
+    wave_row = {"per_row_ms": wave_ms, "split_ms": split_ms,
+                   "launches": made_a, "split_launches": split_counts,
+                   "per": f"Fig-9q, {B} requests of {LENGTH} from two "
+                          f"tenants: one per-row wave against the same "
+                          f"requests as two waves of one tenant, host "
+                          f"wall time a wave"}
+
+    # -- (b) Fig 9's front end: per-row biquad and learnable window
+    def front_graph():
+        g = SignalGraph("front_rows")
+        g.iir_biquad("iir", "input", b=[0.2, 0.3, 0.2], a=[1.0, -0.5, 0.25])
+        g.stft("spec", "iir", frame=256, hop=128, window="learnable")
+        g.istft("out", "spec", hop=128, length=LENGTH)
+        g.outputs("out")
+        return g
+    gf = front_graph()
+    cf = gf.compile(LENGTH, fuse=2, backend="hopper", device="cuda")
+    hann = np.asarray(cf.init_params()["spec"]["window"], np.float32)
+    pf = [{"iir": {"b": torch.tensor([0.2, 0.3, 0.2], device="cuda"),
+                   "a": torch.tensor([1.0, -0.5, 0.25], device="cuda")},
+           "spec": {"window": torch.as_tensor(hann, device="cuda")}},
+          {"iir": {"b": torch.tensor([0.1, 0.25, 0.1], device="cuda"),
+                   "a": torch.tensor([1.0, -0.4, 0.2], device="cuda")},
+           "spec": {"window": torch.as_tensor(
+               (hann * (1.0 + 0.2 * rng.standard_normal(hann.shape)))
+               .astype(np.float32), device="cuda")}}]
+    svc_f = SignalService(batch_size=B, backend="hopper", device="cuda")
+    for name, p in zip("ab", pf):
+        svc_f.register(name, gf, params=p)
+    reqs_f = [SignalRequest(rid=600 + i, graph="ab"[i % 2], samples=xq[i])
+              for i in range(B)]
+    with torch.no_grad():
+        reset()
+        cf(torch.as_tensor(np.stack(xq), device="cuda"), pf[0])
+        torch.cuda.synchronize()
+        front_forward = counts()
+    res_b, made_b, waves_b, cross_b = wave(svc_f, reqs_f)
+    if waves_b != 1 or cross_b != 1 or svc_f.stats["param_splits"] \
+            or made_b != front_forward:
+        raise AssertionError(f"(b) {waves_b} waves, {cross_b} cross-graph, "
+                             f"param_splits {svc_f.stats['param_splits']}, "
+                             f"launches {made_b} vs {front_forward}")
+    for k, v in made_b.items():
+        made[k] += v
+    with torch.no_grad():
+        off_b = {600 + i: {"out": cf(torch.as_tensor(
+            xq[i][None], device="cuda"), pf[i % 2])["out"][0].cpu().numpy()}
+            for i in range(B)}
+    err_b = hold_rows("(b) front end", res_b, off_b, 1e-5)
+    print(f"(b) on {smi}: iir_biquad -> stft(256, 128, learnable) -> istft "
+          f"at {LENGTH}, two tenants: {waves_b} wave, param_splits "
+          f"{svc_f.stats['param_splits']}, launches {made_b} (one "
+          f"forward's); rows vs each tenant's offline compile max abs err "
+          f"{err_b:.2e} (atol 1e-5)", flush=True)
+
+    # -- (c)/(d) the per-row kernels at Fig 9's butterflies, batch 8
+    x8 = torch.as_tensor(rng.standard_normal((B, LENGTH)).astype(np.float32),
+                         device="cuda")
+    hopper = graph.compile(LENGTH, fuse=2, backend="hopper", device="cuda")
+    chains = [a for n, a in record_calls(torch, lambda: hopper(x8, params))
+              if n == "shuffle_gemm_chain"]
+    if len(chains) != 2:
+        raise AssertionError(f"{len(chains)} chain calls at batch {B}")
+
+    def rows_of(w):
+        """``w`` (G, t, n_out) as one operand a batch row, each its own."""
+        noise = torch.as_tensor(rng.standard_normal((B, *w.shape)),
+                                dtype=w.dtype, device=w.device)
+        return (w[None] * (1.0 + 0.05 * noise)).contiguous()
+
+    def same_rows(label, per, shared_of):
+        for b in range(B):
+            if not torch.equal(per[b], shared_of(b)[b]):
+                bad = (per[b] != shared_of(b)[b]).nonzero()[0].tolist()
+                raise AssertionError(f"{label}: row {b} is not the shared "
+                                     f"call on its operands at {bad}")
+
+    def reading(label, k_fn, s_fn, p_fn, nbytes, ops, ops_per_s):
+        k_ms = device_ms(torch, k_fn)
+        s_ms = device_ms(torch, s_fn)
+        p_ms = device_ms(torch, p_fn)
+        b = bound(nbytes, ops, ops_per_s)
+        print(f"  {label}: per-row {k_ms * 1e3:8.2f} us  shared "
+              f"{s_ms * 1e3:8.2f} us  plain {p_ms * 1e3:8.2f} us  bound "
+              f"{b[0] * 1e3:6.3f} us ({nbytes} B, {ops} ops)", flush=True)
+        return k_ms, s_ms, p_ms, b
+
+    def new_per_row(per):
+        return {**new_row(0, per), "shared_ms": 0.0}
+
+    print(f"(c, d) per-row kernels on {smi}:", flush=True)
+    g_row = new_per_row(f"sum over Fig 9's 16 butterflies (its STFT and "
+                        f"iSTFT chains' sub-steps) at batch {B}, one "
+                        f"launch each, one (G, 4, 4) operand a batch row; "
+                        f"shared_ms: the same calls on one shared operand")
+    c_row = new_per_row(f"sum over Fig 9's two chains at batch {B}, one "
+                        f"operand set a batch row; shared_ms: the same "
+                        f"chains on one shared operand set")
+    for a in chains:
+        seg = a["segment"]
+        ws_rows = [rows_of(w) for w in a["ws"]]
+        args = dict(x=a["x"], segment=seg, ws=ws_rows)
+        with torch.no_grad():
+            per = shuffle_gemm_chain(**args)
+            want = ref_chain(**args)
+            same_rows("per-row chain", per, lambda b: shuffle_gemm_chain(
+                a["x"], seg, [w[b].contiguous() for w in ws_rows]))
+            err = float((per - want).abs().max())
+            if not torch.allclose(per, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"per-row chain vs plain: {err}")
+        nbytes, flops = chain_cost(args)
+        k_ms, s_ms, p_ms, b = reading(
+            f"chain of {len(seg.steps)}", lambda: shuffle_gemm_chain(**args),
+            lambda: shuffle_gemm_chain(**a), lambda: ref_chain(**args),
+            nbytes, flops, FP32_FLOP_PER_S)
+        add_call(c_row, err, k_ms, p_ms, b)
+        c_row["shared_ms"] += s_ms
+        c_row["calls"] += 1
+        xi = a["x"]
+        for (idx, pads, w, reps, groups, nb, scale), wr in zip(
+                chain_steps(seg, a["ws"], xi.device, xi.dtype), ws_rows):
+            ga = dict(x=xi, idx=idx, pad_vals=pads, w=wr, reps=reps,
+                      groups=groups, nb=nb, scale=scale)
+            gs = dict(ga, w=w)
+            with torch.no_grad():
+                per = shuffle_gemm_grouped_blocks(**ga)
+                want = ref_shuffle_gemm_grouped_blocks(**ga)
+                same_rows("per-row grouped", per,
+                          lambda b: shuffle_gemm_grouped_blocks(
+                              **dict(ga, w=wr[b].contiguous())))
+                err = float((per - want).abs().max())
+                if not torch.allclose(per, want, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(f"per-row grouped vs plain: {err}")
+            nbytes, flops = call_cost(ga)
+            k_ms = device_ms(torch, lambda: shuffle_gemm_grouped_blocks(**ga))
+            s_ms = device_ms(torch, lambda: shuffle_gemm_grouped_blocks(**gs))
+            p_ms = device_ms(torch,
+                             lambda: ref_shuffle_gemm_grouped_blocks(**ga))
+            add_call(g_row, err, k_ms, p_ms,
+                     bound(nbytes, flops, FP32_FLOP_PER_S))
+            g_row["shared_ms"] += s_ms
+            g_row["calls"] += 1
+            with torch.no_grad():
+                xi = shuffle_gemm_grouped_blocks(**gs)
+    print(f"  16 per-row grouped launches: per-row {g_row['ms'] * 1e3:.2f} "
+          f"us, shared {g_row['shared_ms'] * 1e3:.2f} us, plain "
+          f"{g_row['plain_ms'] * 1e3:.2f} us, bound "
+          f"{g_row['bound_ms'] * 1e3:.3f} us; every row bit for bit the "
+          f"shared call on its operands", flush=True)
+    out["shuffle_gemm_grouped_blocks"] = g_row
+    out["shuffle_gemm_chain_hopper"] = c_row
+
+    q_row = new_per_row(f"sum over wave (a)'s {n_int} int-routed calls, "
+                        f"one w a batch row; shared_ms: the same h, "
+                        f"flattened, on one shared w")
+    for c in calls_q:
+        h, w, aw, ww = c["h"], c["w"], c["aw"], c["ww"]
+        (_, r, k), n = h.shape, w.shape[-1]
+        hs = h.reshape(-1, k)
+        with torch.no_grad():
+            per = bsm.bitserial_quant_matmul_hopper(h, w, aw, ww)
+            if not torch.equal(per, bsm.ref_bitserial_quant_matmul(
+                    h, w, aw, ww)):
+                raise AssertionError(f"per-row quantized GEMM ({B}, {r}, "
+                                     f"{k}, {n}) is not its plain version")
+            for b in range(B):
+                if not torch.equal(per[b], bsm.bitserial_quant_matmul_hopper(
+                        h[b], w[b], aw, ww)):
+                    raise AssertionError("per-row quantized GEMM row is not "
+                                         "the shared-w call on w[b]")
+        pa, pw = aw // 4, ww // 4
+        ops = 2 * B * r * k * n * pa * pw
+        k_ms, s_ms, p_ms, b_ = reading(
+            f"quantized GEMM ({B}, {r}, {k}, {n}) {aw, ww}",
+            lambda: bsm.bitserial_quant_matmul_hopper(h, w, aw, ww),
+            lambda: bsm.bitserial_quant_matmul_hopper(hs, w[0], aw, ww),
+            lambda: bsm.ref_bitserial_quant_matmul(h, w, aw, ww),
+            4 * (h.numel() + w.numel() + B * r * n), ops, INT8_OPS_PER_S)
+        add_call(q_row, 0.0, k_ms, p_ms, b_)
+        q_row["shared_ms"] += s_ms
+        q_row["calls"] += 1
+    q_row["wave"] = wave_row
+    out["bitserial_quant_matmul_hopper"] = q_row
+
+    p_row = new_per_row(f"the planes kernel's body of any count at (pa, "
+                        f"pw) in {PER_ROW_PLANES} on Fig-9q's mask call "
+                        f"shape at batch {B} (any int8 digits); shared_ms: "
+                        f"the (4, 4) body on the same shape")
+    m, k, n = B * 124, 256, 64
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+
+    def digits(shape):
+        return torch.randint(-128, 128, shape, dtype=torch.int8,
+                             device="cuda", generator=gen)
+    a4, w4 = digits((4, m, k)), digits((4, k, n))
+    for pa, pw in PER_ROW_PLANES:
+        a8, w8 = digits((pa, m, k)), digits((pw, k, n))
+        with torch.no_grad():
+            got = bsm.bitserial_matmul_planes(a8, w8)
+            if not torch.equal(got, bsm.ref_bitserial_matmul_planes(a8, w8)):
+                raise AssertionError(f"planes kernel at ({pa}, {pw}) is not "
+                                     f"its plain version")
+        pairs = sum(1 for i in range(pa) for j in range(pw) if i + j < 8)
+        k_ms, s_ms, p_ms, b_ = reading(
+            f"planes ({pa}, {pw}) {m} x {k} x {n}",
+            lambda: bsm.bitserial_matmul_planes(a8, w8),
+            lambda: bsm.bitserial_matmul_planes(a4, w4),
+            lambda: bsm.ref_bitserial_matmul_planes(a8, w8),
+            min(pa, 8) * m * k + min(pw, 8) * k * n + 4 * m * n,
+            2 * m * k * n * pairs, INT8_OPS_PER_S)
+        add_call(p_row, 0.0, k_ms, p_ms, b_)
+        p_row["shared_ms"] += s_ms
+        p_row["calls"] += 1
+    out["bitserial_matmul_planes"] = p_row
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; main-path "
+          f"launches {made}", flush=True)
+    return {"per_row": out, "launches": made}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6702,6 +7121,11 @@ def main() -> int:
           f"{per_row_row['plain_ms'] * 1e3:.2f} us; each row bit for bit "
           f"the shared-w call on its operand", flush=True)
 
+    # -- 20. per-row: two tenants' params as one wave, one operand a row --
+    phase("20 per-row")
+    per_row = per_row_phase(torch, np, args.seed, smi, {
+        "policy": policy, "graph": graph, "params": params})
+
     # -- 11. models: starcoder2-3b served, and co-served with Fig 9 --------
     phase("11 models")
     with torch.no_grad():
@@ -6854,6 +7278,21 @@ def main() -> int:
     rows["shuffle_gemm_chain_hopper"]["per"] += (
         " (the wrapper shuffle_gemm_chain); steps_ms: the same sub-steps "
         "one launch each on shuffle_gemm_grouped_blocks")
+    # phase 20: the per-row calls beside the shared ones (its waves' main-
+    # path launches added to the rows'); the blocks row keeps phase 10's
+    for name, pr in per_row["per_row"].items():
+        rows[name]["per_row"] = {k: pr[k] for k in (
+            "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "shared_ms", "per", "wave") if k in pr}
+    for name, kname in (("shuffle_gemm_blocks", "shuffle_gemm_blocks"),
+                        ("shuffle_gemm_grouped_blocks",
+                         "shuffle_gemm_grouped_blocks"),
+                        ("shuffle_gemm_chain_hopper", "shuffle_gemm_chain"),
+                        ("bitserial_quant_matmul_hopper",
+                         "bitserial_quant_matmul_hopper"),
+                        ("bitserial_matmul_planes",
+                         "bitserial_matmul_planes")):
+        launches[name] += per_row["launches"][kname]
     # phase 19's paper suite: each kernel call of its fuse-2 forwards (and
     # the entry points at the paper's sizes) under paper_suite, its
     # main-path launches added to the row's

@@ -110,10 +110,13 @@ class LambdaStep:
     ``param_init`` is the stage's default learnable-params entry, when
     the lambda consumes one (biquad ``b``/``a``, a dnn hook's declared
     ``init``) — collected by ``CompiledSignalGraph.init_params``.
-    ``row_params`` marks a params-taking ``fn`` that may run under
+    ``row_params`` marks a params-taking ``fn`` that runs under
     ``torch.func.vmap`` over row-stacked params (:class:`RowParams`):
     the dnn hook, a user callable of one unbatched row, as the JAX
-    package ``vmap`` s the whole row program."""
+    package ``vmap`` s the whole row program.  A params-taking ``fn``
+    not so marked takes the :class:`RowParams` itself and computes each
+    batch row with its own row (the biquad's coefficients, broadcast
+    over the batch)."""
     name: str
     fn: Callable
     takes_params: bool = False
@@ -129,11 +132,13 @@ class RowParams:
     batch row i computes with row i of each leaf (a served wave whose
     rows come from graphs that registered different weights).  The
     program walker wraps each stage's entry in one when a call is
-    per-row (:func:`execute_program` ``row_params``); the steps that
-    take it are an :class:`EinsumStep` of a row-uniform GEMM (a batched
-    einsum, or one ``shuffle_gemm_blocks`` launch with one operand a
-    row) and a :class:`LambdaStep` marked ``row_params`` (``vmap`` over
-    rows).  Every other consumer refuses it (:func:`resolve_operand`)."""
+    per-row (:func:`execute_program` ``row_params``).  Every step takes
+    it, as the JAX package's ``vmap`` over the row program does: an
+    :class:`EinsumStep` through :func:`row_operand` (a batched einsum on
+    the plain path; one kernel launch with one operand a row on the
+    lowered one), a :class:`LambdaStep` marked ``row_params`` under
+    ``vmap`` over rows, any other params-taking :class:`LambdaStep` as
+    its own argument."""
 
     def __init__(self, tree):
         self.tree = tree
@@ -184,10 +189,8 @@ def run_steps_reference(steps: Sequence[Step], x: torch.Tensor,
             x = y.reshape(*y.shape[:-s.out_rank], -1)
             if s.post is not None:
                 x = apply_plan(x, s.post)
-        elif isinstance(params, RowParams) and s.takes_params:
-            if not s.row_params:
-                raise ValueError(f"{s.name}: this step takes no "
-                                 f"row-stacked params")
+        elif isinstance(params, RowParams) and s.takes_params \
+                and s.row_params:
             x = torch.func.vmap(s.fn, in_dims=(0, 0))(params.tree, x)
         else:
             x = s.fn(params, x) if s.takes_params else s.fn(x)
@@ -225,14 +228,12 @@ def adjoint_gather_steps(name: str, plan: ShufflePlan, n_in: int,
 def resolve_operand(step: EinsumStep, params):
     """The einsum operand for one call: the stage's params entry when the
     step declares a ``param_key`` present there, else the static
-    default.  Raises ``ValueError`` for a row-stacked entry
-    (:class:`RowParams`), which a caller must take through
-    :func:`row_operand`."""
+    default.  For a row-stacked entry (:class:`RowParams`) holding the
+    key, the ``(B, *operand.shape)`` operands, one a batch row:
+    :func:`row_operand` tells the two apart."""
     if isinstance(params, RowParams):
-        if row_operand(step, params) is not None:
-            raise ValueError(f"{step.name}: this unit takes no row-stacked "
-                             f"operand")
-        return step.operand
+        op = row_operand(step, params)
+        return step.operand if op is None else op
     if step.param_key is not None and isinstance(params, dict) \
             and step.param_key in params:
         return params[step.param_key]

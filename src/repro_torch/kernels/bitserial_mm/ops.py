@@ -41,8 +41,22 @@ def bitserial_quant_matmul(h: torch.Tensor, w: torch.Tensor,
     against w (K, N) float32: h per row at ``aw`` bits, w per column at
     ``ww`` bits, the integer product exact mod 2^32 — the JAX package's
     int-route forward (``quantize`` x2, ``bitserial_matmul``, two
-    multiplies) in one kernel launch.  Returns float32 (..., R, N)."""
+    multiplies) in one kernel launch.  Returns float32 (..., R, N).
+
+    With w (B, K, N), one operand a batch row, h is (B, ..., R, K) and
+    batch row b contracts against w[b] with w[b]'s own column scales
+    (a served wave of graphs that registered different weights): one
+    launch of the per-row kernel."""
     k, n = h.shape[-1], w.shape[-1]
+    if w.ndim == 3:
+        if w.shape[1] != k or h.ndim < 2 or h.shape[0] != w.shape[0]:
+            raise ValueError(f"per-row w {tuple(w.shape)} needs h (B, ..., "
+                             f"K) with B = {w.shape[0]}, K = {w.shape[1]}; "
+                             f"got {tuple(h.shape)}")
+        y = bitserial_quant_matmul_hopper(
+            h.reshape(h.shape[0], -1, k).contiguous(), w.contiguous(), aw,
+            ww)
+        return y.reshape(*h.shape[:-1], n)
     if w.ndim != 2 or w.shape[0] != k:
         raise ValueError(f"w {tuple(w.shape)} must be (K={k}, N)")
     y = bitserial_quant_matmul_hopper(h.reshape(-1, k).contiguous(),

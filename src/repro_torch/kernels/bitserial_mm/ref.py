@@ -57,15 +57,20 @@ def ref_bitserial_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def ref_bitserial_matmul_planes(a_planes: torch.Tensor,
                                 w_planes: torch.Tensor) -> torch.Tensor:
-    """(pa, M, K) x (pw, K, N) int8 digit planes -> (M, N) int32:
-    ``sum_{i,j} (a_i @ w_j) << 4(i+j)`` mod 2^32, the kernel's function."""
+    """(pa, M, K) x (pw, K, N) int8 digit planes, any pa, pw >= 1 ->
+    (M, N) int32: ``sum_{i,j} (a_i @ w_j) << 4(i+j)`` mod 2^32, the
+    kernel's function.  A pair whose shift reaches 32 adds nothing mod
+    2^32 (the TPU kernel's ``lax.shift_left`` of an int32 gives 0 there),
+    so it is not formed: an int64 shift of 64 or more would not be
+    defined."""
     peak = _DIGIT_MAX ** 2 * a_planes.shape[-1]     # digits lie in [-8, 16)
-    acc = None
+    acc = torch.zeros((a_planes.shape[1], w_planes.shape[2]),
+                      dtype=torch.int64, device=a_planes.device)
     for i in range(a_planes.shape[0]):
         for j in range(w_planes.shape[0]):
-            part = _int64_matmul(a_planes[i], w_planes[j], peak) \
-                << (4 * (i + j))
-            acc = part if acc is None else acc + part
+            if 4 * (i + j) < 32:
+                acc += _int64_matmul(a_planes[i], w_planes[j], peak) \
+                    << (4 * (i + j))
     return wrap32(acc)
 
 
@@ -74,9 +79,12 @@ def ref_bitserial_quant_matmul(h: torch.Tensor, w: torch.Tensor,
     """h (..., K) float32 quantized per row to ``aw`` bits, w (K, N) per
     column to ``ww`` bits (:func:`core.bitwidth.quantize`), the integer
     product wrapped to int32, dequantized as ``(acc * h_scale) *
-    w_scale`` — the JAX package's int route, step for step."""
+    w_scale`` — the JAX package's int route, step for step.  With one
+    ``w`` a batch row, h (B, R, K) and w (B, K, N): batch row b against
+    w[b], quantized per column within w[b] (the route inside one lane of
+    the JAX package's ``vmap``), each row what the call on w[b] gives."""
     xq, x_scale = bw.quantize(h, aw, axis=-1)
-    wq, w_scale = bw.quantize(w, ww, axis=0)
+    wq, w_scale = bw.quantize(w, ww, axis=-2)
     # |q| <= qmax: a static bound on the card, so no host synchronisation
     peak = (2 ** (aw - 1) - 1) * (2 ** (ww - 1) - 1) * h.shape[-1]
     acc = wrap32(_int64_matmul(xq, wq, peak))

@@ -8,7 +8,10 @@
 //   * shuffle_gemm_grouped_blocks  — a grouped (G, t, n_out) operand; row r
 //                                    in flat (reps, G, nb) order contracts
 //                                    against w[(r / nb) % G] (the FFT
-//                                    butterflies).
+//                                    butterflies), or one (G, t, n_out) a
+//                                    batch row, w (B, G, t, n_out) (a
+//                                    weight batch stride of G * t * n_out
+//                                    elements, as below).
 // Both compute, per batch row b and output row r,
 //   out[b, r, :] = (where(idx[r, :] < 0, pad[r, :], x[b, idx[r, :]])
 //                   * scale[r, :]) @ w[g(r)]
@@ -21,7 +24,8 @@
 // is then one launch, as the JAX package's vmap over the Pallas kernel
 // gives a batched grid.
 // A third entry, repro_shuffle_gemm_chain, runs a list of such steps, each
-// gathering from the one before, in one launch.
+// gathering from the one before, in one launch; any of its steps may take
+// one operand a batch row (body 4's per-row instance).
 //
 // The order of each output's sum is a function of t alone, in every body,
 // so that a call's rows agree bit for bit whichever body, batch or block
@@ -70,8 +74,8 @@
 //    too small for that, fewer batch rows a pass and, at 8 lanes, one a
 //    thread: the register tile only, never the order of a sum.  float32
 //    stays on CUDA-core FMAs: TF32 misses the 1e-5 parity tolerance.
-//    Before it, dct2_32's calls took one batch row a
-//    block and staged the 4 KB operand for each: 323 us a call, now 23.
+//    Before it, dct2_32's calls took one batch row a block and staged the
+//    4 KB operand for each; PERF.md §6 has the times before and after.
 // 3. Wide rows (per-row calls, t >= 32): a block takes a few rows of one
 //    batch row and stages that row's operand w[b] and gathered values, K
 //    split over 8 lanes (the partial sums above).
@@ -101,7 +105,14 @@
 //    with group g's chunk kk at kk ^ ((g >> 1) & 3).  Before, a block ran
 //    one group of one batch row and staged everything again for it: a
 //    1024-point FFT staged 156,240 B for each of 4096 batch rows, one
-//    block an SM, 364 us; now 182.
+//    block an SM; PERF.md §6 has the times before and after.
+//    A chain whose steps take one operand a batch row (a served wave of
+//    graphs that registered different operands) runs the per-row instance
+//    (kRows): those steps' operands are not staged; each row reads its
+//    batch row's operand, w + b * G * t * n_out, from device memory
+//    through the read-only cache, with the same arithmetic, so every batch
+//    row is bit for bit the shared chain on its operands.  The shared
+//    instance is compiled apart and does not read the per-row flags.
 //
 // Bodies 1 and 3 take batch row b on grid row b.  A batch past the grid's
 // y extent (65535) runs their layered instance (kLayered): b = z *
@@ -1023,7 +1034,7 @@ struct Step {
   int pairs;           // vec, and every row reads two (even, even + 1)
                        // pairs: two 8-byte gathers
   int swz;             // its output buffer swizzled (swizzle())
-  int unused;
+  int w_rows;          // one operand a batch row (the per-row instance)
 };
 static_assert(sizeof(Step) == 88, "chain.py STEP_BYTES mirrors this size");
 
@@ -1058,6 +1069,11 @@ __device__ __forceinline__ int swizzle(int p) {
   return p ^ (((p >> 5) & 7) << 2);
 }
 
+// Elements of one batch row's operand of a per-row step.
+__device__ __forceinline__ int64_t row_operand(const Step& st) {
+  return static_cast<int64_t>(st.groups) * st.t * st.n_out;
+}
+
 // A step's input value k of a row: the PAD constant or the gathered one,
 // times the scale.
 template <typename T, typename In>
@@ -1083,13 +1099,16 @@ __device__ __forceinline__ float gathered(const In* src, int32_t i,
 // swizzled where swz) or, for the last step, to device memory.  Per
 // output: gather, PAD constant, scale multiply, fmaf over k = 0..t-1 in
 // order — the sequential body's arithmetic.
-template <typename T, typename In, bool kStaged, bool kLast>
+//
+// kRows (the per-row instance): w_stride elements between batch rows'
+// operands, 0 for a step whose operand every batch row shares.
+template <typename T, typename In, bool kStaged, bool kLast, bool kRows>
 __device__ __forceinline__ void run_step(
     const Step st, const Chain& c, int64_t b0, int k0, const char* base,
     const In* __restrict__ in, const int32_t* __restrict__ idx0,
     const T* __restrict__ pad0, const T* __restrict__ scale0,
     const T* __restrict__ w, float* __restrict__ buf_out,
-    T* __restrict__ out) {
+    T* __restrict__ out, int64_t w_stride) {
   const int rpt = st.rpt, t = st.t, n_out = st.n_out, groups = st.groups;
   const int ept = rpt * n_out;
   for (int lr = threadIdx.x; lr < c.slots * rpt; lr += blockDim.x) {
@@ -1123,6 +1142,7 @@ __device__ __forceinline__ void run_step(
     }
     const In* src = kStaged ? in + tc * st.in_stride : in + b * c.n_in;
     const T* wg = w + static_cast<int64_t>(g) * t * n_out;
+    if constexpr (kRows) wg += b * w_stride;
     const int wp = st.wperm ? (g >> 1) & 3 : 0;
     float* ob = kLast ? nullptr : buf_out + tc * ept;
     T* og = kLast ? out + b * c.n_last + static_cast<int64_t>(k) * ept +
@@ -1212,7 +1232,10 @@ __device__ __forceinline__ void run_step(
   }
 }
 
-template <typename T>
+// kRows: the per-row instance, where a step with w_rows reads batch row
+// b's operand at st.w + b * groups * t * n_out from device memory, and is
+// not staged.
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(kChainThreads)
 chain_kernel(const T* __restrict__ x, T* __restrict__ out, const Chain c,
              const ChainSteps cs) {
@@ -1235,6 +1258,7 @@ chain_kernel(const T* __restrict__ x, T* __restrict__ out, const Chain c,
   const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
   for (int s = 1 + warp; s < c.count; s += warps) {
     const Step st = sd[s];
+    if (kRows && st.w_rows) continue;
     const int bytes = static_cast<int>(sizeof(T)) * st.groups * st.t *
                       st.n_out;
     if (st.wperm)
@@ -1263,12 +1287,13 @@ chain_kernel(const T* __restrict__ x, T* __restrict__ out, const Chain c,
       const T* pad = c.pad0_zero ? nullptr : static_cast<const T*>(c.pad0);
       const T* scale = static_cast<const T*>(c.scale0);
       const T* w = static_cast<const T*>(st.w);
+      const int64_t ws = kRows && st.w_rows ? row_operand(st) : 0;
       if (c.count == 1)
-        run_step<T, T, false, true>(st, c, b0, k0, base, x, idx, pad, scale,
-                                    w, nullptr, out);
+        run_step<T, T, false, true, kRows>(st, c, b0, k0, base, x, idx, pad,
+                                           scale, w, nullptr, out, ws);
       else
-        run_step<T, T, false, false>(st, c, b0, k0, base, x, idx, pad,
-                                     scale, w, buf0, out);
+        run_step<T, T, false, false, kRows>(st, c, b0, k0, base, x, idx, pad,
+                                            scale, w, buf0, out, ws);
     }
     copies_landed();
 
@@ -1276,13 +1301,18 @@ chain_kernel(const T* __restrict__ x, T* __restrict__ out, const Chain c,
       const Step st = sd[s];
       const float* in = s & 1 ? buf0 : buf1;
       float* bo = s & 1 ? buf1 : buf0;
-      const T* w = reinterpret_cast<const T*>(base + st.off_w);
+      const bool rw = kRows && st.w_rows;
+      const T* w = rw ? static_cast<const T*>(st.w)
+                      : reinterpret_cast<const T*>(base + st.off_w);
+      const int64_t ws = rw ? row_operand(st) : 0;
       if (s == c.count - 1)
-        run_step<T, float, true, true>(st, c, b0, k0, base, in, nullptr,
-                                       nullptr, nullptr, w, nullptr, out);
+        run_step<T, float, true, true, kRows>(st, c, b0, k0, base, in,
+                                              nullptr, nullptr, nullptr, w,
+                                              nullptr, out, ws);
       else
-        run_step<T, float, true, false>(st, c, b0, k0, base, in, nullptr,
-                                        nullptr, nullptr, w, bo, out);
+        run_step<T, float, true, false, kRows>(st, c, b0, k0, base, in,
+                                               nullptr, nullptr, nullptr, w,
+                                               bo, out, ws);
       __syncthreads();
     }
   }
@@ -1310,14 +1340,18 @@ bool region_ok(int off, int64_t bytes, int64_t total) {
 constexpr int kChainDims = 9;
 constexpr int kChainStepDims = 13;
 
+// rows_mask: bit s set where step s takes one operand a batch row (the
+// per-row instance; 0: the shared one).
 template <typename T>
 int launch_chain(const void* x, void* out, int batch, int n_in, int count,
-                 const void* const* ptrs, int* dims, cudaStream_t stream) {
+                 const void* const* ptrs, int* dims, unsigned rows_mask,
+                 cudaStream_t stream) {
   const int tiles = dims[0], slots = dims[1], slot_rows = dims[2];
   const int buf_floats = dims[6], fixed = dims[7];
   if (count < 1 || count > kMaxSub || tiles < 1 || slots < 1 ||
       slot_rows < 1 || batch < 1 || buf_floats < 0 || fixed < 0 ||
-      slots > kChainThreads)
+      slots > kChainThreads ||
+      (count < 32 && (rows_mask >> count) != 0u))
     return static_cast<int>(cudaErrorInvalidValue);
   Chain c{};
   ChainSteps cs{};
@@ -1367,6 +1401,8 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
     st.wperm = d[10];
     st.pairs = d[11];
     st.swz = d[12];
+    st.w_rows = (rows_mask >> s) & 1u;
+    if (st.w_rows) st.wperm = 0;     // its operand is read, not staged
     ok = st.rows >= 1 && st.t >= 1 && st.n_out >= 1 && st.groups >= 1 &&
          st.nb >= 1 && st.rows % tiles == 0 &&
          st.rows % (st.groups * st.nb) == 0 && st.w != nullptr &&
@@ -1390,7 +1426,8 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
       st.pairs = 0;
       continue;
     }
-    st.vec = sizeof(T) == 4 && st.t == 4 && st.n_out == 4;
+    st.vec = sizeof(T) == 4 && st.t == 4 && st.n_out == 4 &&
+             (!st.w_rows || (reinterpret_cast<uintptr_t>(st.w) & 15) == 0);
     st.pairs = st.pairs && st.vec && st.in_stride % 2 == 0;
     const int64_t n = static_cast<int64_t>(st.rpt) * st.t;
     const int64_t limit = st.periodic ? fixed : c.own_bytes;
@@ -1415,11 +1452,13 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
   threads = threads < 32 ? 32 : threads;
   if (threads < count) threads = (count + 31) / 32 * 32;
   const int smem = static_cast<int>(total);
-  int err = allow_shared<chain_kernel<T>>();
+  auto* body = rows_mask ? chain_kernel<T, true> : chain_kernel<T, false>;
+  int err = rows_mask ? allow_shared<chain_kernel<T, true>>()
+                      : allow_shared<chain_kernel<T, false>>();
   if (err) return err;
   int per_sm = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, chain_kernel<T>, threads, smem) != cudaSuccess ||
+          &per_sm, body, threads, smem) != cudaSuccess ||
       per_sm < 1)
     per_sm = 1;
   const int64_t groups = (c.total + active - 1) / active;
@@ -1429,7 +1468,7 @@ int launch_chain(const void* x, void* out, int batch, int n_in, int count,
   g[0] = static_cast<int>(blocks);
   g[1] = active;
   g[2] = smem;
-  chain_kernel<T><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+  body<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), c, cs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1491,24 +1530,29 @@ int repro_shuffle_gemm_blocks(const void* x, const void* idx, const void* pad,
   }
 }
 
-// As above with w (groups, t, n_out) and rows = reps * groups * nb in flat
-// (reps, groups, nb) order; out (batch, rows * n_out).  Always the
-// sequential body, one fmaf chain at every t.
+// As above with w (groups, t, n_out), shared by every batch row (w_stride
+// 0), or (batch, groups, t, n_out), one a batch row (w_stride groups * t *
+// n_out), and rows = reps * groups * nb in flat (reps, groups, nb) order;
+// out (batch, rows * n_out).  Always the sequential body, one fmaf chain at
+// every t.  cudaErrorInvalidValue for a w_stride that is neither.
 int repro_shuffle_gemm_grouped_blocks(const void* x, const void* idx,
                                       const void* pad, const void* scale,
                                       const void* w, void* out, int batch,
                                       int n_in, int reps, int groups, int nb,
-                                      int t, int n_out, int dtype,
-                                      void* stream) {
+                                      int t, int n_out, int w_stride,
+                                      int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = reps * groups * nb;
+  if (w_stride != 0 && w_stride != groups * t * n_out)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
       return launch<float>(x, idx, pad, scale, w, out, batch, n_in, rows, t,
-                           n_out, groups, nb, 0, false, s);
+                           n_out, groups, nb, w_stride, false, s);
     case 1:
       return launch<__nv_bfloat16>(x, idx, pad, scale, w, out, batch, n_in,
-                                   rows, t, n_out, groups, nb, 0, false, s);
+                                   rows, t, n_out, groups, nb, w_stride,
+                                   false, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1517,24 +1561,26 @@ int repro_shuffle_gemm_grouped_blocks(const void* x, const void* idx,
 // A chain of `count` steps in one launch.  x (batch, n_in); out (batch,
 // rows * n_out of the last step).  ptrs: a host array of count + 5 device
 // pointers: step 0's idx, pad and scale (null without a diag), every
-// step's operand w (groups, t, n_out), then the packed tables of the later
-// periodic steps and of the others (a row a tile; either null when
-// empty).  dims: a host array of kChainDims + kChainStepDims * count + 3
-// ints (see kChainDims); the last three are written.  Returns the CUDA
-// error code of the launch (0 = success); cudaErrorInvalidValue for
-// arguments out of range or a region outside the layout.
+// step's operand w (groups, t, n_out), or (batch, groups, t, n_out) where
+// bit s of rows_mask is set, then the packed tables of the later periodic
+// steps and of the others (a row a tile; either null when empty).  dims: a
+// host array of kChainDims + kChainStepDims * count + 3 ints (see
+// kChainDims); the last three are written.  Returns the CUDA error code of
+// the launch (0 = success); cudaErrorInvalidValue for arguments out of
+// range or a region outside the layout.
 int repro_shuffle_gemm_chain(const void* x, void* out, int batch, int n_in,
                              int count, const void* ptrs, void* dims,
-                             int dtype, void* stream) {
+                             int rows_mask, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* const* p = static_cast<const void* const*>(ptrs);
   int* d = static_cast<int*>(dims);
+  const unsigned mask = static_cast<unsigned>(rows_mask);
   switch (dtype) {
     case 0:
-      return launch_chain<float>(x, out, batch, n_in, count, p, d, s);
+      return launch_chain<float>(x, out, batch, n_in, count, p, d, mask, s);
     case 1:
       return launch_chain<__nv_bfloat16>(x, out, batch, n_in, count, p, d,
-                                         s);
+                                         mask, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

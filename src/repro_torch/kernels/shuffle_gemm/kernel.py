@@ -11,11 +11,13 @@ package's Pallas TPU kernels of the same names:
     served wave with its own registered weights, in one launch.
   * :func:`shuffle_gemm_grouped_blocks` — a *grouped* operand
     ``(G, t, n_out)``: row ``r`` (flat layout ``(reps, G, nb)``)
-    contracts against group ``(r // nb) % G`` — the FFT butterfly shape.
+    contracts against group ``(r // nb) % G`` — the FFT butterfly shape;
+    or one such operand a batch row, ``w (B, G, t, n_out)``.
   * :func:`shuffle_gemm_chain` — a segment of grouped sub-steps
     (:class:`~repro_torch.kernels.shuffle_gemm.chain.ChainSegment`),
     each gathering from the one before, in one launch; bit for bit the
-    sub-steps launched one at a time (:func:`shuffle_gemm_steps`).
+    sub-steps launched one at a time (:func:`shuffle_gemm_steps`).  Any
+    sub-step's operand may carry a batch axis, one a batch row.
 
 Each wrapper runs the plain PyTorch version (``ref.py``) for a tensor on
 the CPU, and for a tensor on the card checks device, type, shape and
@@ -172,23 +174,30 @@ def shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
                                 scale: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """x: (B, n_in); idx/pad_vals[/scale]: (R, t) with R = reps*G*nb in
-    (reps, G, nb) row order; w: (G, t, n_out) -> (B, R * n_out) flat in
-    the same row order.  Replaces ``repro.kernels.shuffle_gemm.kernel.
-    shuffle_gemm_grouped_blocks``."""
+    (reps, G, nb) row order; w: (G, t, n_out), shared by every batch row,
+    or (B, G, t, n_out), batch row b against w[b] -> (B, R * n_out) flat
+    in the same row order.  Replaces ``repro.kernels.shuffle_gemm.kernel.
+    shuffle_gemm_grouped_blocks`` (its per-row form: the JAX package's
+    ``vmap`` over that kernel).  Each output's sum runs in an order set by
+    ``t`` alone, so row b of a per-row call is bit for bit the shared call
+    on w[b]."""
     if x.device.type == "cpu":
         return ref_shuffle_gemm_grouped_blocks(x, idx, pad_vals, w, reps,
                                                groups, nb, scale)
-    _check(x, idx, pad_vals, w, scale, w_rank=(3,))
+    _check(x, idx, pad_vals, w, scale, w_rank=(3, 4))
     (b, n_in), (r, t), n_out = x.shape, idx.shape, w.shape[-1]
-    if r != reps * groups * nb or w.shape[0] != groups:
+    if r != reps * groups * nb or w.shape[-3] != groups:
         raise ValueError(f"R={r} must equal reps*groups*nb="
                          f"{reps * groups * nb} and w must hold {groups} "
-                         f"groups (has {w.shape[0]})")
+                         f"groups (has {w.shape[-3]})")
+    if w.ndim == 4 and w.shape[0] != b:
+        raise ValueError(f"w {tuple(w.shape)} holds {w.shape[0]} operands "
+                         f"for a batch of {b}")
     out = torch.empty((b, r * n_out), dtype=x.dtype, device=x.device)
     if out.numel():
         _launch("repro_shuffle_gemm_grouped_blocks",
                 x, idx, pad_vals, w, scale, out, b, n_in, reps, groups, nb,
-                t, n_out)
+                t, n_out, groups * t * n_out if w.ndim == 4 else 0)
         shuffle_gemm_grouped_blocks.launches += 1
     return out
 
@@ -197,7 +206,8 @@ def chain_steps(segment, ws: Sequence[torch.Tensor], device, dtype):
     """The segment's sub-steps as the per-step kernels' arguments:
     ``[(idx, pad_vals, w, reps, groups, nb, scale)]`` with the plain
     ``(rows, t)`` tables on ``device`` in ``dtype`` and ``ws[s]`` the
-    ``(groups, t, n_out)`` operand of sub-step s."""
+    ``(groups, t, n_out)`` operand of sub-step s, or ``(B, groups, t,
+    n_out)``, one a batch row."""
     _, plain = segment.device_tables(device, dtype)
     return [(idx, pads, w, s.reps, s.groups, s.nb, scale)
             for s, (idx, pads, scale), w in zip(segment.steps, plain, ws)]
@@ -231,7 +241,8 @@ def chain_launch_args(x: torch.Tensor, segment,
     (``args[6]``) holds, after the launch, the blocks it ran, the tiles a
     block holds at once (its slots, picked by the launch from the batch
     and the card's SMs, at most the segment's ``tiles_per_cta``) and the
-    shared bytes a block."""
+    shared bytes a block; ``args[7]`` has bit s set where ``ws[s]`` is
+    ``(B, groups, t, n_out)``, one operand a batch row."""
     from .. import check_operands
     from .chain import MAX_SUBSTEPS
     steps = segment.steps
@@ -246,11 +257,14 @@ def chain_launch_args(x: torch.Tensor, segment,
         raise ValueError(f"x {tuple(x.shape)} must be (B, n_in) and ws one "
                          f"operand per sub-step ({len(ws)} for "
                          f"{len(steps)}, at most {MAX_SUBSTEPS})")
-    for s, w in zip(steps, ws):
-        if tuple(w.shape) != (s.groups, s.t, s.n_out):
-            raise ValueError(f"{s.name}: w {tuple(w.shape)} must be "
-                             f"{(s.groups, s.t, s.n_out)}")
     (b, n_in), first = x.shape, steps[0]
+    rows_mask = 0
+    for i, (s, w) in enumerate(zip(steps, ws)):
+        shape = (s.groups, s.t, s.n_out)
+        if tuple(w.shape) not in (shape, (b, *shape)):
+            raise ValueError(f"{s.name}: w {tuple(w.shape)} must be "
+                             f"{shape} or {(b, *shape)}")
+        rows_mask |= (w.ndim == 4) << i
     if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
         raise ValueError(f"{first.name} reads past a length-{n_in} input")
     kern, _ = segment.device_tables(x.device, x.dtype)
@@ -263,7 +277,7 @@ def chain_launch_args(x: torch.Tensor, segment,
     static = _chain_dims(segment, kern["layout"])
     dims = (ctypes.c_int * (len(static) + _CHAIN_INTS))(*static)
     return out, (x.data_ptr(), out.data_ptr(), b, n_in, len(steps), ptrs,
-                 dims, _DTYPE_CODES[x.dtype])
+                 dims, ctypes.c_int(rows_mask).value, _DTYPE_CODES[x.dtype])
 
 
 def _chain_dims(segment, lay) -> tuple:
@@ -293,7 +307,9 @@ def shuffle_gemm_chain(x: torch.Tensor, segment,
     (B, rows * n_out of the last sub-step), flat, in one launch: every
     sub-step after the first runs tile by tile in shared memory, each
     block staging the shared tables and the operands once for all the
-    tiles it walks.  Bit for bit :func:`shuffle_gemm_steps` on the same
+    tiles it walks.  A ``ws[s]`` of ``(B, groups, t, n_out)``, one a batch
+    row, is read by each row from device memory instead (the kernel's
+    per-row instance).  Bit for bit :func:`shuffle_gemm_steps` on the same
     arguments."""
     if x.device.type == "cpu":
         return ref_chain(x, segment, ws)

@@ -80,6 +80,22 @@ def _prepare(x: torch.Tensor, plan, diag, rows, w):
     return xb, (t, idx, pads, scale, spans), w
 
 
+def _per_row(x: torch.Tensor, plan, diag, rows: int, w):
+    """Check a per-row call (``w`` one operand a batch row of ``x`` (B,
+    n_in)) — a forward only where autograd would have to see through it —
+    and return the plan's blocks (:func:`plan_blocks`)."""
+    if x.ndim != 2 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"per-row w {tuple(w.shape)} needs x (B, n_in) "
+                         f"with B = {w.shape[0]}; got {tuple(x.shape)}")
+    from .. import forward_only
+    forward_only("per-row shuffle-GEMM", x, w)
+    blocks = plan_blocks(plan, diag, rows, x.dtype, x.device)
+    if blocks[4] >= x.shape[-1]:
+        raise ValueError(f"plan reads index {blocks[4]} of a "
+                         f"length-{x.shape[-1]} input")
+    return blocks
+
+
 def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
                  diag=None) -> torch.Tensor:
     """out = reshape(apply_plan(x) (* diag), (rows, t)) @ w, fused in one
@@ -98,16 +114,7 @@ def shuffle_gemm(x: torch.Tensor, plan: ShufflePlan, w, rows: int,
     version differentiates.
     """
     if np.ndim(w) == 3:
-        if x.ndim != 2 or x.shape[0] != w.shape[0]:
-            raise ValueError(f"per-row w {tuple(w.shape)} needs x (B, n_in) "
-                             f"with B = {w.shape[0]}; got {tuple(x.shape)}")
-        from .. import forward_only
-        forward_only("per-row shuffle_gemm_blocks", x, w)
-        t, idx, pads, scale, max_index, _ = plan_blocks(plan, diag, rows,
-                                                        x.dtype, x.device)
-        if max_index >= x.shape[-1]:
-            raise ValueError(f"plan reads index {max_index} of a "
-                             f"length-{x.shape[-1]} input")
+        t, idx, pads, scale = _per_row(x, plan, diag, rows, w)[:4]
         w = device_constant(w, x.device, x.dtype).contiguous()
         return shuffle_gemm_blocks(x.contiguous(), idx, pads, w, scale)
     xb, blocks, w = _prepare(x, plan, diag, rows, w)
@@ -127,8 +134,18 @@ def shuffle_gemm_grouped(x: torch.Tensor, plan: ShufflePlan, w,
     w: (groups, t, n_out).  Returns the flat (..., R * n_out) result in
     row order (the consuming einsum's natural layout).  Differentiable in
     ``x`` and ``w``.
+
+    With ``w`` of shape (B, groups, t, n_out) and ``x`` of shape (B, n_in),
+    row b contracts against ``w[b]`` (the serving path's per-row params):
+    one launch of :func:`shuffle_gemm_grouped_blocks`, a forward only, as
+    :func:`shuffle_gemm`'s per-row form.
     """
     rows = reps * groups * nb
+    if np.ndim(w) == 4:
+        t, idx, pads, scale = _per_row(x, plan, diag, rows, w)[:4]
+        w = device_constant(w, x.device, x.dtype).contiguous()
+        return shuffle_gemm_grouped_blocks(x.contiguous(), idx, pads, w,
+                                           reps, groups, nb, scale)
     xb, blocks, w = _prepare(x, plan, diag, rows, w)
     out = ShuffleGemmFn.apply(xb, w, blocks, plan, diag, (reps, groups, nb))
     return out.reshape(*x.shape[:-1], rows * w.shape[-1])
@@ -153,9 +170,10 @@ class ShuffleGemmChain:
 
 def run_segments(xb: torch.Tensor, segments, ws) -> torch.Tensor:
     """Run ``segments`` in order on ``xb`` (B, n_in) with the sub-steps'
-    ``(groups, t, n_out)`` operands ``ws``: one chain launch a segment of
-    several sub-steps, the per-step kernel for a segment of one (the
-    blocks form where it has one group).  -> (B, rows * n_out of the last
+    ``(groups, t, n_out)`` operands ``ws`` (any of them ``(B, groups, t,
+    n_out)``, one a batch row): one chain launch a segment of several
+    sub-steps, the per-step kernel for a segment of one (the blocks form
+    where it has one group).  -> (B, rows * n_out of the last
     sub-step)."""
     i = 0
     for seg in segments:
@@ -167,7 +185,8 @@ def run_segments(xb: torch.Tensor, segments, ws) -> torch.Tensor:
         (s,), ((idx, pads, scale),) = seg.steps, seg.device_tables(
             xb.device, xb.dtype)[1]
         if s.groups == 1:
-            xb = shuffle_gemm_blocks(xb, idx, pads, w[0][0], scale,
+            w0 = w[0][:, 0] if w[0].ndim == 4 else w[0][0]
+            xb = shuffle_gemm_blocks(xb, idx, pads, w0, scale,
                                      seg.row_spans(0))
             xb = xb.reshape(xb.shape[0], -1)
         else:
@@ -176,14 +195,32 @@ def run_segments(xb: torch.Tensor, segments, ws) -> torch.Tensor:
     return xb
 
 
-def run_chain(x: torch.Tensor, chain: ShuffleGemmChain, ws) -> torch.Tensor:
+def run_chain(x: torch.Tensor, chain: ShuffleGemmChain, ws,
+              per_row=()) -> torch.Tensor:
     """x: (..., n_in); ``ws[s]``: sub-step s's operand, reshaped to
     ``(groups, t, n_out)`` -> (..., rows * n_out of the last sub-step),
-    flat in its row order.  Differentiable in ``x`` and every ``w``."""
+    flat in its row order.  Differentiable in ``x`` and every ``w``.
+
+    ``per_row``: the sub-steps whose ``ws[s]`` carries a leading batch
+    axis, one operand a row of ``x`` (B, n_in) — the serving path's
+    per-row params: the same launches, each row against its own operands,
+    a forward only (as :func:`shuffle_gemm`'s per-row form)."""
     first = chain.steps[0]
     n_in = x.shape[-1]
     if int(first.plan.gather_idx.max(initial=-1)) >= n_in:
         raise ValueError(f"{first.name} reads past a length-{n_in} input")
+    if per_row:
+        b = x.shape[0]
+        if x.ndim != 2 or any(ws[i].shape[0] != b for i in per_row):
+            raise ValueError(f"per-row operands need x (B, n_in) and B "
+                             f"operands; got x {tuple(x.shape)}")
+        from .. import forward_only
+        forward_only("per-row shuffle_gemm_chain", x,
+                     *[ws[i] for i in per_row])
+        ws = [device_constant(w, x.device, x.dtype).reshape(
+            *((b,) if i in per_row else ()), s.groups, s.t, s.n_out)
+            .contiguous() for i, (s, w) in enumerate(zip(chain.steps, ws))]
+        return run_segments(x.contiguous(), chain.segments, ws)
     xb = x.reshape(-1, n_in).contiguous()
     ws = [device_constant(w, x.device, x.dtype).reshape(
         s.groups, s.t, s.n_out).contiguous()

@@ -46,7 +46,14 @@ def ref_shuffle_gemm_grouped_blocks(x: torch.Tensor, idx: torch.Tensor,
                                     scale: Optional[torch.Tensor] = None
                                     ) -> torch.Tensor:
     """Rows in flat ``(reps, groups, nb)`` order; row r contracts against
-    ``w[(r // nb) % groups]``.  w (groups, t, n_out) -> (B, R * n_out)."""
+    ``w[(r // nb) % groups]``.  w (groups, t, n_out) -> (B, R * n_out).
+    With w (B, groups, t, n_out), one a batch row, batch row b is the
+    call on ``x[b]`` and ``w[b]``, so bit for bit that call."""
+    if w.ndim == 4:
+        return torch.cat([ref_shuffle_gemm_grouped_blocks(
+            x[i:i + 1], idx, pad_vals, w[i], reps, groups, nb, scale)
+            for i in range(x.shape[0])]) if x.shape[0] else \
+            x.new_zeros((0, idx.shape[0] * w.shape[-1]))
     g = gather_rows(x, idx, pad_vals, scale)
     b, _, t = g.shape
     g = g.reshape(b, reps, groups, nb, t)
@@ -58,7 +65,8 @@ def ref_shuffle_gemm_chain(x: torch.Tensor, steps) -> torch.Tensor:
     """A chain of grouped sub-steps, each gathering from the one before:
     ``steps`` holds per sub-step ``(idx, pad_vals, w, reps, groups, nb,
     scale)``, the arguments of :func:`ref_shuffle_gemm_grouped_blocks`
-    after ``x`` (the blocks form is ``groups = 1``).  x (B, n_in) ->
+    after ``x`` (the blocks form is ``groups = 1``; ``w`` may be one a
+    batch row).  x (B, n_in) ->
     (B, rows * n_out of the last sub-step)."""
     for idx, pad_vals, w, reps, groups, nb, scale in steps:
         x = ref_shuffle_gemm_grouped_blocks(x, idx, pad_vals, w, reps,

@@ -23,9 +23,8 @@ executes through the service's masked/padded bucket path):
   that lower to the same core program stack into ONE call per tick;
   members whose registered params differ execute per-row-batched (a
   call whose params carry a leading row axis: each row's own weights,
-  one launch of each kernel) or, where a stage cannot take row-stacked
-  params, as per-params split calls
-  (:meth:`SignalService._stackable`).  ``stats["cross_graph_batches"]``
+  one launch of each kernel) or, where the params trees do not stack,
+  as per-params split calls (:meth:`SignalService._stackable`).  ``stats["cross_graph_batches"]``
   counts mixed waves and the ``SigSched`` trace lane records them.
 * **Deadline-aware bucket choice** — group picking is EDF over the
   queued groups with slack computed against

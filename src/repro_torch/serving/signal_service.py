@@ -667,16 +667,13 @@ class SignalService:
             [(self._graphs[r.graph].params, i) for i, r in enumerate(wave)])
 
     @staticmethod
-    def _stackable(classes, compiled: CompiledSignalGraph) -> bool:
+    def _stackable(classes) -> bool:
         """True when every params class shares one tree structure with
         matching leaf shapes/types — the JAX package's per-row ``vmap``
-        precondition — AND every stage consuming the stacked params can
-        take them one a row (:meth:`CompiledSignalGraph.
-        rows_unsupported`: row-uniform GEMMs and dnn hooks can; grouped
-        or chained units, an int-routed unit, a biquad's coefficients and
-        a learnable window cannot).  Narrower than the JAX package on
-        purpose; an unstackable wave runs one sub-call per params class,
-        counted in ``stats["param_splits"]``."""
+        precondition, under which every stage takes its rows' params
+        (:meth:`CompiledSignalGraph.per_row`).  Other waves run one
+        sub-call per params class, counted in
+        ``stats["param_splits"]``."""
         rep = classes[0][0]
         td = tree_structure(rep)
         sig = [_leaf_sig(l) for l in tree_leaves(rep)]
@@ -685,7 +682,7 @@ class SignalService:
                 return False
             if [_leaf_sig(l) for l in tree_leaves(p)] != sig:
                 return False
-        return not compiled.rows_unsupported(rep)
+        return True
 
     @torch.no_grad()
     def _execute_wave(self, wave: List[SignalRequest],
@@ -721,9 +718,9 @@ class SignalService:
                             and bucketed)
         classes = self._params_classes(wave)
         if len(classes) > 1 and (self.mesh is not None
-                                 or not self._stackable(classes, compiled)):
-            # params the per-row call cannot take (or a mesh, whose
-            # per-slot split the per-row call does not thread): one
+                                 or not self._stackable(classes)):
+            # params trees that do not stack (or a mesh, whose per-slot
+            # split the per-row call does not thread): one
             # sub-call per params class — the same batched lowering as
             # per-graph dispatch, so exact.
             self.stats["param_splits"] += len(classes) - 1
@@ -786,9 +783,8 @@ class SignalService:
         (:meth:`CompiledSignalGraph.per_row`; the rows' params trees
         stacked leaf by leaf on the service's device, as the JAX package
         stacks them for its ``vmap``) — each row computes with its own
-        graph's params, and each kernel launches once for the wave (a
-        row-uniform GEMM on per-row operands, ``shuffle_gemm_blocks``
-        with ``w (B, t, n_out)``)."""
+        graph's params, and each kernel launches once for the wave, with
+        one operand a row where the params hold it."""
         dev = self.device
         pstack = tree_map(
             lambda *xs: torch.stack([_device_leaf(x, dev) for x in xs]),

@@ -70,8 +70,8 @@ import torch
 
 from ..core import bitwidth as bw
 from ..core.exec_ir import (EinsumStep, ExecProgram, GatherStep,
-                            LambdaStep, execute_program, resolve_operand,
-                            row_operand, run_steps_reference)
+                            execute_program, resolve_operand, row_operand,
+                            run_steps_reference)
 from ..core.fabric import (ShufflePlan, apply_plan, compose_into_einsum,
                            device_constant, identity_plan)
 
@@ -138,39 +138,6 @@ class BoundProgram:
                  row_params: bool = False):
         return execute_program(self.program, self.stage_fns, x, params,
                                valid_frames, row_params)
-
-    def rows_unsupported(self, params) -> List[str]:
-        """The steps that cannot take ``params`` row-stacked (one entry a
-        batch row, :class:`~repro_torch.core.exec_ir.RowParams`), by
-        name; empty when a per-row call can run.  A consumed entry is
-        row-stackable on a row-uniform GEMM (``classify_einsum``: not
-        grouped) that this backend does not int-route — a batched einsum
-        on ``reference``, one ``shuffle_gemm_blocks`` launch with one
-        operand a row on ``hopper`` — and on a lambda marked
-        ``row_params`` (the dnn hook, under ``vmap``).  Grouped and
-        chained units (their operands are constant twiddles in every
-        graph the repo builds), an int-routed unit (``_IntSTEFn``), a
-        biquad's coefficients and a learnable window (an einsum with no
-        contraction) are not: the serving path then runs one call per
-        params class, as the JAX package does for params it cannot
-        stack (``SignalService._stackable``)."""
-        routes = {(r.stage, r.step): r.route for r in self.routes}
-        bad = []
-        for st in self.program.stages:
-            sp = params.get(st.name) if isinstance(params, dict) else params
-            if sp is None:
-                continue
-            for s in st.steps:
-                if isinstance(s, EinsumStep) and s.param_key is not None \
-                        and isinstance(sp, dict) and s.param_key in sp:
-                    shape = classify_einsum(s)
-                    if shape is None or shape.grouped or routes.get(
-                            (st.name, s.name)) not in ("jnp", "fused_gemm"):
-                        bad.append(s.name)
-                elif isinstance(s, LambdaStep) and s.takes_params \
-                        and not s.row_params:
-                    bad.append(s.name)
-        return bad
 
     def report(self) -> dict:
         return _routes_report(self.backend.name, self.routes)
@@ -342,7 +309,8 @@ class _CanonicalOperand:
     operand, or a params entry passed again) is transposed and uploaded
     once per (device, dtype); a tensor operand is re-laid out on every
     call, since tensors may change in place between calls.
-    :meth:`rows` lays out a row-stacked operand, one a batch row."""
+    :meth:`rows` lays out a row-stacked operand, one a batch row;
+    :meth:`of` resolves a step's operand for one call, either way."""
 
     def __init__(self, shape: _EinsumShape):
         self.shape = shape
@@ -354,6 +322,17 @@ class _CanonicalOperand:
         w = torch.as_tensor(op).to(device=like.device, dtype=like.dtype)
         perm = (0, *(p + 1 for p in self.shape.op_perm))
         return w.permute(perm).reshape(w.shape[0], *self.shape.op_shape)
+
+    def of(self, e: EinsumStep, sp, like: torch.Tensor
+           ) -> Tuple[torch.Tensor, bool]:
+        """``(canonical operand, per_row)`` of step ``e`` under the
+        stage's params entry ``sp``: the row-stacked one in the kernel's
+        ``(B, ...)`` layout where ``sp`` holds it (``per_row`` True), else
+        the params entry or the static operand."""
+        op = row_operand(e, sp)
+        if op is not None:
+            return self.rows(op, like), True
+        return self(resolve_operand(e, sp), like), False
 
     def __call__(self, op, like: torch.Tensor) -> torch.Tensor:
         if isinstance(op, torch.Tensor):
@@ -660,9 +639,7 @@ class HopperBackend(ExecBackend):
         canonical = _CanonicalOperand(shape)
 
         def unit(x, sp):
-            op = row_operand(e, sp)
-            w = canonical(resolve_operand(e, sp), x) if op is None \
-                else canonical.rows(op, x)
+            w, _ = canonical.of(e, sp, x)
             y = shuffle_gemm(x, plan, w, rows=shape.rows_total, diag=diag)
             y = y.reshape(*y.shape[:-2], -1)
             return apply_plan(y, post) if post is not None else y
@@ -675,7 +652,7 @@ class HopperBackend(ExecBackend):
         canonical = _CanonicalOperand(shape)
 
         def unit(x, sp):
-            w = canonical(resolve_operand(e, sp), x)
+            w, _ = canonical.of(e, sp, x)
             y = shuffle_gemm_grouped(x, plan, w, reps=shape.reps,
                                      groups=shape.groups, nb=shape.nb,
                                      diag=diag)
@@ -707,9 +684,13 @@ class HopperBackend(ExecBackend):
         post = groups[-1][0].post
 
         def unit(x, sp):
-            ws = [canonical(resolve_operand(e, sp), x)
-                  for e, canonical in operands]
-            y = run_chain(x, chain, ws)
+            ws, per_row = [], []
+            for i, (e, canonical) in enumerate(operands):
+                w, rows = canonical.of(e, sp, x)
+                ws.append(w)
+                if rows:
+                    per_row.append(i)
+            y = run_chain(x, chain, ws, per_row)
             return apply_plan(y, post) if post is not None else y
         return unit, chain
 
@@ -726,7 +707,10 @@ class HopperBackend(ExecBackend):
         everywhere — so the backward pass is, by deliberate policy, the
         float GEMM's VJP at the *unquantized* residuals with the
         cotangent taken at the quantized output: ``y = y_float +
-        (y_int - y_float).detach()`` (:class:`_IntSTEFn`)."""
+        (y_int - y_float).detach()`` (:class:`_IntSTEFn`).  A row-stacked
+        operand (one a batch row) is quantized per column within its
+        row, as inside one lane of the JAX package's ``vmap``: one launch
+        of the per-row kernel."""
         post = e.post
         canonical = _CanonicalOperand(shape)
 
@@ -735,7 +719,7 @@ class HopperBackend(ExecBackend):
             if diag is not None:
                 g = g * device_constant(diag, g.device, g.dtype)
             h = g.reshape(*g.shape[:-1], shape.rows_total, shape.t).float()
-            w = canonical(resolve_operand(e, sp), h)
+            w, _ = canonical.of(e, sp, h)
             y = _IntSTEFn.apply(h, w, widths).to(x.dtype)
             y = y.reshape(*y.shape[:-2], -1)
             return apply_plan(y, post) if post is not None else y
@@ -744,10 +728,12 @@ class HopperBackend(ExecBackend):
 
 class _IntSTEFn(torch.autograd.Function):
     """``quantize -> bitserial_matmul -> dequantize`` of ``h`` (..., r, t)
-    against ``w`` (t, c) at ``widths = (aw, ww)`` — on the card one launch
-    of the fused bitserial kernel (:func:`repro_torch.kernels.
+    against ``w`` (t, c), or (B, t, c) one a batch row of ``h`` (B, ...,
+    r, t), at ``widths = (aw, ww)`` — on the card one launch of the fused
+    bitserial kernel (:func:`repro_torch.kernels.
     bitserial_quant_matmul`), bit for bit the composition — with the
-    straight-through backward: ``dh = dy @ w^T``, ``dw = sum h^T dy``."""
+    straight-through backward: ``dh = dy @ w^T``, ``dw = sum h^T dy``
+    (per batch row for a row-stacked ``w``)."""
 
     @staticmethod
     def forward(ctx, h, w, widths):
@@ -759,6 +745,15 @@ class _IntSTEFn(torch.autograd.Function):
     def backward(ctx, dy):
         h, w = ctx.saved_tensors
         dh = dw = None
+        if w.ndim == 3:                  # one w a batch row
+            hb = h.reshape(w.shape[0], -1, h.shape[-1])
+            dyb = dy.reshape(w.shape[0], -1, dy.shape[-1]).to(h.dtype)
+            if ctx.needs_input_grad[0]:
+                dh = torch.einsum("brc,btc->brt", dyb, w).reshape(
+                    h.shape).to(h.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = torch.einsum("brt,brc->btc", hb, dyb).to(w.dtype)
+            return dh, dw, None
         if ctx.needs_input_grad[0]:
             dh = torch.einsum("...rc,tc->...rt", dy, w).to(h.dtype)
         if ctx.needs_input_grad[1]:

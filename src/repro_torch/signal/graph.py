@@ -96,7 +96,7 @@ import torch.nn.functional as F
 from ..core import signal_mapping as _sm
 from ..core import exec_ir as _exec_ir
 from ..core.exec_ir import (EinsumStep, ExecProgram, GatherStep, LambdaStep,
-                            StageProgram, Step)
+                            RowParams, StageProgram, Step)
 from ..core.exec_ir import mask_frames as _mask_frames          # noqa: F401
 from ..core.exec_ir import run_steps_reference as _run_steps    # noqa: F401
 from ..core.fabric import (PAD, ShufflePlan, compose_into_einsum,
@@ -372,8 +372,11 @@ def _fuse_steps(steps: List[Step], level: int,
 def _biquad_coeffs(sp, b_static, a_static):
     """Resolve a biquad stage's (b, a): per-call learnable coefficients
     from a params dict (keys ``b`` / ``a``) with the compile-time taps as
-    the fallback.  Shared by the offline lowering and the streaming
-    IIR stage."""
+    the fallback; from row-stacked params (:class:`~repro_torch.core.
+    exec_ir.RowParams`) the ``(B, 3)`` coefficients, one row a batch
+    row.  Shared by the offline lowering and the streaming IIR stage."""
+    if isinstance(sp, RowParams):
+        sp = sp.tree
     if isinstance(sp, dict) and ("b" in sp or "a" in sp):
         return sp.get("b", b_static), sp.get("a", a_static)
     return b_static, a_static
@@ -384,23 +387,35 @@ def biquad_apply(x: torch.Tensor, b, a, zi: Optional[torch.Tensor] = None):
 
     Matches ``scipy.signal.lfilter(b, a, x, zi=zi)`` semantics for 3-tap
     numerator/denominator: returns ``(y, zf)`` where ``zf`` is the final
-    2-element filter state (leading axes batched).  On the DLA the 3-tap
+    2-element filter state (leading axes batched).  ``b`` and ``a`` are
+    ``(3,)``, or ``(B, 3)``: batch row i (the leading axis of ``x``)
+    filtered with row i's coefficients, the JAX package's ``vmap`` of
+    the filter over per-row params.  On the DLA the 3-tap
     feedforward half is an array FIR; the order-2 feedback recurrence runs
     on the scalar path — here both live in one Python loop over samples
     (the JAX package's ``lax.scan``; off the Fig-9 path).
     """
     b = torch.as_tensor(b, device=x.device).to(x.dtype)
     a = torch.as_tensor(a, device=x.device).to(x.dtype)
-    b = b / a[0]
-    a = a / a[0]
+    b = b / a[..., :1]
+    a = a / a[..., :1]
+
+    def tap(c, i):
+        # tap i: a scalar, or one a batch row broadcast over the row's
+        # other axes
+        c = c[..., i]
+        return c.reshape(*c.shape, *(1,) * (x.ndim - 1 - c.ndim)) \
+            if c.ndim else c
+    b0, b1, b2, a1, a2 = (tap(b, 0), tap(b, 1), tap(b, 2), tap(a, 1),
+                          tap(a, 2))
     if zi is None:
         zi = torch.zeros((*x.shape[:-1], 2), dtype=x.dtype, device=x.device)
     z0, z1 = zi[..., 0], zi[..., 1]
     ys = []
     for n in range(x.shape[-1]):
         xn = x[..., n]
-        yn = b[0] * xn + z0
-        z0, z1 = b[1] * xn - a[1] * yn + z1, b[2] * xn - a[2] * yn
+        yn = b0 * xn + z0
+        z0, z1 = b1 * xn - a1 * yn + z1, b2 * xn - a2 * yn
         ys.append(yn)
     y = torch.stack(ys, dim=-1) if ys else torch.zeros_like(x)
     return y, torch.stack([z0, z1], dim=-1)
@@ -1486,27 +1501,17 @@ class CompiledSignalGraph:
         masked (``valid_frames``) or not — the JAX package's ``vmap`` of
         the row program over (row, params row), which the serving
         scheduler runs for a wave of graphs that registered different
-        weights.  A row-uniform GEMM takes its rows' operands in one
-        launch (``shuffle_gemm_blocks`` with ``w (B, t, n_out)`` on
-        ``hopper``, a batched einsum on ``reference``) and a dnn hook
-        runs under ``torch.func.vmap``; narrower than the JAX package's
-        ``vmap`` on purpose: a stage that cannot take row-stacked params
-        (:meth:`~repro_torch.signal.backends.BoundProgram.
-        rows_unsupported`) raises ``ValueError`` here, and the service
-        runs such a wave one call per params class instead.  A forward
-        only on the card."""
-        bad = self.rows_unsupported(params)
-        if bad:
-            raise ValueError(f"steps {bad} take no row-stacked params")
+        weights.  Every stage takes its rows' params: each kernel unit
+        launches once for the batch with one operand a row (the
+        row-uniform GEMM, the grouped GEMM, the chain and the int route's
+        quantized GEMM on ``hopper``; a batched einsum on ``reference``
+        and for the learnable window), a biquad filters each row with its
+        own coefficients, and a dnn hook runs under ``torch.func.vmap``.
+        A forward only on the card."""
         x = self._input(x)
         if valid_frames is not None:
             valid_frames = torch.as_tensor(valid_frames, device=self.device)
         return self._exec(x, params, valid_frames, row_params=True)
-
-    def rows_unsupported(self, params) -> List[str]:
-        """The steps of the bound program that cannot take ``params``
-        row-stacked (see :meth:`per_row`); empty when all can."""
-        return self._exec.rows_unsupported(params)
 
     def sharded_jit(self, mesh, batch_axis: str = "data"):
         """Batch-sharded entry point ``(x, params=None, *,

@@ -575,8 +575,8 @@ def test_new_wrappers_refuse_bad_inputs(cuda):
     a = torch.zeros((1, 4, 8), dtype=torch.int8, device=cuda)
     with pytest.raises(TypeError, match="int8"):
         bitserial_mm.bitserial_matmul_planes(a.int(), a.transpose(1, 2))
-    with pytest.raises(ValueError, match="planes"):
-        bitserial_mm.bitserial_matmul_planes(a.expand(3, 4, 8).contiguous(),
+    with pytest.raises(ValueError, match="planes"):     # any count >= 1
+        bitserial_mm.bitserial_matmul_planes(a[:0].contiguous(),
                                              a.transpose(1, 2).contiguous())
     with pytest.raises(ValueError, match="contracts"):
         bitserial_mm.bitserial_matmul_planes(a, a)
@@ -2336,3 +2336,232 @@ def test_every_suite_chain_equals_its_steps_at_4096_rows(cuda):
         _assert_chain_exact(a["x"], a["segment"], a["ws"])
         blocks, slots = _chain_launch(a)
         assert blocks <= 4096 // slots
+
+
+# -- per-row operands of every params class, and planes of any count ------
+
+@pytest.mark.parametrize("k", [9, 129, 300])
+@pytest.mark.parametrize("pa,pw", [(pa, pw) for pa in (3, 5, 8)
+                                   for pw in (3, 5, 8)]
+                         + [(9, 2), (1, 11), (2, 3)])
+def test_bitserial_planes_kernel_any_count_is_exact(cuda, pa, pw, k):
+    """Plane counts no width gives, on the body of any count: bit for bit
+    the plain version over N 1 and 64 (both tile shapes, ragged in M, N
+    and K), digits over the whole int8 range so the sums wrap, pairs of
+    shift 32 and more adding nothing; one launch a call."""
+    rng = np.random.default_rng(100 * pa + 10 * pw + k)
+    for n in (1, 64):
+        a = torch.as_tensor(rng.integers(-128, 128, (pa, 130, k)),
+                            dtype=torch.int8, device=cuda)
+        w = torch.as_tensor(rng.integers(-128, 128, (pw, k, n)),
+                            dtype=torch.int8, device=cuda)
+        before = bitserial_mm.bitserial_matmul_planes.launches
+        got = bitserial_mm.bitserial_matmul_planes(a, w)
+        torch.cuda.synchronize()
+        assert bitserial_mm.bitserial_matmul_planes.launches == before + 1
+        want = bitserial_mm.ref_bitserial_matmul_planes(a, w)
+        assert torch.equal(got, want), (n, (got != want).nonzero()[:4])
+        assert torch.equal(got.cpu(), bitserial_mm.ref_bitserial_matmul_planes(
+            a.cpu(), w.cpu()))
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("aw,ww", [(8, 8), (16, 8), (4, 16)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_bitserial_quant_kernel_per_row_w(cuda, aw, ww, shape, b):
+    """h (B, R, K) with w (B, K, N): one launch of the per-row kernel,
+    batch row i bit for bit the shared-w launch on (h[i], w[i]) and the
+    plain version, with a zero row and a NaN row in batch row 0."""
+    r, k, n = shape
+    r = min(r, 2048)
+    rng = np.random.default_rng(aw * 1000 + ww * 10 + k + b)
+    h = (rng.standard_normal((b, r, k))
+         * np.exp(rng.uniform(-4, 4, (b, r, 1)))).astype(np.float32)
+    w = (rng.standard_normal((b, k, n))
+         * np.exp(rng.uniform(-2, 2, (b, 1, 1)))).astype(np.float32)
+    h[0, 1] = 0.0
+    h[0, 2, k // 2] = np.nan
+    ht, wt = (torch.as_tensor(v, device=cuda) for v in (h, w))
+    before = bitserial_mm.bitserial_quant_matmul_hopper.launches
+    got = bitserial_mm.bitserial_quant_matmul_hopper(ht, wt, aw, ww)
+    torch.cuda.synchronize()
+    assert bitserial_mm.bitserial_quant_matmul_hopper.launches == before + 1
+    assert tuple(got.shape) == (b, r, n)
+    for i in range(b):
+        torch.testing.assert_close(
+            got[i], bitserial_mm.bitserial_quant_matmul_hopper(
+                ht[i], wt[i], aw, ww), rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(
+        got, bitserial_mm.ref_bitserial_quant_matmul(ht, wt, aw, ww),
+        rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(got[0, 2]).all() and not got[0, 1].any()
+
+
+def test_per_row_kernels_refuse_bad_batches(cuda):
+    h = torch.ones((3, 5, 4), device=cuda)
+    with pytest.raises(ValueError, match="B, K, N"):
+        bitserial_mm.bitserial_quant_matmul_hopper(
+            h, torch.ones((2, 4, 2), device=cuda), 8, 8)
+    x = torch.ones((3, 10), device=cuda)
+    idx = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    pads = torch.zeros((4, 4), device=cuda)
+    with pytest.raises(ValueError, match="operands"):
+        shuffle_gemm_grouped_blocks(x, idx, pads,
+                                    torch.ones((2, 2, 4, 4), device=cuda),
+                                    1, 2, 2)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups,b", [(1, 1), (8, 8), (128, 65)])
+def test_grouped_kernel_per_row_w(cuda, dt, groups, b):
+    """Fig-9 butterfly shapes with w (B, G, 4, 4): one launch, batch row i
+    bit for bit the shared launch on w[i], within the tolerance of the
+    plain version."""
+    rows, reps, nb = 3968, 31, 128 // groups
+    rng = np.random.default_rng(groups + b)
+    dev = dict(device=cuda, dtype=TDT[dt])
+    idx = rng.integers(0, 8192, (rows, 4)).astype(np.int32)
+    idx[rng.random((rows, 4)) < 0.2] = -1
+    a = dict(x=torch.as_tensor(rng.standard_normal((b, 8192))).to(**dev),
+             idx=torch.as_tensor(idx, device=cuda),
+             pad_vals=torch.as_tensor(rng.standard_normal((rows, 4))).to(
+                 **dev),
+             w=torch.as_tensor(rng.standard_normal((b, groups, 4, 4))).to(
+                 **dev),
+             scale=torch.as_tensor(rng.standard_normal((rows, 4))).to(**dev),
+             reps=reps, groups=groups, nb=nb)
+    before = shuffle_gemm_grouped_blocks.launches
+    got = shuffle_gemm_grouped_blocks(**a)
+    torch.cuda.synchronize()
+    assert shuffle_gemm_grouped_blocks.launches == before + 1
+    for i in range(b):
+        assert torch.equal(got[i], shuffle_gemm_grouped_blocks(
+            **dict(a, w=a["w"][i].contiguous()))[i])
+    torch.testing.assert_close(
+        got.float(), ref_shuffle_gemm_grouped_blocks(**a).float(),
+        rtol=TOL[dt], atol=TOL[dt])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows_of", [(0, 1, 2), (1,), (0, 2)],
+                         ids=["all", "middle", "ends"])
+def test_chain_kernel_per_row_operands(cuda, dt, rows_of):
+    """A chain whose sub-steps ``rows_of`` take one operand a batch row:
+    one launch of the per-row instance, batch row i bit for bit the
+    shared chain on row i's operands and the sub-steps launched one at a
+    time on the grouped kernel, within the tolerance of the plain
+    version."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    from repro_torch.kernels.shuffle_gemm.chain import segment_chain
+    rng = np.random.default_rng(len(rows_of))
+    steps, ws, x = _grouped_chain(rng, cuda, dt, 5, 64, 300, False)
+    (seg,) = segment_chain(steps)
+    b = x.shape[0]
+    wr = [(w[None] * (1 + 0.1 * torch.as_tensor(rng.standard_normal(
+        (b, *w.shape))).to(w))).contiguous() if i in rows_of else w
+        for i, w in enumerate(ws)]
+    _assert_chain_exact(x, seg, wr)
+    got = sgk.shuffle_gemm_chain(x, seg, wr)
+    for i in range(b):
+        own = [w[i].contiguous() if w.ndim == 4 else w for w in wr]
+        assert torch.equal(got[i], sgk.shuffle_gemm_chain(x, seg, own)[i])
+    with pytest.raises(ValueError, match="must be"):
+        sgk.shuffle_gemm_chain(x[:2].contiguous(), seg, wr)
+
+
+def test_chain_kernel_per_row_on_fig9(cuda):
+    """Fig 9's two forward chains at batch 8 with one operand set a batch
+    row: bit for bit the shared chain on each row's operands and its
+    sub-steps one launch each."""
+    from repro_torch.kernels.shuffle_gemm import kernel as sgk
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((8, LENGTH)).astype(np.float32),
+                        device=cuda)
+    c = tse.build_graph(LENGTH, ch=CH).compile(LENGTH, backend="hopper",
+                                               device=cuda)
+    params = dict(c.init_params())
+    params["mask"] = params_from_jax(
+        [(rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci))
+         .astype(np.float32) for ci, co in zip(CH[:-1], CH[1:])],
+        device=cuda)
+    with torch.no_grad():
+        calls = _record_chains(lambda: c(x, params))
+    assert len(calls) == 2
+    for x_, seg, ws in calls:
+        wr = [(w[None] * (1 + 0.05 * torch.as_tensor(rng.standard_normal(
+            (8, *w.shape)), dtype=w.dtype, device=cuda))).contiguous()
+            for w in ws]
+        _assert_chain_exact(x_, seg, wr)
+        got = sgk.shuffle_gemm_chain(x_, seg, wr)
+        for i in range(8):
+            assert torch.equal(got[i], sgk.shuffle_gemm_chain(
+                x_, seg, [w[i].contiguous() for w in wr])[i])
+
+
+def _two_tenant_graph(kind):
+    """(graph, params a, params b, service kwargs) of a stage kind whose
+    params a per-row wave stacks: an int-routed FIR, a biquad, a
+    learnable window, at Fig 9's widths."""
+    g = SignalGraph(kind)
+    rng = np.random.default_rng(7)
+    if kind == "int_routed":
+        g.fir("out", "input", taps=np.hanning(9) / np.hanning(9).sum())
+        g.outputs("out")
+        return (g, *({"out": {"taps": (0.3 * rng.standard_normal(9))
+                              .astype(np.float32)}} for _ in range(2)),
+                {"precision": PrecisionPolicy(widths={"out": (16, 8)})})
+    if kind == "biquad":
+        g.iir_biquad("out", "input", b=[0.2, 0.3, 0.2], a=[1.0, -0.5, 0.25])
+        g.outputs("out")
+        return (g, {"out": {"b": np.float32([0.2, 0.3, 0.2]),
+                            "a": np.float32([1.0, -0.5, 0.25])}},
+                {"out": {"b": np.float32([0.1, 0.3, 0.1]),
+                         "a": np.float32([1.0, -0.4, 0.2])}}, {})
+    g.stft("spec", frame=256, hop=128, window="learnable")
+    g.istft("out", "spec", hop=128)
+    g.outputs("out")
+    return (g, *({"spec": {"window": rng.random(256).astype(np.float32)}}
+                 for _ in range(2)), {})
+
+
+@pytest.mark.parametrize("kind", ["int_routed", "biquad",
+                                  "learnable_window"])
+def test_per_row_wave_of_each_params_class(cuda, kind):
+    """Two tenants' params of an int-routed FIR, a biquad or a learnable
+    window: one wave, no params split, one forward's launches (the int
+    route's quantized GEMM once), each row equal to its tenant's offline
+    compile (atol 1e-5)."""
+    g, pa, pb, kw = _two_tenant_graph(kind)
+    length = 2048 if kind == "biquad" else LENGTH
+    rng = np.random.default_rng(8)
+    xs = [rng.standard_normal(length).astype(np.float32) for _ in range(8)]
+    svc = SignalService(batch_size=8, backend="hopper", device=cuda, **kw)
+    for name, p in (("a", pa), ("b", pb)):
+        svc.register(name, g, params=p)
+    svc.serve([SignalRequest(rid=-1, graph="a", samples=xs[0])])
+    backend = HopperBackend(precision=kw.get("precision"))
+    comp = g.compile(length, backend=backend, device=cuda)
+    with torch.no_grad():
+        reset_launch_counts()
+        bitserial_mm.reset_launch_counts()
+        comp(torch.as_tensor(np.stack(xs), device=cuda), pa)
+        torch.cuda.synchronize()
+        one = {**launch_counts(), **bitserial_mm.launch_counts()}
+    reset_launch_counts()
+    bitserial_mm.reset_launch_counts()
+    res = svc.serve([SignalRequest(rid=i, graph="ab"[i % 2], samples=x)
+                     for i, x in enumerate(xs)])
+    torch.cuda.synchronize()
+    assert {**launch_counts(), **bitserial_mm.launch_counts()} == one
+    assert svc.stats["param_splits"] == 0
+    assert svc.scheduler.stats["cross_graph_batches"] == 1
+    if kind == "int_routed":
+        assert one["bitserial_quant_matmul_hopper"] == 1
+    with torch.no_grad():
+        for i, x in enumerate(xs):
+            off = comp(torch.as_tensor(x[None], device=cuda),
+                       pa if i % 2 == 0 else pb)
+            np.testing.assert_allclose(res[i]["out"],
+                                       off["out"][0].cpu().numpy(), rtol=0,
+                                       atol=1e-5)

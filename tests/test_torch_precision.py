@@ -273,3 +273,99 @@ def test_served_equals_int_routed_offline(cal):
 def test_precision_needs_the_hopper_backend(cal):
     with pytest.raises(ValueError, match="hopper"):
         SignalService(precision=cal.tpol, device="cpu")
+
+
+def test_per_row_int_wave_matches_reference(cal, monkeypatch):
+    """Two registrations of Fig-9q with different FIR taps and mask
+    weights under the solved policy: one per-row wave in both packages
+    (``stats`` equal: one batch, no params split), each int-routed step
+    one call with one operand a row.  The int route is held as the
+    int-routed forward above holds it: the integer operands the wave
+    quantizes each row to equal the JAX package's for that row and its
+    registration's params (its offline int-routed forward, recorded
+    outside ``vmap``) — the weights exactly, the activations but for
+    single-quantum flips in well under 1% of the entries — and each
+    row's outputs equal the port's own offline int-routed compile with
+    that row's params (atol 1e-5)."""
+    from repro import serving as jserving
+    rng = np.random.default_rng(31)
+    base = cal.tc.init_params()
+    regs = []
+    for _ in range(2):
+        p = {k: dict(v) if isinstance(v, dict) else v
+             for k, v in base.items()}
+        # weights about the layer's own init, the scale the policy was
+        # calibrated at; each tenant's its own
+        bw = np.asarray(base["mask"]["weights"], np.float32)
+        p["front"] = {"taps": (0.3 * rng.standard_normal(9))
+                      .astype(np.float32)}
+        p["mask"] = {"weights": (bw + 0.5 * bw.std() * rng.standard_normal(
+            bw.shape)).astype(np.float32)}
+        regs.append({k: {kk: np.asarray(vv, np.float32)
+                         for kk, vv in v.items()} for k, v in p.items()})
+    xs = [x[0] for x in _batches(4, LEN, batch=1, seed=33)]
+    svc = SignalService(batch_size=8, backend="hopper", precision=cal.tpol,
+                        device="cpu")
+    js = jserving.SignalService(batch_size=8, backend="pallas",
+                                precision=cal.jpol)
+    for name, p in zip("ab", regs):
+        svc.register(name, _fig9q(tsig, None), params=p)
+        js.register(name, _fig9q(jsig, None),
+                    params=jax.tree_util.tree_map(jnp.asarray, p))
+    ta = []
+
+    def rec(h, w, aw, ww):
+        # per row: the rows (B, ..., K) and w (B, K, N) quantized as the
+        # plain version quantizes them
+        hq = tbw.quantize(h.reshape(h.shape[0], -1, h.shape[-1]), aw,
+                          axis=-1)[0]
+        ta.append((hq.numpy(), tbw.quantize(w, ww, axis=-2)[0].numpy()))
+        return orig(h, w, aw, ww)
+    orig = tkernels.bitserial_quant_matmul
+    monkeypatch.setattr(tkernels, "bitserial_quant_matmul", rec)
+    tsig.clear_plan_caches()
+    try:
+        res = svc.serve([SignalRequest(rid=i, graph="ab"[i % 2], samples=x)
+                         for i, x in enumerate(xs)])
+    finally:
+        monkeypatch.undo()
+        tsig.clear_plan_caches()
+    jres = js.serve([jserving.SignalRequest(rid=i, graph="ab"[i % 2],
+                                            samples=x)
+                     for i, x in enumerate(xs)])
+    assert sorted(res) == sorted(jres) == list(range(len(xs)))
+    for k in ("param_splits", "batches"):
+        assert svc.stats[k] == js.stats[k]
+    assert svc.stats["param_splits"] == 0 and svc.stats["batches"] == 1
+    assert svc.scheduler.stats["cross_graph_batches"] \
+        == js.scheduler.stats["cross_graph_batches"] == 1
+    assert len(ta) == len(cal.tpol.widths)
+    assert all(tw.shape[0] == len(xs) for _, tw in ta)
+    tq = _fig9q(tsig, None).compile(
+        LEN, backend=HopperBackend(precision=cal.tpol), device="cpu")
+    for i, x in enumerate(xs):
+        p = regs[i % 2]
+        ja = []
+        monkeypatch.setattr(jkernels, "bitserial_matmul", _recorder(
+            jkernels.bitserial_matmul, ja, np.asarray))
+        jsig.clear_plan_caches()
+        try:
+            # lowered units bind the kernel wrapper when built: bind here
+            _fig9q(jsig, None).compile(LEN, backend=PallasBackend(
+                precision=cal.jpol))(jnp.asarray(x[None]),
+                                     jax.tree_util.tree_map(jnp.asarray, p))
+        finally:
+            monkeypatch.undo()
+            jsig.clear_plan_caches()
+        assert len(ja) == len(ta)
+        for (jh, jw), (th, tw) in zip(ja, ta):
+            np.testing.assert_array_equal(tw[i], jw)
+            flips = np.abs(th[i].astype(np.int64)
+                           - jh.reshape(th[i].shape))
+            assert flips.max() <= 1 and (flips > 0).mean() < 0.01
+        with torch.no_grad():
+            off = tq(torch.as_tensor(x[None]), p)
+        for k in ("out", "mel"):
+            assert res[i][k].shape == np.asarray(jres[i][k]).shape
+            np.testing.assert_allclose(res[i][k], off[k][0].numpy(),
+                                       rtol=0, atol=1e-5)

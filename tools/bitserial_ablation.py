@@ -46,9 +46,9 @@ BUILD = ROOT / "build/bitserial_ablation"
 CALLS = [("front.taps", 16384, 9, 1), ("mask.gemm", 496, 256, 64),
          ("mel_tap.mel", 124, 129, 24)]
 WIDTHS = (16, 8)
-ENTRY = ("      int32_t* __restrict__ out, int m, int k, int n, int aligned) "
-         "{\n", "             float* __restrict__ y, int rows, int k, int n) "
-         "{\n")
+ENTRY = ("      int32_t* __restrict__ out, int m, int k, int n, int aligned,"
+         "\n              int pa_any, int pw_any) {\n",
+         "             float* __restrict__ y, int rows, int k, int n) {\n")
 ABLATIONS = {
     "full": [],
     "no_mma": [("  asm volatile(\n      \"mma.sync",
