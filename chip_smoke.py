@@ -429,8 +429,13 @@ card) — phase by phase:
      and within 1e-5 of its plain version; the planes kernel at (3, 5)
      and (8, 8) planes equal to its plain version; (d) each per-row
      call's device time beside the shared call on the same shapes, its
-     bound and its plain version (the kernel JSON's ``per_row`` entries;
-     the waves' launches added to the rows').
+     bound, its plain version and a library call (the quantized GEMM:
+     float64 ``torch.bmm`` on the quantized integers; the planes kernel:
+     float64 ``torch.matmul`` on the composed digits at (3, 5), none exact
+     at (8, 8)), each held bit for bit, and the body each quantized call
+     ran (``quant_rows_body``: row, tiles or chunked); the wave's device
+     time by ``torch.profiler`` beside its wall time (the kernel JSON's
+     ``per_row`` entries; the waves' launches added to the rows').
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines are the kernel JSON and ``{"ok": true, "device": {...}}``.
@@ -5065,6 +5070,17 @@ def paper_suite_phase(torch, np, seed: int, smi: str) -> dict:
 # readings of each per-row call beside the shared call on the same shapes.
 PER_ROW_BATCH = 8
 PER_ROW_PLANES = ((3, 5), (8, 8))
+PER_ROW_F64_LIBRARY = (
+    "torch.bmm in float64 on the quantized integers (batch row b against "
+    "w[b]'s; cast outside the timed region, the quantize not counted), "
+    "exact below 2^53, wrapped to int32, dequantized and held equal to the "
+    "kernel's output; summed over the calls")
+PLANES_F64_LIBRARY = (
+    "torch.matmul in float64 on the composed digit integers sum_i a_i 16^i, "
+    "taken mod 2^32 and held equal to the kernel's output, where every "
+    "product stays below 2^53: (3, 5) only; at (8, 8) a composed product "
+    "reaches ~1.3e21 (3.4e23 summed over K 256), so no float64 call is "
+    "exact (none exact)")
 
 
 def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
@@ -5072,7 +5088,10 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
     ``graph`` and its ``params``.  Returns the kernel JSON's ``per_row``
     entries by kernel and the main-path ``launches`` of waves (a) and
     (b)."""
+    from repro_torch.core import bitwidth as bw
+    from repro_torch.kernels import launch
     from repro_torch.kernels import bitserial_mm as bsm
+    from repro_torch.kernels.bitserial_mm.ref import wrap32
     from repro_torch.kernels.shuffle_gemm import (
         launch_counts, ref_shuffle_gemm_grouped_blocks, reset_launch_counts,
         shuffle_gemm_chain, shuffle_gemm_grouped_blocks)
@@ -5210,6 +5229,11 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
     turns = [wall_ms(torch, f, iters=5)
              for f in (one_wave, split_wave, split_wave, one_wave)]
     wave_ms, split_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    wave_kernels = []
+    profile_forward(torch, one_wave, wave_ms, label="two-tenant Fig-9q wave",
+                    breakdown=wave_kernels)
+    wave_device_ms = (sum(t for t, _, _ in wave_kernels) / 1e3
+                      if wave_kernels else None)
     print(f"(a) on {smi}: Fig-9q, {B} requests of {LENGTH} alternating two "
           f"tenants: {waves_a} wave ({cross_a} cross-graph), param_splits "
           f"{svc_q.stats['param_splits']}, launches {made_a} (one forward's: "
@@ -5221,11 +5245,13 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
           f"wave {wave_ms:.3f} ms, split per tenant {split_ms:.3f} ms "
           f"(launches {split_counts})", flush=True)
     wave_row = {"per_row_ms": wave_ms, "split_ms": split_ms,
-                   "launches": made_a, "split_launches": split_counts,
-                   "per": f"Fig-9q, {B} requests of {LENGTH} from two "
-                          f"tenants: one per-row wave against the same "
-                          f"requests as two waves of one tenant, host "
-                          f"wall time a wave"}
+                "device_ms": wave_device_ms,
+                "launches": made_a, "split_launches": split_counts,
+                "per": f"Fig-9q, {B} requests of {LENGTH} from two "
+                       f"tenants: one per-row wave against the same "
+                       f"requests as two waves of one tenant, host wall "
+                       f"time a wave; device_ms: its device activity by "
+                       f"torch.profiler (None where it saw none)"}
 
     # -- (b) Fig 9's front end: per-row biquad and learnable window
     def front_graph():
@@ -5375,6 +5401,7 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
     q_row = new_per_row(f"sum over wave (a)'s {n_int} int-routed calls, "
                         f"one w a batch row; shared_ms: the same h, "
                         f"flattened, on one shared w")
+    q_row.update(library_ms=0.0, library=PER_ROW_F64_LIBRARY, bodies=[])
     for c in calls_q:
         h, w, aw, ww = c["h"], c["w"], c["aw"], c["ww"]
         (_, r, k), n = h.shape, w.shape[-1]
@@ -5390,16 +5417,44 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
                         h[b], w[b], aw, ww)):
                     raise AssertionError("per-row quantized GEMM row is not "
                                          "the shared-w call on w[b]")
+            # the body the launch reports (a comparison launch, not counted)
+            again, args = bsm.quant_rows_launch_args(h, w, aw, ww)
+            launch("repro_bitserial_quant_matmul_rows", h.device, *args)
+            body = bsm.QUANT_ROWS_BODIES[args[9][0]]
+            if body != bsm.quant_rows_body(k, n) or not torch.equal(again,
+                                                                    per):
+                raise AssertionError(f"per-row quantized GEMM ran the {body} "
+                                     f"body, the rule names "
+                                     f"{bsm.quant_rows_body(k, n)}")
+            # the library yardstick: float64 torch.bmm on the quantized
+            # integers (cast outside the timed region), exact below 2^53
+            xq, xs = bw.quantize(h, aw, axis=-1)
+            wq, wsc = bw.quantize(w, ww, axis=-2)
+            if (2 ** (aw - 1) - 1) * (2 ** (ww - 1) - 1) * k >= 2 ** 53:
+                raise AssertionError("float64 torch.bmm not exact here")
+            a64, w64 = xq.to(torch.float64), wq.to(torch.float64)
+            lib_y = wrap32(torch.bmm(a64, w64).to(torch.int64)).to(
+                torch.float32) * xs * wsc
+            if not torch.equal(lib_y, per):
+                raise AssertionError("the float64 torch.bmm yardstick, "
+                                     "dequantized, is not the kernel's output")
         pa, pw = aw // 4, ww // 4
         ops = 2 * B * r * k * n * pa * pw
         k_ms, s_ms, p_ms, b_ = reading(
-            f"quantized GEMM ({B}, {r}, {k}, {n}) {aw, ww}",
+            f"quantized GEMM ({B}, {r}, {k}, {n}) {aw, ww}, {body} body",
             lambda: bsm.bitserial_quant_matmul_hopper(h, w, aw, ww),
             lambda: bsm.bitserial_quant_matmul_hopper(hs, w[0], aw, ww),
             lambda: bsm.ref_bitserial_quant_matmul(h, w, aw, ww),
             4 * (h.numel() + w.numel() + B * r * n), ops, INT8_OPS_PER_S)
+        l_ms = device_ms(torch, lambda: torch.bmm(a64, w64))
+        print(f"    body {body} (grid {args[9][1]} x {args[9][2]}, "
+              f"{args[9][3]} {'rows' if body == 'row' else 'M tiles'} a "
+              f"CTA); library torch.bmm float64 {l_ms * 1e3:8.2f} us "
+              f"(bit-exact)", flush=True)
         add_call(q_row, 0.0, k_ms, p_ms, b_)
         q_row["shared_ms"] += s_ms
+        q_row["library_ms"] += l_ms
+        q_row["bodies"].append(body)
         q_row["calls"] += 1
     q_row["wave"] = wave_row
     out["bitserial_quant_matmul_hopper"] = q_row
@@ -5415,6 +5470,7 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
         return torch.randint(-128, 128, shape, dtype=torch.int8,
                              device="cuda", generator=gen)
     a4, w4 = digits((4, m, k)), digits((4, k, n))
+    p_row.update(library_ms=None, library=PLANES_F64_LIBRARY)
     for pa, pw in PER_ROW_PLANES:
         a8, w8 = digits((pa, m, k)), digits((pw, k, n))
         with torch.no_grad():
@@ -5433,6 +5489,25 @@ def per_row_phase(torch, np, seed: int, smi: str, ctx: dict) -> dict:
         add_call(p_row, 0.0, k_ms, p_ms, b_)
         p_row["shared_ms"] += s_ms
         p_row["calls"] += 1
+        # the library yardstick where float64 is exact: the composed
+        # integers sum_i a_i 16^i (|a_i| <= 128) multiplied in float64
+        peak = 128 * sum(16 ** i for i in range(pa)) * 128 * sum(
+            16 ** j for j in range(pw)) * k
+        if peak < 2 ** 53:
+            ac = sum(a8[i].to(torch.float64) * 16.0 ** i for i in range(pa))
+            wc = sum(w8[j].to(torch.float64) * 16.0 ** j for j in range(pw))
+            if not torch.equal(wrap32(torch.matmul(ac, wc).to(torch.int64)),
+                               got):
+                raise AssertionError(f"the float64 yardstick disagrees with "
+                                     f"the planes kernel at ({pa}, {pw})")
+            l_ms = device_ms(torch, lambda: torch.matmul(ac, wc))
+            p_row["library_ms"] = (p_row["library_ms"] or 0.0) + l_ms
+            print(f"    ({pa}, {pw}) library torch.matmul float64 on the "
+                  f"composed integers {l_ms * 1e3:8.2f} us (bit-exact)",
+                  flush=True)
+        else:
+            print(f"    ({pa}, {pw}) library: none exact (composed "
+                  f"products up to {float(peak):.3g}, past 2^53)", flush=True)
     out["bitserial_matmul_planes"] = p_row
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; main-path "
           f"launches {made}", flush=True)
@@ -5443,6 +5518,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_main = time.perf_counter()
 
     import numpy as np
     import torch
@@ -7283,7 +7359,8 @@ def main() -> int:
     for name, pr in per_row["per_row"].items():
         rows[name]["per_row"] = {k: pr[k] for k in (
             "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "shared_ms", "per", "wave") if k in pr}
+            "shared_ms", "library_ms", "library", "bodies", "per", "wave")
+            if k in pr}
     for name, kname in (("shuffle_gemm_blocks", "shuffle_gemm_blocks"),
                         ("shuffle_gemm_grouped_blocks",
                          "shuffle_gemm_grouped_blocks"),
@@ -7337,6 +7414,8 @@ def main() -> int:
                                  "launches_per_prefill", "max_rel_l2")
                if k in r},
         })
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all, the "
+          f"kernel library's build included", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "repro_copy_f32": (_P, _P, _I, _P),
     "repro_bitserial_matmul_planes": (_P,) * 3 + (_I,) * 5 + (_P,),
     "repro_bitserial_quant_matmul": (_P,) * 3 + (_I,) * 5 + (_P,),
-    "repro_bitserial_quant_matmul_rows": (_P,) * 3 + (_I,) * 6 + (_P,),
+    "repro_bitserial_quant_matmul_rows": (_P,) * 3 + (_I,) * 6 + (_P, _P),
     "repro_fft_stages": (_P,) * 5 + (_I,) * 3 + (_P, _P),
     "repro_fir_conv": (_P,) * 4 + (_I,) * 5 + (_P,),
     "repro_flash_attention": (_P,) * 4 + (_I,) * 8 + (ctypes.c_float, _P),

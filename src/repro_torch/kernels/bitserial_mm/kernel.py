@@ -19,9 +19,16 @@ contiguity and widths, allocates the output with ``torch.empty``, launches
 on the current stream and raises if the launch reports an error.  It
 counts its launches in its ``launches`` attribute, a plain integer
 incremented once per kernel launch and nowhere else.
+
+The per-row form runs one of three bodies, chosen from (K, N) alone by
+:func:`quant_rows_body`; :func:`quant_rows_launch_args` gives a launch's C
+arguments, whose ``dims`` array holds, after the launch, the body it ran
+and its grid.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +36,7 @@ from ...core import bitwidth as bw
 from .ref import ref_bitserial_matmul_planes, ref_bitserial_quant_matmul
 
 __all__ = ["bitserial_matmul_planes", "bitserial_quant_matmul_hopper",
+           "quant_rows_body", "quant_rows_launch_args", "QUANT_ROWS_BODIES",
            "launch_counts", "reset_launch_counts"]
 
 def _check(a_planes: torch.Tensor, w_planes: torch.Tensor) -> None:
@@ -75,7 +83,61 @@ def _check_widths(aw: int, ww: int) -> None:
                          f"{bw.VALID_WIDTHS}")
 
 
-_MAX_ROWS_BATCH = 65535          # the per-row launch's grid z
+_MAX_INT = 2 ** 31 - 1            # the C entries take sizes as ints
+
+# The per-row entry's bodies (``repro_bitserial_quant_matmul_rows``, its
+# dims' first int): "row" on the CUDA cores with no staging of h, "tiles"
+# on the int8 tensor cores with w's column tile quantized once a CTA,
+# "chunked" (K past the tiles body's single chunk) the shared kernel's
+# body with one w a batch row.
+QUANT_ROWS_BODIES = ("row", "tiles", "chunked")
+ROW_MAX_K, ROW_MAX_N = 32, 8     # kRowMaxK, kRowMaxN in csrc/bitserial_mm.cu
+TILES_MAX_K = 256                # kTilesMaxK
+_ROWS_DIMS = ctypes.c_int * 4    # kRowsDims
+
+
+def quant_rows_body(k: int, n: int) -> str:
+    """The body the per-row entry runs for a call of depth ``k`` and
+    width ``n``: the C dispatch's rule (``rows_body``), set by timing the
+    row body against the tiles body at Fig-9q's three calls.  It reads
+    neither the batch nor the rows, so every batch row of every batch
+    runs the same arithmetic."""
+    if k <= ROW_MAX_K and n <= ROW_MAX_N:
+        return "row"
+    return "tiles" if k <= TILES_MAX_K else "chunked"
+
+
+def _check_quant(h: torch.Tensor, w: torch.Tensor) -> None:
+    from .. import check_operands
+    check_operands("bitserial_quant_matmul_hopper",
+                   {"h": (h, torch.float32), "w": (w, torch.float32)})
+    rank = w.ndim
+    if rank not in (2, 3) or h.ndim != rank \
+            or h.shape[-1] != w.shape[-2] or h.shape[-1] == 0 \
+            or (rank == 3 and not 1 <= h.shape[0] == w.shape[0]
+                <= _MAX_INT):
+        raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
+                         f"be (R, K) and (K, N), or (B, R, K) and (B, K, N) "
+                         f"with 1 <= B <= {_MAX_INT}, with K > 0")
+
+
+def quant_rows_launch_args(h: torch.Tensor, w: torch.Tensor, aw: int,
+                           ww: int) -> tuple:
+    """Check a per-row call on the card (h (B, R, K), w (B, K, N)) and
+    allocate its output: ``(y, args)`` with ``args`` the arguments of the
+    C entry ``repro_bitserial_quant_matmul_rows`` before the stream.  Its
+    ``dims`` array (``args[9]``) holds, after the launch, the body (an
+    index into :data:`QUANT_ROWS_BODIES`), the grid's x and y, and the M
+    tiles (row body: rows) a CTA."""
+    _check_widths(aw, ww)
+    _check_quant(h, w)
+    if w.ndim != 3:
+        raise ValueError(f"the per-row entry takes w (B, K, N); got "
+                         f"{tuple(w.shape)}")
+    (b, r, k), n = h.shape, w.shape[-1]
+    y = torch.empty((b, r, n), dtype=torch.float32, device=h.device)
+    return y, (h.data_ptr(), w.data_ptr(), y.data_ptr(), b, r, k, n, aw, ww,
+               _ROWS_DIMS())
 
 
 def bitserial_quant_matmul_hopper(h: torch.Tensor, w: torch.Tensor,
@@ -87,34 +149,24 @@ def bitserial_quant_matmul_hopper(h: torch.Tensor, w: torch.Tensor,
 
     With h (B, R, K) and w (B, K, N), one operand a batch row, batch row b
     runs against w[b], quantized with w[b]'s own column scales: one launch
-    of the per-row kernel, each row bit for bit the shared call on w[b]
-    (the kernel is picked by ``w``'s rank, never by the batch)."""
+    of the per-row entry, on the body :func:`quant_rows_body` gives (K, N),
+    each row bit for bit the shared call on w[b], at any batch."""
     _check_widths(aw, ww)
     if h.device.type == "cpu":
         return ref_bitserial_quant_matmul(h, w, aw, ww)
-    from .. import check_operands
-    check_operands("bitserial_quant_matmul_hopper",
-                   {"h": (h, torch.float32), "w": (w, torch.float32)})
-    rank = w.ndim
-    if rank not in (2, 3) or h.ndim != rank \
-            or h.shape[-1] != w.shape[-2] or h.shape[-1] == 0 \
-            or (rank == 3 and not 1 <= h.shape[0] == w.shape[0]
-                <= _MAX_ROWS_BATCH):
-        raise ValueError(f"h {tuple(h.shape)} and w {tuple(w.shape)} must "
-                         f"be (R, K) and (K, N), or (B, R, K) and (B, K, N) "
-                         f"with 1 <= B <= {_MAX_ROWS_BATCH}, with K > 0")
-    (r, k), n = h.shape[-2:], w.shape[-1]
-    y = torch.empty((*h.shape[:-1], n), dtype=torch.float32,
-                    device=h.device)
+    from .. import launch
+    if w.ndim == 3:
+        y, args = quant_rows_launch_args(h, w, aw, ww)
+        if y.numel():
+            launch("repro_bitserial_quant_matmul_rows", h.device, *args)
+            bitserial_quant_matmul_hopper.launches += 1
+        return y
+    _check_quant(h, w)
+    (r, k), n = h.shape, w.shape[-1]
+    y = torch.empty((r, n), dtype=torch.float32, device=h.device)
     if y.numel():
-        from .. import launch
-        if rank == 2:
-            launch("repro_bitserial_quant_matmul", h.device, h.data_ptr(),
-                   w.data_ptr(), y.data_ptr(), r, k, n, aw, ww)
-        else:
-            launch("repro_bitserial_quant_matmul_rows", h.device,
-                   h.data_ptr(), w.data_ptr(), y.data_ptr(), h.shape[0], r,
-                   k, n, aw, ww)
+        launch("repro_bitserial_quant_matmul", h.device, h.data_ptr(),
+               w.data_ptr(), y.data_ptr(), r, k, n, aw, ww)
         bitserial_quant_matmul_hopper.launches += 1
     return y
 

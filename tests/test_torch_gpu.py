@@ -2412,6 +2412,170 @@ def test_per_row_kernels_refuse_bad_batches(cuda):
                                     1, 2, 2)
 
 
+# -- the per-row quantized GEMM's bodies (row, tiles, chunked) -------------
+
+QUANT_PAIRS = [(aw, ww) for aw in (4, 8, 16) for ww in (4, 8, 16)]
+
+
+def _quant_rows_launch(h, w, aw, ww):
+    """One launch of the per-row entry through its C arguments (not
+    counted): (y, the body its dims report)."""
+    y, args = bitserial_mm.quant_rows_launch_args(h, w, aw, ww)
+    tk.launch("repro_bitserial_quant_matmul_rows", h.device, *args)
+    return y, bitserial_mm.QUANT_ROWS_BODIES[args[9][0]]
+
+
+def _assert_rows_exact(h, w, aw, ww, rows_to_check=None):
+    """The per-row call on (h, w): one counted launch, the body of
+    ``quant_rows_body``, bit for bit (NaN positions equal) the plain
+    version and the shared call on (h[b], w[b]) for every checked b."""
+    before = bitserial_mm.bitserial_quant_matmul_hopper.launches
+    got = bitserial_mm.bitserial_quant_matmul_hopper(h, w, aw, ww)
+    torch.cuda.synchronize()
+    assert bitserial_mm.bitserial_quant_matmul_hopper.launches == before + 1
+    again, body = _quant_rows_launch(h, w, aw, ww)
+    assert body == bitserial_mm.quant_rows_body(h.shape[2], w.shape[2])
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(again, got, **exact)
+    torch.testing.assert_close(
+        got, bitserial_mm.ref_bitserial_quant_matmul(h, w, aw, ww), **exact)
+    for b in (range(h.shape[0]) if rows_to_check is None else rows_to_check):
+        torch.testing.assert_close(
+            got[b], bitserial_mm.bitserial_quant_matmul_hopper(
+                h[b], w[b], aw, ww), **exact)
+    return got, body
+
+
+def _quant_operands(rng, b, r, k, n, dev):
+    h = (rng.standard_normal((b, r, k))
+         * np.exp(rng.uniform(-4, 4, (b, r, 1)))).astype(np.float32)
+    w = (rng.standard_normal((b, k, n))
+         * np.exp(rng.uniform(-2, 2, (b, 1, n)))).astype(np.float32)
+    return (torch.as_tensor(v, device=dev) for v in (h, w))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 24, 64])
+@pytest.mark.parametrize("k", [1, 4, 9, 31, 32, 33, 129, 256, 257])
+def test_bitserial_quant_rows_bodies_are_exact(cuda, k, n):
+    """Every body of the per-row entry at every width pair and batch 1, 3
+    and 8 (150 rows: ragged for every body's CTA): bit for bit its plain
+    version and the shared call on each batch row's operands, and the
+    body ``quant_rows_body`` names."""
+    rng = np.random.default_rng(1000 * k + n)
+    for b in (1, 3, 8):
+        h, w = _quant_operands(rng, b, 150, k, n, cuda)
+        for aw, ww in QUANT_PAIRS:
+            _assert_rows_exact(h, w, aw, ww)
+
+
+@pytest.mark.parametrize("k,n", [(9, 1), (129, 24), (257, 9)],
+                         ids=["row", "tiles", "chunked"])
+@pytest.mark.parametrize("aw,ww", QUANT_PAIRS)
+def test_bitserial_quant_rows_zero_nan_inf_rows(cuda, k, n, aw, ww):
+    """A zero row, a NaN row and an inf row in batch rows 0 and 2 (and a
+    zero column of w): the zero row 0, the NaN row all NaN, the inf row
+    not finite (its scale is inf), no other row touched; every body bit
+    for bit its plain version and the shared calls."""
+    rng = np.random.default_rng(aw * 10 + ww + k)
+    h, w = _quant_operands(rng, 3, 40, k, n, cuda)
+    for b in (0, 2):
+        h[b, 1] = 0.0
+        h[b, 2, k // 2] = float("nan")
+        h[b, 3, 0] = float("inf")
+    w[1, :, 0] = 0.0
+    got, _ = _assert_rows_exact(h, w, aw, ww)
+    assert not got[0, 1].any() and torch.isnan(got[0, 2]).all()
+    assert not torch.isfinite(got[0, 3]).any()
+    assert torch.isfinite(got[0, 4:]).all() and torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("k", [9, 32, 256, 257])
+def test_bitserial_quant_rows_unaligned_h(cuda, k):
+    """h a contiguous view one float into its buffer (4- but not 16-byte
+    aligned): each body takes its unaligned loads, bit for bit."""
+    rng = np.random.default_rng(k)
+    for n in (1, 24):
+        b, r = 3, 70
+        buf = torch.as_tensor(rng.standard_normal(b * r * k + 1),
+                              dtype=torch.float32, device=cuda)
+        h = buf[1:].view(b, r, k)
+        assert h.is_contiguous() and h.data_ptr() % 16 == 4
+        w = torch.as_tensor(rng.standard_normal((b, k, n)),
+                            dtype=torch.float32, device=cuda)
+        for aw, ww in ((16, 8), (8, 8), (4, 16)):
+            _assert_rows_exact(h, w, aw, ww)
+
+
+@pytest.mark.parametrize("k,n", [(9, 1), (129, 24), (256, 64), (257, 9)])
+def test_bitserial_quant_rows_wrap_like_int32(cuda, k, n):
+    """Widths (16, 16) on positive operands: each row's integer sum leaves
+    the int32 range and must wrap mod 2^32 in every body."""
+    rng = np.random.default_rng(k + n)
+    b, r = 3, 50
+    h = torch.as_tensor(rng.uniform(0.5, 1.0, (b, r, k)),
+                        dtype=torch.float32, device=cuda)
+    w = torch.as_tensor(rng.uniform(0.5, 1.0, (b, k, n)),
+                        dtype=torch.float32, device=cuda)
+    from repro_torch.core import bitwidth as bw
+    hq = bw.quantize(h.cpu(), 16)[0].to(torch.int64)
+    wq = bw.quantize(w.cpu(), 16, axis=-2)[0].to(torch.int64)
+    assert (torch.matmul(hq, wq).abs() > 2 ** 31).any()
+    _assert_rows_exact(h, w, 16, 16)
+
+
+def _near_half(rng, shape, width, axis):
+    """float32 values whose quotients by their row's (``axis`` -1) or
+    column's (-2) scale lie on a half-integer or within two ulps of one,
+    each row's (column's) maximum first: where the per-row bodies'
+    reciprocal quantizer hands over to the IEEE division."""
+    qmax = np.float32(2 ** (width - 1) - 1)
+    x = np.empty(shape, np.float32)
+    xt = np.moveaxis(x, axis, -1)
+    lead, k = xt.shape[:-1], xt.shape[-1]
+    amax = (qmax * np.exp(rng.uniform(-6, 6, lead)).astype(np.float32)) \
+        .astype(np.float32)
+    scale = (np.maximum(amax, np.float32(1e-8)) / qmax).astype(np.float32)
+    n = rng.integers(-int(qmax) + 1, int(qmax) - 1, lead + (k,))
+    v = ((n.astype(np.float32) + np.float32(0.5))
+         * scale[..., None]).astype(np.float32)
+    steps = rng.integers(-2, 3, v.shape)
+    for _ in range(2):
+        v = np.where(steps > 0, np.nextafter(v, np.float32(np.inf)),
+                     np.where(steps < 0, np.nextafter(v, np.float32(-np.inf)),
+                              v))
+        steps = steps - np.sign(steps)
+    v[..., 0] = amax
+    xt[...] = v
+    return x
+
+
+@pytest.mark.parametrize("k,n", [(9, 1), (129, 24), (256, 64), (257, 9)],
+                         ids=["row", "tiles", "tiles_aligned", "chunked"])
+@pytest.mark.parametrize("aw,ww", [(4, 4), (8, 8), (16, 8), (8, 16),
+                                   (16, 16)])
+def test_bitserial_quant_rows_half_integer_quotients(cuda, k, n, aw, ww):
+    """Operands whose quotients by their scales sit on half-integers (ties,
+    rounded to even) or within two ulps of one, in h and in w: each body
+    bit for bit its plain version (the IEEE division) and the shared
+    calls."""
+    rng = np.random.default_rng(aw * 100 + ww + k)
+    h = torch.as_tensor(_near_half(rng, (3, 40, k), aw, -1), device=cuda)
+    w = torch.as_tensor(_near_half(rng, (3, k, n), ww, -2), device=cuda)
+    _assert_rows_exact(h, w, aw, ww)
+
+
+@pytest.mark.parametrize("k,n", [(4, 1), (33, 9), (257, 3)],
+                         ids=["row", "tiles", "chunked"])
+def test_bitserial_quant_rows_past_65535_batch_rows(cuda, k, n):
+    """One call of 70000 batch rows (small R, K, N): served in one
+    launch, not refused; bit for bit the plain version, and the shared
+    call on the first, a middle and the last batch row."""
+    rng = np.random.default_rng(k)
+    b, r = 70000, 2
+    h, w = _quant_operands(rng, b, r, k, n, cuda)
+    _assert_rows_exact(h, w, 8, 8, rows_to_check=(0, 35017, b - 1))
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("groups,b", [(1, 1), (8, 8), (128, 65)])
 def test_grouped_kernel_per_row_w(cuda, dt, groups, b):

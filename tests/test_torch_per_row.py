@@ -269,6 +269,62 @@ def test_per_row_quant_matmul_equals_shared_calls(aw, ww, shape):
         bitserial_mm.bitserial_quant_matmul(T(h[:2]), T(w), aw, ww)
 
 
+# Fig-9q's three int-routed calls in a two-tenant wave of 8: (B, R, K, N)
+FIG9Q_ROW_CALLS = {"front.taps": (8, 4096, 9, 1),
+                   "mask.gemm": (8, 124, 256, 64),
+                   "mel_tap.mel": (8, 31, 129, 24)}
+
+
+def test_quant_rows_body_rule():
+    """The per-row entry's body comes from (K, N) alone: the row body on
+    the front taps, the tiles body on the mask and mel GEMMs, the chunked
+    body past the tiles body's single chunk; the rule's limits are the
+    edges where the body changes."""
+    body = bitserial_mm.quant_rows_body
+    assert {name: body(k, n) for name, (_, _, k, n)
+            in FIG9Q_ROW_CALLS.items()} == {
+        "front.taps": "row", "mask.gemm": "tiles", "mel_tap.mel": "tiles"}
+    kern = bitserial_mm.kernel
+    assert body(kern.ROW_MAX_K, kern.ROW_MAX_N) == "row"
+    assert body(kern.ROW_MAX_K + 1, 1) == "tiles"
+    assert body(1, kern.ROW_MAX_N + 1) == "tiles"
+    assert body(kern.TILES_MAX_K, 64) == "tiles"
+    assert body(kern.TILES_MAX_K + 1, 1) == "chunked"
+    assert set(map(lambda kn: body(*kn), [(1, 1), (300, 200)])) <= set(
+        bitserial_mm.QUANT_ROWS_BODIES)
+
+
+@pytest.mark.parametrize("call", sorted(FIG9Q_ROW_CALLS))
+def test_per_row_quant_matmul_at_fig9q_calls(call):
+    """The plain per-row version at Fig-9q's three call shapes, batch 8,
+    widths (16, 8): bit for bit the JAX package's int route (quantize x2,
+    interpret-mode ``bitserial_matmul``, dequantize) under ``jax.vmap``,
+    and each batch row the shared call on its own w — on whichever batch
+    of rows it sits in (the first three, the whole wave)."""
+    b, r, k, n = FIG9Q_ROW_CALLS[call]
+    aw, ww = 16, 8
+    rng = np.random.default_rng(k * 31 + n)
+    h = (rng.standard_normal((b, r, k))
+         * np.exp(rng.uniform(-3, 3, (b, r, 1)))).astype(np.float32)
+    w = (rng.standard_normal((b, k, n))
+         * np.exp(rng.uniform(-2, 2, (b, 1, n)))).astype(np.float32)
+    got = bitserial_mm.bitserial_quant_matmul(T(h), T(w), aw, ww)
+
+    def lane(hh, wf):
+        xq, xs = jbw.quantize(hh, aw, axis=-1)
+        wq, ws = jbw.quantize(wf, ww, axis=0)
+        acc = j_bitserial(xq.astype(jnp.int32), wq.astype(jnp.int32), aw,
+                          ww, interpret=True)
+        return acc.astype(jnp.float32) * xs * ws
+    want = np.asarray(jax.vmap(lane)(jnp.asarray(h), jnp.asarray(w)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(bitserial_mm.bitserial_quant_matmul(
+        T(h[:3]), T(w[:3]), aw, ww), got[:3])
+    for i in (0, b - 1):
+        assert torch.equal(got[i], bitserial_mm.bitserial_quant_matmul(
+            T(h[i]), T(w[i]), aw, ww))
+
+
 # -- bitserial planes of any count -----------------------------------------
 
 PLANE_COUNTS = [(pa, pw) for pa in (3, 5, 8) for pw in (3, 5, 8)] \
